@@ -1,0 +1,44 @@
+"""Failure detection: info values from factor diagonals.
+
+Counterpart of ``dlaf_tpu/health/info.py:31-63``. A failed Cholesky leaves
+NaN from its first failing column on, and NaN propagates through every
+later trailing update, so the FIRST non-finite diagonal entry of the final
+factor is the blocked algorithm's info: the 1-based first failing global
+column, 0 on success. Computed on the device, with no host sync.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def bad_diag_mask(d: torch.Tensor, *, singular: bool = False) -> torch.Tensor:
+    """Bool mask of "bad" diagonal entries: non-finite real part;
+    ``singular=True`` also flags exact zeros and, for complex, a
+    non-finite imaginary part."""
+    if d.is_complex():
+        bad = ~torch.isfinite(d.real)
+        if singular:
+            bad = bad | ~torch.isfinite(d.imag) | (d == 0)
+    else:
+        bad = ~torch.isfinite(d)
+        if singular:
+            bad = bad | (d == 0)
+    return bad
+
+
+def first_bad_info(bad: torch.Tensor) -> torch.Tensor:
+    """1-based index of the first True along the last axis, 0 if none,
+    as an int32 tensor on ``bad``'s device."""
+    if bad.shape[-1] == 0:
+        return torch.zeros(bad.shape[:-1], dtype=torch.int32, device=bad.device)
+    idx = torch.argmax(bad.to(torch.int8), dim=-1)
+    return torch.where(bad.any(dim=-1), idx + 1, 0).to(torch.int32)
+
+
+def local_factor_info(a: torch.Tensor, *, singular: bool = False) -> torch.Tensor:
+    """Info of a square global factor: 1-based first bad diagonal column."""
+    if a.shape[-1] == 0:
+        return torch.zeros((), dtype=torch.int32, device=a.device)
+    return first_bad_info(bad_diag_mask(torch.diagonal(a, dim1=-2, dim2=-1),
+                                        singular=singular))

@@ -1,0 +1,27 @@
+"""Analytic matrix generators for the miniapps and tests.
+
+A copy of ``dlaf_tpu/miniapp/generators.py:hpd_element_fn``: a
+closed-form, deterministic element function, so inputs at N=16384 need no
+O(n^3) host set-up. It works on numpy arrays and on torch tensors alike.
+"""
+
+from __future__ import annotations
+
+from ..types import is_complex
+
+
+def hpd_element_fn(n: int, dtype):
+    """Hermitian positive-definite element function.
+
+    ``a(i,j) = 1/(1+|i-j|) + n·[i==j]`` (+ a small skew-Hermitian imaginary
+    part for complex types): strictly diagonally dominant, hence HPD, with
+    condition number O(n).
+    """
+    def fn(i, j):
+        d = abs(i - j)
+        base = 1.0 / (1.0 + d) + n * (i == j)
+        if is_complex(dtype):
+            sign = 1.0 * (j > i) - 1.0 * (j < i)
+            return base + 1j * (sign / (1.0 + d) / 2.0)
+        return base
+    return fn

@@ -1,0 +1,111 @@
+"""Cholesky benchmark miniapp.
+
+Port of ``dlaf_tpu/miniapp/miniapp_cholesky.py`` (reference
+``miniapp/miniapp_cholesky.cpp``): fenced timing around each
+factorization, the flop model ``total_ops(n^3/6, n^3/6)``, and the same
+per-run line
+
+    [i] <t>s <gflops>GFlop/s <type><uplo> (m, m) (mb, mb) (1, 1) <threads> <backend>
+
+and check line ``check: PASSED|FAILED residual=... tol=...`` with
+``tol = 60 n eps``. The residual ``|A - L L^H|_F / |A|_F`` is computed
+exactly on the device.
+
+Run:  python -m dlaf_tpu_torch.miniapp.miniapp_cholesky -m 16384 -b 256 --type s \\
+          --dlaf:step-impl=fused --check-result last
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+from .. import config
+from ..algorithms.cholesky import cholesky
+from ..common.index2d import GlobalElementSize, TileElementSize
+from ..common.sync import hard_fence
+from ..matrix.matrix import Matrix
+from ..tile_ops.blas import hermitian_from, tri_mask
+from ..types import total_ops, type_letter
+from .generators import hpd_element_fn
+from .options import (CheckIterFreq, add_miniapp_arguments, parse_miniapp_options,
+                      select_device)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("-m", "--matrix-size", type=int, default=4096)
+    p.add_argument("-b", "--block-size", type=int, default=256)
+    p.add_argument("--uplo", choices=["L", "U"], default="L")
+    add_miniapp_arguments(p)
+    return p
+
+
+def run(argv=None) -> list[dict]:
+    """Run the miniapp; returns one dict per timed run. ``--dlaf:<knob>=``
+    arguments reach :mod:`dlaf_tpu_torch.config`."""
+    args, extra = build_parser().parse_known_args(argv)
+    config.initialize(argv=extra)
+    opts = parse_miniapp_options(args)
+    device = select_device(opts)
+    n, nb = args.matrix_size, args.block_size
+    ref = Matrix.from_element_fn(hpd_element_fn(n, opts.dtype), GlobalElementSize(n, n),
+                                 TileElementSize(nb, nb), dtype=opts.dtype, device=device)
+    flops = total_ops(opts.dtype, n**3 / 6, n**3 / 6)
+    threads = os.cpu_count()
+    results = []
+    for run_i in range(-opts.nwarmups, opts.nruns):
+        mat = ref.with_storage(ref.storage.clone())   # fresh copy per run
+        hard_fence(mat.storage)
+        t0 = time.perf_counter()
+        out = cholesky(args.uplo, mat, donate=True)
+        hard_fence(out.storage)
+        t = time.perf_counter() - t0
+        if run_i < 0:
+            continue
+        gflops = flops / t / 1e9
+        print(f"[{run_i}] {t:.6f}s {gflops:.2f}GFlop/s {type_letter(opts.dtype)}{args.uplo} "
+              f"({n}, {n}) ({nb}, {nb}) (1, 1) {threads} {device.type}", flush=True)
+        results.append({"run": run_i, "time_s": t, "gflops": gflops})
+        if opts.check is CheckIterFreq.ALL or (
+                opts.check is CheckIterFreq.LAST and run_i == opts.nruns - 1):
+            check_cholesky(args.uplo, ref, out)
+    return results
+
+
+def cholesky_residual(uplo: str, ref: Matrix, out: Matrix) -> float:
+    """Exact ``|A - L L^H|_F / |A|_F`` (or the ``U^H U`` form), computed on
+    the matrices' device in their dtype, norms accumulated in float64."""
+    a = hermitian_from(ref.to_global(), uplo)
+    f = tri_mask(out.to_global(), uplo)
+    r = a - (f @ f.mH if uplo == "L" else f.mH @ f)
+    wide = torch.complex128 if a.is_complex() else torch.float64
+    num = torch.linalg.vector_norm(r, dtype=wide)
+    den = torch.linalg.vector_norm(a, dtype=wide)
+    return float(num / den) if float(den) else float(num)
+
+
+def check_cholesky(uplo: str, ref: Matrix, out: Matrix) -> None:
+    """Print the ``check:`` line; exit 1 when it fails."""
+    n = ref.size.row
+    resid = cholesky_residual(uplo, ref, out)
+    tol = 60.0 * max(n, 1) * torch.finfo(ref.dtype.to_real()).eps
+    passed = np.isfinite(resid) and resid < tol
+    print(f"check: {'PASSED' if passed else 'FAILED'} residual={resid:.3e} tol={tol:.3e}",
+          flush=True)
+    if not passed:
+        sys.exit(1)
+
+
+def main(argv=None) -> int:
+    run(argv)
+    return 0
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,83 @@
+"""BLAS tile operations on torch.
+
+Counterpart of ``dlaf_tpu/tile_ops/blas.py`` (reference ``blas/tile.h``),
+cut to what the local Cholesky reads. These are the composed route: plain
+``torch.matmul`` and ``torch.linalg.solve_triangular``, the port's analog
+of the reference's XLA route. The triangle a routine does not own passes
+through, as in LAPACK.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _op(a: torch.Tensor, op: str) -> torch.Tensor:
+    if op == "N":
+        return a
+    if op == "T":
+        return a.transpose(-1, -2)
+    if op == "C":
+        return a.transpose(-1, -2).conj()
+    raise ValueError(f"bad op {op!r}")
+
+
+def tri_mask(a: torch.Tensor, uplo: str, *, k: int = 0) -> torch.Tensor:
+    """Keep the stored triangle of the last-two-dims block."""
+    if uplo == "G":
+        return a
+    if uplo == "L":
+        return torch.tril(a, diagonal=k)
+    if uplo == "U":
+        return torch.triu(a, diagonal=-k)
+    raise ValueError(f"bad uplo {uplo!r}")
+
+
+def hermitian_from(a: torch.Tensor, uplo: str) -> torch.Tensor:
+    """Full (conjugate-)symmetric block from its stored triangle; the
+    diagonal's imaginary part is dropped for complex dtypes."""
+    if uplo == "G":
+        return a
+    tri = tri_mask(a, uplo, k=-1)
+    d = torch.diagonal(a, dim1=-2, dim2=-1)
+    if a.is_complex():
+        d = d.real.to(a.dtype)
+    return tri + tri.transpose(-1, -2).conj() + torch.diag_embed(d)
+
+
+def _merge_triangle(update: torch.Tensor, orig: torch.Tensor, uplo: str) -> torch.Tensor:
+    if uplo == "G":
+        return update
+    return tri_mask(update, uplo) + tri_mask(orig, "U" if uplo == "L" else "L", k=-1)
+
+
+def gemm(a, b, c=None, *, alpha=1.0, beta=0.0, op_a: str = "N", op_b: str = "N"):
+    """``alpha op_a(a) op_b(b) + beta c``."""
+    out = alpha * (_op(a, op_a) @ _op(b, op_b))
+    if c is not None and beta != 0.0:
+        out = out + beta * c
+    return out.to(a.dtype)
+
+
+def herk(uplo: str, op_a: str, a, c, *, alpha=1.0, beta=1.0):
+    """``alpha op_a(a) op_a(a)^H + beta c`` on the ``uplo`` triangle of
+    ``c``; the other triangle passes through (alpha, beta real)."""
+    oa = _op(a, op_a)
+    upd = alpha * (oa @ oa.transpose(-1, -2).conj()) + beta * c
+    if c.is_complex():  # herk guarantees a real diagonal
+        d = torch.diagonal(upd, dim1=-2, dim2=-1)
+        upd = upd - torch.diag_embed(d - d.real.to(upd.dtype))
+    return _merge_triangle(upd, c, uplo)
+
+
+def trsm(side: str, uplo: str, op_a: str, diag: str, a, b, *, alpha=1.0):
+    """Solve ``op_a(A) x = alpha b`` (side 'L') or ``x op_a(A) = alpha b``
+    (side 'R') with the ``uplo`` triangle of ``a`` (unit diagonal for
+    ``diag='U'``), on ``torch.linalg.solve_triangular``."""
+    t = tri_mask(a, uplo)
+    upper = uplo == "U"
+    if op_a != "N":
+        t, upper = _op(t, op_a), not upper
+    return torch.linalg.solve_triangular(
+        t, alpha * b, upper=upper, left=side == "L",
+        unitriangular=diag == "U").to(b.dtype)

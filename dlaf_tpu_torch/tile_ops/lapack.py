@@ -1,0 +1,48 @@
+"""LAPACK tile operations on torch: ``potrf`` and ``potrf_info``.
+
+Counterpart of ``dlaf_tpu/tile_ops/lapack.py:71-99``, the reference's XLA
+route, so a library call is right here: ``torch.linalg.cholesky_ex``. The
+factor lands in the ``uplo`` triangle and the opposite triangle of the
+input passes through.
+
+Failure contract (``potrf_info``'s NaN prefix): ``cholesky_ex`` does not
+raise; it reports the first failing column in its ``info``. That column
+and every later one are set to NaN, so the factor's diagonal is
+non-finite from the first failing column on, as the reference's kernels
+leave it, and :mod:`..health.info` reads the column back.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .blas import hermitian_from, tri_mask
+
+
+def _chol_lower_nan(af: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor with NaN from the first failing column on."""
+    l, info = torch.linalg.cholesky_ex(af)
+    n = af.shape[-1]
+    cols = torch.arange(n, device=af.device)
+    # info: 0 on success, else the 1-based order of the failing minor
+    first = torch.where(info > 0, info - 1, n)
+    bad = cols >= first[..., None]
+    return torch.where(bad[..., None, :], torch.full_like(l, float("nan")), l)
+
+
+def potrf(uplo: str, a: torch.Tensor) -> torch.Tensor:
+    """Cholesky factor of an SPD/HPD block stored in ``uplo``."""
+    af = hermitian_from(a, uplo)
+    f = _chol_lower_nan(af)
+    if uplo == "L":
+        return tri_mask(f, "L") + tri_mask(a, "U", k=-1)
+    return tri_mask(f.transpose(-1, -2).conj(), "U") + tri_mask(a, "L", k=-1)
+
+
+def potrf_info(uplo: str, a: torch.Tensor):
+    """``(factor, info)``: info is 0 on success, else the 1-based first
+    column whose diagonal is non-finite."""
+    from ..health.info import bad_diag_mask, first_bad_info
+
+    f = potrf(uplo, a)
+    return f, first_bad_info(bad_diag_mask(torch.diagonal(f, dim1=-2, dim2=-1)))

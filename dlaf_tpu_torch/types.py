@@ -1,0 +1,65 @@
+"""Element types and the flop-weight model.
+
+Counterpart of ``dlaf_tpu/types.py`` (reference ``include/dlaf/types.h``):
+the s/d/c/z element types the miniapps name, and ``total_ops``, the real-op
+count used for GFlop/s (a complex multiply counts 6, a complex add 2).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+#: The four scalar types every algorithm is instantiated over, keyed by the
+#: BLAS letter the miniapps use.
+ELEMENT_TYPES = {
+    "s": np.float32,
+    "d": np.float64,
+    "c": np.complex64,
+    "z": np.complex128,
+}
+
+_LETTER = {np.dtype(v): k for k, v in ELEMENT_TYPES.items()}
+
+_TORCH_OF = {
+    np.dtype(np.float32): torch.float32,
+    np.dtype(np.float64): torch.float64,
+    np.dtype(np.complex64): torch.complex64,
+    np.dtype(np.complex128): torch.complex128,
+}
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """torch dtype of a numpy dtype (or a torch dtype, passed through)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return _TORCH_OF[np.dtype(dtype)]
+
+
+def type_letter(dtype) -> str:
+    """BLAS letter (s/d/c/z) for a dtype, used in benchmark output lines."""
+    if isinstance(dtype, torch.dtype):
+        dtype = {v: k for k, v in _TORCH_OF.items()}[dtype]
+    return _LETTER[np.dtype(dtype)]
+
+
+def is_complex(dtype) -> bool:
+    if isinstance(dtype, torch.dtype):
+        return dtype.is_complex
+    return np.dtype(dtype).kind == "c"
+
+
+def total_ops(dtype, add: float, mul: float) -> float:
+    """Total real-op count for ``add`` additions and ``mul``
+    multiplications (complex weights add=2, mul=6)."""
+    wa, wm = (2, 6) if is_complex(dtype) else (1, 1)
+    return wa * add + wm * mul
+
+
+def ceil_div(num: int, den: int) -> int:
+    """Integer ceiling division."""
+    if den <= 0:
+        raise ValueError(f"ceil_div: denominator must be positive, got {den}")
+    if num < 0:
+        raise ValueError(f"ceil_div: numerator must be non-negative, got {num}")
+    return -(-num // den)
