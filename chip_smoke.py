@@ -5,20 +5,35 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the hand-written panel kernels (``dlaf_tpu_torch/csrc/panel.cu``)
-from the checkout, holds each kernel against its plain PyTorch version on
-the card (float32, bfloat16, a ragged tile, an indefinite tile), times the
-kernel, the plain version and a PyTorch library yardstick with CUDA events,
-then drives the port's main path through ``miniapp_cholesky.run``:
+It builds the hand-written kernels (``dlaf_tpu_torch/csrc/panel.cu`` and
+``csrc/ozaki.cu``, one nvcc each, started together) from the checkout and
+holds each kernel against its plain PyTorch version on the card: the panel
+kernels (potrf, strip solve, factor+solve, fused step) in float32 and
+bfloat16, on a ragged tile and an indefinite one; the Ozaki slice kernels
+(product, syrk) bit for bit at the main path's shapes, a ragged shape and
+K=1024. It times each kernel, its plain version and a PyTorch library
+yardstick with CUDA events, then drives the port's main paths through
+``miniapp_cholesky.run``, each with its launch counts:
 
 1. N=16384, nb=256, float32, uplo L, fused step route, lookahead 1;
-2. N=8192, nb=256, float32, uplo U, fused panel route (potrf + strip solve).
+2. N=8192, nb=256, float32, uplo U, fused panel route (potrf + strip solve);
+3. N=16384, nb=256, float64, uplo L, trailing "ozaki" with the Ozaki
+   kernels (``ozaki_impl=pallas``), lookahead 1;
+4. N=4096, nb=256, complex128, uplo U, the same route (``ozaki_impl``
+   auto), lookahead 0;
+5. N=8192, nb=256, float32, uplo L, trailing "scan" with the fused
+   factor+solve kernel, lookahead 1.
 
-It checks the residual lines and the kernels' launch counters of each run,
-factors a small ragged matrix against a float64 reference, and prints a
-JSON line of per-kernel numbers, the card's name and power limit, and as
-its last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
-It needs no network and imports nothing of JAX.
+Then the route phase times the float64 (N=16384) and complex128 (N=8192)
+defaults, with no knob set, beside every route "auto" could pick for them
+(biggemm, loop, ozaki on either reduction, scan with native or mixed
+panels and native or Ozaki products): one timed factorization each, with
+its residual line and launch counts, and fails when the default is more
+than a quarter slower than the fastest of them. It factors a small ragged
+matrix against a float64 reference, profiles one float32 and two float64
+factorizations, and prints a JSON line of per-kernel numbers, the card's name and power
+limit, and as its last line ``{"ok": true, "device": {...}}``. Any failure
+exits non-zero. It needs no network and imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -34,7 +49,7 @@ import time
 #: Published peaks of one H100 SXM (NVIDIA data sheet, dense): HBM bytes/s
 #: and operations/s by input type (float32 outside the tensor cores).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 
 EPS = {"float32": 2.0 ** -23, "bfloat16": 2.0 ** -8}
 
@@ -77,11 +92,17 @@ def rel_err(torch, got, ref) -> tuple[float, float]:
     return err, err / scale
 
 
-def profile_factorization(torch, dev, n: int = 16384, nb: int = 256) -> None:
+def bound(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
+    """Least time (ms) for the work, and what bounds it."""
+    bt, ot = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS[kind] * 1e3
+    return max(bt, ot), "bytes" if bt >= ot else "operations"
+
+
+def profile_factorization(torch, dev, argv, letter: str, dtype, n: int = 16384,
+                          nb: int = 256) -> None:
     """Where the time of one main-path factorization goes: device time by
     kernel from ``torch.profiler``, and the device's busy share of the
     host wall (informational; prints what the profiler saw)."""
-    import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
     from dlaf_tpu_torch import config
@@ -90,11 +111,12 @@ def profile_factorization(torch, dev, n: int = 16384, nb: int = 256) -> None:
     from dlaf_tpu_torch.matrix.matrix import Matrix
     from dlaf_tpu_torch.miniapp.generators import hpd_element_fn
 
-    config.initialize(argv=["--dlaf:step-impl=fused", "--dlaf:cholesky-lookahead=1"])
-    ref = Matrix.from_element_fn(hpd_element_fn(n, np.float32), GlobalElementSize(n, n),
-                                 TileElementSize(nb, nb), dtype=np.float32, device=dev)
+    config.initialize(argv=argv)
+    ref = Matrix.from_element_fn(hpd_element_fn(n, dtype), GlobalElementSize(n, n),
+                                 TileElementSize(nb, nb), dtype=dtype, device=dev)
     cholesky("L", ref.with_storage(ref.storage.clone()), donate=True)
     mat = ref.with_storage(ref.storage.clone())
+    del ref
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -118,9 +140,10 @@ def profile_factorization(torch, dev, n: int = 16384, nb: int = 256) -> None:
         if e > end:
             busy += e - max(s, end)
             end = e
-    print(f"[profile] n={n} nb={nb} f32 step route: host wall {wall_us / 1e3:.3f} ms, device "
-          f"busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}% of wall)", flush=True)
-    for name, (tot, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
+    print(f"[profile] n={n} nb={nb} {letter} {' '.join(argv)}: host wall "
+          f"{wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
+          f"({100 * busy / wall_us:.1f}% of wall)", flush=True)
+    for name, (tot, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]:
         print(f"[profile] {tot / 1e3:9.3f} ms {cnt:6d} launches  {name}", flush=True)
 
 
@@ -130,11 +153,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
+    import numpy as np
+
+    from dlaf_tpu_torch import config
     from dlaf_tpu_torch.algorithms.cholesky import cholesky
     from dlaf_tpu_torch.common.index2d import TileElementSize
     from dlaf_tpu_torch.health.info import local_factor_info
     from dlaf_tpu_torch.matrix.matrix import Matrix
     from dlaf_tpu_torch.miniapp import miniapp_cholesky
+    from dlaf_tpu_torch.tile_ops import cuda_build as cb
+    from dlaf_tpu_torch.tile_ops import ozaki as oz
+    from dlaf_tpu_torch.tile_ops import ozaki_kernels as ok
     from dlaf_tpu_torch.tile_ops import panel_kernels as pk
 
     card = smi_line()
@@ -142,16 +171,18 @@ def main() -> int:
     print(f"[versions] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
-    pk.build()
-    pk._load()
-    print(f"[build] panel kernels built and loaded in {time.perf_counter() - t0:.1f} s "
-          f"({pk.library_path()})", flush=True)
+    cb.build_all([pk.LIBRARY, ok.LIBRARY])
+    pk.LIBRARY.load()
+    ok.LIBRARY.load()
+    print(f"[build] panel and ozaki kernels built and loaded in "
+          f"{time.perf_counter() - t0:.1f} s ({pk.library_path()}, {ok.LIBRARY.path()})",
+          flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(20261016)
 
-    def randn(*shape):
-        return torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32)
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev, dtype=dtype)
 
     def hpd(d):
         x = randn(d, d)
@@ -173,10 +204,10 @@ def main() -> int:
         for got, ref in pairs:
             a, r = rel_err(torch, got, ref)
             worst_abs, worst_rel = max(worst_abs, a), max(worst_rel, r)
-        ok = worst_rel <= tol
-        print(f"[kernel] {name:6s} {case:34s} max_abs_err={worst_abs:.3e} "
-              f"rel_err={worst_rel:.3e} tol={tol:.1e} {'ok' if ok else 'FAIL'}", flush=True)
-        if not ok:
+        ok_ = worst_rel <= tol
+        print(f"[kernel] {name:12s} {case:34s} max_abs_err={worst_abs:.3e} "
+              f"rel_err={worst_rel:.3e} tol={tol:.1e} {'ok' if ok_ else 'FAIL'}", flush=True)
+        if not ok_:
             raise AssertionError(f"{name} {case}: rel_err {worst_rel} > {tol}")
         return worst_abs
 
@@ -212,127 +243,268 @@ def main() -> int:
                 err = check("step", f"{case} uplo={uplo}", list(zip(got, ref)), dt, dd)
                 if (dt, dd, uplo) == (torch.float32, d, "L"):
                     rows["step"] = {"max_abs_err": err}
-    # indefinite tile: the failing column and the NaN prefix must match
+                got = pk.factor_solve(uplo, *args[:2])
+                ref = pk.factor_solve_plain(uplo, *args[:2])
+                err = check("factor_solve", f"{case} uplo={uplo}", list(zip(got, ref)), dt, dd)
+                if (dt, dd, uplo) == (torch.float32, d, "L"):
+                    rows["factor_solve"] = {"max_abs_err": err}
+            batch = randn(5, dd, dd).to(dt)
+            for uplo in ("L", "U"):
+                dg = diag if uplo == "L" else diag.mT.contiguous()
+                got, ref = pk.factor_solve(uplo, dg, batch), pk.factor_solve_plain(uplo, dg, batch)
+                check("factor_solve", f"{case} batch (5,{dd},{dd}) uplo={uplo}",
+                      list(zip(got, ref)), dt, dd)
+    # indefinite tile: the failing column and the NaN pattern must match
     bad = hpd(d)
     bad[37, 37] = -1000.0
     strip, slab = randn(m, d), randn(m, d)
     for name, got, ref in (("potrf", (pk.potrf("L", bad),), (pk.potrf_plain("L", bad),)),
                            ("step", pk.step("L", bad, strip, slab),
-                            pk.step_plain("L", bad, strip, slab))):
+                            pk.step_plain("L", bad, strip, slab)),
+                           ("factor_solve", pk.factor_solve("L", bad, strip),
+                            pk.factor_solve_plain("L", bad, strip))):
         info_k, info_p = int(local_factor_info(got[0])), int(local_factor_info(ref[0]))
         for g, r in zip(got, ref):
             rel_err(torch, g, r)   # raises when the NaN patterns differ
-        print(f"[kernel] {name:6s} indefinite tile (pivot 38 < 0)    info kernel={info_k} "
+        print(f"[kernel] {name:12s} indefinite tile (pivot 38 < 0)    info kernel={info_k} "
               f"plain={info_p} NaN patterns equal", flush=True)
         if not info_k == info_p == 38:
             raise AssertionError(f"{name}: info kernel={info_k} plain={info_p}, expected 38")
     torch.cuda.synchronize()
 
-    # times at the main path's shapes (float32, d=256, strip m=16128)
+    # Ozaki slice kernels: bit for bit against the plain versions, on the
+    # slices of random float64 operands
+    s = 8
+
+    def slices(x, dim):
+        sc = oz._scale(x, dim)
+        return torch.stack(oz._peel_slices(oz._normalize(x, sc), s))
+
+    for case, (mm, nn, kk) in (("main path", (m, d, d)), ("ragged", (1000, 200, 200)),
+                               ("K=1024", (600, 300, 1024))):
+        a, b = randn(mm, kk, dtype=torch.float64), randn(kk, nn, dtype=torch.float64)
+        ia, ib = slices(a, -1), slices(b, -2)
+        for name, got, ref in (("ozaki_product", ok.ozaki_product(ia, ib),
+                                ok.ozaki_product_plain(ia, ib)),
+                               ("ozaki_syrk", ok.ozaki_syrk(ia), ok.ozaki_syrk_plain(ia))):
+            same = all(torch.equal(g, r) for g, r in zip(got, ref))
+            err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+            shape = f"{mm}x{nn}" if name == "ozaki_product" else f"{mm}x{mm}"
+            print(f"[kernel] {name:12s} {case} s={s} {shape} K={kk}: hi and lo "
+                  f"{'bitwise equal' if same else 'DIFFER'} (max_abs_err={err:.3e})", flush=True)
+            if not same:
+                raise AssertionError(f"{name} {case}: not bitwise equal to its plain version")
+            if case == "main path":
+                rows[name] = {"max_abs_err": err}
+    torch.cuda.synchronize()
+
+    # times at the main path's shapes (float32 panels d=256, strip m=16128;
+    # Ozaki slices s=8 of (16128, 256) and (256, 256) float64 operands)
     diag, strip, slab = hpd(d), randn(m, d), randn(m, d)
     fac = pk.potrf_plain("L", diag)
     lfac = torch.tril(fac)
+    a64, b64 = randn(m, d, dtype=torch.float64), randn(d, d, dtype=torch.float64)
+    ia, ib = slices(a64, -1), slices(b64, -2)
 
     def step_library():
         l = torch.linalg.cholesky(diag)
         p = torch.linalg.solve_triangular(l.mH, strip, upper=True, left=False)
         return slab - torch.tril(p @ p[:d].mH)
 
-    # bound inputs: float32 bytes (4 each), each input read once and each
-    # output written once; operations of the work these inputs need
+    def factor_solve_library():
+        l = torch.linalg.cholesky(diag)
+        return torch.linalg.solve_triangular(l.mH, strip, upper=True, left=False)
+
+    # syrk work: only the 256-row blocks on and below the block diagonal
+    blk = torch.arange(m) // ok.SYRK_BLOCK
+    lower_cells = float((blk[None, :] <= blk[:, None]).sum())
+    pairs = s * (s + 1) / 2
     w = d
+    # name: (kernel, plain, library call, its label, composed (not a single
+    # call: printed, left out of library_ms), bytes, ops, peak kind)
     timings = {
         "potrf": (lambda: pk.potrf("L", diag), lambda: pk.potrf_plain("L", diag),
-                  lambda: torch.linalg.cholesky(diag),
-                  2 * d * d * 4, d ** 3 / 3),
+                  lambda: torch.linalg.cholesky(diag), "torch.linalg.cholesky", False,
+                  2 * d * d * 4, d ** 3 / 3, "float32"),
         "solve": (lambda: pk.panel_solve("R", "L", "C", "N", fac, strip),
                   lambda: pk.panel_solve_plain("R", "L", "C", "N", fac, strip),
                   lambda: torch.linalg.solve_triangular(lfac.mH, strip, upper=True, left=False),
-                  (d * d + 2 * m * d) * 4, m * d * d),
+                  "torch.linalg.solve_triangular", False,
+                  (d * d + 2 * m * d) * 4, m * d * d, "float32"),
+        "factor_solve": (lambda: pk.factor_solve("L", diag, strip),
+                         lambda: pk.factor_solve_plain("L", diag, strip), factor_solve_library,
+                         "composed cholesky+solve_triangular", True,
+                         (2 * d * d + 2 * m * d) * 4, d ** 3 / 3 + m * d * d, "float32"),
         "step": (lambda: pk.step("L", diag, strip, slab),
                  lambda: pk.step_plain("L", diag, strip, slab), step_library,
+                 "composed cholesky+solve_triangular+masked matmul", True,
                  (2 * d * d + 2 * m * d + 2 * m * w) * 4,
-                 d ** 3 / 3 + m * d * d + 2 * d * (m * w - w * (w - 1) / 2)),
+                 d ** 3 / 3 + m * d * d + 2 * d * (m * w - w * (w - 1) / 2), "float32"),
+        "ozaki_product": (lambda: ok.ozaki_product(ia, ib), lambda: ok.ozaki_product_plain(ia, ib),
+                          lambda: a64 @ b64, "float64 torch.matmul", False,
+                          s * (m + d) * d + 8 * m * d, pairs * 2 * m * d * d, "int8"),
+        "ozaki_syrk": (lambda: ok.ozaki_syrk(ia), lambda: ok.ozaki_syrk_plain(ia),
+                       lambda: a64 @ a64.mT, "float64 torch.matmul a@a.T", False,
+                       s * m * d + 8 * m * m, pairs * 2 * lower_cells * d, "int8"),
     }
-    for name, (kern, plain, lib, nbytes, ops) in timings.items():
-        bt, ot = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS["float32"] * 1e3
+    for name, (kern, plain, lib, label, composed, nbytes, ops, kind) in timings.items():
         lib_ms = time_ms(torch, lib)
-        # no single PyTorch call computes the fused step: its yardstick is
-        # three calls, printed here and left out of library_ms
-        rows[name].update(ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain, reps=20),
-                          library_ms=None if name == "step" else lib_ms,
-                          bound_ms=max(bt, ot),
-                          bound_by="bytes" if bt >= ot else "operations")
+        bms, by = bound(nbytes, ops, kind)
+        rows[name].update(ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain, reps=10),
+                          library_ms=None if composed else lib_ms, bound_ms=bms, bound_by=by)
         r = rows[name]
-        what = "composed cholesky+solve_triangular+masked matmul" if name == "step" else "library"
-        print(f"[time] {name:6s} kernel={r['ms']:.4f} ms plain={r['plain_ms']:.4f} ms "
-              f"{what}={lib_ms:.4f} ms bound={r['bound_ms']:.5f} ms "
-              f"({r['bound_by']}) [{card}]", flush=True)
+        print(f"[time] {name:13s} kernel={r['ms']:.4f} ms plain={r['plain_ms']:.4f} ms "
+              f"{label}={lib_ms:.4f} ms bound={bms:.5f} ms ({by}) [{card}]", flush=True)
+    # the whole wrappers around the slice kernels (scale, peel, kernel,
+    # hi + lo, mirror, scales), beside the same float64 library products
+    config.initialize(argv=["--dlaf:ozaki-impl=pallas"])
+    print(f"[time] matmul_f64 wrapper (16128x256 @ 256x256) "
+          f"{time_ms(torch, lambda: oz.matmul_f64(a64, b64)):.4f} ms; syrk_f64 wrapper "
+          f"(16128x256) {time_ms(torch, lambda: oz.syrk_f64(a64), reps=10):.4f} ms [{card}]",
+          flush=True)
+    del ia, ib, a64, b64
     print(f"[phase] kernels {time.perf_counter() - t_phase:.1f} s", flush=True)
 
-    # ---- phase 2: the main path through the miniapp ----------------------
+    # ---- phase 2: the main paths through the miniapp ---------------------
+    launches = {k: 0 for k in (*pk.LAUNCHES, *ok.LAUNCHES)}
+
     def drive(argv, n, nb, nfact, expect):
+        """One miniapp run; checks its residual line and launch counts and
+        returns its fastest timed factorization (s)."""
         pk.reset_launches()
+        ok.reset_launches()
         buf = io.StringIO()
         t = time.perf_counter()
         with contextlib.redirect_stdout(buf):
-            miniapp_cholesky.run(argv)
+            res = miniapp_cholesky.run(argv)
         torch.cuda.synchronize()
-        counts = dict(pk.LAUNCHES)
+        counts = {**pk.LAUNCHES, **ok.LAUNCHES}
         out = buf.getvalue()
         print(out, end="", flush=True)
         nt = -(-n // nb)
-        want = {k: v(nt) * nfact for k, v in expect.items()}
+        want = {k: expect.get(k, lambda nt: 0)(nt) * nfact for k in counts}
         print(f"[main] launches {counts} expected {want} "
               f"({time.perf_counter() - t:.1f} s)", flush=True)
         if "check: PASSED" not in out:
             raise AssertionError("main path: no 'check: PASSED' line")
-        for k, v in want.items():
-            if counts[k] != v:
-                raise AssertionError(f"main path: {k} launched {counts[k]} times, expected {v}")
-        return counts
+        if counts != want:
+            raise AssertionError(f"main path: launches {counts}, expected {want}")
+        for k, v in counts.items():
+            launches[k] += v
+        return min(r["time_s"] for r in res)
 
     t_phase = time.perf_counter()
-    c1 = drive(["-m", "16384", "-b", "256", "--type", "s", "--uplo", "L",
-                "--dlaf:step-impl=fused", "--dlaf:cholesky-lookahead=1",
-                "--nruns", "3", "--nwarmups", "1", "--check-result", "last"],
-               16384, 256, 4, {"step": lambda nt: nt - 1, "potrf": lambda nt: 1,
-                               "solve": lambda nt: 0})
-    c2 = drive(["-m", "8192", "-b", "256", "--type", "s", "--uplo", "U",
-                "--dlaf:panel-impl=fused", "--dlaf:step-impl=xla",
-                "--nruns", "2", "--nwarmups", "1", "--check-result", "last"],
-               8192, 256, 3, {"step": lambda nt: 0, "potrf": lambda nt: nt,
-                              "solve": lambda nt: nt - 1})
+    drive(["-m", "16384", "-b", "256", "--type", "s", "--uplo", "L",
+           "--dlaf:step-impl=fused", "--dlaf:cholesky-lookahead=1",
+           "--nruns", "2", "--nwarmups", "1", "--check-result", "last"],
+          16384, 256, 3, {"step": lambda nt: nt - 1, "potrf": lambda nt: 1})
+    drive(["-m", "8192", "-b", "256", "--type", "s", "--uplo", "U",
+           "--dlaf:panel-impl=fused", "--dlaf:step-impl=xla",
+           "--nruns", "2", "--nwarmups", "1", "--check-result", "last"],
+          8192, 256, 3, {"potrf": lambda nt: nt, "solve": lambda nt: nt - 1})
+    # f64 "ozaki": per strip-bearing step the panel product and the
+    # next-column strip product, and the rest-syrk where rows remain
+    drive(["-m", "16384", "-b", "256", "--type", "d", "--uplo", "L",
+           "--dlaf:cholesky-trailing=ozaki", "--dlaf:ozaki-impl=pallas",
+           "--dlaf:cholesky-lookahead=1",
+           "--nruns", "1", "--nwarmups", "1", "--check-result", "last"],
+          16384, 256, 2, {"ozaki_product": lambda nt: 2 * (nt - 1),
+                          "ozaki_syrk": lambda nt: nt - 2})
+    # complex128: 4 products for the panel, 2 syrks + 1 product per herk;
+    # ozaki_impl=auto resolves to the kernels on cuda
+    drive(["-m", "4096", "-b", "256", "--type", "z", "--uplo", "U",
+           "--dlaf:cholesky-trailing=ozaki", "--dlaf:cholesky-lookahead=0",
+           "--nruns", "2", "--nwarmups", "1", "--check-result", "last"],
+          4096, 256, 3, {"ozaki_product": lambda nt: 5 * (nt - 1),
+                         "ozaki_syrk": lambda nt: 2 * (nt - 1)})
+    # scan: one fused factor+solve per uniform step, the last included
+    drive(["-m", "8192", "-b", "256", "--type", "s", "--uplo", "L",
+           "--dlaf:cholesky-trailing=scan", "--dlaf:step-impl=fused",
+           "--dlaf:cholesky-lookahead=1",
+           "--nruns", "2", "--nwarmups", "1", "--check-result", "last"],
+          8192, 256, 3, {"factor_solve": lambda nt: nt})
     print(f"[phase] main path {time.perf_counter() - t_phase:.1f} s", flush=True)
 
-    # ---- phase 3: a small ragged factor against a float64 reference ------
-    import numpy as np
+    # ---- phase 3: the float64 / complex128 routes "auto" picks from ------
+    # the default (no knob) beside each route it could resolve to, uplo L,
+    # lookahead as the default (1); launch counts per factorization
+    t_phase = time.perf_counter()
+    trail = "--dlaf:cholesky-trailing="
+    oz_d = {"ozaki_product": lambda nt: 2 * (nt - 1), "ozaki_syrk": lambda nt: nt - 2}
+    oz_z = {"ozaki_product": lambda nt: 8 * (nt - 1) + nt - 2,
+            "ozaki_syrk": lambda nt: 2 * (nt - 2)}
+    # scan: the panel product every step, the next-column strip on all but
+    # the last, the deferred gram every step
+    oz_scan = {"ozaki_product": lambda nt: 2 * nt - 1, "ozaki_syrk": lambda nt: nt}
+    for letter, n, routes in (
+            ("d", 16384, (("default", [], {}), ("biggemm", [trail + "biggemm"], {}),
+                          ("loop", [trail + "loop"], {}),
+                          ("ozaki jnp", [trail + "ozaki", "--dlaf:ozaki-impl=jnp"], {}),
+                          ("ozaki kernels", [trail + "ozaki"], oz_d),
+                          ("scan native", [trail + "scan"], {}),
+                          ("scan mixed panels", [trail + "scan", "--dlaf:f64-trsm=mixed"], {}),
+                          ("scan mixed+ozaki", [trail + "scan", "--dlaf:f64-trsm=mixed",
+                                                "--dlaf:f64-gemm=mxu"], oz_scan))),
+            ("z", 8192, (("default", [], {}), ("biggemm", [trail + "biggemm"], {}),
+                         ("loop", [trail + "loop"], {}),
+                         ("ozaki jnp", [trail + "ozaki", "--dlaf:ozaki-impl=jnp"], {}),
+                         ("ozaki kernels", [trail + "ozaki"], oz_z)))):
+        walls = {}
+        for name, knobs, expect in routes:
+            walls[name] = drive(["-m", str(n), "-b", "256", "--type", letter, "--uplo", "L",
+                                 *knobs, "--nruns", "1", "--nwarmups", "1",
+                                 "--check-result", "last"], n, 256, 2, expect)
+        flops = n ** 3 / 3 * (4 if letter == "z" else 1)
+        for name, t in walls.items():
+            print(f"[route] {letter} N={n} nb=256 uplo L {name:18s} {t:.6f} s "
+                  f"{flops / t / 1e9:.2f} GFlop/s [{card}]", flush=True)
+        best = min((t, name) for name, t in walls.items() if name != "default")
+        print(f"[route] {letter} N={n}: default {walls['default']:.6f} s, fastest listed route "
+              f"{best[1]} {best[0]:.6f} s", flush=True)
+        # the default resolves to one of the listed routes; a quarter of
+        # slack covers the host's noise between two runs of the same route
+        if walls["default"] > 1.25 * best[0]:
+            raise AssertionError(f"{letter}: the default route is slower than {best[1]}")
+    print(f"[phase] routes {time.perf_counter() - t_phase:.1f} s", flush=True)
 
+    # ---- phase 4: small ragged factors against a float64 reference -------
     rng = np.random.default_rng(7)
     x = rng.standard_normal((500, 500))
     a = x @ x.T + 500 * np.eye(500)
     ref = np.linalg.cholesky(a)
-    for argv in (["--dlaf:step-impl=fused"], ["--dlaf:panel-impl=fused", "--dlaf:step-impl=xla"]):
-        from dlaf_tpu_torch import config
-
+    for argv, dtype, tol in ((["--dlaf:step-impl=fused"], np.float32, 1e-5),
+                             (["--dlaf:panel-impl=fused", "--dlaf:step-impl=xla"],
+                              np.float32, 1e-5),
+                             (["--dlaf:cholesky-trailing=scan", "--dlaf:step-impl=fused"],
+                              np.float32, 1e-5),
+                             (["--dlaf:cholesky-trailing=ozaki", "--dlaf:ozaki-impl=pallas"],
+                              np.float64, 1e-12)):
         config.initialize(argv=argv)
-        mat = Matrix.from_global(a.astype(np.float32), TileElementSize(128, 128), device=dev)
+        mat = Matrix.from_global(a.astype(dtype), TileElementSize(128, 128), device=dev)
         out, info = cholesky("L", mat, with_info=True)
         got = np.tril(out.to_numpy())
         err = np.abs(got - ref).max() / np.abs(ref).max()
-        print(f"[small] n=500 nb=128 {argv} info={int(info)} rel_err={err:.3e} "
-              f"tol=1e-5 shape={got.shape}", flush=True)
-        if not (np.isfinite(got).all() and int(info) == 0 and err < 1e-5):
+        print(f"[small] n=500 nb=128 {np.dtype(dtype).name} {argv} info={int(info)} "
+              f"rel_err={err:.3e} tol={tol:.0e} shape={got.shape}", flush=True)
+        if not (np.isfinite(got).all() and int(info) == 0 and err < tol):
             raise AssertionError("small ragged factor disagrees with the float64 reference")
 
-    profile_factorization(torch, dev)
+    profile_factorization(torch, dev, ["--dlaf:step-impl=fused", "--dlaf:cholesky-lookahead=1"],
+                          "f32", np.float32)
+    profile_factorization(torch, dev, ["--dlaf:cholesky-trailing=ozaki",
+                                       "--dlaf:ozaki-impl=pallas",
+                                       "--dlaf:cholesky-lookahead=1"], "f64", np.float64)
+    profile_factorization(torch, dev, [], "f64 default", np.float64)
 
-    order = (("potrf", "dlaf_tpu/tile_ops/pallas_panel.py:187"),
-             ("solve", "dlaf_tpu/tile_ops/pallas_panel.py:296"),
-             ("step", "dlaf_tpu/tile_ops/pallas_panel.py:508"))
-    kernels = [dict(name=name, route="cuda", source="dlaf_tpu_torch/csrc/panel.cu",
-                    replaces=rep, launches=c1[name] + c2[name], **rows[name])
-               for name, rep in order]
+    order = (("potrf", "panel", "dlaf_tpu/tile_ops/pallas_panel.py:187"),
+             ("solve", "panel", "dlaf_tpu/tile_ops/pallas_panel.py:296"),
+             ("factor_solve", "panel", "dlaf_tpu/tile_ops/pallas_panel.py:442"),
+             ("step", "panel", "dlaf_tpu/tile_ops/pallas_panel.py:508"),
+             ("ozaki_product", "ozaki", "dlaf_tpu/tile_ops/pallas_ozaki.py:133"),
+             ("ozaki_syrk", "ozaki", "dlaf_tpu/tile_ops/pallas_ozaki.py:269"))
+    kernels = [dict(name=name, route="cuda", source=f"dlaf_tpu_torch/csrc/{src}.cu",
+                    replaces=rep, launches=launches[name], **rows[name])
+               for name, src, rep in order]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

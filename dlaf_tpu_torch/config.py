@@ -1,16 +1,27 @@
 """Runtime configuration: the knobs the local Cholesky path reads.
 
-Counterpart of ``dlaf_tpu/config.py``, cut to four knobs. Same layering
-(highest wins): ``--dlaf:<knob>=<value>`` arguments > ``DLAF_<KNOB>``
-environment variables > a user ``Configuration`` > the defaults.
+Counterpart of ``dlaf_tpu/config.py``, cut to the knobs of the local
+Cholesky and its f64/complex128 routes. Same layering (highest wins):
+``--dlaf:<knob>=<value>`` arguments > ``DLAF_<KNOB>`` environment
+variables > a user ``Configuration`` > the defaults.
 
 "auto" resolves per DEVICE TYPE of the call (the JAX package resolves per
-process backend): on ``cuda`` the way the reference resolves on ``tpu``
-(fused step, fused panel, lookahead 1, and for the trailing update the
-masked whole product "biggemm", which is what the reference's TPU choice
-"ozaki" runs for f32/bf16); on ``cpu`` as the reference does there
-(trailing "loop", panel/step "xla", lookahead 0). Every auto resolution is
-announced once on stderr so the route in effect is never silent.
+process backend). On ``cpu`` as the reference does there: trailing
+"loop", panel/step "xla", lookahead 0, ``f64_gemm``/``f64_trsm``
+"native", ``ozaki_impl`` "jnp". On ``cuda`` by what the H100 measured
+(``chip_smoke.py``'s route phase; numbers in PERF.md): fused step and
+panel, lookahead 1, trailing "biggemm" and ``f64_gemm``/``f64_trsm``
+"native", because the card's native float64 tensor-core products beat the
+Ozaki int8 route that the reference picks on its TPU (there f64 is
+emulated); ``ozaki_impl`` "pallas", so a call that asks for the Ozaki
+route runs its hand-written kernels. ``f64_gemm_slices=0`` resolves to 8
+on both: the reference's choice where f64 is native. Every auto
+resolution is announced once on stderr so the route in effect is never
+silent.
+
+Not ported: ``ozaki_dot``, ``ozaki_group`` and ``ozaki_accum``. They pick
+the TPU's schedule of the same integer sums and give bit-identical
+results; the port has one schedule per route.
 """
 
 from __future__ import annotations
@@ -20,15 +31,19 @@ import os
 import sys
 from typing import Optional, Sequence
 
-#: Trailing-update formulations this port implements.
-VALID_TRAILING = ("loop", "biggemm")
+#: Trailing-update formulations (the reference's ``VALID_TRAILING``).
+VALID_TRAILING = ("loop", "biggemm", "invgemm", "xla", "ozaki", "scan")
 
 
 @dataclasses.dataclass
 class Configuration:
     #: Blocked-Cholesky trailing update: "loop" (per block column herk +
     #: gemm, exact flops), "biggemm" (one masked whole product per step),
-    #: or "auto".
+    #: "invgemm" (biggemm with the panel formed from the explicit tile
+    #: inverse), "xla" (one whole-matrix library cholesky), "ozaki"
+    #: (f64/complex128: mixed-precision panels and Ozaki int8 products;
+    #: other types run biggemm), "scan" (uniform masked steps over
+    #: telescoped segments), or "auto".
     cholesky_trailing: str = "auto"
     #: Look-ahead step order: "1" updates the next panel column first and
     #: carries it to the next step, "0" the plain order; "auto" per device.
@@ -41,6 +56,35 @@ class Configuration:
     #: Whole blocked step (potrf + strip solve + adjacent trailing column)
     #: through the fused step kernels: "fused", "xla" or "auto".
     step_impl: str = "auto"
+    #: Ozaki slice reduction: "jnp" (exact integer group sums, full-f64
+    #: fold; the reference's composed route keeps its name), "pallas"
+    #: (the hand-written slice kernels of ``tile_ops/ozaki_kernels.py``:
+    #: double-f32 fold, about 48 mantissa bits; named after the
+    #: reference's route) or "auto". Contractions deeper than 1024 stay
+    #: on "jnp".
+    ozaki_impl: str = "auto"
+    #: int8 slices per operand on the Ozaki route (1..9; 0 = auto, which
+    #: is 8: 56 mantissa bits, 36 slice products per real product).
+    f64_gemm_slices: int = 0
+    #: f64/complex128 products of the scan builder: "mxu" (Ozaki int8
+    #: slices, named after the reference's route), "native" or "auto".
+    f64_gemm: str = "auto"
+    #: f64/complex128 panel factor and solve of the scan builder: "mixed"
+    #: (f32 seed + one Newton step, ``tile_ops/mixed.py``), "native" or
+    #: "auto".
+    f64_trsm: str = "auto"
+    #: Smallest block size for which ``f64_gemm="mxu"`` reroutes.
+    f64_gemm_min_dim: int = 128
+    #: Conditioning guard of the mixed panels: a limit on the squared
+    #: diagonal ratio of the f32 seed factor; blocks above it take the
+    #: native f64 factor.
+    mixed_cond_limit: float = 100.0
+    #: Seed of the mixed panels: "xla" (one library f32 cholesky + one
+    #: triangular solve, named after the reference's) or "recursive"
+    #: (recursive blocks whose leaves are library calls).
+    mixed_seed: str = "xla"
+    #: Leaf size of the recursive seed.
+    mixed_seed_base: int = 64
 
 
 _VALID_CHOICES = {
@@ -48,6 +92,10 @@ _VALID_CHOICES = {
     "cholesky_lookahead": ("0", "1", "auto"),
     "panel_impl": ("fused", "xla", "auto"),
     "step_impl": ("fused", "xla", "auto"),
+    "ozaki_impl": ("jnp", "pallas", "auto"),
+    "f64_gemm": ("native", "mxu", "auto"),
+    "f64_trsm": ("native", "mixed", "auto"),
+    "mixed_seed": ("xla", "recursive"),
 }
 
 #: auto resolution per device type: (cuda choice, cpu choice).
@@ -56,29 +104,50 @@ _AUTO = {
     "cholesky_lookahead": ("1", "0"),
     "panel_impl": ("fused", "xla"),
     "step_impl": ("fused", "xla"),
+    "f64_gemm": ("native", "native"),
+    "f64_trsm": ("native", "native"),
+    "ozaki_impl": ("pallas", "jnp"),
 }
+
+#: ``f64_gemm_slices=0`` resolves to this on every device (native f64).
+AUTO_SLICES = 8
+
+
+def _validate(cfg: Configuration) -> None:
+    for name, allowed in _VALID_CHOICES.items():
+        if getattr(cfg, name) not in allowed:
+            raise ValueError(f"configuration {name}={getattr(cfg, name)!r}: "
+                             f"must be one of {allowed}")
+    if not 0 <= cfg.f64_gemm_slices <= 9:
+        raise ValueError(f"f64_gemm_slices={cfg.f64_gemm_slices}: must be in [1, 9], "
+                         "or 0 for auto")
+    if cfg.mixed_seed_base < 1:
+        raise ValueError(f"mixed_seed_base={cfg.mixed_seed_base}: must be >= 1")
 
 
 def update_configuration(user: Optional[Configuration] = None,
                          argv: Optional[Sequence[str]] = None) -> Configuration:
-    """Resolve the effective configuration from the layers above."""
+    """Resolve the effective configuration from the layers above. Values
+    from the environment and the arguments take the field's type."""
     cfg = dataclasses.replace(user) if user is not None else Configuration()
-    names = [f.name for f in dataclasses.fields(cfg)]
-    for name in names:
+    kinds = {f.name: type(getattr(Configuration(), f.name))
+             for f in dataclasses.fields(cfg)}
+
+    def put(name, raw):
+        setattr(cfg, name, kinds[name](raw.strip()))
+
+    for name in kinds:
         env = os.environ.get("DLAF_" + name.upper())
         if env is not None:
-            setattr(cfg, name, env.strip())
+            put(name, env)
     for arg in argv or ():
         if not arg.startswith("--dlaf:") or "=" not in arg:
             continue
         key, val = arg[len("--dlaf:"):].split("=", 1)
         key = key.replace("-", "_")
-        if key in names:
-            setattr(cfg, key, val.strip())
-    for name, allowed in _VALID_CHOICES.items():
-        if getattr(cfg, name) not in allowed:
-            raise ValueError(f"configuration {name}={getattr(cfg, name)!r}: "
-                             f"must be one of {allowed}")
+        if key in kinds:
+            put(key, val)
+    _validate(cfg)
     return cfg
 
 
@@ -99,6 +168,15 @@ def get_configuration() -> Configuration:
     return _active if _active is not None else initialize()
 
 
+def _announce(knob: str, device_type: str, choice) -> None:
+    key = (knob, device_type, choice)
+    if key not in _announced:
+        _announced.add(key)
+        print(f"[dlaf_tpu_torch] {knob}=auto resolved to {choice!r} for "
+              f"device {device_type!r} — set the knob explicitly to override",
+              file=sys.stderr)
+
+
 def resolve(knob: str, device_type: str) -> str:
     """``knob``'s value with "auto" resolved for ``device_type`` ("cuda"
     or "cpu"), announced once per (knob, device type, choice)."""
@@ -106,10 +184,14 @@ def resolve(knob: str, device_type: str) -> str:
     if value != "auto":
         return value
     choice = _AUTO[knob][0 if device_type == "cuda" else 1]
-    key = (knob, device_type, choice)
-    if key not in _announced:
-        _announced.add(key)
-        print(f"[dlaf_tpu_torch] {knob}=auto resolved to {choice!r} for "
-              f"device {device_type!r} — set the knob explicitly to override",
-              file=sys.stderr)
+    _announce(knob, device_type, choice)
     return choice
+
+
+def resolve_slices() -> int:
+    """``f64_gemm_slices`` with 0 resolved to :data:`AUTO_SLICES`."""
+    s = get_configuration().f64_gemm_slices
+    if s:
+        return s
+    _announce("f64_gemm_slices", "any", AUTO_SLICES)
+    return AUTO_SLICES

@@ -3,8 +3,9 @@
 // They replace the Pallas kernels of dlaf_tpu/tile_ops/pallas_panel.py:
 //   potrf_kernel  <- _fused_potrf (:187), the MICRO=8 right-looking ladder
 //   trinv_kernel  <- _tri_inv_lower (:229), run at grid step 0 there
-//   gemm_kernel   <- the strip product of _fused_solve_rows (:296) and
-//                    _fused_step_lower (:508), and the step's masked slab
+//   gemm_kernel   <- the strip product of _fused_solve_rows (:296),
+//                    _fused_factor_solve_rows (:442) and _fused_step_lower
+//                    (:508), and the step's masked slab
 //
 // The TPU kernels keep the tile, its inverse and the solved leading strip
 // block in VMEM across a grid that runs in order. On this card a block has
@@ -63,16 +64,19 @@ potrf_kernel(const T* __restrict__ a, int lda, T* __restrict__ out, int ldo,
       P[r][c] = w[(size_t)(j0 + r) * d + j0 + c];
     }
     __syncthreads();
-    // rsqrt-scaled column steps inside the micro-panel
+    // rsqrt-scaled column steps inside the micro-panel. The rank-1 update
+    // reaches every other column of the micro-panel's lower triangle, the
+    // earlier columns with a zero multiplier: a failed pivot's NaN or inf
+    // then turns them to NaN (NaN * 0), the reference ladder's pattern
+    // (pallas_panel.py:147-148).
     for (int c = 0; c < mw; ++c) {
       const float rs = rsqrtf(P[c][c]);
       __syncthreads();
       for (int r = c + tid; r < rows; r += nth) P[r][c] *= rs;
       __syncthreads();
-      const int later = mw - c - 1;
-      for (int idx = tid; idx < (rows - c - 1) * later; idx += nth) {
-        const int r = c + 1 + idx / later, cc = c + 1 + idx % later;
-        P[r][cc] -= P[r][c] * P[cc][c];
+      for (int idx = tid; idx < (rows - c) * mw; idx += nth) {
+        const int r = c + idx / mw, cc = idx % mw;
+        if (cc != c && r >= cc) P[r][cc] -= P[r][c] * (cc > c ? P[cc][c] : 0.f);
       }
       __syncthreads();
     }

@@ -4,12 +4,16 @@ Counterpart of ``dlaf_tpu/tile_ops/blas.py`` (reference ``blas/tile.h``),
 cut to what the local Cholesky reads. These are the composed route: plain
 ``torch.matmul`` and ``torch.linalg.solve_triangular``, the port's analog
 of the reference's XLA route. The triangle a routine does not own passes
-through, as in LAPACK.
+through, as in LAPACK. The f64/complex128 route decisions (``mm_mxu``,
+``f64_gemm_uses_mxu``, ``trsm_panel_uses_mixed``) live here too, as in
+the reference.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .. import config
 
 
 def _op(a: torch.Tensor, op: str) -> torch.Tensor:
@@ -81,3 +85,42 @@ def trsm(side: str, uplo: str, op_a: str, diag: str, a, b, *, alpha=1.0):
     return torch.linalg.solve_triangular(
         t, alpha * b, upper=upper, left=side == "L",
         unitriangular=diag == "U").to(b.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The f64/complex128 product route (reference blas.py:53-103, :362-426)
+# ---------------------------------------------------------------------------
+
+_F64 = (torch.float64, torch.complex128)
+
+
+def _oz_slices() -> int:
+    """Slice count of the Ozaki route: ``f64_gemm_slices``, 0 resolving
+    to 8 (the reference's choice where f64 is native)."""
+    return config.resolve_slices()
+
+
+def mm_mxu(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` forced onto the Ozaki int8 slice route
+    (:mod:`.ozaki`), whatever ``f64_gemm`` says: the product primitive of
+    paths that are routed there by their own knob (the "ozaki" trailing
+    route's panel application). Complex operands promote to complex128."""
+    from . import ozaki
+
+    if a.is_complex() or b.is_complex():
+        return ozaki.matmul_c128(a.to(torch.complex128), b.to(torch.complex128),
+                                 slices=_oz_slices())
+    return ozaki.matmul_f64(a, b, slices=_oz_slices())
+
+
+def f64_gemm_uses_mxu(dtype: torch.dtype, dim: int, device_type: str) -> bool:
+    """Does ``f64_gemm`` route this dtype at block size ``dim`` onto the
+    Ozaki route on ``device_type``?"""
+    return (config.resolve("f64_gemm", device_type) == "mxu" and dtype in _F64
+            and dim >= config.get_configuration().f64_gemm_min_dim)
+
+
+def trsm_panel_uses_mixed(dtype: torch.dtype, device_type: str) -> bool:
+    """Does ``f64_trsm`` route this dtype's panels through the mixed
+    f32-seed + Newton factor and inverse (:mod:`.mixed`)?"""
+    return config.resolve("f64_trsm", device_type) == "mixed" and dtype in _F64

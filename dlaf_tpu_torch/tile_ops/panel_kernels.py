@@ -1,9 +1,10 @@
 """Hand-written Hopper panel kernels of the blocked Cholesky, and their
 plain PyTorch versions.
 
-Port of ``dlaf_tpu/tile_ops/pallas_panel.py``. Three wrappers, each over
+Port of ``dlaf_tpu/tile_ops/pallas_panel.py``. Four wrappers, each over
 CUDA kernels in ``csrc/panel.cu`` (built with ``nvcc`` for ``sm_90a`` at
-first use into ``_build/``, bound with ``ctypes``):
+first use into ``_build/``, bound with ``ctypes``; see
+:mod:`.cuda_build`):
 
 :func:`potrf`
     Replaces ``pallas_panel._fused_potrf`` (pallas_panel.py:187). Bound on
@@ -26,6 +27,16 @@ first use into ``_build/``, bound with ``ctypes``):
     ``b @ op(inv)``. Left-side solves map onto the right-side kernel by the
     transpose identity, as in the reference.
 
+:func:`factor_solve`
+    Replaces ``pallas_panel._fused_factor_solve_rows`` (:442) and
+    ``fused_factor_solve`` (:463): potrf of the diagonal tile + the whole
+    strip solve ``X fac^H = strip``, the scan builder's step form. Bound by
+    the strip product's flops like :func:`panel_solve`, with the factor's
+    latency chain in front. Three launches on one stream: the factor (one
+    block, which leaves the f32 factor in scratch), its inverse (one
+    block), the strip product (many blocks). The strip may have any
+    number of rows, or be a stacked ``(R, d, d)`` tile batch.
+
 :func:`step`
     Replaces ``pallas_panel._fused_step_lower`` (:508) and ``fused_step``
     (:533): potrf + strip solve + the adjacent trailing slab
@@ -39,25 +50,21 @@ mask ragged edges themselves. ``uplo='U'`` is mapped onto the lower kernels
 by contiguous transposed copies made here.
 
 Each wrapper uses its plain version (``potrf_plain``, ``panel_solve_plain``,
-``step_plain``: same math, straightforward tensor code) only for a tensor
-on the CPU. For a CUDA tensor it launches the kernels or raises. Each call
-that launches adds one to ``LAUNCHES[name]``, however many CUDA launches
-the call makes.
+``factor_solve_plain``, ``step_plain``: same math, straightforward tensor
+code) only for a tensor on the CPU. For a CUDA tensor it launches the
+kernels or raises. Each call that launches adds one to ``LAUNCHES[name]``,
+however many CUDA launches the call makes.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import sys
-import tempfile
 
 import torch
 
 from .. import config
+from . import cuda_build as cb
 
 #: Micro-block width of the potrf ladder and of the triangular inverse.
 MICRO = 8
@@ -69,13 +76,8 @@ PANEL_MB_MAX = 256
 SUPPORTED = (torch.float32, torch.bfloat16)
 
 #: Calls that launched each kernel family (plain integers).
-LAUNCHES = {"potrf": 0, "solve": 0, "step": 0}
+LAUNCHES = {"potrf": 0, "solve": 0, "factor_solve": 0, "step": 0}
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc", "panel.cu")
-_BUILD = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
-_lib = None
 _announced: set = set()
 
 
@@ -88,72 +90,33 @@ def reset_launches() -> None:
 # Build and binding
 # ---------------------------------------------------------------------------
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(cand):
-        return cand
-    raise RuntimeError("nvcc not found: the panel kernels are built at first "
-                       "use and need the CUDA toolkit")
+def _bind(lib) -> None:
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.dlaf_potrf.argtypes = [I, P, I, P, I, P, I, P]
+    lib.dlaf_trinv.argtypes = [I, P, I, I, P, I, P]
+    lib.dlaf_strip.argtypes = [I, P, I, P, I, P, I, P, I, I, I, P]
+    lib.dlaf_slab.argtypes = [I, P, I, P, I, P, I, I, I, I, P]
+    for fn in (lib.dlaf_potrf, lib.dlaf_trinv, lib.dlaf_strip, lib.dlaf_slab):
+        fn.restype = I
+
+
+#: ``csrc/panel.cu``, built at first use into ``_build/``.
+LIBRARY = cb.CudaLibrary("panel", (), _bind)
+_BUILD = cb.BUILD_DIR
 
 
 def library_path() -> str:
     """Path of the shared library for the current source (hash-keyed)."""
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return os.path.join(_BUILD, f"libdlaf_panel-{digest}.so")
+    return LIBRARY.path()
 
 
 def build() -> str:
-    """Compile ``csrc/panel.cu`` unless the library for this source exists;
-    returns its path. The compiler's output goes to stderr."""
-    out = library_path()
-    if os.path.exists(out):
-        return out
-    os.makedirs(_BUILD, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, _SRC]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        sys.stderr.write(res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return out
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
-        P, I = ctypes.c_void_p, ctypes.c_int
-        lib.dlaf_potrf.argtypes = [I, P, I, P, I, P, I, P]
-        lib.dlaf_trinv.argtypes = [I, P, I, I, P, I, P]
-        lib.dlaf_strip.argtypes = [I, P, I, P, I, P, I, P, I, I, I, P]
-        lib.dlaf_slab.argtypes = [I, P, I, P, I, P, I, I, I, I, P]
-        for fn in (lib.dlaf_potrf, lib.dlaf_trinv, lib.dlaf_strip, lib.dlaf_slab):
-            fn.restype = I
-        _lib = lib
-    return _lib
-
-
-def _check(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")
+    """Compile ``csrc/panel.cu`` unless its library exists; returns its path."""
+    return LIBRARY.build()
 
 
 def _code(dtype: torch.dtype) -> int:
     return 0 if dtype == torch.float32 else 1
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _rows(t: torch.Tensor) -> torch.Tensor:
@@ -177,13 +140,18 @@ def _require(t: torch.Tensor, d: int) -> None:
 def _factor_f32(x: torch.Tensor) -> torch.Tensor:
     """f32 lower factor of the lower triangle of ``x`` by the right-looking
     MICRO ladder with rsqrt-scaled columns (strict upper zero). A
-    non-positive pivot gives NaN/inf that reaches every later column."""
+    non-positive pivot gives NaN/inf that reaches every later column, and,
+    through the zero-multiplier update of the micro-panel's earlier
+    columns, turns the failing rows' entries there to NaN, as the
+    reference's ladder does (``pallas_panel.py:147-148``)."""
     x = torch.tril(x.float())
     d = x.shape[-1]
     for j0 in range(0, d, MICRO):
         je = min(j0 + MICRO, d)
         for c in range(j0, je):
             x[c:, c] = x[c:, c] * torch.rsqrt(x[c, c])
+            if c > j0:
+                x[c:, j0:c] -= x[c:, c:c + 1] * 0.0
             if c + 1 < je:
                 x[c + 1:, c + 1:je] -= x[c + 1:, c:c + 1] * x[c + 1:je, c][None, :]
         if je < d:
@@ -213,12 +181,18 @@ def _tri_inv_lower(t: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def _factor_with_passthrough(diag: torch.Tensor):
+    """(f32 lower factor, factor in ``diag``'s dtype with the strict upper
+    triangle of ``diag`` passed through)."""
+    f = _factor_f32(diag)
+    low = torch.ones(diag.shape, dtype=torch.bool, device=diag.device).tril()
+    return f, torch.where(low, f, diag.float()).to(diag.dtype)
+
+
 def potrf_plain(uplo: str, a: torch.Tensor) -> torch.Tensor:
     """Cholesky factor of one tile stored in ``uplo``; the opposite
     triangle passes through. Computed in f32, returned in ``a``'s dtype."""
-    x = a if uplo == "L" else a.mT
-    low = torch.ones(x.shape, dtype=torch.bool, device=a.device).tril()
-    out = torch.where(low, _factor_f32(x), x.float()).to(a.dtype)
+    out = _factor_with_passthrough(a if uplo == "L" else a.mT)[1]
     return out if uplo == "L" else out.mT
 
 
@@ -244,6 +218,20 @@ def panel_solve_plain(side: str, uplo: str, op: str, diag: str, a: torch.Tensor,
     return out.to(out_dtype).reshape(shape)
 
 
+def factor_solve_plain(uplo: str, diag: torch.Tensor, strip: torch.Tensor):
+    """Potrf + whole-strip solve: ``(fac, panel)``. uplo 'L': ``fac`` the
+    lower factor of ``diag`` (strict upper passes through), ``panel =
+    strip fac^-H`` over the rows of ``strip`` ((rows, d) or a stacked
+    (R, d, d) batch, flattened to rows). uplo 'U' is the transpose."""
+    if uplo == "U":
+        fac, pan = factor_solve_plain("L", diag.mT, strip.mT)
+        return fac.mT, pan.mT
+    f, fac = _factor_with_passthrough(diag)
+    shape = strip.shape
+    p = strip.reshape(-1, shape[-1]).float() @ _tri_inv_lower(f).mT
+    return fac, p.to(strip.dtype).reshape(shape)
+
+
 def step_plain(uplo: str, diag: torch.Tensor, strip: torch.Tensor, slab: torch.Tensor):
     """One blocked step: ``(fac, panel, new_slab)``. uplo 'L': ``strip``
     (m, d) below the diagonal, ``slab`` (m, w) the first w trailing
@@ -253,9 +241,7 @@ def step_plain(uplo: str, diag: torch.Tensor, strip: torch.Tensor, slab: torch.T
         fac, pan, ns = step_plain("L", diag.mT, strip.mT, slab.mT)
         return fac.mT, pan.mT, ns.mT
     m, w = slab.shape
-    f = _factor_f32(diag)
-    low = torch.ones(diag.shape, dtype=torch.bool, device=diag.device).tril()
-    fac = torch.where(low, f, diag.float()).to(diag.dtype)
+    f, fac = _factor_with_passthrough(diag)
     p = strip.float() @ _tri_inv_lower(f).mT
     upd = p @ p[:w].mT
     mask = (torch.arange(m, device=p.device)[:, None]
@@ -281,8 +267,9 @@ def potrf(uplo: str, a: torch.Tensor) -> torch.Tensor:
     x = _rows(a) if uplo == "L" else a.mT.contiguous()
     out = torch.empty((d, d), dtype=a.dtype, device=a.device)
     work = torch.empty((d, d), dtype=torch.float32, device=a.device)
-    _check(_load().dlaf_potrf(_code(a.dtype), x.data_ptr(), x.stride(0), out.data_ptr(),
-                              d, work.data_ptr(), d, _stream(a)), "potrf")
+    cb.check(LIBRARY.load().dlaf_potrf(_code(a.dtype), x.data_ptr(), x.stride(0),
+                                       out.data_ptr(), d, work.data_ptr(), d,
+                                       cb.stream(a)), "potrf")
     LAUNCHES["potrf"] += 1
     return out if uplo == "L" else out.mT
 
@@ -315,15 +302,53 @@ def panel_solve(side: str, uplo: str, op: str, diag: str, a: torch.Tensor,
     trans = int((op != "N") != (uplo == "U"))
     inv = torch.empty((d, d), dtype=torch.float32, device=a.device)
     out = torch.empty((f, d), dtype=b.dtype, device=b.device)
-    lib, s = _load(), _stream(a)
-    _check(lib.dlaf_trinv(_code(a.dtype), t.data_ptr(), t.stride(0), int(diag == "U"),
-                          inv.data_ptr(), d, s), "panel_solve inverse")
+    lib, s = LIBRARY.load(), cb.stream(a)
+    cb.check(lib.dlaf_trinv(_code(a.dtype), t.data_ptr(), t.stride(0), int(diag == "U"),
+                            inv.data_ptr(), d, s), "panel_solve inverse")
     if f:
-        _check(lib.dlaf_strip(_code(b.dtype), b2.data_ptr(), b2.stride(0), inv.data_ptr(),
-                              trans, out.data_ptr(), d, None, 0, f, d, s),
-               "panel_solve strip")
+        cb.check(lib.dlaf_strip(_code(b.dtype), b2.data_ptr(), b2.stride(0), inv.data_ptr(),
+                                trans, out.data_ptr(), d, None, 0, f, d, s),
+                 "panel_solve strip")
     LAUNCHES["solve"] += 1
     return out.reshape(shape)
+
+
+def factor_solve(uplo: str, diag: torch.Tensor, strip: torch.Tensor):
+    """Potrf + whole-strip solve (see :func:`factor_solve_plain`).
+
+    Replaces ``pallas_panel._fused_factor_solve_rows``/``fused_factor_solve``.
+    The TPU kernel keeps the factor's inverse in VMEM across its in-order
+    grid; here the factor and its inverse are one-block launches and a
+    many-block tiled f32 product solves the strip, all on one stream."""
+    if diag.device.type == "cpu":
+        return factor_solve_plain(uplo, diag, strip)
+    if uplo == "U":
+        fac, pan = factor_solve("L", diag.mT, strip.mT)
+        return fac.mT, pan.mT
+    d = diag.shape[-1]
+    _require(diag, d)
+    if strip.dtype != diag.dtype or strip.shape[-1] != d:
+        raise TypeError(f"factor_solve: diag {diag.dtype} {tuple(diag.shape)} does not "
+                        f"match strip {strip.dtype} {tuple(strip.shape)}")
+    shape = strip.shape
+    b2 = _rows(strip.reshape(-1, d))
+    f = b2.shape[0]
+    diag = _rows(diag)
+    dev, dt, code = diag.device, diag.dtype, _code(diag.dtype)
+    fac = torch.empty((d, d), dtype=dt, device=dev)
+    work = torch.empty((d, d), dtype=torch.float32, device=dev)
+    inv = torch.empty((d, d), dtype=torch.float32, device=dev)
+    out = torch.empty((f, d), dtype=dt, device=dev)
+    lib, s = LIBRARY.load(), cb.stream(diag)
+    cb.check(lib.dlaf_potrf(code, diag.data_ptr(), diag.stride(0), fac.data_ptr(), d,
+                            work.data_ptr(), d, s), "factor_solve potrf")
+    cb.check(lib.dlaf_trinv(2, work.data_ptr(), d, 0, inv.data_ptr(), d, s),
+             "factor_solve inverse")
+    if f:
+        cb.check(lib.dlaf_strip(code, b2.data_ptr(), b2.stride(0), inv.data_ptr(), 1,
+                                out.data_ptr(), d, None, 0, f, d, s), "factor_solve strip")
+    LAUNCHES["factor_solve"] += 1
+    return fac, out.reshape(shape)
 
 
 def step(uplo: str, diag: torch.Tensor, strip: torch.Tensor, slab: torch.Tensor):
@@ -353,17 +378,17 @@ def step(uplo: str, diag: torch.Tensor, strip: torch.Tensor, slab: torch.Tensor)
     # the slab reads the solved strip in f32: the panel itself for f32
     p32 = panel if dt == torch.float32 else torch.empty((m, d), dtype=torch.float32,
                                                         device=dev)
-    lib, s = _load(), _stream(diag)
-    _check(lib.dlaf_potrf(code, diag.data_ptr(), diag.stride(0), fac.data_ptr(), d,
-                          work.data_ptr(), d, s), "step potrf")
-    _check(lib.dlaf_trinv(2, work.data_ptr(), d, 0, inv.data_ptr(), d, s), "step inverse")
+    lib, s = LIBRARY.load(), cb.stream(diag)
+    cb.check(lib.dlaf_potrf(code, diag.data_ptr(), diag.stride(0), fac.data_ptr(), d,
+                            work.data_ptr(), d, s), "step potrf")
+    cb.check(lib.dlaf_trinv(2, work.data_ptr(), d, 0, inv.data_ptr(), d, s), "step inverse")
     if m:
-        _check(lib.dlaf_strip(code, strip.data_ptr(), strip.stride(0), inv.data_ptr(), 1,
-                              panel.data_ptr(), d,
-                              None if p32 is panel else p32.data_ptr(), d, m, d, s),
-               "step strip")
-        _check(lib.dlaf_slab(code, p32.data_ptr(), d, slab.data_ptr(), slab.stride(0),
-                             new.data_ptr(), w, m, w, d, s), "step slab")
+        cb.check(lib.dlaf_strip(code, strip.data_ptr(), strip.stride(0), inv.data_ptr(), 1,
+                                panel.data_ptr(), d,
+                                None if p32 is panel else p32.data_ptr(), d, m, d, s),
+                 "step strip")
+        cb.check(lib.dlaf_slab(code, p32.data_ptr(), d, slab.data_ptr(), slab.stride(0),
+                               new.data_ptr(), w, m, w, d, s), "step slab")
     LAUNCHES["step"] += 1
     return fac, panel, new
 

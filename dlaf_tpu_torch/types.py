@@ -1,8 +1,9 @@
 """Element types and the flop-weight model.
 
 Counterpart of ``dlaf_tpu/types.py`` (reference ``include/dlaf/types.h``):
-the s/d/c/z element types the miniapps name, and ``total_ops``, the real-op
-count used for GFlop/s (a complex multiply counts 6, a complex add 2).
+the s/d/c/z element types the miniapps name, ``total_ops``, the real-op
+count used for GFlop/s (a complex multiply counts 6, a complex add 2), and
+the scan builder's ``telescope_segments``.
 """
 
 from __future__ import annotations
@@ -63,3 +64,19 @@ def ceil_div(num: int, den: int) -> int:
     if num < 0:
         raise ValueError(f"ceil_div: numerator must be non-negative, got {num}")
     return -(-num // den)
+
+
+def telescope_segments(steps: int, min_chunk: int = 8, max_segments: int = 8):
+    """Segment lengths of the telescoped scan builder: EQUAL chunks of
+    ``max(min_chunk, ceil(steps / max_segments))`` steps, the last one
+    ragged. Each segment runs its uniform masked steps on the shrinking
+    trailing block, so the masked work tracks the live block (about
+    1.29x the exact cubic work at 64 steps instead of 3x for one
+    full-size segment). Copy of ``dlaf_tpu/types.py:telescope_segments``."""
+    if steps <= 0:
+        return ()
+    c = max(min_chunk, -(-steps // max_segments))
+    segs = [c] * (steps // c)
+    if steps % c:
+        segs.append(steps % c)
+    return tuple(segs)

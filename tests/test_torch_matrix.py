@@ -127,9 +127,26 @@ def test_composed_tile_ops_match_numpy(uplo):
 def test_config_layering_and_auto(monkeypatch):
     assert config.resolve("step_impl", "cuda") == "fused"
     assert config.resolve("step_impl", "cpu") == "xla"
+    # cuda resolves by the card's measurements: native float64 products
+    # ("biggemm", f64_gemm "native"); a call that asks for the Ozaki route
+    # gets its kernels
     assert config.resolve("cholesky_trailing", "cuda") == "biggemm"
     assert config.resolve("cholesky_trailing", "cpu") == "loop"
     assert config.resolve("cholesky_lookahead", "cuda") == "1"
+    assert config.resolve("f64_gemm", "cuda") == "native"
+    assert config.resolve("f64_trsm", "cuda") == "native"
+    assert config.resolve("f64_trsm", "cpu") == "native"
+    assert config.resolve("ozaki_impl", "cuda") == "pallas"
+    assert config.resolve("ozaki_impl", "cpu") == "jnp"
+    assert config.resolve_slices() == 8
+    monkeypatch.setenv("DLAF_F64_GEMM_SLICES", "6")
+    monkeypatch.setenv("DLAF_MIXED_COND_LIMIT", "50")
+    config.initialize(argv=["--dlaf:ozaki-impl=pallas"])
+    assert config.resolve_slices() == 6
+    assert config.get_configuration().mixed_cond_limit == 50.0
+    assert config.get_configuration().ozaki_impl == "pallas"
+    monkeypatch.delenv("DLAF_F64_GEMM_SLICES")
+    monkeypatch.delenv("DLAF_MIXED_COND_LIMIT")
     monkeypatch.setenv("DLAF_PANEL_IMPL", "fused")
     config.initialize()
     assert config.resolve("panel_impl", "cpu") == "fused"

@@ -121,9 +121,10 @@ def test_indefinite_tile_nan_prefix_matches_reference():
     """potrf_info contract: the factor's diagonal is non-finite from the
     first failing column on, and the solved strip's columns from there on;
     the port's plain versions fail at the same column as the Pallas
-    kernels. (Off the diagonal the reference's vectorised micro-panel
-    update also spreads NaN into the failing rows' earlier columns, via
-    NaN * 0; the port's column steps do not, so only the prefix is held.)"""
+    kernels. Off the diagonal, the reference's micro-panel update spreads
+    NaN into the failing rows' earlier columns (NaN * 0); the port does
+    the same, so the WHOLE NaN mask of the factor is held, at the
+    main path's tile (d=256) and a ragged one (d=200)."""
     d, m = 16, 24
     a = hpd(d, seed=2)
     a[5, 5] = -100.0
@@ -137,12 +138,18 @@ def test_indefinite_tile_nan_prefix_matches_reference():
     got_s = pk.step("L", torch.tensor(a), torch.tensor(strip), torch.tensor(slab))
     assert int(local_factor_info(got_f)) == int(local_factor_info(got_s[0])) == 6
     for g, r in ((got_f, ref_f), (got_s[0], ref_s[0])):
-        np.testing.assert_array_equal(np.isfinite(np.diag(g.numpy())),
-                                      np.isfinite(np.diag(np.asarray(r))))
+        np.testing.assert_array_equal(np.isnan(g.numpy()), np.isnan(np.asarray(r)))
     # solved strip: finite columns before the failing one, none from it on
     for p in (got_s[1].numpy(), np.asarray(ref_s[1])):
         np.testing.assert_array_equal(np.isfinite(p).all(axis=0), np.arange(d) < 5)
     np.testing.assert_array_equal(np.isfinite(got_s[2].numpy()), np.isfinite(np.asarray(ref_s[2])))
+    for d in (256, 200):
+        a = hpd(d, seed=3)
+        a[37, 37] = -1000.0
+        ref = np.asarray(ppan.fused_potrf("L", jnp.asarray(a), interpret=True))
+        got = pk.potrf("L", torch.tensor(a)).numpy()
+        assert int(local_factor_info(torch.tensor(got))) == 38
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
 
 
 def test_cpu_wrappers_run_plain_versions_without_launching():
@@ -154,7 +161,9 @@ def test_cpu_wrappers_run_plain_versions_without_launching():
                        pk.panel_solve_plain("R", "L", "C", "N", a, b))
     for g, r in zip(pk.step("L", a, b, b), pk.step_plain("L", a, b, b)):
         assert torch.equal(g, r)
-    assert pk.LAUNCHES == {"potrf": 0, "solve": 0, "step": 0}
+    for g, r in zip(pk.factor_solve("U", a, b.mT), pk.factor_solve_plain("U", a, b.mT)):
+        assert torch.equal(g, r)
+    assert pk.LAUNCHES == {"potrf": 0, "solve": 0, "factor_solve": 0, "step": 0}
 
 
 @pytest.mark.parametrize("dtype,nb,fused", [
