@@ -5,15 +5,20 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the hand-written kernels (``dlaf_tpu_torch/csrc/panel.cu`` and
-``csrc/ozaki.cu``, one nvcc each, started together) from the checkout and
-holds each kernel against its plain PyTorch version on the card: the panel
-kernels (potrf, strip solve, factor+solve, fused step) in float32 and
-bfloat16, on a ragged tile and an indefinite one; the Ozaki slice kernels
-(product, syrk) bit for bit at the main path's shapes, a ragged shape and
-K=1024. It times each kernel, its plain version and a PyTorch library
-yardstick with CUDA events, then drives the port's main paths through
-``miniapp_cholesky.run``, each with its launch counts:
+It builds the hand-written kernels (``dlaf_tpu_torch/csrc/panel.cu``,
+``csrc/ozaki.cu`` and ``csrc/update.cu``, one nvcc each, started together)
+from the checkout and holds each kernel against its plain PyTorch version
+on the card: the panel kernels (potrf, strip solve, factor+solve, fused
+step) in float32 and bfloat16, on a ragged tile and an indefinite one; the
+Ozaki slice kernels (product, syrk) bit for bit at the main path's shapes,
+a ragged shape and K=1024; the distributed Cholesky's two kernels at the
+shapes of its first step on one rank of a 2x2 grid (N=16384, nb=256: 32 x
+32 tile pairs) and on ragged tiles: the predicated trailing update in
+float32 and bfloat16, modes 0-3, in place on a strided view of a shard,
+and the predicated Ozaki pair product bit for bit. It times each kernel,
+its plain version and a PyTorch library yardstick with CUDA events, then
+drives the port's main paths through ``miniapp_cholesky.run``, each with
+its launch counts:
 
 1. N=16384, nb=256, float32, uplo L, fused step route, lookahead 1;
 2. N=8192, nb=256, float32, uplo U, fused panel route (potrf + strip solve);
@@ -22,7 +27,23 @@ yardstick with CUDA events, then drives the port's main paths through
 4. N=4096, nb=256, complex128, uplo U, the same route (``ozaki_impl``
    auto), lookahead 0;
 5. N=8192, nb=256, float32, uplo L, trailing "scan" with the fused
-   factor+solve kernel, lookahead 1.
+   factor+solve kernel, lookahead 1;
+
+and the distributed Cholesky with every rank of the grid on the one card
+(``--share-device``), lookahead and comm_lookahead at their cuda defaults:
+
+6. dist-L: N=16384, nb=256, float32, uplo L, 2x2, fused factor+solve and
+   the predicated update kernel;
+7. dist-U: N=8192, nb=256, float32, uplo U, 2x4, potrf and strip solve
+   kernels and the update kernel;
+8. dist-f64: N=16384, nb=256, float64, uplo L, 2x2, ``f64_gemm=mxu``,
+   ``f64_trsm=mixed``: the Ozaki pair kernel for the bulk, the slice
+   product for the panels and the look-ahead column;
+9. dist-z: N=4096, nb=256, complex128, uplo U, 2x2, native (no kernel).
+
+On one card the collectives are device-local copies and every rank
+repeats the diagonal tile's factor, so these walls do not measure
+communication.
 
 Then the route phase times the float64 (N=16384) and complex128 (N=8192)
 defaults, with no knob set, beside every route "auto" could pick for them
@@ -31,7 +52,7 @@ panels and native or Ozaki products): one timed factorization each, with
 its residual line and launch counts, and fails when the default is more
 than a quarter slower than the fastest of them. It factors a small ragged
 matrix against a float64 reference, profiles one float32 and two float64
-factorizations, and prints a JSON line of per-kernel numbers, the card's name and power
+factorizations and one dist-L and one dist-f64 factorization, and prints a JSON line of per-kernel numbers, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Any failure
 exits non-zero. It needs no network and imports nothing of JAX.
 """
@@ -99,23 +120,26 @@ def bound(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
 
 
 def profile_factorization(torch, dev, argv, letter: str, dtype, n: int = 16384,
-                          nb: int = 256) -> None:
+                          nb: int = 256, grid_shape=None) -> None:
     """Where the time of one main-path factorization goes: device time by
     kernel from ``torch.profiler``, and the device's busy share of the
-    host wall (informational; prints what the profiler saw)."""
+    host wall (informational; prints what the profiler saw). With
+    ``grid_shape`` every rank of that grid is on ``dev``."""
     from torch.profiler import ProfilerActivity, profile
 
     from dlaf_tpu_torch import config
     from dlaf_tpu_torch.algorithms.cholesky import cholesky
+    from dlaf_tpu_torch.comm.grid import shared_grid
     from dlaf_tpu_torch.common.index2d import GlobalElementSize, TileElementSize
     from dlaf_tpu_torch.matrix.matrix import Matrix
     from dlaf_tpu_torch.miniapp.generators import hpd_element_fn
 
     config.initialize(argv=argv)
+    grid = shared_grid(*grid_shape, dev) if grid_shape else None
     ref = Matrix.from_element_fn(hpd_element_fn(n, dtype), GlobalElementSize(n, n),
-                                 TileElementSize(nb, nb), dtype=dtype, device=dev)
-    cholesky("L", ref.with_storage(ref.storage.clone()), donate=True)
-    mat = ref.with_storage(ref.storage.clone())
+                                 TileElementSize(nb, nb), grid, dtype=dtype, device=dev)
+    cholesky("L", ref.clone(), donate=True)
+    mat = ref.clone()
     del ref
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -140,11 +164,114 @@ def profile_factorization(torch, dev, argv, letter: str, dtype, n: int = 16384,
         if e > end:
             busy += e - max(s, end)
             end = e
-    print(f"[profile] n={n} nb={nb} {letter} {' '.join(argv)}: host wall "
+    where = f" grid {grid_shape[0]}x{grid_shape[1]} on one card" if grid_shape else ""
+    print(f"[profile] n={n} nb={nb} {letter}{where} {' '.join(argv)}: host wall "
           f"{wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
           f"({100 * busy / wall_us:.1f}% of wall)", flush=True)
     for name, (tot, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]:
         print(f"[profile] {tot / 1e3:9.3f} ms {cnt:6d} launches  {name}", flush=True)
+
+
+def dist_kernels(torch, dev, randn, rows, check, time_ms, bound, card, uk, ok, oz) -> None:
+    """The distributed Cholesky's two kernels against their plain versions
+    and timed, at the shapes of its first step on rank (0, 0) of a 2x2 grid
+    (N=16384, nb=256: the rank's 32 x 32 trailing tile pairs, lookahead
+    on) and on ragged tiles; fills ``rows``."""
+    import numpy as np
+
+    from dlaf_tpu_torch.algorithms.cholesky import _pair_modes
+
+    R = C = 32
+    nb = 256
+    g = np.arange(R) * 2                                   # rank (0, 0)'s tiles
+    step0 = {"L": _pair_modes(g, g, 0, 64, "L", True), "U": _pair_modes(g, g, 0, 64, "U", True)}
+    rng = np.random.default_rng(3)
+
+    def modes_tensor(m):
+        return torch.tensor(m, dtype=torch.int32, device=dev)
+
+    # ---- kernel #5: the predicated trailing update, in place ----
+    for dt in (torch.float32, torch.bfloat16):
+        tname = str(dt).split(".")[1]
+        for case, (r_, c_, b_, mode) in (
+                ("step-0 uplo L", (R, C, nb, step0["L"])),
+                ("step-0 uplo U", (R, C, nb, step0["U"])),
+                ("ragged nb=200 modes 0-3", (5, 7, 200, rng.integers(0, 4, (5, 7)))),):
+            # the block is a strided view of a shard one tile wider each way
+            shard = randn(r_ + 1, c_ + 1, b_, b_).to(dt)
+            before = shard.clone()
+            vr, vc = randn(r_, b_, b_).to(dt), randn(c_, b_, b_).to(dt)
+            mt = modes_tensor(mode)
+            want = uk.masked_trailing_update_plain(before[1:, 1:], vr, vc, mt)
+            uk.masked_trailing_update(shard[1:, 1:], vr, vc, mt)
+            torch.cuda.synchronize()
+            outside = torch.equal(shard[0], before[0]) and torch.equal(shard[:, 0], before[:, 0])
+            if not outside:
+                raise AssertionError(f"masked_trailing_update {case}: wrote outside its view")
+            err = check("update", f"{tname} {case} {r_}x{c_} in place",
+                        [(shard[1:, 1:], want)], dt, b_)
+            if (dt, case) == (torch.float32, "step-0 uplo L"):
+                rows["masked_trailing_update"] = {"max_abs_err": err}
+            del shard, before, want
+
+    # ---- kernel #7: the predicated Ozaki pair product, bit for bit ----
+    s = 8
+
+    def pair_slices(x, count, b):
+        sc = oz._scale(x, -1)
+        return torch.stack(oz._peel_slices(oz._normalize(x, sc), s)).reshape(s, count, b, -1)
+
+    for case, (r_, c_, b_, mode) in (("step-0", (R, C, nb, step0["L"])),
+                                     ("ragged mb=200", (5, 3, 200, rng.integers(0, 3, (5, 3))))):
+        ia = pair_slices(randn(r_ * b_, b_, dtype=torch.float64), r_, b_)
+        ib = pair_slices(randn(c_ * b_, b_, dtype=torch.float64), c_, b_)
+        mt = modes_tensor(mode)
+        got = ok.ozaki_masked_product(ia, ib, mt)
+        ref = ok.ozaki_masked_product_plain(ia, ib, mt)
+        same = all(torch.equal(x, y) for x, y in zip(got, ref))
+        err = max(float((x - y).abs().max()) for x, y in zip(got, ref))
+        print(f"[kernel] ozaki_masked {case} s={s} {r_}x{c_} pairs of {b_}x{b_}, "
+              f"{int((mode != 0).sum())} live: hi and lo "
+              f"{'bitwise equal' if same else 'DIFFER'} (max_abs_err={err:.3e})", flush=True)
+        if not same:
+            raise AssertionError(f"ozaki_masked_product {case}: not bitwise equal")
+        if case == "step-0":
+            rows["ozaki_masked_product"] = {"max_abs_err": err}
+            ia0, ib0, mt0 = ia, ib, mt
+        del got, ref
+    torch.cuda.synchronize()
+
+    # ---- times at the step-0 shape ----
+    live = int((step0["L"] != 0).sum())
+    mt = modes_tensor(step0["L"])
+    shard = randn(R + 1, C + 1, nb, nb)
+    block = shard[1:, 1:]
+    vr, vc = randn(R, nb, nb), randn(C, nb, nb)
+    a64, b64 = randn(R * nb, nb, dtype=torch.float64), randn(nb, C * nb, dtype=torch.float64)
+    timings = {
+        # the einsum route's full rectangle: twice the kernel's work
+        "masked_trailing_update": (
+            lambda: uk.masked_trailing_update(block, vr, vc, mt),
+            lambda: uk.masked_trailing_update_plain(block, vr, vc, mt),
+            lambda: torch.matmul(vr.reshape(R * nb, nb), vc.reshape(C * nb, nb).mT),
+            "float32 torch.matmul of the full 8192x256 @ 256x8192 rectangle",
+            (2 * live + R + C) * nb * nb * 4, live * 2 * nb ** 3, "float32"),
+        "ozaki_masked_product": (
+            lambda: ok.ozaki_masked_product(ia0, ib0, mt0),
+            lambda: ok.ozaki_masked_product_plain(ia0, ib0, mt0),
+            lambda: a64 @ b64, "float64 torch.matmul 8192x256 @ 256x8192",
+            s * (R + C) * nb * nb + 8 * R * C * nb * nb,
+            live * s * (s + 1) / 2 * 2 * nb ** 3, "int8"),
+    }
+    for name, (kern, plain, lib, label, nbytes, ops, kind) in timings.items():
+        lib_ms = time_ms(torch, lib)
+        bms, by = bound(nbytes, ops, kind)
+        rows[name].update(ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain, reps=3),
+                          library_ms=lib_ms, bound_ms=bms, bound_by=by)
+        r = rows[name]
+        print(f"[time] {name:22s} kernel={r['ms']:.4f} ms plain={r['plain_ms']:.4f} ms "
+              f"{label}={lib_ms:.4f} ms bound={bms:.5f} ms ({by}; {live} live pairs of "
+              f"{R}x{C}) [{card}]", flush=True)
 
 
 def main() -> int:
@@ -165,18 +292,19 @@ def main() -> int:
     from dlaf_tpu_torch.tile_ops import ozaki as oz
     from dlaf_tpu_torch.tile_ops import ozaki_kernels as ok
     from dlaf_tpu_torch.tile_ops import panel_kernels as pk
+    from dlaf_tpu_torch.tile_ops import update_kernels as uk
 
     card = smi_line()
     print(f"[card] {card}", flush=True)
     print(f"[versions] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
-    cb.build_all([pk.LIBRARY, ok.LIBRARY])
-    pk.LIBRARY.load()
-    ok.LIBRARY.load()
-    print(f"[build] panel and ozaki kernels built and loaded in "
-          f"{time.perf_counter() - t0:.1f} s ({pk.library_path()}, {ok.LIBRARY.path()})",
-          flush=True)
+    cb.build_all([pk.LIBRARY, ok.LIBRARY, uk.LIBRARY])
+    for lib in (pk.LIBRARY, ok.LIBRARY, uk.LIBRARY):
+        lib.load()
+    print(f"[build] panel, ozaki and update kernels built and loaded in "
+          f"{time.perf_counter() - t0:.1f} s ({pk.library_path()}, {ok.LIBRARY.path()}, "
+          f"{uk.LIBRARY.path()})", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(20261016)
@@ -363,22 +491,24 @@ def main() -> int:
           f"(16128x256) {time_ms(torch, lambda: oz.syrk_f64(a64), reps=10):.4f} ms [{card}]",
           flush=True)
     del ia, ib, a64, b64
+    dist_kernels(torch, dev, randn, rows, check, time_ms, bound, card, uk, ok, oz)
     print(f"[phase] kernels {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # ---- phase 2: the main paths through the miniapp ---------------------
-    launches = {k: 0 for k in (*pk.LAUNCHES, *ok.LAUNCHES)}
+    launches = {k: 0 for k in (*pk.LAUNCHES, *ok.LAUNCHES, *uk.LAUNCHES)}
 
     def drive(argv, n, nb, nfact, expect):
         """One miniapp run; checks its residual line and launch counts and
         returns its fastest timed factorization (s)."""
         pk.reset_launches()
         ok.reset_launches()
+        uk.reset_launches()
         buf = io.StringIO()
         t = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             res = miniapp_cholesky.run(argv)
         torch.cuda.synchronize()
-        counts = {**pk.LAUNCHES, **ok.LAUNCHES}
+        counts = {**pk.LAUNCHES, **ok.LAUNCHES, **uk.LAUNCHES}
         out = buf.getvalue()
         print(out, end="", flush=True)
         nt = -(-n // nb)
@@ -424,6 +554,38 @@ def main() -> int:
            "--nruns", "2", "--nwarmups", "1", "--check-result", "last"],
           8192, 256, 3, {"factor_solve": lambda nt: nt})
     print(f"[phase] main path {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # ---- phase 2b: the distributed Cholesky, every rank on this card -----
+    # Launches per factorization: each kernel once per rank per step with
+    # a trailing update (k < nt-1; the uniform slots keep every rank in
+    # every such step), the diagonal tile's factor on every rank.
+    t_phase = time.perf_counter()
+    share = ["--share-device", "--nruns", "2", "--nwarmups", "1", "--check-result", "last"]
+    for name, argv, n, ranks, letter, expect in (
+            ("dist-L", ["--type", "s", "--uplo", "L", "--grid-rows", "2", "--grid-cols", "2",
+                        "--dlaf:step-impl=fused"], 16384, 4, "s",
+             {"factor_solve": lambda nt: 4 * (nt - 1), "potrf": lambda nt: 4,
+              "masked_trailing_update": lambda nt: 4 * (nt - 1)}),
+            ("dist-U", ["--type", "s", "--uplo", "U", "--grid-rows", "2", "--grid-cols", "4",
+                        "--dlaf:panel-impl=fused", "--dlaf:step-impl=xla"], 8192, 8, "s",
+             {"potrf": lambda nt: 8 * nt, "solve": lambda nt: 8 * (nt - 1),
+              "masked_trailing_update": lambda nt: 8 * (nt - 1)}),
+            # the panel product on every rank and the look-ahead column on
+            # the two ranks that own it: slice products; the bulk: the pair
+            # kernel
+            ("dist-f64", ["--type", "d", "--uplo", "L", "--grid-rows", "2", "--grid-cols", "2",
+                          "--dlaf:f64-gemm=mxu", "--dlaf:f64-trsm=mixed"], 16384, 4, "d",
+             {"ozaki_product": lambda nt: 6 * (nt - 1),
+              "ozaki_masked_product": lambda nt: 4 * (nt - 1)}),
+            ("dist-z", ["--type", "z", "--uplo", "U", "--grid-rows", "2", "--grid-cols", "2"],
+             4096, 4, "z", {})):
+        t = drive(["-m", str(n), "-b", "256", *argv, *share], n, 256, 3, expect)
+        flops = n ** 3 / 3 * (4 if letter == "z" else 1)
+        print(f"[dist] {name:8s} N={n} nb=256 {ranks} ranks on one card: {t:.6f} s "
+              f"{flops / t / 1e9:.2f} GFlop/s [{card}] (collectives are device-local copies "
+              "and every rank repeats the diagonal factor: not a communication measurement)",
+              flush=True)
+    print(f"[phase] distributed {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # ---- phase 3: the float64 / complex128 routes "auto" picks from ------
     # the default (no knob) beside each route it could resolve to, uplo L,
@@ -495,12 +657,18 @@ def main() -> int:
                                        "--dlaf:ozaki-impl=pallas",
                                        "--dlaf:cholesky-lookahead=1"], "f64", np.float64)
     profile_factorization(torch, dev, [], "f64 default", np.float64)
+    profile_factorization(torch, dev, ["--dlaf:step-impl=fused"], "dist-L f32", np.float32,
+                          grid_shape=(2, 2))
+    profile_factorization(torch, dev, ["--dlaf:f64-gemm=mxu", "--dlaf:f64-trsm=mixed"],
+                          "dist-f64", np.float64, grid_shape=(2, 2))
 
     order = (("potrf", "panel", "dlaf_tpu/tile_ops/pallas_panel.py:187"),
              ("solve", "panel", "dlaf_tpu/tile_ops/pallas_panel.py:296"),
              ("factor_solve", "panel", "dlaf_tpu/tile_ops/pallas_panel.py:442"),
              ("step", "panel", "dlaf_tpu/tile_ops/pallas_panel.py:508"),
+             ("masked_trailing_update", "update", "dlaf_tpu/tile_ops/pallas_kernels.py:69"),
              ("ozaki_product", "ozaki", "dlaf_tpu/tile_ops/pallas_ozaki.py:133"),
+             ("ozaki_masked_product", "ozaki", "dlaf_tpu/tile_ops/pallas_ozaki.py:208"),
              ("ozaki_syrk", "ozaki", "dlaf_tpu/tile_ops/pallas_ozaki.py:269"))
     kernels = [dict(name=name, route="cuda", source=f"dlaf_tpu_torch/csrc/{src}.cu",
                     replaces=rep, launches=launches[name], **rows[name])

@@ -2,9 +2,10 @@
 
 A package of its own beside the JAX reference: it imports ``torch`` and
 numpy, never ``jax`` and nothing under ``dlaf_tpu``. The module layout
-mirrors the reference so each counterpart is easy to find. This slice
-covers the local (1x1 grid) blocked Cholesky down to its hand-written
-Hopper panel kernels (``tile_ops/panel_kernels.py``, ``csrc/panel.cu``).
+mirrors the reference so each counterpart is easy to find. It covers the
+blocked Cholesky, local and on a 2-D block-cyclic grid of ranks that one
+controller drives (``comm/``), down to the hand-written Hopper kernels of
+``csrc/`` (panel, Ozaki slice and trailing-update kernels).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

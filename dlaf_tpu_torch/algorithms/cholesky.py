@@ -1,10 +1,10 @@
-"""Local blocked Cholesky factorization.
+"""Blocked Cholesky factorization, local and distributed.
 
-Port of the local branch of ``dlaf_tpu/algorithms/cholesky.py``
-(``cholesky`` :1733, ``_cholesky`` :1768, ``_cholesky_local`` :105-406,
-``_cholesky_local_scan`` :416-699): the right-looking tile algorithm —
-potrf on the diagonal block, panel trsm, trailing herk/gemm update — on
-one device, on every local route of the reference:
+Port of ``dlaf_tpu/algorithms/cholesky.py`` (``cholesky`` :1733,
+``_cholesky`` :1768, ``_cholesky_local`` :105-406, ``_cholesky_local_scan``
+:416-699, ``_build_dist_cholesky`` :731-1183): the right-looking tile
+algorithm — potrf on the diagonal block, panel trsm, trailing herk/gemm
+update. On one device, on every local route of the reference:
 
 * ``_cholesky_local``: trailing "loop", "biggemm", "invgemm", "xla" and
   "ozaki" (f64/complex128: mixed-precision panels from
@@ -32,6 +32,11 @@ native biggemm route the split
 products differ in shape, which the CPU's BLAS sums in the same order (the
 tests pin it) but the card's library need not.
 
+On a grid of several ranks, :func:`_cholesky_dist`: the reference's unrolled
+distributed builder as one controller's loop over the ranks (see its
+docstring). The distributed scan builder (``_build_dist_cholesky_scan``)
+is not ported yet.
+
 The trailing products outside the kernels are ``torch.matmul``, as the
 reference leaves them to XLA. On a CUDA device ``cholesky`` sets
 ``torch.backends.cuda.matmul.allow_tf32 = False`` before it runs: a
@@ -40,18 +45,25 @@ float32 product stays in full float32.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import config
+from ..comm import collectives as cc
+from ..comm.grid import COL_AXIS, ROW_AXIS
 from ..common.asserts import dlaf_assert
 from ..health import info as hinfo
 from ..matrix.matrix import Matrix
+from ..matrix.panel import (DistContext, to_device, transpose_col_to_rows,
+                            transpose_row_to_cols, uniform_slot_start)
 from ..matrix.tiling import global_to_tiles, tiles_to_global
 from ..tile_ops import blas as tb
 from ..tile_ops import lapack as tl
 from ..tile_ops import mixed as mx
 from ..tile_ops import ozaki as oz
+from ..tile_ops import ozaki_kernels as ok
 from ..tile_ops import panel_kernels as pk
+from ..tile_ops import update_kernels as uk
 from ..types import ceil_div, telescope_segments
 
 _F64 = (torch.float64, torch.complex128)
@@ -390,16 +402,351 @@ def _cholesky_local_scan(a: torch.Tensor, *, uplo: str, nb: int, use_mxu: bool =
     return (out, hinfo.local_factor_info(out)) if with_info else out
 
 
+# ---------------------------------------------------------------------------
+# Distributed (reference cholesky.py:709-1205)
+# ---------------------------------------------------------------------------
+
+def _masked_oz_update(afl, bfl, mode, nrows, ncols, mb):
+    """Exact-flop float64 trailing contraction: Ozaki slices of the
+    flattened row and column operands (both contracting their last axis)
+    through the predicated pair kernel, pairs with mode 0 skipping their
+    products. Returns the (nrows, ncols, mb, mb) update, unmasked at the
+    element level (the caller applies its triangle masks)."""
+    s = tb._oz_slices()
+    sa = oz._scale(afl, -1)
+    sb = oz._scale(bfl, -1)
+    ia = torch.stack(oz._peel_slices(oz._normalize(afl, sa), s)).reshape(s, nrows, mb, mb)
+    ib = torch.stack(oz._peel_slices(oz._normalize(bfl, sb), s)).reshape(s, ncols, mb, mb)
+    hi, lo = ok.ozaki_masked_product(ia, ib, mode)
+    acc = hi.double().add_(lo)
+    del hi, lo
+    return acc.mul_(4.0).mul_(sa.reshape(nrows, 1, mb, 1)).mul_(sb.reshape(1, ncols, 1, mb))
+
+
+def _valid_range(g: np.ndarray, k: int, nt: int) -> tuple[int, int]:
+    """[a, b): the slots whose (increasing) global tile index lies in
+    (k, nt) — the reference's ``(g > k) & (g < nt)`` mask as a range."""
+    a = int(np.searchsorted(g, k, side="right"))
+    return a, max(a, int(np.searchsorted(g, nt, side="left")))
+
+
+def _pair_modes(g_rows, g_cols, k, nt, uplo, stripped):
+    """The bulk update's (R, C) mode table of one rank: 1 a tile pair
+    strictly inside the trailing triangle, 2 (uplo 'L') / 3 ('U') a
+    diagonal tile, 0 elsewhere; ``stripped`` leaves out the column (row)
+    k+1 that the look-ahead strip updated."""
+    rv = (g_rows > k) & (g_rows < nt)
+    cv = (g_cols > k) & (g_cols < nt)
+    pair = rv[:, None] & cv[None, :]
+    ondiag = pair & (g_rows[:, None] == g_cols[None, :])
+    if uplo == "L":
+        off = pair & (g_rows[:, None] > g_cols[None, :])
+        if stripped:
+            keep = (g_cols != k + 1)[None, :]
+            off, ondiag = off & keep, ondiag & keep
+        return off.astype(np.int32) + 2 * ondiag.astype(np.int32)
+    off = pair & (g_rows[:, None] < g_cols[None, :])
+    if stripped:
+        keep = (g_rows != k + 1)[:, None]
+        off, ondiag = off & keep, ondiag & keep
+    return off.astype(np.int32) + 3 * ondiag.astype(np.int32)
+
+
+def _sub_masked_pairs(block, upd, mode, uplo):
+    """``block -= where(mask, upd, 0)`` in place: the whole tile where the
+    mode is 1, its ``uplo`` triangle where it is 2 or 3."""
+    mb = block.shape[-1]
+    i = torch.arange(mb, device=block.device)
+    tri = (i[:, None] >= i[None, :]) if uplo == "L" else (i[:, None] <= i[None, :])
+    m = mode[:, :, None, None]
+    block.sub_(torch.where((m == 1) | ((m > 1) & tri), upd, 0.0))
+
+
+def _sub_masked_rows(col, upd, full, diag_slot, lower):
+    """The look-ahead strip's masked subtract, in place: ``upd`` wholly on
+    the slots ``full`` = [a, b), its lower (``lower``) or upper triangle on
+    ``diag_slot``."""
+    a, b = full
+    if b > a:
+        col[a:b].sub_(upd[a:b])
+    if diag_slot is not None:
+        tri = torch.tril if lower else torch.triu
+        col[diag_slot].sub_(tri(upd[diag_slot]))
+
+
+def _cholesky_dist(lts, dist, *, uplo, use_pallas=False, use_mxu=False, use_mixed=False,
+                   use_oz_pallas=False, lookahead=False, comm_la=False, with_info=False,
+                   panel_fused=False, step_fused=False):
+    """Factor the distributed matrix whose rank ``(r, c)`` holds the shard
+    ``lts[r][c]`` (ltr, ltc, mb, mb), IN PLACE; returns the 1-based first
+    failing column as an int32 tensor with ``with_info``, else None.
+
+    The reference's ``_build_dist_cholesky`` runs ``factorize`` once per
+    mesh coordinate inside ``shard_map``; here one controller runs each of
+    its three phases for every rank in turn, and the collectives of
+    :mod:`..comm.collectives` exchange the per-rank values between phases:
+
+    * ``panel_chain`` (:797-916): the diagonal tile to every rank
+      (``bcast2d``), its factor on EVERY rank (the reference's redundant
+      tiny compute: with ranks sharing a card the panel kernels launch P*Q
+      times a step), the panel solve of each rank's rows, the panel
+      broadcast along the column axis and the transposed panel from an
+      all-gather along the row axis (uplo 'U': the mirror);
+    * ``step_pre`` (:918-1005): the owners' diagonal and panel writes, and
+      with ``lookahead`` the next column (row) updated first and carried;
+    * ``step_bulk`` (:1007-1100): the rest of the trailing update.
+
+    With ``comm_la`` step k+1's whole panel chain runs before step k's
+    bulk update, reading only the carried column, in the reference's order
+    (:1143-1169). Every rank runs the same shapes: the trailing block of a
+    step starts at the uniform slots (:793-794) and padding slots and
+    ranks are masked, not skipped, so each kernel launches once per rank
+    per step. Routes, as the reference's: ``use_pallas`` the predicated
+    update kernel (float32/bfloat16), ``use_mxu`` the Ozaki products
+    (complex128 composed of real ones), ``use_oz_pallas`` their predicated
+    pair kernel (float64), ``use_mixed`` the mixed panels, ``panel_fused``
+    and ``step_fused`` the panel kernels. The factor is bitwise the same
+    with ``lookahead``, ``comm_la`` and ``with_info`` on or off where the
+    look-ahead strip forms the same products as the bulk (every route on
+    the CPU, where the tests pin it); on the card the strip is a library
+    product, and the update kernel need not sum in its order."""
+    ctx = DistContext(dist)
+    nt, mb, n = ctx.nt.row, ctx.mb, dist.size.row
+    P, Q, ltr, ltc = ctx.P, ctx.Q, ctx.ltr, ctx.ltc
+    other = "U" if uplo == "L" else "L"
+
+    def ranks(fn):
+        return cc.per_rank(P, Q, fn)
+
+    def indices(k):
+        return (ctx.owner_r(k), ctx.owner_c(k), ctx.kr(k), ctx.kc(k),
+                uniform_slot_start(k + 1, P), uniform_slot_start(k + 1, Q))
+
+    def pad_identity(d, ts):
+        pad = torch.arange(mb, device=d.device) >= ts
+        return torch.where(pad[:, None] | pad[None, :], 0, d) + torch.diag(pad.to(d.dtype))
+
+    def solve(side, up, lkk, src, inv):
+        if panel_fused:
+            return pk.panel_solve(side, up, "C", "N", lkk, src)
+        return tb.trsm_panel(side, up, "C", "N", lkk, src, inv_a=inv)
+
+    def panel_chain(k, la):
+        owner_r, owner_c, kr, kc, lu_r, lu_c = indices(k)
+        if la is None:
+            cand = ranks(lambda r, c: lts[r][c][kr, kc])
+        else:
+            slot = (kr if uplo == "L" else kc) - la[1]
+            cand = ranks(lambda r, c: la[0][r][c][slot])
+        diag = cc.bcast2d(cand, owner_r, owner_c)
+        ts = min(mb, n - k * mb)
+        if ts < mb:
+            diag = ranks(lambda r, c: pad_identity(diag[r][c], ts))
+        fuse_step = step_fused and not use_mixed and k < nt - 1 and (
+            (ltr - lu_r) if uplo == "L" else (ltc - lu_c)) > 0
+        inv = None
+        if use_mixed:
+            fi = ranks(lambda r, c: mx.potrf_inv_refined(uplo, diag[r][c]))
+            lkk = ranks(lambda r, c: fi[r][c][0] + tb.tri_mask(diag[r][c], other, k=-1))
+            inv = ranks(lambda r, c: fi[r][c][1])
+        elif fuse_step:
+            lkk = None
+        else:
+            lkk = ranks(lambda r, c: pk.potrf(uplo, diag[r][c]) if panel_fused
+                        else tl.potrf(uplo, diag[r][c]))
+        if k == nt - 1:
+            return lkk, None, None, None
+        lower = uplo == "L"
+        # uplo 'L': the panel is block column k, solved on each rank's rows,
+        # broadcast along the column axis, transposed over the row axis;
+        # 'U': block row k, the mirror
+        count = (ltr - lu_r) if lower else (ltc - lu_c)
+        if count == 0:
+            return lkk, None, None, None
+        lu = lu_r if lower else lu_c
+        g_own = ranks(lambda r, c: ctx.g_rows(r, lu_r, count) if lower
+                      else ctx.g_cols(c, lu_c, count))
+
+        def src(r, c):
+            if la is not None:
+                return la[0][r][c][lu - la[1]:]
+            return lts[r][c][lu_r:, kc] if lower else lts[r][c][kr, lu_c:]
+
+        if fuse_step:
+            fs = ranks(lambda r, c: pk.factor_solve(uplo, diag[r][c], src(r, c)))
+            lkk = ranks(lambda r, c: fs[r][c][0])
+            pan = ranks(lambda r, c: fs[r][c][1])
+        else:
+            pan = ranks(lambda r, c: solve("R" if lower else "L", uplo, lkk[r][c], src(r, c),
+                                           inv[r][c] if inv is not None else None))
+        for r in range(P):
+            for c in range(Q):
+                a, b = _valid_range(g_own[r][c], k, nt)
+                pan[r][c][:a].zero_()
+                pan[r][c][b:].zero_()
+        vb = cc.bcast(pan, COL_AXIS if lower else ROW_AXIS, owner_c if lower else owner_r)
+        count_t = (ltc - lu_c) if lower else (ltr - lu_r)
+        if count_t == 0:
+            return lkk, pan, vb, None
+        g_t = ranks(lambda r, c: ctx.g_cols(c, lu_c, count_t) if lower
+                    else ctx.g_rows(r, lu_r, count_t))
+        vt = (transpose_col_to_rows(ctx, vb, lu_r, g_t) if lower
+              else transpose_row_to_cols(ctx, vb, lu_c, g_t))
+        for r in range(P):
+            for c in range(Q):
+                a, b = _valid_range(g_t[r][c], k, nt)
+                vt[r][c][:a].zero_()
+                vt[r][c][b:].zero_()
+        return lkk, pan, vb, vt
+
+    def step_pre(k, ch):
+        lkk, pan, vb, vt = ch
+        owner_r, owner_c, kr, kc, lu_r, lu_c = indices(k)
+        lts[owner_r][owner_c][kr, kc] = lkk[owner_r][owner_c]
+        if pan is None:
+            return None
+        lower = uplo == "L"
+        count = (ltr - lu_r) if lower else (ltc - lu_c)
+        # the owner column (row) keeps its solved panel tiles
+        for r, c in ([(r, owner_c) for r in range(P)] if lower
+                     else [(owner_r, c) for c in range(Q)]):
+            g = ctx.g_rows(r, lu_r, count) if lower else ctx.g_cols(c, lu_c, count)
+            a, b = _valid_range(g, k, nt)
+            if lower:
+                lts[r][c][lu_r + a:lu_r + b, kc] = pan[r][c][a:b]
+            else:
+                lts[r][c][kr, lu_c + a:lu_c + b] = pan[r][c][a:b]
+        if vt is None or not (lookahead and k + 1 < nt):
+            return None
+        # the next column (row) first, carried to step k+1: one product of
+        # the panel against this rank's slot-(k+1) transposed-panel tile,
+        # the tile the bulk would have used, on the ranks that own k+1
+        k1_own = ctx.owner_c(k + 1) if lower else ctx.owner_r(k + 1)
+        slot1 = ctx.kc(k + 1) if lower else ctx.kr(k + 1)
+
+        def one(r, c):
+            col = lts[r][c][lu_r:, slot1] if lower else lts[r][c][slot1, lu_c:]
+            if (c if lower else r) == k1_own:
+                if lower:
+                    panel, pk1 = vb[r][c], vt[r][c][slot1 - lu_c]
+                    flat = panel.reshape(count * mb, mb)
+                    upd = (_oz_product(flat, pk1.conj().mT) if use_mxu
+                           else flat @ pk1.conj().mT).reshape(count, mb, mb)
+                else:
+                    panel, pk1 = vb[r][c], vt[r][c][slot1 - lu_r]
+                    flat = panel.mT.reshape(count * mb, mb)
+                    upd = (_oz_product(pk1.conj().mT, flat.mT) if use_mxu
+                           else pk1.conj().mT @ flat.mT)
+                    upd = upd.reshape(mb, count, mb).permute(1, 0, 2)
+                g = ctx.g_rows(r, lu_r, count) if lower else ctx.g_cols(c, lu_c, count)
+                a, b = _valid_range(g, k, nt)
+                on = [i for i in range(a, b) if g[i] == k + 1]
+                full = (on[0] + 1 if on else a, b)
+                _sub_masked_rows(col, upd, full, on[0] if on else None, lower)
+            return col.clone()
+
+        return ranks(one), (lu_r if lower else lu_c)
+
+    def step_bulk(k, ch, stripped):
+        lkk, pan, vb, vt = ch
+        if pan is None or vt is None:
+            return
+        *_, lu_r, lu_c = indices(k)
+        nrows, ncols = ltr - lu_r, ltc - lu_c
+        for r in range(P):
+            for c in range(Q):
+                block = lts[r][c][lu_r:, lu_c:]
+                mode = to_device(_pair_modes(ctx.g_rows(r, lu_r, nrows),
+                                             ctx.g_cols(c, lu_c, ncols), k, nt, uplo, stripped),
+                                 block.device, torch.int32)
+                if uplo == "L":
+                    vr, vc = vb[r][c], vt[r][c]
+                else:
+                    vc, vr = vb[r][c], vt[r][c]
+                if use_pallas:
+                    # uplo 'U' passes transposed tiles: the kernel's
+                    # contraction stays vr @ vc^T (mode 3: tile upper)
+                    uk.masked_trailing_update(block, vr if uplo == "L" else vr.mT,
+                                              vc if uplo == "L" else vc.mT, mode)
+                    continue
+                if uplo == "L":
+                    afl, bfl = vr.reshape(nrows * mb, mb), vc.conj().reshape(ncols * mb, mb)
+                else:
+                    afl = vr.conj().mT.reshape(nrows * mb, mb)
+                    bfl = vc.mT.reshape(ncols * mb, mb)
+                if use_mxu and use_oz_pallas:
+                    upd = _masked_oz_update(afl, bfl, mode, nrows, ncols, mb)
+                else:
+                    full = _oz_product(afl, bfl.mT) if use_mxu else afl @ bfl.mT
+                    upd = full.reshape(nrows, mb, ncols, mb).permute(0, 2, 1, 3)
+                _sub_masked_pairs(block, upd, mode, uplo)
+
+    la = None
+    ch_next = None
+    for k in range(nt):
+        if comm_la:
+            ch = ch_next if ch_next is not None else panel_chain(k, la)
+            la = step_pre(k, ch)
+            ch_next = panel_chain(k + 1, la) if k + 1 < nt and la is not None else None
+        else:
+            ch = panel_chain(k, la)
+            la = step_pre(k, ch)
+        step_bulk(k, ch, la is not None)
+    if not with_info:
+        return None
+    if n == 0:
+        return torch.zeros((), dtype=torch.int32, device=lts[0][0].device)
+    vec = ranks(lambda r, c: hinfo.dist_diag_bad(lts[r][c], ctx.rr(r), ctx.rc(c), Pr=P, Qc=Q,
+                                                 nt=nt, mb=mb, n=n))
+    vec = cc.all_reduce(cc.all_reduce(vec, ROW_AXIS, "max"), COL_AXIS, "max")
+    return hinfo.first_bad_info(vec[0][0] > 0)
+
+
+def _cholesky_distributed(uplo, mat, *, donate, with_info, trailing, lookahead, panel_fused,
+                          step_fused):
+    """Route and run :func:`_cholesky_dist` (the reference's gates,
+    cholesky.py:1889-1935)."""
+    dev = mat.device.type
+    dtype = mat.dtype
+    nb = mat.block_size.row
+    if trailing == "scan":
+        raise NotImplementedError("cholesky_trailing='scan' on a grid: the distributed scan "
+                                  "builder is not ported yet")
+    use_mxu = tb.f64_gemm_uses_mxu(dtype, nb, dev)
+    use_mixed = tb.trsm_panel_uses_mixed(dtype, dev)
+    comm_la = lookahead and config.resolve("comm_lookahead", dev) == "1"
+    want_oz_pallas = use_mxu and config.resolve("ozaki_impl", dev) == "pallas"
+    use_oz_pallas = want_oz_pallas and dtype == torch.float64 and nb <= ok.MASKED_MB_MAX
+    if want_oz_pallas and not use_oz_pallas:
+        config.announce_once(("ozaki_pallas", dtype, nb),
+                             f"ozaki_impl=pallas does not apply to dtype={dtype} mb={nb} on a "
+                             f"grid (needs float64, mb<={ok.MASKED_MB_MAX}); using the "
+                             "whole-rectangle Ozaki products")
+    use_pallas = uk.supports_update(dtype, dev) and not use_mxu
+    shards = mat.storage if donate else [s.clone() for s in mat.storage]
+    if donate:
+        mat.storage = None
+    P, Q = mat.dist.grid_size.row, mat.dist.grid_size.col
+    lts = cc.per_rank(P, Q, lambda r, c: shards[r * Q + c])
+    info = _cholesky_dist(lts, mat.dist, uplo=uplo, use_pallas=use_pallas, use_mxu=use_mxu,
+                          use_mixed=use_mixed, use_oz_pallas=use_oz_pallas,
+                          lookahead=lookahead, comm_la=comm_la, with_info=with_info,
+                          panel_fused=panel_fused, step_fused=step_fused)
+    res = Matrix(mat.dist, shards, mat.grid)
+    return (res, info) if with_info else res
+
+
 def cholesky(uplo: str, mat: Matrix, *, donate: bool = False, with_info: bool = False):
     """Factorize the Hermitian positive-definite ``mat`` in the ``uplo``
     triangle: L L^H (uplo='L') or U^H U (uplo='U'), on ``mat``'s device.
 
-    Returns a new Matrix whose ``uplo`` triangle holds the factor (the
-    other triangle passes through), or ``(factor, info)`` with
-    ``with_info``: ``info`` is an int32 device tensor, 0 on success or the
-    1-based first failing column; the factor is bitwise the same either
-    way. ``donate=True`` releases ``mat``'s storage to the factorization:
-    ``mat`` must not be used afterwards.
+    Local (no grid, or one rank) or distributed over ``mat.grid``, like
+    the reference's two overloads. Returns a new Matrix whose ``uplo``
+    triangle holds the factor (the other triangle passes through), or
+    ``(factor, info)`` with ``with_info``: ``info`` is an int32 device
+    tensor, 0 on success or the 1-based first failing column; the factor
+    is bitwise the same either way. ``donate=True`` releases ``mat``'s
+    storage to the factorization: ``mat`` must not be used afterwards.
     """
     dlaf_assert(uplo in ("L", "U"), f"cholesky: uplo must be 'L' or 'U', got {uplo!r}")
     dlaf_assert(mat.size.row == mat.size.col, "cholesky: matrix must be square")
@@ -417,6 +764,10 @@ def cholesky(uplo: str, mat: Matrix, *, donate: bool = False, with_info: bool = 
     step_fused = trailing != "xla" and pk.step_uses_fused(dtype, nb, dev)
     if dev == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
+    if mat.distributed:
+        return _cholesky_distributed(uplo, mat, donate=donate, with_info=with_info,
+                                     trailing=trailing, lookahead=lookahead,
+                                     panel_fused=panel_fused, step_fused=step_fused)
     dist = mat.dist
     a = tiles_to_global(mat.storage, dist)
     if donate:
@@ -433,5 +784,5 @@ def cholesky(uplo: str, mat: Matrix, *, donate: bool = False, with_info: bool = 
     info = None
     if with_info:
         out, info = out
-    res = Matrix(dist, global_to_tiles(out, dist))
+    res = Matrix(dist, global_to_tiles(out, dist), mat.grid)
     return (res, info) if with_info else res

@@ -2,8 +2,8 @@
 
 Counterpart of ``dlaf_tpu/common/index2d.py`` (reference
 ``common/index2d.h``): (row, col) value types whose distinct classes keep
-global-element, global-tile, tile-element and process-grid coordinates
-apart.
+global-element, global-tile, local-tile, local-element, tile-element and
+process-grid coordinates apart.
 """
 
 from __future__ import annotations
@@ -61,5 +61,7 @@ def _make_pair(index_name: str, size_name: str) -> tuple[Type, Type]:
 
 GlobalElementIndex, GlobalElementSize = _make_pair("GlobalElementIndex", "GlobalElementSize")
 GlobalTileIndex, GlobalTileSize = _make_pair("GlobalTileIndex", "GlobalTileSize")
+LocalTileIndex, LocalTileSize = _make_pair("LocalTileIndex", "LocalTileSize")
+LocalElementIndex, LocalElementSize = _make_pair("LocalElementIndex", "LocalElementSize")
 TileElementIndex, TileElementSize = _make_pair("TileElementIndex", "TileElementSize")
 RankIndex2D, GridSize2D = _make_pair("RankIndex2D", "GridSize2D")

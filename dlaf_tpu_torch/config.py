@@ -1,20 +1,22 @@
 """Runtime configuration: the knobs the local Cholesky path reads.
 
-Counterpart of ``dlaf_tpu/config.py``, cut to the knobs of the local
-Cholesky and its f64/complex128 routes. Same layering (highest wins):
+Counterpart of ``dlaf_tpu/config.py``, cut to the knobs of the local and
+distributed Cholesky and their f64/complex128 routes. Same layering (highest wins):
 ``--dlaf:<knob>=<value>`` arguments > ``DLAF_<KNOB>`` environment
 variables > a user ``Configuration`` > the defaults.
 
 "auto" resolves per DEVICE TYPE of the call (the JAX package resolves per
 process backend). On ``cpu`` as the reference does there: trailing
 "loop", panel/step "xla", lookahead 0, ``f64_gemm``/``f64_trsm``
-"native", ``ozaki_impl`` "jnp". On ``cuda`` by what the H100 measured
-(``chip_smoke.py``'s route phase; numbers in PERF.md): fused step and
-panel, lookahead 1, trailing "biggemm" and ``f64_gemm``/``f64_trsm``
+"native", ``ozaki_impl`` "jnp", ``comm_lookahead`` 0. On ``cuda`` by
+what the H100 measured (``chip_smoke.py``'s route phase; numbers in
+PERF.md): fused step and panel, lookahead 1, trailing "biggemm" and ``f64_gemm``/``f64_trsm``
 "native", because the card's native float64 tensor-core products beat the
 Ozaki int8 route that the reference picks on its TPU (there f64 is
 emulated); ``ozaki_impl`` "pallas", so a call that asks for the Ozaki
-route runs its hand-written kernels. ``f64_gemm_slices=0`` resolves to 8
+route runs its hand-written kernels; ``comm_lookahead`` 1, since the
+hoisted panel chain is what lets the collectives' copies overlap the bulk
+update there. ``f64_gemm_slices=0`` resolves to 8
 on both: the reference's choice where f64 is native. Every auto
 resolution is announced once on stderr so the route in effect is never
 silent.
@@ -49,6 +51,13 @@ class Configuration:
     #: carries it to the next step, "0" the plain order; "auto" per device.
     #: The factor is bitwise the same either way.
     cholesky_lookahead: str = "auto"
+    #: Communication look-ahead of the distributed Cholesky (it needs
+    #: ``cholesky_lookahead``): "1" runs step k+1's whole panel chain, its
+    #: collectives included, before step k's bulk update, "0" after it;
+    #: "auto" per device. The factor is bitwise the same either way.
+    comm_lookahead: str = "auto"
+    #: How a device list fills a grid: "row-major" or "col-major".
+    grid_ordering: str = "row-major"
     #: Diagonal-tile potrf and panel strip solve: "fused" (the hand-written
     #: kernels of ``tile_ops/panel_kernels.py``), "xla" (the composed
     #: torch.linalg route, named after the reference's), or "auto".
@@ -90,6 +99,8 @@ class Configuration:
 _VALID_CHOICES = {
     "cholesky_trailing": VALID_TRAILING + ("auto",),
     "cholesky_lookahead": ("0", "1", "auto"),
+    "comm_lookahead": ("0", "1", "auto"),
+    "grid_ordering": ("row-major", "col-major"),
     "panel_impl": ("fused", "xla", "auto"),
     "step_impl": ("fused", "xla", "auto"),
     "ozaki_impl": ("jnp", "pallas", "auto"),
@@ -102,6 +113,7 @@ _VALID_CHOICES = {
 _AUTO = {
     "cholesky_trailing": ("biggemm", "loop"),
     "cholesky_lookahead": ("1", "0"),
+    "comm_lookahead": ("1", "0"),
     "panel_impl": ("fused", "xla"),
     "step_impl": ("fused", "xla"),
     "f64_gemm": ("native", "native"),
@@ -168,13 +180,18 @@ def get_configuration() -> Configuration:
     return _active if _active is not None else initialize()
 
 
-def _announce(knob: str, device_type: str, choice) -> None:
-    key = (knob, device_type, choice)
+def announce_once(key, message: str) -> None:
+    """Print ``message`` on stderr the first time ``key`` is seen: route
+    choices are announced, never silent."""
     if key not in _announced:
         _announced.add(key)
-        print(f"[dlaf_tpu_torch] {knob}=auto resolved to {choice!r} for "
-              f"device {device_type!r} — set the knob explicitly to override",
-              file=sys.stderr)
+        print(f"[dlaf_tpu_torch] {message}", file=sys.stderr)
+
+
+def _announce(knob: str, device_type: str, choice) -> None:
+    announce_once((knob, device_type, choice),
+                  f"{knob}=auto resolved to {choice!r} for device {device_type!r} — set the "
+                  "knob explicitly to override")
 
 
 def resolve(knob: str, device_type: str) -> str:

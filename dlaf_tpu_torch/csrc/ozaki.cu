@@ -1,9 +1,10 @@
 // Hand-written Hopper (sm_90a) kernel for the Ozaki int8 slice products.
 //
-// It replaces two Pallas kernels of dlaf_tpu/tile_ops/pallas_ozaki.py:
+// It replaces three Pallas kernels of dlaf_tpu/tile_ops/pallas_ozaki.py:
 //   dlaf_oz_product <- fused_slice_product (:112, call :133)
 //   dlaf_oz_syrk    <- fused_slice_syrk (:249, call :269)
-// Both compute, for every output element (i, j) and every shift d < s,
+//   dlaf_oz_masked  <- masked_slice_product (:185, call :208)
+// All compute, for every output element (i, j) and every shift d < s,
 // the exact integer group sum
 //     p_d(i, j) = sum_{t <= d} A_t[i, :] . B_{d-t}[j, :]
 // of int8 slices (both operands K-contiguous rows), and fold the groups
@@ -33,7 +34,15 @@
 //     end, in the order d = 0 .. s-1, so hi and lo are written once.
 // The syrk entry runs the same body with B = A. Tiles whose 256-row block
 // lies strictly above the block diagonal write zeros and return, which is
-// the reference's output contract (its predicated 256-block grid). K must
+// the reference's output contract (its predicated 256-block grid). The
+// masked entry runs it once per tile pair (r, c) of a distributed trailing
+// update: grid z walks the R x C pairs, A is row tile r of ia (s, R, bm,
+// K), B row tile c of ib (s, C, bn, K), the output the (bm, bn) pair block
+// of hi/lo (R, C, bm, bn); a block whose pair has mode 0 writes zeros and
+// returns, so dead pairs skip all their int8 products. Its bound at the
+// distributed main path's first step on one rank of a 2x2 grid (N=16384,
+// bm = bn = K = 256, s = 8): 496 live pairs x 36 x 2 x 256^3 = 6.0e14
+// operations, 0.30 ms at 1979 TOP/s. K must
 // be a multiple of 32 (the wrapper zero-pads, which is exact); M and N are
 // masked at the loads and the store. wgmma and TMA are later work.
 //
@@ -105,15 +114,27 @@ __device__ __forceinline__ void fold(float& hi, float& lo, int p, int d) {
 
 // hi/lo (M, N) row-major with row stride ldo. `syrk_block` > 0: zero the
 // tiles whose syrk_block-row block lies strictly above the block diagonal.
+// Pairs (masked entry): blockIdx.z is the pair p = r * C + c; A, B and the
+// outputs advance by r * a_pair, c * b_pair and p * o_pair elements, and a
+// pair whose mode[p] is 0 is written as zeros. Other entries: one pair,
+// mode null. sa, sb: the slice strides of A and B.
 template <int S>
 __global__ void __launch_bounds__(THREADS)
 slice_fold_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B, int M, int N,
-                  int K, float* __restrict__ hi_out, float* __restrict__ lo_out, int ldo,
-                  int syrk_block) {
+                  int K, long long sa, long long sb, float* __restrict__ hi_out,
+                  float* __restrict__ lo_out, int ldo, int syrk_block,
+                  const int* __restrict__ mode, int C, long long a_pair, long long b_pair,
+                  long long o_pair) {
   __shared__ __align__(16) int8_t As[S * BM * KC];
   __shared__ __align__(16) int8_t Bs[S * BN * KC];
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  if (syrk_block > 0 && n0 / syrk_block > m0 / syrk_block) {
+  const int pair = blockIdx.z;
+  A += (pair / C) * a_pair;
+  B += (pair % C) * b_pair;
+  hi_out += pair * o_pair;
+  lo_out += pair * o_pair;
+  if ((syrk_block > 0 && n0 / syrk_block > m0 / syrk_block) ||
+      (mode != nullptr && mode[pair] == 0)) {
     for (int idx = threadIdx.x; idx < BM * BN; idx += THREADS) {
       const int r = m0 + idx / BN, c = n0 + idx % BN;
       if (r < M && c < N) {
@@ -126,7 +147,6 @@ slice_fold_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B, in
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tig = lane & 3;
   const int wr = (warp >> 2) * WM, wc = (warp & 3) * WN;
-  const long long sa = (long long)M * K, sb = (long long)N * K;
 
   int acc[S][MT][NT][4];
 #pragma unroll
@@ -191,30 +211,42 @@ slice_fold_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B, in
       }
 }
 
+// One launch over R x C pairs (R = C = 1, mode null: one product) of
+// (m, n) outputs each; slices of A (B) strided by m_all * k (n_all * k).
+struct Args {
+  const void *a, *b;
+  int m, n, k;
+  long long sa, sb;
+  void *hi, *lo;
+  int syrk_block;
+  const void* mode;
+  int R, C;
+};
+
 template <int S>
-int launch(const void* a, const void* b, int m, int n, int k, void* hi, void* lo,
-           int syrk_block, cudaStream_t st) {
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
+int launch(const Args& g, cudaStream_t st) {
+  const dim3 grid((g.n + BN - 1) / BN, (g.m + BM - 1) / BM, g.R * g.C);
   slice_fold_kernel<S><<<grid, THREADS, 0, st>>>(
-      static_cast<const int8_t*>(a), static_cast<const int8_t*>(b), m, n, k,
-      static_cast<float*>(hi), static_cast<float*>(lo), n, syrk_block);
+      static_cast<const int8_t*>(g.a), static_cast<const int8_t*>(g.b), g.m, g.n, g.k, g.sa,
+      g.sb, static_cast<float*>(g.hi), static_cast<float*>(g.lo), g.n, g.syrk_block,
+      static_cast<const int*>(g.mode), g.C, (long long)g.m * g.k, (long long)g.n * g.k,
+      (long long)g.m * g.n);
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch(int s, const void* a, const void* b, int m, int n, int k, void* hi, void* lo,
-             int syrk_block, void* stream) {
+int dispatch(int s, const Args& g, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (m <= 0 || n <= 0) return 0;
+  if (g.m <= 0 || g.n <= 0 || g.R <= 0 || g.C <= 0) return 0;
   switch (s) {
-    case 1: return launch<1>(a, b, m, n, k, hi, lo, syrk_block, st);
-    case 2: return launch<2>(a, b, m, n, k, hi, lo, syrk_block, st);
-    case 3: return launch<3>(a, b, m, n, k, hi, lo, syrk_block, st);
-    case 4: return launch<4>(a, b, m, n, k, hi, lo, syrk_block, st);
-    case 5: return launch<5>(a, b, m, n, k, hi, lo, syrk_block, st);
-    case 6: return launch<6>(a, b, m, n, k, hi, lo, syrk_block, st);
-    case 7: return launch<7>(a, b, m, n, k, hi, lo, syrk_block, st);
-    case 8: return launch<8>(a, b, m, n, k, hi, lo, syrk_block, st);
-    case 9: return launch<9>(a, b, m, n, k, hi, lo, syrk_block, st);
+    case 1: return launch<1>(g, st);
+    case 2: return launch<2>(g, st);
+    case 3: return launch<3>(g, st);
+    case 4: return launch<4>(g, st);
+    case 5: return launch<5>(g, st);
+    case 6: return launch<6>(g, st);
+    case 7: return launch<7>(g, st);
+    case 8: return launch<8>(g, st);
+    case 9: return launch<9>(g, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -229,14 +261,26 @@ extern "C" {
 // k a multiple of 32. hi, lo: (m, n) float32.
 int dlaf_oz_product(int s, const void* ia, const void* ibt, int m, int n, int k, void* hi,
                     void* lo, void* stream) {
-  return dispatch(s, ia, ibt, m, n, k, hi, lo, 0, stream);
+  const Args g{ia, ibt, m, n, k, (long long)m * k, (long long)n * k, hi, lo, 0, nullptr, 1, 1};
+  return dispatch(s, g, stream);
 }
 
 // ia: (s, m, k) int8; hi, lo: (m, m) float32, valid on the 256-row blocks
 // on and below the block diagonal, zero above.
 int dlaf_oz_syrk(int s, const void* ia, int m, int k, int block, void* hi, void* lo,
                  void* stream) {
-  return dispatch(s, ia, ia, m, m, k, hi, lo, block, stream);
+  const Args g{ia, ia, m, m, k, (long long)m * k, (long long)m * k, hi, lo, block, nullptr, 1, 1};
+  return dispatch(s, g, stream);
+}
+
+// ia: (s, R, bm, k) int8; ib: (s, C, bn, k) int8 (both K-contiguous rows);
+// k a multiple of 32; mode: (R, C) int32, 0 = pair skipped (zeros). hi, lo:
+// (R, C, bm, bn) float32.
+int dlaf_oz_masked(int s, const void* ia, const void* ib, const void* mode, int R, int C,
+                   int bm, int bn, int k, void* hi, void* lo, void* stream) {
+  const Args g{ia, ib, bm, bn, k, (long long)R * bm * k, (long long)C * bn * k, hi, lo, 0, mode,
+               R, C};
+  return dispatch(s, g, stream);
 }
 
 }  // extern "C"

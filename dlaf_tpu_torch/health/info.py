@@ -1,10 +1,13 @@
 """Failure detection: info values from factor diagonals.
 
-Counterpart of ``dlaf_tpu/health/info.py:31-63``. A failed Cholesky leaves
+Counterpart of ``dlaf_tpu/health/info.py:31-92``. A failed Cholesky leaves
 NaN from its first failing column on, and NaN propagates through every
 later trailing update, so the FIRST non-finite diagonal entry of the final
 factor is the blocked algorithm's info: the 1-based first failing global
-column, 0 on success. Computed on the device, with no host sync.
+column, 0 on success. Computed on the device, with no host sync. On a
+grid each rank reads only the diagonal tiles it owns
+(:func:`dist_diag_bad`), and the distributed Cholesky merges the per-rank
+vectors with an all-reduce max over both grid axes.
 """
 
 from __future__ import annotations
@@ -42,3 +45,23 @@ def local_factor_info(a: torch.Tensor, *, singular: bool = False) -> torch.Tenso
         return torch.zeros((), dtype=torch.int32, device=a.device)
     return first_bad_info(bad_diag_mask(torch.diagonal(a, dim1=-2, dim2=-1),
                                         singular=singular))
+
+
+def dist_diag_bad(lt: torch.Tensor, rr: int, rc: int, *, Pr: int, Qc: int, nt: int, mb: int,
+                  n: int, singular: bool = False) -> torch.Tensor:
+    """Per-rank owner-masked bad-column vector: ``lt`` is the rank's shard
+    ``(ltr, ltc, mb, mb)``, ``rr``/``rc`` its cycle positions. A length-``n``
+    int32 vector, 1 exactly at the global diagonal columns of the diagonal
+    tiles this rank owns whose entry is bad, 0 elsewhere; owner sets are
+    disjoint, so a max over all ranks is the global vector."""
+    vec = torch.zeros((nt * mb,), dtype=torch.int32, device=lt.device)
+    ltr, ltc = lt.shape[0], lt.shape[1]
+    for lr in range(ltr):
+        g = lr * Pr + rr
+        if g >= nt or (g - rc) % Qc:
+            continue
+        lc = (g - rc) // Qc
+        if 0 <= lc < ltc:
+            bad = bad_diag_mask(torch.diagonal(lt[lr, lc]), singular=singular)
+            vec[g * mb:(g + 1) * mb] = bad.to(torch.int32)
+    return vec[:n]

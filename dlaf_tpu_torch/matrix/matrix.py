@@ -1,54 +1,108 @@
-"""Matrix container: one tile-storage tensor plus its distribution.
+"""Matrix container: tile storage, its distribution, and an optional grid.
 
-Counterpart of ``dlaf_tpu/matrix/matrix.py`` on the 1x1 grid. The storage
-is the 4-D tile tensor of :mod:`.tiling` on one device. Unlike the JAX
-reference the storage is a mutable tensor: an algorithm that is given
+Counterpart of ``dlaf_tpu/matrix/matrix.py``. A matrix on one rank (no
+grid, or a 1x1 grid) holds the 4-D tile tensor of :mod:`.tiling` on one
+device. A matrix on a grid of several ranks holds one shard ``(ltr, ltc,
+mb, nb)`` per rank, in row-major rank order, each on its rank's device
+(the block-cyclic local tiles of that rank, :func:`.tiling.split_shards`).
+Unlike the JAX reference the storage is mutable: an algorithm that is given
 ``donate=True`` may overwrite it, and the caller must not use the matrix
 afterwards.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from ..common.asserts import dlaf_assert
-from ..common.index2d import GlobalElementSize, TileElementSize
+from ..common.index2d import GlobalElementSize, GridSize2D, RankIndex2D, TileElementSize
 from ..types import torch_dtype
 from . import tiling
 from .distribution import Distribution
 
 
+def _make_dist(size, block_size, grid, source_rank) -> Distribution:
+    gs = grid.size if grid is not None else GridSize2D(1, 1)
+    return Distribution(size, block_size, grid_size=gs, source_rank=source_rank)
+
+
 class Matrix:
-    def __init__(self, dist: Distribution, storage: torch.Tensor):
-        Sr, Sc, _, _ = tiling.storage_tile_grid(dist)
-        expect = (Sr, Sc, dist.block_size.row, dist.block_size.col)
-        dlaf_assert(tuple(storage.shape) == expect,
-                    f"storage shape {tuple(storage.shape)} != {expect}")
+    def __init__(self, dist: Distribution, storage, grid=None):
         self.dist = dist
+        self.grid = grid
+        if grid is not None:
+            dlaf_assert(grid.size == dist.grid_size,
+                        f"grid {grid.size} != distribution grid {dist.grid_size}")
+        Sr, Sc, ltr, ltc = tiling.storage_tile_grid(dist)
+        mb, nb = dist.block_size.row, dist.block_size.col
+        if self.distributed:
+            P, Q = dist.grid_size.row, dist.grid_size.col
+            dlaf_assert(len(storage) == P * Q, f"{len(storage)} shards for a {P}x{Q} grid")
+            for i, s in enumerate(storage):
+                dlaf_assert(tuple(s.shape) == (ltr, ltc, mb, nb),
+                            f"shard {i} shape {tuple(s.shape)} != {(ltr, ltc, mb, nb)}")
+            storage = list(storage)
+        else:
+            dlaf_assert(tuple(storage.shape) == (Sr, Sc, mb, nb),
+                        f"storage shape {tuple(storage.shape)} != {(Sr, Sc, mb, nb)}")
         self.storage = storage
 
     @classmethod
-    def from_global(cls, a, block_size: TileElementSize, *,
-                    device="cuda") -> "Matrix":
-        """Tile a global matrix (numpy array or tensor) onto ``device``."""
-        t = torch.as_tensor(a, device=device)
-        dist = Distribution(GlobalElementSize(t.shape[0], t.shape[1]), block_size)
-        return cls(dist, tiling.global_to_tiles(t, dist))
+    def from_global(cls, a, block_size: TileElementSize, grid=None, *,
+                    source_rank: RankIndex2D = RankIndex2D(0, 0), device="cuda") -> "Matrix":
+        """Tile a global matrix (numpy array or tensor): onto ``device``
+        without a grid, else block-cyclically onto the grid's ranks."""
+        if grid is not None:
+            device = grid.device(0, 0)
+        t = torch.as_tensor(a, device=device if grid is None or grid.num_devices == 1
+                            else None)
+        dist = _make_dist(GlobalElementSize(t.shape[0], t.shape[1]), block_size, grid,
+                          source_rank)
+        tiles = tiling.global_to_tiles(t, dist)
+        if grid is None or grid.num_devices == 1:
+            return cls(dist, tiles, grid)
+        return cls(dist, tiling.split_shards(tiles, dist, grid.devices), grid)
 
     @classmethod
     def from_element_fn(cls, fn: Callable, size: GlobalElementSize,
-                        block_size: TileElementSize, *, dtype=np.float64,
+                        block_size: TileElementSize, grid=None, *, dtype=np.float64,
+                        source_rank: RankIndex2D = RankIndex2D(0, 0),
                         device="cuda") -> "Matrix":
         """Build from an element function ``fn(i, j)`` that broadcasts over
-        index tensors; evaluated on ``device`` in ``dtype``."""
-        i = torch.arange(size.row, device=device, dtype=torch.float64)
-        j = torch.arange(size.col, device=device, dtype=torch.float64)
-        a = fn(i[:, None], j[None, :]).to(torch_dtype(dtype))
-        dist = Distribution(size, block_size)
-        return cls(dist, tiling.global_to_tiles(a, dist))
+        float64 index tensors, evaluated in ``dtype`` on the device of
+        each rank, for that rank's local tiles only."""
+        tdt = torch_dtype(dtype)
+        dist = _make_dist(size, block_size, grid, source_rank)
+        if grid is None or grid.num_devices == 1:
+            dev = grid.device(0, 0) if grid is not None else device
+            i = torch.arange(size.row, device=dev, dtype=torch.float64)
+            j = torch.arange(size.col, device=dev, dtype=torch.float64)
+            return cls(dist, tiling.global_to_tiles(fn(i[:, None], j[None, :]).to(tdt), dist),
+                       grid)
+        _, _, ltr, ltc = tiling.storage_tile_grid(dist)
+        mb, nb = block_size.row, block_size.col
+        shards = []
+        for r in range(grid.size.row):
+            for c in range(grid.size.col):
+                i, j, mi, mj = tiling.shard_element_indices(dist, r, c, grid.device(r, c))
+                vals = fn(i[:, None], j[None, :]).to(tdt)
+                vals = torch.where(mi[:, None] & mj[None, :], vals, torch.zeros((), dtype=tdt,
+                                                                                device=i.device))
+                shards.append(vals.reshape(ltr, mb, ltc, nb).permute(0, 2, 1, 3).contiguous())
+        return cls(dist, shards, grid)
+
+    @property
+    def distributed(self) -> bool:
+        """Does the matrix live on a grid of more than one rank?"""
+        return self.grid is not None and self.grid.num_devices > 1
+
+    def shards(self) -> list:
+        """Per-rank tile storage, row-major rank order (one entry on one
+        rank)."""
+        return self.storage if self.distributed else [self.storage]
 
     @property
     def size(self) -> GlobalElementSize:
@@ -64,23 +118,33 @@ class Matrix:
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.storage.dtype
+        return self.shards()[0].dtype
 
     @property
     def device(self) -> torch.device:
-        return self.storage.device
+        """The device of rank (0, 0)."""
+        return self.shards()[0].device
 
     def to_global(self) -> torch.Tensor:
-        """The global matrix as a new tensor on the storage's device."""
-        return tiling.tiles_to_global(self.storage, self.dist)
+        """The global matrix as a new tensor on the device of rank (0, 0)."""
+        tiles = tiling.join_shards(self.storage, self.dist, self.device) \
+            if self.distributed else self.storage
+        return tiling.tiles_to_global(tiles, self.dist)
 
     def to_numpy(self) -> np.ndarray:
         return self.to_global().cpu().numpy()
 
-    def with_storage(self, storage: torch.Tensor) -> "Matrix":
-        """New Matrix sharing this layout."""
-        return Matrix(self.dist, storage)
+    def with_storage(self, storage) -> "Matrix":
+        """New Matrix sharing this layout and grid."""
+        return Matrix(self.dist, storage, self.grid)
+
+    def clone(self) -> "Matrix":
+        """A Matrix over copies of this one's tensors."""
+        if self.distributed:
+            return self.with_storage([s.clone() for s in self.storage])
+        return self.with_storage(self.storage.clone())
 
     def __str__(self) -> str:
+        g = f", grid={self.grid}" if self.grid is not None else ""
         return (f"Matrix(size={self.size}, block={self.block_size}, "
-                f"dtype={self.dtype}, device={self.device})")
+                f"dtype={self.dtype}, device={self.device}{g})")

@@ -5,14 +5,21 @@ Port of ``dlaf_tpu/miniapp/miniapp_cholesky.py`` (reference
 factorization, the flop model ``total_ops(n^3/6, n^3/6)``, and the same
 per-run line
 
-    [i] <t>s <gflops>GFlop/s <type><uplo> (m, m) (mb, mb) (1, 1) <threads> <backend>
+    [i] <t>s <gflops>GFlop/s <type><uplo> (m, m) (mb, mb) (P, Q) <threads> <backend>
 
 and check line ``check: PASSED|FAILED residual=... tol=...`` with
 ``tol = 60 n eps``. The residual ``|A - L L^H|_F / |A|_F`` is computed
 exactly on the device.
 
+On a grid (``--grid-rows``, ``--grid-cols``; ``--share-device`` to put
+every rank on one device) the matrix is distributed block-cyclically and
+factored by the distributed builder.
+
 Run:  python -m dlaf_tpu_torch.miniapp.miniapp_cholesky -m 16384 -b 256 --type s \\
           --dlaf:step-impl=fused --check-result last
+      python -m dlaf_tpu_torch.miniapp.miniapp_cholesky -m 16384 -b 256 --type s \\
+          --grid-rows 2 --grid-cols 2 --share-device --dlaf:step-impl=fused \\
+          --check-result last
 """
 
 from __future__ import annotations
@@ -27,14 +34,15 @@ import torch
 
 from .. import config
 from ..algorithms.cholesky import cholesky
+from ..comm.grid import Grid
+from ..comm.sync import barrier
 from ..common.index2d import GlobalElementSize, TileElementSize
-from ..common.sync import hard_fence
 from ..matrix.matrix import Matrix
 from ..tile_ops.blas import hermitian_from, tri_mask
 from ..types import total_ops, type_letter
 from .generators import hpd_element_fn
 from .options import (CheckIterFreq, add_miniapp_arguments, parse_miniapp_options,
-                      select_device)
+                      select_devices)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -52,25 +60,30 @@ def run(argv=None) -> list[dict]:
     args, extra = build_parser().parse_known_args(argv)
     config.initialize(argv=extra)
     opts = parse_miniapp_options(args)
-    device = select_device(opts)
+    devices = select_devices(opts)
+    grid = Grid(opts.grid_rows, opts.grid_cols, devices=devices,
+                ordering=config.get_configuration().grid_ordering)
+    device = devices[0]
     n, nb = args.matrix_size, args.block_size
     ref = Matrix.from_element_fn(hpd_element_fn(n, opts.dtype), GlobalElementSize(n, n),
-                                 TileElementSize(nb, nb), dtype=opts.dtype, device=device)
+                                 TileElementSize(nb, nb), grid if grid.num_devices > 1 else None,
+                                 dtype=opts.dtype, device=device)
     flops = total_ops(opts.dtype, n**3 / 6, n**3 / 6)
     threads = os.cpu_count()
     results = []
     for run_i in range(-opts.nwarmups, opts.nruns):
-        mat = ref.with_storage(ref.storage.clone())   # fresh copy per run
-        hard_fence(mat.storage)
+        mat = ref.clone()   # fresh copy per run
+        barrier(mat)
         t0 = time.perf_counter()
         out = cholesky(args.uplo, mat, donate=True)
-        hard_fence(out.storage)
+        barrier(out)
         t = time.perf_counter() - t0
         if run_i < 0:
             continue
         gflops = flops / t / 1e9
         print(f"[{run_i}] {t:.6f}s {gflops:.2f}GFlop/s {type_letter(opts.dtype)}{args.uplo} "
-              f"({n}, {n}) ({nb}, {nb}) (1, 1) {threads} {device.type}", flush=True)
+              f"({n}, {n}) ({nb}, {nb}) ({opts.grid_rows}, {opts.grid_cols}) {threads} "
+              f"{device.type}", flush=True)
         results.append({"run": run_i, "time_s": t, "gflops": gflops})
         if opts.check is CheckIterFreq.ALL or (
                 opts.check is CheckIterFreq.LAST and run_i == opts.nruns - 1):

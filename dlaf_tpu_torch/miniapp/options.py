@@ -1,10 +1,13 @@
 """Shared miniapp options.
 
 Counterpart of ``dlaf_tpu/miniapp/options.py`` (reference
-``miniapp/include/dlaf/miniapp/options.h``): runs, warm-ups, the
-check-result mode, the element type, and the device. ``--backend`` is
-``cuda`` (the default) or ``cpu``; asking for ``cuda`` where there is no
-GPU raises.
+``miniapp/include/dlaf/miniapp/options.h``): the process grid, runs,
+warm-ups, the check-result mode, the element type, and the device.
+``--backend`` is ``cuda`` (the default) or ``cpu``; asking for ``cuda``
+where there is no GPU raises. A ``--grid-rows`` x ``--grid-cols`` grid
+takes one visible device per rank and raises when there are fewer;
+``--share-device`` puts every rank on the one device of ``--backend``
+(the counterpart of the reference's virtual CPU devices).
 """
 
 from __future__ import annotations
@@ -27,6 +30,9 @@ class CheckIterFreq(enum.Enum):
 
 @dataclasses.dataclass
 class MiniappOptions:
+    grid_rows: int = 1
+    grid_cols: int = 1
+    share_device: bool = False
     nruns: int = 1
     nwarmups: int = 1
     check: CheckIterFreq = CheckIterFreq.NONE
@@ -35,6 +41,10 @@ class MiniappOptions:
 
 
 def add_miniapp_arguments(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--grid-rows", type=int, default=1, help="process grid rows")
+    parser.add_argument("--grid-cols", type=int, default=1, help="process grid cols")
+    parser.add_argument("--share-device", action="store_true",
+                        help="put every rank of the grid on the one device of --backend")
     parser.add_argument("--nruns", type=int, default=1, help="timed runs")
     parser.add_argument("--nwarmups", type=int, default=1, help="warmup runs")
     parser.add_argument("--check-result", choices=[c.value for c in CheckIterFreq],
@@ -46,7 +56,9 @@ def add_miniapp_arguments(parser: argparse.ArgumentParser) -> None:
 
 
 def parse_miniapp_options(args: argparse.Namespace) -> MiniappOptions:
-    return MiniappOptions(nruns=args.nruns, nwarmups=args.nwarmups,
+    return MiniappOptions(grid_rows=args.grid_rows, grid_cols=args.grid_cols,
+                          share_device=args.share_device, nruns=args.nruns,
+                          nwarmups=args.nwarmups,
                           check=CheckIterFreq(args.check_result),
                           dtype=ELEMENT_TYPES[args.type], backend=args.backend)
 
@@ -56,3 +68,23 @@ def select_device(opts: MiniappOptions) -> torch.device:
     if opts.backend == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--backend cuda requested but no CUDA device is visible")
     return torch.device(opts.backend)
+
+
+def select_devices(opts: MiniappOptions) -> list:
+    """One device per rank of the grid, in rank order: the visible devices
+    of ``--backend``, or its one device repeated with ``--share-device``.
+    Raises when the grid needs more devices than are visible."""
+    need = opts.grid_rows * opts.grid_cols
+    if need < 1:
+        raise SystemExit(f"invalid grid {opts.grid_rows}x{opts.grid_cols}")
+    device = select_device(opts)
+    if opts.share_device:
+        return [device] * need
+    visible = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+               if device.type == "cuda" else [device])
+    if len(visible) < need:
+        raise SystemExit(
+            f"grid {opts.grid_rows}x{opts.grid_cols} needs {need} devices but only "
+            f"{len(visible)} {device.type} device(s) are visible; pass --share-device to put "
+            "every rank on one device, or shrink the grid")
+    return visible[:need]

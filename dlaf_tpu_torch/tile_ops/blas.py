@@ -1,11 +1,13 @@
 """BLAS tile operations on torch.
 
 Counterpart of ``dlaf_tpu/tile_ops/blas.py`` (reference ``blas/tile.h``),
-cut to what the local Cholesky reads. These are the composed route: plain
+cut to what the local and distributed Cholesky read. These are the
+composed route: plain
 ``torch.matmul`` and ``torch.linalg.solve_triangular``, the port's analog
 of the reference's XLA route. The triangle a routine does not own passes
 through, as in LAPACK. The f64/complex128 route decisions (``mm_mxu``,
-``f64_gemm_uses_mxu``, ``trsm_panel_uses_mixed``) live here too, as in
+``f64_gemm_uses_mxu``, ``trsm_panel_uses_mixed``) and the product and
+panel solve that follow them (``mm``, ``trsm_panel``) live here too, as in
 the reference.
 """
 
@@ -124,3 +126,53 @@ def trsm_panel_uses_mixed(dtype: torch.dtype, device_type: str) -> bool:
     """Does ``f64_trsm`` route this dtype's panels through the mixed
     f32-seed + Newton factor and inverse (:mod:`.mixed`)?"""
     return config.resolve("f64_trsm", device_type) == "mixed" and dtype in _F64
+
+
+def _mxu_f64(a: torch.Tensor, b: torch.Tensor, dims) -> bool:
+    """Does ``f64_gemm`` put this product on the Ozaki route? Both
+    operands float64/complex128 and every dimension at least
+    ``f64_gemm_min_dim`` (the reference's ``_mxu_f64``)."""
+    return (config.resolve("f64_gemm", a.device.type) == "mxu"
+            and a.dtype in _F64 and b.dtype in _F64
+            and min(dims) >= config.get_configuration().f64_gemm_min_dim)
+
+
+def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with the ``f64_gemm="mxu"`` reroute (the reference's
+    ``_mm``). A stacked operand (a 3-D ``a`` against a 2-D ``b``, or the
+    reverse) goes through ONE Ozaki product of the stacked rows (columns):
+    the row and column scales are those of the per-tile products, so the
+    result is the same."""
+    if not _mxu_f64(a, b, (a.shape[-2], a.shape[-1], b.shape[-1])):
+        return a @ b
+    if a.dim() == 3 and b.dim() == 2:
+        return mm_mxu(a.reshape(-1, a.shape[-1]), b).reshape(*a.shape[:2], b.shape[-1])
+    if a.dim() == 2 and b.dim() == 3:
+        R, k, n = b.shape
+        out = mm_mxu(a, b.permute(1, 0, 2).reshape(k, R * n))
+        return out.reshape(a.shape[0], R, n).permute(1, 0, 2)
+    return mm_mxu(a, b)
+
+
+def trsm_panel(side: str, uplo: str, op_a: str, diag: str, a, b, *, alpha=1.0, inv_a=None):
+    """``trsm`` of ONE triangular tile ``a`` against a possibly stacked
+    rhs ``b`` (the distributed builders' per-tile panel solve). With
+    ``f64_trsm="mixed"`` (float64/complex128) the solve is the refined
+    explicit inverse (``inv_a`` when given, else :func:`..mixed.
+    tri_inv_refined`) times :func:`mm`, which follows ``f64_gemm``;
+    otherwise ``a`` broadcasts into the native solve."""
+    if (trsm_panel_uses_mixed(a.dtype, a.device.type) and a.dim() == 2
+            and b.dtype == a.dtype):
+        from . import mixed as mx
+
+        inv = inv_a
+        if inv is None:
+            t = tri_mask(a, uplo)
+            if diag == "U":
+                t = t - torch.diag_embed(torch.diagonal(t)) + torch.eye(
+                    t.shape[-1], dtype=t.dtype, device=t.device)
+            inv = mx.tri_inv_refined(t, lower=uplo == "L")
+        ti = _op(inv, op_a)
+        prod = mm(ti, b) if side == "L" else mm(b, ti)
+        return (alpha * prod).to(b.dtype)
+    return trsm(side, uplo, op_a, diag, a, b, alpha=alpha)

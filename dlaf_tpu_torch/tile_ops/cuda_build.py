@@ -6,11 +6,17 @@ in ``.gitignore``) at first use, keyed by a hash of the source and the
 flags, and loaded with ``ctypes``. :func:`build_all` starts one ``nvcc``
 per source together and waits for all of them, so the build takes as long
 as the slowest source. Nothing here runs at import time.
+
+A ctypes launch goes to the CUDA device that is current, which PyTorch's
+own operators set for themselves and a raw launch does not: every kernel
+wrapper is decorated with :func:`on_device`, so that a grid whose ranks sit
+on several cards launches each rank's kernels on that rank's card.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -115,3 +121,19 @@ def stream(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def on_device(fn):
+    """Decorator for a kernel wrapper: run it with the CUDA device of its
+    first tensor argument current."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kw):
+        import torch
+
+        t = next((a for a in args if isinstance(a, torch.Tensor)), None)
+        if t is None or not t.is_cuda:
+            return fn(*args, **kw)
+        with torch.cuda.device(t.device):
+            return fn(*args, **kw)
+
+    return wrapper

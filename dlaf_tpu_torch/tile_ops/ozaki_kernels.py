@@ -1,7 +1,7 @@
 """Hand-written Hopper kernels of the Ozaki slice products, and their plain
 PyTorch versions.
 
-Counterpart of ``dlaf_tpu/tile_ops/pallas_ozaki.py``. Two wrappers over
+Counterpart of ``dlaf_tpu/tile_ops/pallas_ozaki.py``. Three wrappers over
 one CUDA kernel template in ``csrc/ozaki.cu`` (built with ``nvcc`` for
 ``sm_90a`` at first use into ``_build/``, bound with ``ctypes``; see
 :mod:`.cuda_build`):
@@ -15,6 +15,12 @@ one CUDA kernel template in ``csrc/ozaki.cu`` (built with ``nvcc`` for
     Replaces ``pallas_ozaki.fused_slice_syrk`` (:249, call :269): the same
     fold for ``IA @ IA^T``, valid on the 256-row blocks on and below the
     block diagonal, zero above (the caller mirrors).
+:func:`ozaki_masked_product`
+    Replaces ``pallas_ozaki.masked_slice_product`` (:185, call :208): the
+    fold per tile pair ``(r, c)`` of ``ia`` (s, R, bm, K) and ``ib``
+    (s, C, bn, K), both contracting their last axis, predicated on a mode
+    table: pairs with mode 0 skip their products and come out zero. The
+    distributed Cholesky's exact-flop float64 trailing update.
 
 Each output element is the double-f32 fold of exact integer group sums in
 the order of the reference's ``_fold_body``, so kernel, plain version and
@@ -49,8 +55,12 @@ SYRK_BLOCK = 256
 #: Most slices the kernel is instantiated for (``f64_gemm_slices`` <= 9).
 MAX_SLICES = 9
 
+#: Largest tile edge (bm, bn and K) the masked pair product takes (the
+#: reference's ``MASKED_MB_MAX``).
+MASKED_MB_MAX = 256
+
 #: Calls that launched each kernel (plain integers).
-LAUNCHES = {"ozaki_product": 0, "ozaki_syrk": 0}
+LAUNCHES = {"ozaki_product": 0, "ozaki_syrk": 0, "ozaki_masked_product": 0}
 
 
 def reset_launches() -> None:
@@ -62,7 +72,9 @@ def _bind(lib) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.dlaf_oz_product.argtypes = [I, P, P, I, I, I, P, P, P]
     lib.dlaf_oz_syrk.argtypes = [I, P, I, I, I, P, P, P]
-    lib.dlaf_oz_product.restype = lib.dlaf_oz_syrk.restype = I
+    lib.dlaf_oz_masked.argtypes = [I, P, P, P, I, I, I, I, I, P, P, P]
+    for fn in (lib.dlaf_oz_product, lib.dlaf_oz_syrk, lib.dlaf_oz_masked):
+        fn.restype = I
 
 
 #: ``csrc/ozaki.cu``, built at first use into ``_build/``. No FMA
@@ -123,6 +135,19 @@ def ozaki_syrk_plain(ia: torch.Tensor):
     return _zero_upper_blocks(hi), _zero_upper_blocks(lo)
 
 
+def ozaki_masked_product_plain(ia: torch.Tensor, ib: torch.Tensor, mode: torch.Tensor):
+    """``(hi, lo)`` of the per-pair slice product (see
+    :func:`ozaki_masked_product`): the whole rectangle, then the mode-0
+    pairs zeroed."""
+    s, R, bm, k = ia.shape
+    C, bn = ib.shape[1], ib.shape[2]
+    hi, lo = _fold(group_sums(ia.reshape(s, R * bm, k), ib.reshape(s, C * bn, k)),
+                   (R * bm, C * bn), ia.device)
+    live = (mode.to(ia.device) != 0)[:, :, None, None]
+    return tuple(torch.where(live, x.reshape(R, bm, C, bn).permute(0, 2, 1, 3), 0.0)
+                 for x in (hi, lo))
+
+
 # ---------------------------------------------------------------------------
 # Wrappers: kernel on a CUDA tensor, plain version on a CPU tensor
 # ---------------------------------------------------------------------------
@@ -155,6 +180,7 @@ def _k_rows(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous()
 
 
+@cb.on_device
 def ozaki_product(ia: torch.Tensor, ib: torch.Tensor):
     """Fused all-shift Ozaki fold of stacked int8 slices ``ia`` (s, M, K)
     and ``ib`` (s, K, N): float32 ``(hi, lo)`` (M, N) with
@@ -179,6 +205,7 @@ def ozaki_product(ia: torch.Tensor, ib: torch.Tensor):
     return hi, lo
 
 
+@cb.on_device
 def ozaki_syrk(ia: torch.Tensor):
     """Symmetric fused fold: float32 ``(hi, lo)`` (M, M) of ``IA @ IA^T``
     for stacked int8 slices ``ia`` (s, M, K), valid on the 256-row blocks
@@ -199,4 +226,43 @@ def ozaki_syrk(ia: torch.Tensor):
                                          hi.data_ptr(), lo.data_ptr(), cb.stream(ia)),
              "ozaki_syrk")
     LAUNCHES["ozaki_syrk"] += 1
+    return hi, lo
+
+
+@cb.on_device
+def ozaki_masked_product(ia: torch.Tensor, ib: torch.Tensor, mode: torch.Tensor):
+    """Per-tile-pair Ozaki fold, predicated on ``mode``: for int8 slices
+    ``ia`` (s, R, bm, K) and ``ib`` (s, C, bn, K), float32 ``(hi, lo)``
+    (R, C, bm, bn) with ``hi + lo ~= sum_{t+u=d<s} 2^-7(d+2) IA_t[r] @
+    IB_u[c]^T`` where ``mode[r, c] != 0``, zeros where it is 0; the caller
+    applies ``*4*sa*sb`` in float64 and its element masks.
+
+    Replaces ``pallas_ozaki.masked_slice_product``. The same kernel as
+    :func:`ozaki_product`, one grid layer per pair; mode-0 pairs write
+    zeros and skip their products."""
+    if ia.device.type == "cpu":
+        return ozaki_masked_product_plain(ia, ib, mode)
+    if not (ia.is_cuda and ib.device == ia.device and mode.device == ia.device):
+        raise ValueError(f"ozaki_masked_product: operands on {ia.device}, {ib.device}, "
+                         f"{mode.device}")
+    if ia.dtype != torch.int8 or ib.dtype != torch.int8 or ia.dim() != 4 or ib.dim() != 4:
+        raise TypeError(f"ozaki_masked_product takes 4-D int8 slice stacks, got {ia.dtype} "
+                        f"{tuple(ia.shape)} and {ib.dtype} {tuple(ib.shape)}")
+    s, R, bm, k = ia.shape
+    C, bn = ib.shape[1], ib.shape[2]
+    if ib.shape[0] != s or ib.shape[3] != k or tuple(mode.shape) != (R, C):
+        raise ValueError(f"ozaki_masked_product: ia {tuple(ia.shape)}, ib {tuple(ib.shape)}, "
+                         f"mode {tuple(mode.shape)} do not match")
+    if not 1 <= s <= MAX_SLICES:
+        raise ValueError(f"ozaki kernels take 1..{MAX_SLICES} slices, got {s}")
+    if max(bm, bn, k) > MASKED_MB_MAX:
+        raise ValueError(f"ozaki_masked_product: tile edge {max(bm, bn, k)} > {MASKED_MB_MAX}")
+    a, b = _k_rows(ia), _k_rows(ib)
+    mode = mode.to(torch.int32).contiguous()
+    hi = torch.empty((R, C, bm, bn), dtype=torch.float32, device=ia.device)
+    lo = torch.empty_like(hi)
+    cb.check(LIBRARY.load().dlaf_oz_masked(s, a.data_ptr(), b.data_ptr(), mode.data_ptr(), R, C,
+                                           bm, bn, a.shape[-1], hi.data_ptr(), lo.data_ptr(),
+                                           cb.stream(ia)), "ozaki_masked_product")
+    LAUNCHES["ozaki_masked_product"] += 1
     return hi, lo

@@ -59,7 +59,6 @@ however many CUDA launches the call makes.
 from __future__ import annotations
 
 import ctypes
-import sys
 
 import torch
 
@@ -77,8 +76,6 @@ SUPPORTED = (torch.float32, torch.bfloat16)
 
 #: Calls that launched each kernel family (plain integers).
 LAUNCHES = {"potrf": 0, "solve": 0, "factor_solve": 0, "step": 0}
-
-_announced: set = set()
 
 
 def reset_launches() -> None:
@@ -254,6 +251,7 @@ def step_plain(uplo: str, diag: torch.Tensor, strip: torch.Tensor, slab: torch.T
 # Wrappers: kernel on a CUDA tensor, plain version on a CPU tensor
 # ---------------------------------------------------------------------------
 
+@cb.on_device
 def potrf(uplo: str, a: torch.Tensor) -> torch.Tensor:
     """Cholesky factor of one tile (see :func:`potrf_plain`).
 
@@ -274,6 +272,7 @@ def potrf(uplo: str, a: torch.Tensor) -> torch.Tensor:
     return out if uplo == "L" else out.mT
 
 
+@cb.on_device
 def panel_solve(side: str, uplo: str, op: str, diag: str, a: torch.Tensor,
                 b: torch.Tensor, *, alpha=1.0) -> torch.Tensor:
     """Panel TRSM against one triangular tile (see :func:`panel_solve_plain`).
@@ -313,6 +312,7 @@ def panel_solve(side: str, uplo: str, op: str, diag: str, a: torch.Tensor,
     return out.reshape(shape)
 
 
+@cb.on_device
 def factor_solve(uplo: str, diag: torch.Tensor, strip: torch.Tensor):
     """Potrf + whole-strip solve (see :func:`factor_solve_plain`).
 
@@ -351,6 +351,7 @@ def factor_solve(uplo: str, diag: torch.Tensor, strip: torch.Tensor):
     return fac, out.reshape(shape)
 
 
+@cb.on_device
 def step(uplo: str, diag: torch.Tensor, strip: torch.Tensor, slab: torch.Tensor):
     """One fused blocked step (see :func:`step_plain`).
 
@@ -400,12 +401,9 @@ def step(uplo: str, diag: torch.Tensor, strip: torch.Tensor, slab: torch.Tensor)
 def _fits(dtype: torch.dtype, nb: int, knob: str) -> bool:
     if dtype in SUPPORTED and nb <= PANEL_MB_MAX:
         return True
-    key = (knob, dtype, nb)
-    if key not in _announced:
-        _announced.add(key)
-        print(f"[dlaf_tpu_torch] {knob}=fused does not apply to dtype={dtype} "
-              f"nb={nb} (needs float32/bfloat16, nb<={PANEL_MB_MAX}); "
-              "using the composed route", file=sys.stderr)
+    config.announce_once((knob, dtype, nb),
+                         f"{knob}=fused does not apply to dtype={dtype} nb={nb} (needs "
+                         f"float32/bfloat16, nb<={PANEL_MB_MAX}); using the composed route")
     return False
 
 

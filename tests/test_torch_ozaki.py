@@ -287,5 +287,10 @@ def test_cpu_wrappers_run_plain_versions_without_launching():
         assert torch.equal(g, r)
     for g, r in zip(ok.ozaki_syrk(ia), ok.ozaki_syrk_plain(ia)):
         assert torch.equal(g, r)
-    assert ok.LAUNCHES == {"ozaki_product": 0, "ozaki_syrk": 0}
+    pairs = ia.reshape(4, 4, 5, 33)
+    mode = torch.tensor([[0, 1, 2, 1]] * 4, dtype=torch.int32)
+    for g, r in zip(ok.ozaki_masked_product(pairs, pairs, mode),
+                    ok.ozaki_masked_product_plain(pairs, pairs, mode)):
+        assert torch.equal(g, r)
+    assert ok.LAUNCHES == {"ozaki_product": 0, "ozaki_syrk": 0, "ozaki_masked_product": 0}
     assert ok.LIBRARY.path().endswith(".so") and ok.LIBRARY.path() == ok.LIBRARY.path()
