@@ -7,16 +7,22 @@ Run from the repository root with no arguments:
 
 It builds the hand-written kernels (``dlaf_tpu_torch/csrc/panel.cu``,
 ``csrc/ozaki.cu`` and ``csrc/update.cu``, one nvcc each, started together)
-from the checkout and holds each kernel against its plain PyTorch version
-on the card: the panel kernels (potrf, strip solve, factor+solve, fused
-step) in float32 and bfloat16, on a ragged tile and an indefinite one; the
-Ozaki slice kernels (product, syrk) bit for bit at the main path's shapes,
-a ragged shape and K=1024; the distributed Cholesky's two kernels at the
+from the checkout, prints ptxas's registers, shared memory and spills of
+the potrf and slice kernels (and fails on a spill), and holds each kernel
+against its plain PyTorch version on the card: the panel kernels (potrf,
+strip solve, factor+solve, fused step) in float32 and bfloat16, potrf alone
+at d = 256, 200, 129, 64, 9, 8 and 1, and indefinite tiles with the failing
+pivot at columns 1, 8, 9, 38 and d or exactly zero (equal info and NaN
+masks through potrf, factor+solve and step); the Ozaki slice kernels
+(product, syrk) bit for bit at the main path's shapes, ragged shapes, K =
+32, 224, 256 and 1024 and 1, 2, 8 and 9 slices; the distributed Cholesky's two kernels at the
 shapes of its first step on one rank of a 2x2 grid (N=16384, nb=256: 32 x
 32 tile pairs) and on ragged tiles: the predicated trailing update in
 float32 and bfloat16, modes 0-3, in place on a strided view of a shard,
-and the predicated Ozaki pair product bit for bit. It times each kernel,
-its plain version and a PyTorch library yardstick with CUDA events, then
+and the predicated Ozaki pair product bit for bit (also with every pair
+dead and every pair live). It times each kernel, its plain version and a
+PyTorch library yardstick with CUDA events (the kernel also over 50
+back-to-back calls, without the host's work per call), then
 drives the port's main paths through ``miniapp_cholesky.run``, each with
 its launch counts:
 
@@ -97,6 +103,43 @@ def time_ms(torch, fn, reps: int = 25, warm: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def batch_ms(torch, fn, calls: int = 50, warm: int = 3) -> float:
+    """CUDA-event time per call over ``calls`` back-to-back calls: the
+    card's time for the work while the host keeps ahead of it (a single
+    call's event time also holds that call's host work)."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def ptxas_report(libs, kernels) -> None:
+    """Print ``-Xptxas -v``'s registers, shared memory and spills of each
+    named kernel from this run's build; raise if one of them spills or is
+    missing from the report."""
+    seen = set()
+    for lib in libs:
+        lines = lib.log.splitlines()
+        for i, line in enumerate(lines):
+            name = next((k for k in kernels if k in line), None)
+            if name is None or "Function properties" not in line:
+                continue
+            seen.add(name)
+            spills, regs = lines[i + 1].strip(), lines[i + 2].split(":", 1)[-1].strip()
+            print(f"[ptxas] {name}: {regs}; {spills}", flush=True)
+            if "0 bytes spill stores, 0 bytes spill loads" not in spills:
+                raise AssertionError(f"{name} spills registers: {spills}")
+    if set(kernels) - seen:
+        raise AssertionError(f"ptxas reported nothing for {sorted(set(kernels) - seen)}")
 
 
 def rel_err(torch, got, ref) -> tuple[float, float]:
@@ -222,7 +265,9 @@ def dist_kernels(torch, dev, randn, rows, check, time_ms, bound, card, uk, ok, o
         return torch.stack(oz._peel_slices(oz._normalize(x, sc), s)).reshape(s, count, b, -1)
 
     for case, (r_, c_, b_, mode) in (("step-0", (R, C, nb, step0["L"])),
-                                     ("ragged mb=200", (5, 3, 200, rng.integers(0, 3, (5, 3))))):
+                                     ("ragged mb=200", (5, 3, 200, rng.integers(0, 3, (5, 3)))),
+                                     ("all modes 0", (4, 3, nb, np.zeros((4, 3), np.int64))),
+                                     ("all live mb=136", (3, 4, 136, np.ones((3, 4), np.int64)))):
         ia = pair_slices(randn(r_ * b_, b_, dtype=torch.float64), r_, b_)
         ib = pair_slices(randn(c_ * b_, b_, dtype=torch.float64), c_, b_)
         mt = modes_tensor(mode)
@@ -266,10 +311,12 @@ def dist_kernels(torch, dev, randn, rows, check, time_ms, bound, card, uk, ok, o
     for name, (kern, plain, lib, label, nbytes, ops, kind) in timings.items():
         lib_ms = time_ms(torch, lib)
         bms, by = bound(nbytes, ops, kind)
-        rows[name].update(ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain, reps=3),
-                          library_ms=lib_ms, bound_ms=bms, bound_by=by)
+        rows[name].update(ms=time_ms(torch, kern), batch_ms=batch_ms(torch, kern),
+                          plain_ms=time_ms(torch, plain, reps=3), library_ms=lib_ms, bound_ms=bms,
+                          bound_by=by)
         r = rows[name]
-        print(f"[time] {name:22s} kernel={r['ms']:.4f} ms plain={r['plain_ms']:.4f} ms "
+        print(f"[time] {name:22s} kernel={r['ms']:.4f} ms (batched {r['batch_ms']:.4f} ms) "
+              f"plain={r['plain_ms']:.4f} ms "
               f"{label}={lib_ms:.4f} ms bound={bms:.5f} ms ({by}; {live} live pairs of "
               f"{R}x{C}) [{card}]", flush=True)
 
@@ -305,6 +352,9 @@ def main() -> int:
     print(f"[build] panel, ozaki and update kernels built and loaded in "
           f"{time.perf_counter() - t0:.1f} s ({pk.library_path()}, {ok.LIBRARY.path()}, "
           f"{uk.LIBRARY.path()})", flush=True)
+    if pk.LIBRARY.log and ok.LIBRARY.log:   # built here, not found from an earlier build
+        ptxas_report((pk.LIBRARY, ok.LIBRARY), ("potrf_kernelIf", "potrf_kernelI13__nv_bfloat16",
+                                                "slice_fold_kernel"))
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(20261016)
@@ -382,36 +432,62 @@ def main() -> int:
                 got, ref = pk.factor_solve(uplo, dg, batch), pk.factor_solve_plain(uplo, dg, batch)
                 check("factor_solve", f"{case} batch (5,{dd},{dd}) uplo={uplo}",
                       list(zip(got, ref)), dt, dd)
-    # indefinite tile: the failing column and the NaN pattern must match
-    bad = hpd(d)
-    bad[37, 37] = -1000.0
-    strip, slab = randn(m, d), randn(m, d)
-    for name, got, ref in (("potrf", (pk.potrf("L", bad),), (pk.potrf_plain("L", bad),)),
-                           ("step", pk.step("L", bad, strip, slab),
-                            pk.step_plain("L", bad, strip, slab)),
-                           ("factor_solve", pk.factor_solve("L", bad, strip),
-                            pk.factor_solve_plain("L", bad, strip))):
-        info_k, info_p = int(local_factor_info(got[0])), int(local_factor_info(ref[0]))
-        for g, r in zip(got, ref):
-            rel_err(torch, g, r)   # raises when the NaN patterns differ
-        print(f"[kernel] {name:12s} indefinite tile (pivot 38 < 0)    info kernel={info_k} "
-              f"plain={info_p} NaN patterns equal", flush=True)
-        if not info_k == info_p == 38:
-            raise AssertionError(f"{name}: info kernel={info_k} plain={info_p}, expected 38")
+    # potrf alone at every edge of its micro-panel pairing (d = 1 .. 256)
+    for dt in (torch.float32, torch.bfloat16):
+        tname = str(dt).split(".")[1]
+        for dd in (256, 200, 129, 64, 9, 8, 1):
+            diag = hpd(dd).to(dt)
+            for uplo in ("L", "U"):
+                dg = diag if uplo == "L" else diag.mT.contiguous()
+                check("potrf", f"{tname} d={dd} uplo={uplo}",
+                      [(pk.potrf(uplo, dg), pk.potrf_plain(uplo, dg))], dt, dd)
+    # indefinite tiles: the failing column and the whole NaN pattern must
+    # match, through the factor alone and the two entries that factor
+    # first; pivots at the edges of micro-panels and pairs, and an exactly
+    # zero pivot (a zero row and column)
+    for dd in (256, 200):
+        strip, slab = randn(300, dd), randn(300, dd)
+        for piv in (1, 8, 9, 38, dd, "zero"):
+            bad = hpd(dd)
+            if piv == "zero":
+                bad[37, :] = 0.0
+                bad[:, 37] = 0.0
+            else:
+                bad[piv - 1, piv - 1] = -1000.0
+            want = 38 if piv == "zero" else piv
+            for name, got, ref in (("potrf", (pk.potrf("L", bad),), (pk.potrf_plain("L", bad),)),
+                                   ("step", pk.step("L", bad, strip, slab),
+                                    pk.step_plain("L", bad, strip, slab)),
+                                   ("factor_solve", pk.factor_solve("L", bad, strip),
+                                    pk.factor_solve_plain("L", bad, strip))):
+                info_k, info_p = int(local_factor_info(got[0])), int(local_factor_info(ref[0]))
+                for g, r in zip(got, ref):
+                    rel_err(torch, g, r)   # raises when the non-finite patterns differ
+                    if not torch.equal(torch.isnan(g.float()), torch.isnan(r.float())):
+                        raise AssertionError(f"{name} d={dd} pivot {piv}: NaN masks differ")
+                print(f"[kernel] {name:12s} indefinite d={dd} pivot {piv}: info kernel={info_k} "
+                      f"plain={info_p}, NaN masks equal", flush=True)
+                if not info_k == info_p == want:
+                    raise AssertionError(f"{name} d={dd} pivot {piv}: info kernel={info_k} "
+                                         f"plain={info_p}, expected {want}")
     torch.cuda.synchronize()
 
     # Ozaki slice kernels: bit for bit against the plain versions, on the
     # slices of random float64 operands
-    s = 8
-
-    def slices(x, dim):
+    def slices(x, dim, s=8):
         sc = oz._scale(x, dim)
         return torch.stack(oz._peel_slices(oz._normalize(x, sc), s))
 
-    for case, (mm, nn, kk) in (("main path", (m, d, d)), ("ragged", (1000, 200, 200)),
-                               ("K=1024", (600, 300, 1024))):
+    # main path, then ragged tiles (M, N not multiples of the 128-row tile,
+    # syrk m not a multiple of its 256-row block), every K edge of a
+    # 128-byte stage (K=200 is padded to 224), and 1, 2, 8 and 9 slices
+    for case, (mm, nn, kk, s) in (("main path", (m, d, d, 8)), ("ragged", (1000, 200, 200, 8)),
+                                  ("K=1024", (600, 300, 1024, 8)), ("K=32 s=1", (300, 130, 32, 1)),
+                                  ("K=224 s=2", (333, 257, 200, 2)), ("s=9", (129, 77, 256, 9)),
+                                  ("K=1024 s=9", (1000, 200, 1024, 9)),
+                                  ("K=224 s=9", (513, 9, 200, 9))):
         a, b = randn(mm, kk, dtype=torch.float64), randn(kk, nn, dtype=torch.float64)
-        ia, ib = slices(a, -1), slices(b, -2)
+        ia, ib = slices(a, -1, s), slices(b, -2, s)
         for name, got, ref in (("ozaki_product", ok.ozaki_product(ia, ib),
                                 ok.ozaki_product_plain(ia, ib)),
                                ("ozaki_syrk", ok.ozaki_syrk(ia), ok.ozaki_syrk_plain(ia))):
@@ -431,6 +507,7 @@ def main() -> int:
     diag, strip, slab = hpd(d), randn(m, d), randn(m, d)
     fac = pk.potrf_plain("L", diag)
     lfac = torch.tril(fac)
+    s = 8
     a64, b64 = randn(m, d, dtype=torch.float64), randn(d, d, dtype=torch.float64)
     ia, ib = slices(a64, -1), slices(b64, -2)
 
@@ -478,11 +555,13 @@ def main() -> int:
     for name, (kern, plain, lib, label, composed, nbytes, ops, kind) in timings.items():
         lib_ms = time_ms(torch, lib)
         bms, by = bound(nbytes, ops, kind)
-        rows[name].update(ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain, reps=10),
+        rows[name].update(ms=time_ms(torch, kern), batch_ms=batch_ms(torch, kern),
+                          plain_ms=time_ms(torch, plain, reps=10),
                           library_ms=None if composed else lib_ms, bound_ms=bms, bound_by=by)
         r = rows[name]
-        print(f"[time] {name:13s} kernel={r['ms']:.4f} ms plain={r['plain_ms']:.4f} ms "
-              f"{label}={lib_ms:.4f} ms bound={bms:.5f} ms ({by}) [{card}]", flush=True)
+        print(f"[time] {name:13s} kernel={r['ms']:.4f} ms (batched {r['batch_ms']:.4f} ms) "
+              f"plain={r['plain_ms']:.4f} ms {label}={lib_ms:.4f} ms bound={bms:.5f} ms ({by}) "
+              f"[{card}]", flush=True)
     # the whole wrappers around the slice kernels (scale, peel, kernel,
     # hi + lo, mirror, scales), beside the same float64 library products
     config.initialize(argv=["--dlaf:ozaki-impl=pallas"])

@@ -10,18 +10,32 @@
 // The TPU kernels keep the tile, its inverse and the solved leading strip
 // block in VMEM across a grid that runs in order. On this card a block has
 // at most 227 KB of shared memory and blocks run in no order, so:
-//   * the factor and the inverse run on ONE block each, over f32 working
-//     copies in global memory (256 KiB at d=256, resident in the 50 MB L2);
-//     only the current d x 8 micro-panel (or the 8 x 8 diagonal block of the
-//     inverse) is staged in shared memory;
+//   * the factor runs on ONE block of 512 threads with the whole lower
+//     triangle resident in shared memory (rows packed, each padded to a
+//     multiple of 8 floats: 135 KB at d = 256). Its work is small (d^3/3
+//     = 5.6 MFLOP at d = 256) and its column steps form a dependent chain,
+//     so latency, block barriers and shared-memory traffic bound it, not
+//     bytes or flops. Per 8-wide micro-panel it takes three barriers: one
+//     warp factors the 8 x 8 diagonal block in registers, in the ladder's
+//     rsqrt-scaled column order; every row below replays the same eight
+//     column steps on its own thread against the saved diagonal columns;
+//     micro-panels go in pairs, and one rank-16 update of the trailing
+//     triangle per pair, in 8 x 4 register blocks, halves the trailing
+//     triangle's shared-memory traffic against rank-8 updates. `a` is
+//     read once (f32 by cp.async), `out` and the f32 `w` written once;
+//   * the inverse runs on ONE block over an f32 working copy in global
+//     memory (resident in the 50 MB L2), staging the 8 x 8 diagonal block
+//     in shared memory;
 //   * the strip product and the slab update are separate launches on the
 //     same stream, tiled over many blocks, reading what the one-block
 //     launches wrote;
-//   * nothing is padded: every kernel takes its extents and leading
-//     dimensions and masks the ragged edge itself.
+//   * nothing is padded in memory: every kernel takes its extents and
+//     leading dimensions and masks the ragged edge itself (the factor pads
+//     the tile to a multiple of 8 with the identity inside shared memory,
+//     as the reference pads with blkdiag(A, I)).
 // Storage is float or __nv_bfloat16; all arithmetic is in f32. Build without
 // --use_fast_math: the NaN-prefix failure contract depends on rsqrtf of a
-// non-positive pivot giving NaN or inf.
+// non-positive pivot giving NaN or inf, and on NaN * 0 staying NaN.
 //
 // Every entry point launches on the given stream, allocates nothing, and
 // returns cudaGetLastError().
@@ -29,12 +43,14 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int MICRO = 8;
 constexpr int PANEL_MAX = 256;
 constexpr int FACTOR_THREADS = 512;
+constexpr int POTRF_THREADS = 512;
 constexpr int BM = 64, BN = 64, BK = 16, GEMM_THREADS = 256;
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
@@ -42,66 +58,226 @@ __device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162
 __device__ __forceinline__ void st(float* p, float v) { *p = v; }
 __device__ __forceinline__ void st(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
-// Lower Cholesky factor of the (d, d) tile `a` (row stride lda; only its
-// lower triangle is read). `w` is an f32 (d, d) working copy that holds the
-// factor on return (strict upper zero). `out` gets the factor in the lower
-// triangle and `a`'s strict upper triangle passed through.
-template <typename T>
-__global__ void __launch_bounds__(FACTOR_THREADS)
-potrf_kernel(const T* __restrict__ a, int lda, T* __restrict__ out, int ldo,
-             float* __restrict__ w, int d) {
-  __shared__ float P[PANEL_MAX][MICRO + 1];
-  const int tid = threadIdx.x, nth = blockDim.x;
-  for (int idx = tid; idx < d * d; idx += nth) {
-    const int i = idx / d, j = idx - i * d;
-    w[idx] = i >= j ? ld(a + (size_t)i * lda + j) : 0.f;
+// Packed lower-triangle layout of the factor's shared memory: row i
+// starts at row_off(i) and holds (i | 7) + 1 floats, so every 4-aligned
+// run of 4 columns is a 16-byte aligned float4 and an 8-row block of the
+// diagonal stays inside its rows.
+__device__ __forceinline__ int row_off(int i) {
+  const int a = i >> 3, b = i & 7;
+  return 32 * a * (a + 1) + 8 * b * (a + 1);
+}
+
+// One element of the tile into shared memory: f32 asynchronously
+// (cp.async, waited for once), bf16 through a register.
+__device__ __forceinline__ void to_smem(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void to_smem(float* dst, const __nv_bfloat16* src) {
+  *dst = __bfloat162float(*src);
+}
+
+constexpr int TRI_FLOATS = 32 * (PANEL_MAX / 8) * (PANEL_MAX / 8 + 1);  // row_off(PANEL_MAX)
+constexpr int LP_COLS = 2 * MICRO;  // the micro-panel pair of a rank-16 update
+constexpr int POTRF_SMEM = (TRI_FLOATS + LP_COLS * PANEL_MAX + MICRO * MICRO + MICRO) * 4;
+
+// Factor the 8-wide micro-panel at column j0 in place (the diagonal block
+// by warp 0, then one thread per row below), its columns also into
+// lp[(c0 + k) * PANEL_MAX + row]. Two block barriers.
+__device__ __forceinline__ void micro_panel(float* x, float* lp, float* dcol, float* rs, int j0,
+                                            int c0, int d8) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  if (tid < 32) {
+    // every lane factors the whole 8 x 8 diagonal block in registers in
+    // the ladder's column order (no shuffles on the chain); lane r < 8
+    // then stores row j0 + r
+    float P[MICRO][MICRO];
+#pragma unroll
+    for (int r = 0; r < MICRO; ++r) {
+      const float4* row = reinterpret_cast<const float4*>(x + row_off(j0 + r) + j0);
+      const float4 u = row[0], v4 = row[1];
+      const float q[MICRO] = {u.x, u.y, u.z, u.w, v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+      for (int c = 0; c < MICRO; ++c) P[r][c] = c <= r ? q[c] : 0.f;
+    }
+#pragma unroll
+    for (int jj = 0; jj < MICRO; ++jj) {
+      const float r = rsqrtf(P[jj][jj]);
+      float v[MICRO];
+#pragma unroll
+      for (int c = jj; c < MICRO; ++c) v[c] = P[c][jj] * r;
+      // rows r >= jj (rows above jj take v = 0 and change no lower entry)
+#pragma unroll
+      for (int row = jj; row < MICRO; ++row) {
+#pragma unroll
+        for (int c = 0; c <= row; ++c)
+          if (c != jj) P[row][c] -= v[row] * (c > jj ? v[c] : 0.f);
+        P[row][jj] = v[row];
+      }
+      if (lane == 0) rs[jj] = r;
+#pragma unroll
+      for (int c = jj + 1; c < MICRO; ++c)
+        if (c == lane) dcol[jj * MICRO + c] = v[c];
+    }
+#pragma unroll
+    for (int r = 0; r < MICRO; ++r)
+      if (r == lane) {
+        float* row = x + row_off(j0 + r) + j0;
+#pragma unroll
+        for (int c = 0; c <= r; ++c) row[c] = P[r][c];
+      }
   }
   __syncthreads();
-  for (int j0 = 0; j0 < d; j0 += MICRO) {
-    const int mw = min(MICRO, d - j0), rows = d - j0;
-    for (int idx = tid; idx < rows * mw; idx += nth) {
-      const int r = idx / mw, c = idx - r * mw;
-      P[r][c] = w[(size_t)(j0 + r) * d + j0 + c];
+  // the rows below, one thread each: the same eight column steps
+  for (int i = j0 + MICRO + tid; i < d8; i += POTRF_THREADS) {
+    float4* row = reinterpret_cast<float4*>(x + row_off(i) + j0);
+    const float4 u = row[0], v4 = row[1];
+    float p[MICRO] = {u.x, u.y, u.z, u.w, v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+    for (int jj = 0; jj < MICRO; ++jj) {
+      const float v = p[jj] * rs[jj];
+#pragma unroll
+      for (int c = 0; c < MICRO; ++c) p[c] -= v * (c > jj ? dcol[jj * MICRO + c] : 0.f);
+      p[jj] = v;
+    }
+    row[0] = make_float4(p[0], p[1], p[2], p[3]);
+    row[1] = make_float4(p[4], p[5], p[6], p[7]);
+#pragma unroll
+    for (int c = 0; c < MICRO; ++c) lp[(c0 + c) * PANEL_MAX + i] = p[c];
+  }
+  __syncthreads();
+}
+
+// Lower Cholesky factor of the (d, d) tile `a` (row stride lda; only its
+// lower triangle is read). `w`, unless null, is an f32 (d, d) buffer that
+// gets the factor (strict upper zero). `out` gets the factor in the lower
+// triangle and `a`'s strict upper triangle passed through.
+//
+// Micro-panels go in pairs: factor panel J, apply its rank-8 update to
+// panel J+1's columns only, factor panel J+1, then apply both as one
+// rank-16 update to the rest of the trailing triangle, in 8 x 4 register
+// blocks. The reference applies rank-8 updates after every panel; the sums
+// are the same, in another order.
+//
+// Failure contract (the reference ladder's, pallas_panel.py:145-149): a
+// non-positive pivot gives NaN or inf through rsqrtf; the column step
+// subtracts v * 0 from the row's earlier micro-panel columns, so a
+// non-finite v turns them to NaN (NaN * 0), and the trailing updates then
+// carry NaN into every later column.
+template <typename T>
+__global__ void __launch_bounds__(POTRF_THREADS)
+potrf_kernel(const T* __restrict__ a, int lda, T* __restrict__ out, int ldo,
+             float* __restrict__ w, int d) {
+  extern __shared__ __align__(16) float sm[];
+  float* x = sm;                         // the packed lower triangle
+  float* lp = x + TRI_FLOATS;            // lp[k * PANEL_MAX + i]: factored column k of the pair
+  float* dcol = lp + LP_COLS * PANEL_MAX;  // dcol[jj * MICRO + c]: diagonal column jj at its step
+  float* rs = dcol + MICRO * MICRO;      // rs[jj]: rsqrt of pivot jj
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int d8 = (d + MICRO - 1) / MICRO * MICRO;
+
+  // the lower triangle, identity-padded to d8 (the rest of each 8-padded
+  // row zero), a warp per row
+  for (int i = warp; i < d8; i += POTRF_THREADS / 32) {
+    float* row = x + row_off(i);
+#pragma unroll
+    for (int c = 0; c < PANEL_MAX / 32; ++c) {
+      const int j = lane + 32 * c;
+      if (j > (i | 7)) break;
+      if (i < d && j <= i)
+        to_smem(row + j, a + (size_t)i * lda + j);
+      else
+        row[j] = i == j ? 1.f : 0.f;
+    }
+  }
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncthreads();
+
+  for (int j0 = 0; j0 < d8; j0 += 2 * MICRO) {
+    const int j1 = j0 + MICRO, j2 = j1 + MICRO;
+    micro_panel(x, lp, dcol, rs, j0, 0, d8);
+    if (j1 >= d8) break;
+    // panel J's rank-8 update of panel J+1's columns [j1, j2), rows >= j1:
+    // a thread per (row, 4-column half)
+    for (int t = tid; t < 2 * (d8 - j1); t += POTRF_THREADS) {
+      const int i = j1 + (t >> 1), h = 4 * (t & 1);
+      float4* px = reinterpret_cast<float4*>(x + row_off(i) + j1 + h);
+      float4 v = *px;
+#pragma unroll
+      for (int k = 0; k < MICRO; ++k) {
+        const float li = lp[k * PANEL_MAX + i];
+        v.x -= li * lp[k * PANEL_MAX + j1 + h];
+        v.y -= li * lp[k * PANEL_MAX + j1 + h + 1];
+        v.z -= li * lp[k * PANEL_MAX + j1 + h + 2];
+        v.w -= li * lp[k * PANEL_MAX + j1 + h + 3];
+      }
+      *px = v;
     }
     __syncthreads();
-    // rsqrt-scaled column steps inside the micro-panel. The rank-1 update
-    // reaches every other column of the micro-panel's lower triangle, the
-    // earlier columns with a zero multiplier: a failed pivot's NaN or inf
-    // then turns them to NaN (NaN * 0), the reference ladder's pattern
-    // (pallas_panel.py:147-148).
-    for (int c = 0; c < mw; ++c) {
-      const float rs = rsqrtf(P[c][c]);
-      __syncthreads();
-      for (int r = c + tid; r < rows; r += nth) P[r][c] *= rs;
-      __syncthreads();
-      for (int idx = tid; idx < (rows - c) * mw; idx += nth) {
-        const int r = c + idx / mw, cc = idx % mw;
-        if (cc != c && r >= cc) P[r][cc] -= P[r][c] * (cc > c ? P[cc][c] : 0.f);
+    micro_panel(x, lp, dcol, rs, j1, MICRO, d8);
+    // rank-16 update of the trailing triangle [j2, d8) in 8 x 4 blocks;
+    // block row r has 2 (r + 1) of them
+    const int nr = (d8 - j2) / 8;
+    for (int q = tid; q < nr * (nr + 1); q += POTRF_THREADS) {
+      int r = static_cast<int>((sqrtf(4.f * q + 1.f) - 1.f) * 0.5f);
+      while (r * (r + 1) > q) --r;
+      while ((r + 1) * (r + 2) <= q) ++r;
+      const int i0 = j2 + 8 * r, c0 = j2 + 4 * (q - r * (r + 1));
+      float4 xr[8];
+#pragma unroll
+      for (int rr = 0; rr < 8; ++rr)
+        xr[rr] = *reinterpret_cast<const float4*>(x + row_off(i0 + rr) + c0);
+#pragma unroll
+      for (int k = 0; k < LP_COLS; ++k) {
+        const float4 la = *reinterpret_cast<const float4*>(lp + k * PANEL_MAX + i0);
+        const float4 lb = *reinterpret_cast<const float4*>(lp + k * PANEL_MAX + i0 + 4);
+        const float4 lj = *reinterpret_cast<const float4*>(lp + k * PANEL_MAX + c0);
+        const float li[8] = {la.x, la.y, la.z, la.w, lb.x, lb.y, lb.z, lb.w};
+#pragma unroll
+        for (int rr = 0; rr < 8; ++rr) {
+          xr[rr].x -= li[rr] * lj.x;
+          xr[rr].y -= li[rr] * lj.y;
+          xr[rr].z -= li[rr] * lj.z;
+          xr[rr].w -= li[rr] * lj.w;
+        }
       }
-      __syncthreads();
-    }
-    for (int idx = tid; idx < rows * mw; idx += nth) {
-      const int r = idx / mw, c = idx - r * mw;
-      w[(size_t)(j0 + r) * d + j0 + c] = P[r][c];
-    }
-    // rank-mw update of the trailing lower triangle
-    const int t = rows - mw;
-    for (int idx = tid; idx < t * t; idx += nth) {
-      const int i = idx / t, j = idx - i * t;
-      if (i >= j) {
-        float s = 0.f;
-        for (int k = 0; k < mw; ++k) s += P[mw + i][k] * P[mw + j][k];
-        w[(size_t)(j0 + mw + i) * d + j0 + mw + j] -= s;
-      }
+#pragma unroll
+      for (int rr = 0; rr < 8; ++rr)
+        *reinterpret_cast<float4*>(x + row_off(i0 + rr) + c0) = xr[rr];
     }
     __syncthreads();
   }
-  for (int idx = tid; idx < d * d; idx += nth) {
-    const int i = idx / d, j = idx - i * d;
-    if (i >= j)
-      st(out + (size_t)i * ldo + j, w[idx]);
-    else
-      out[(size_t)i * ldo + j] = a[(size_t)i * lda + j];
+
+  // out (and w), 8 rows per warp at a time: the rows' strict upper parts
+  // of `a` are loaded first, so their latency overlaps the other stores
+  for (int i0 = 8 * warp; i0 < d; i0 += 8 * (POTRF_THREADS / 32)) {
+    T up[8][PANEL_MAX / 32];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int c = 0; c < PANEL_MAX / 32; ++c) {
+        const int i = i0 + r, j = lane + 32 * c;
+        if (i < d && j > i && j < d) up[r][c] = a[(size_t)i * lda + j];
+      }
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int i = i0 + r;
+      if (i >= d) break;
+      const float* row = x + row_off(i);
+#pragma unroll
+      for (int c = 0; c < PANEL_MAX / 32; ++c) {
+        const int j = lane + 32 * c;
+        if (j >= d) break;
+        const float f = j <= i ? row[j] : 0.f;
+        if (w != nullptr) w[(size_t)i * d + j] = f;
+        if (j <= i)
+          st(out + (size_t)i * ldo + j, f);
+        else
+          out[(size_t)i * ldo + j] = up[r][c];
+      }
+    }
   }
 }
 
@@ -230,11 +406,24 @@ gemm_kernel(const TA* __restrict__ A, int lda, const float* __restrict__ B, int 
   }
 }
 
+// Opt in to the factor's dynamic shared memory, once per device.
+template <typename T>
+void potrf_opt_in() {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64 || !done[dev]) {
+    cudaFuncSetAttribute(potrf_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, POTRF_SMEM);
+    if (dev >= 0 && dev < 64) done[dev] = true;
+  }
+}
+
 template <typename T>
 int potrf_t(const void* a, int lda, void* out, int ldo, void* work, int d, cudaStream_t s) {
-  potrf_kernel<T><<<1, FACTOR_THREADS, 0, s>>>(static_cast<const T*>(a), lda,
-                                               static_cast<T*>(out), ldo,
-                                               static_cast<float*>(work), d);
+  potrf_opt_in<T>();
+  potrf_kernel<T><<<1, POTRF_THREADS, POTRF_SMEM, s>>>(static_cast<const T*>(a), lda,
+                                                       static_cast<T*>(out), ldo,
+                                                       static_cast<float*>(work), d);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -52,6 +52,9 @@ class CudaLibrary:
         self.flags = [*NVCC_FLAGS, *extra_flags]
         self._bind = bind
         self._lib = None
+        #: The compiler's output of the last build in this process (``-Xptxas
+        #: -v``: registers, shared memory and spills of each kernel).
+        self.log = ""
 
     def path(self) -> str:
         """Path of the shared library for the current source and flags."""
@@ -74,6 +77,7 @@ class CudaLibrary:
         proc, tmp, cmd = started
         try:
             out, _ = proc.communicate()
+            self.log = out
             sys.stderr.write(out)
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}")
@@ -118,9 +122,10 @@ def check(rc: int, what: str) -> None:
 
 
 def stream(t) -> int:
+    """The raw handle of the current CUDA stream of ``t``'s device."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def on_device(fn):

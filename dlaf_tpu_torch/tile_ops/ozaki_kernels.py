@@ -25,10 +25,14 @@ one CUDA kernel template in ``csrc/ozaki.cu`` (built with ``nvcc`` for
 Each output element is the double-f32 fold of exact integer group sums in
 the order of the reference's ``_fold_body``, so kernel, plain version and
 the Pallas kernels agree bit for bit. Bound on the card by the int8
-tensor-core operations, ``s(s+1)/2 * 2 M N K``; the kernel's design is in
-the source's header. ``K`` is zero-padded to a multiple of 32 here (exact),
-and ``ib`` is handed to the kernel transposed, so both operands are
-K-contiguous rows.
+tensor-core operations, ``s(s+1)/2 * 2 M N K``, which only ``wgmma``
+reaches: the kernel runs the reference's shift-outer loop (one int32
+accumulator per output element, folded after each shift), with
+``wgmma`` on 128 x 128 tiles fed from a TMA-loaded ring of shared-memory
+stages, one persistent block per SM walking the live tiles first. The
+design is in the source's header. ``K`` is zero-padded to a multiple of
+32 here (exact), and ``ib`` is handed to the kernel transposed, so both
+operands are K-contiguous rows, 16-byte aligned as TMA needs.
 
 Each wrapper uses its plain version (``ozaki_product_plain``,
 ``ozaki_syrk_plain``) only for a tensor on the CPU; for a CUDA tensor it
@@ -172,12 +176,14 @@ def _require(ia: torch.Tensor, ib=None) -> None:
 
 
 def _k_rows(x: torch.Tensor) -> torch.Tensor:
-    """Contiguous (s, rows, K) slices with K zero-padded to a multiple of
-    32 (zero slices add exactly nothing)."""
+    """Contiguous slices with K zero-padded to a multiple of 32 (zero
+    slices add exactly nothing), starting on a 16-byte boundary (TMA's
+    rule for a tensor's base address)."""
     pad = (-x.shape[-1]) % 32
     if pad:
-        return torch.nn.functional.pad(x, (0, pad)).contiguous()
-    return x.contiguous()
+        x = torch.nn.functional.pad(x, (0, pad))
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 @cb.on_device
@@ -188,8 +194,10 @@ def ozaki_product(ia: torch.Tensor, ib: torch.Tensor):
     ``*4*sa*sb`` in float64.
 
     Replaces ``pallas_ozaki.fused_slice_product``. Bound by the int8
-    tensor-core operations; 64 x 64 output tiles, all slices of a K chunk
-    staged in shared memory, int32 group sums in registers, one fold."""
+    tensor-core operations: ``wgmma`` on 128 x 128 output tiles, shift
+    outer (one int32 group sum per element, folded after each shift),
+    operand chunks TMA-loaded into a 5-stage ring by a producer warp, one
+    persistent block per SM."""
     if ia.device.type == "cpu":
         return ozaki_product_plain(ia, ib)
     _require(ia, ib)
@@ -213,8 +221,9 @@ def ozaki_syrk(ia: torch.Tensor):
     mirrors ``tril(H) + tril(H, -1)^T``.
 
     Replaces ``pallas_ozaki.fused_slice_syrk``. Same kernel as
-    :func:`ozaki_product` with B = A; tiles above the block diagonal only
-    write zeros."""
+    :func:`ozaki_product` with B = A; the tiles on and below the block
+    diagonal come first in the persistent blocks' work list, the tiles
+    above it are only written as zeros."""
     if ia.device.type == "cpu":
         return ozaki_syrk_plain(ia)
     _require(ia)
@@ -238,8 +247,9 @@ def ozaki_masked_product(ia: torch.Tensor, ib: torch.Tensor, mode: torch.Tensor)
     applies ``*4*sa*sb`` in float64 and its element masks.
 
     Replaces ``pallas_ozaki.masked_slice_product``. The same kernel as
-    :func:`ozaki_product`, one grid layer per pair; mode-0 pairs write
-    zeros and skip their products."""
+    :func:`ozaki_product` over the tiles of every pair, the live pairs'
+    first (found on the device from ``mode``); mode-0 pairs write zeros
+    and skip their products."""
     if ia.device.type == "cpu":
         return ozaki_masked_product_plain(ia, ib, mode)
     if not (ia.is_cuda and ib.device == ia.device and mode.device == ia.device):

@@ -10,11 +10,14 @@ first use into ``_build/``, bound with ``ctypes``; see
     Replaces ``pallas_panel._fused_potrf`` (pallas_panel.py:187). Bound on
     this card by latency, not by bytes or flops: a d=256 tile is 256 KiB
     and 5.6 MFLOP, and the ladder is a chain of 256 dependent column
-    steps. It does not fit the 227 KB of shared memory a block may use, so
-    ONE block factors an f32 working copy in global memory (it stays in
-    L2), staging only the d x 8 micro-panel in shared memory: rsqrt-scaled
-    column steps inside the micro-panel, a rank-8 update of the trailing
-    triangle after it. One launch.
+    steps. ONE block of 512 threads keeps the whole lower triangle in
+    shared memory (packed rows, 135 KB at d=256) for the factorization,
+    with three barriers per 8-wide micro-panel: one warp factors the 8 x 8
+    diagonal block in registers, one thread per row below replays its
+    eight rsqrt-scaled column steps, and the micro-panels go in pairs, so
+    that all threads apply one rank-16 update of the trailing triangle per
+    pair, in 8 x 4 register blocks. One launch; the tile is read once and
+    ``out`` (and, for the fused entries, the f32 factor) written once.
 
 :func:`panel_solve`
     Replaces ``pallas_panel._fused_solve_rows`` (:296) and
@@ -256,18 +259,17 @@ def potrf(uplo: str, a: torch.Tensor) -> torch.Tensor:
     """Cholesky factor of one tile (see :func:`potrf_plain`).
 
     Replaces ``pallas_panel._fused_potrf``. Bound by latency (256 dependent
-    column steps at d=256), not bytes or flops; one block over an L2-resident
-    f32 working copy, the d x 8 micro-panel staged in shared memory."""
+    column steps at d=256), not bytes or flops; one block with the lower
+    triangle resident in shared memory, three barriers per micro-panel."""
     if a.device.type == "cpu":
         return potrf_plain(uplo, a)
     d = a.shape[-1]
     _require(a, d)
     x = _rows(a) if uplo == "L" else a.mT.contiguous()
     out = torch.empty((d, d), dtype=a.dtype, device=a.device)
-    work = torch.empty((d, d), dtype=torch.float32, device=a.device)
+    # no f32 copy of the factor: nothing here reads it
     cb.check(LIBRARY.load().dlaf_potrf(_code(a.dtype), x.data_ptr(), x.stride(0),
-                                       out.data_ptr(), d, work.data_ptr(), d,
-                                       cb.stream(a)), "potrf")
+                                       out.data_ptr(), d, None, d, cb.stream(a)), "potrf")
     LAUNCHES["potrf"] += 1
     return out if uplo == "L" else out.mT
 

@@ -112,7 +112,8 @@ def test_scale_and_peel_bitwise(shape, axis, s):
         np.testing.assert_array_equal(g.numpy(), np.asarray(r))
 
 
-@pytest.mark.parametrize("m,k,n,s", [(40, 64, 24, 6), (33, 50, 17, 8), (16, 96, 40, 3)])
+@pytest.mark.parametrize("m,k,n,s", [(40, 64, 24, 6), (33, 50, 17, 8), (16, 96, 40, 3),
+                                     (40, 32, 24, 1), (33, 200, 17, 9)])
 def test_product_plain_matches_fused_slice_product(m, k, n, s):
     a, b = operands(m, k, n)
     ia, ib = jax_slices(a, s, -1), jax_slices(b, s, -2)
@@ -125,7 +126,7 @@ def test_product_plain_matches_fused_slice_product(m, k, n, s):
         np.testing.assert_array_equal(g.numpy(), p)
 
 
-@pytest.mark.parametrize("m,k,s", [(40, 64, 8), (300, 16, 3)])
+@pytest.mark.parametrize("m,k,s", [(40, 64, 8), (300, 16, 3), (40, 32, 1), (300, 200, 9)])
 def test_syrk_plain_matches_fused_slice_syrk(m, k, s):
     """Whole (hi, lo) planes: the 256-row blocks on and below the block
     diagonal, and the zero blocks above it (m=300 has one)."""
@@ -276,6 +277,20 @@ def test_mixed_fallback_to_native(dtype, case, monkeypatch):
         fast, _ = mx.potrf_inv_refined("L", ta)
         assert not torch.equal(fast, native)
         assert rel(fast.numpy(), native.numpy()) <= 1e-6
+
+
+@pytest.mark.parametrize("offset,k", [(0, 64), (1, 64), (3, 200), (5, 32)])
+def test_k_rows_pads_k_and_aligns_for_tma(offset, k):
+    """What the slice kernel's TMA maps are built on: contiguous slices, K
+    zero-padded to a multiple of 32 (the padding adds nothing), and a base
+    address on a 16-byte boundary, also for a view that starts off one."""
+    rng = np.random.default_rng(offset)
+    buf = torch.tensor(rng.integers(-64, 65, 3 * 7 * k + offset), dtype=torch.int8)
+    x = buf[offset:].reshape(3, 7, k)
+    got = ok._k_rows(x)
+    assert got.is_contiguous() and got.data_ptr() % 16 == 0
+    assert got.shape == (3, 7, k + (-k) % 32)
+    assert torch.equal(got[..., :k], x) and not got[..., k:].any()
 
 
 def test_cpu_wrappers_run_plain_versions_without_launching():

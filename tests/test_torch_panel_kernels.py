@@ -123,8 +123,8 @@ def test_indefinite_tile_nan_prefix_matches_reference():
     the port's plain versions fail at the same column as the Pallas
     kernels. Off the diagonal, the reference's micro-panel update spreads
     NaN into the failing rows' earlier columns (NaN * 0); the port does
-    the same, so the WHOLE NaN mask of the factor is held, at the
-    main path's tile (d=256) and a ragged one (d=200)."""
+    the same, so the WHOLE NaN mask of the factor and the step are held
+    (at d=256 and d=200 in ``test_indefinite_tile_nan_mask_and_info``)."""
     d, m = 16, 24
     a = hpd(d, seed=2)
     a[5, 5] = -100.0
@@ -143,13 +143,31 @@ def test_indefinite_tile_nan_prefix_matches_reference():
     for p in (got_s[1].numpy(), np.asarray(ref_s[1])):
         np.testing.assert_array_equal(np.isfinite(p).all(axis=0), np.arange(d) < 5)
     np.testing.assert_array_equal(np.isfinite(got_s[2].numpy()), np.isfinite(np.asarray(ref_s[2])))
-    for d in (256, 200):
-        a = hpd(d, seed=3)
-        a[37, 37] = -1000.0
-        ref = np.asarray(ppan.fused_potrf("L", jnp.asarray(a), interpret=True))
-        got = pk.potrf("L", torch.tensor(a)).numpy()
-        assert int(local_factor_info(torch.tensor(got))) == 38
-        np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+
+
+@pytest.mark.parametrize("pivot", [1, 8, 9, 38, "last", "zero"])
+@pytest.mark.parametrize("d", [256, 200])
+def test_indefinite_tile_nan_mask_and_info(d, pivot):
+    """The whole potrf_info failure contract at the main path's tile and a
+    ragged one, the contract the CUDA factor is held to on the card: the
+    first failing column (info) and the WHOLE NaN mask of the factor equal
+    the Pallas ladder's, for a pivot at the edges of a micro-panel (1, 8,
+    9), inside one (38), in the last column, and an exactly zero pivot (a
+    zero row and column, so no rounding decides it)."""
+    a = hpd(d, seed=3)
+    if pivot == "zero":
+        a[37, :] = 0.0
+        a[:, 37] = 0.0
+        want = 38
+    else:
+        want = d if pivot == "last" else pivot
+        a[want - 1, want - 1] = -1000.0
+    ref = np.asarray(ppan.fused_potrf("L", jnp.asarray(a), interpret=True))
+    got = pk.potrf("L", torch.tensor(a)).numpy()
+    assert int(local_factor_info(torch.tensor(got))) == int(local_factor_info(torch.tensor(ref))) \
+        == want
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(ref))
 
 
 def test_cpu_wrappers_run_plain_versions_without_launching():
