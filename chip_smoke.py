@@ -8,19 +8,24 @@ Run from the repository root with no arguments:
 It builds the hand-written kernels (``dlaf_tpu_torch/csrc/panel.cu``,
 ``csrc/ozaki.cu`` and ``csrc/update.cu``, one nvcc each, started together)
 from the checkout, prints ptxas's registers, shared memory and spills of
-the potrf and slice kernels (and fails on a spill), and holds each kernel
-against its plain PyTorch version on the card: the panel kernels (potrf,
-strip solve, factor+solve, fused step) in float32 and bfloat16, potrf alone
-at d = 256, 200, 129, 64, 9, 8 and 1, and indefinite tiles with the failing
-pivot at columns 1, 8, 9, 38 and d or exactly zero (equal info and NaN
-masks through potrf, factor+solve and step); the Ozaki slice kernels
-(product, syrk) bit for bit at the main path's shapes, ragged shapes, K =
-32, 224, 256 and 1024 and 1, 2, 8 and 9 slices; the distributed Cholesky's two kernels at the
-shapes of its first step on one rank of a 2x2 grid (N=16384, nb=256: 32 x
-32 tile pairs) and on ragged tiles: the predicated trailing update in
-float32 and bfloat16, modes 0-3, in place on a strided view of a shard,
-and the predicated Ozaki pair product bit for bit (also with every pair
-dead and every pair live). It times each kernel, its plain version and a
+the potrf, inverse, slice and update kernels (and fails on a spill), and
+holds each kernel against its plain PyTorch version on the card: the panel
+kernels (potrf, strip solve, factor+solve, fused step) in float32 and
+bfloat16, potrf alone and the triangular inverse (through the strip solve,
+unit and non-unit diagonal, both triangles) at d = 256, 200, 129, 64, 9, 8
+and 1, indefinite tiles with the failing pivot at columns 1, 8, 9, 38 and
+d or exactly zero (equal info and NaN masks through potrf, factor+solve
+and step), and triangles with a NaN pivot at those columns (equal NaN
+columns of the solved strip); the Ozaki slice kernels (product, syrk) bit
+for bit at the main path's shapes, ragged shapes, K = 32, 224, 256 and
+1024 and 1, 2, 8 and 9 slices; the distributed Cholesky's two kernels at
+the shapes of its first step on one rank of a 2x2 grid (N=16384, nb=256:
+32 x 32 tile pairs) and on ragged tiles: the predicated trailing update in
+float32 and bfloat16, modes 0-3, in place on a strided view of a shard, at
+nb = 256, 200, 136 and 130, with every pair dead, every pair live, a 1 x 1
+table and transposed panels (as uplo 'U' passes them), and the predicated
+Ozaki pair product bit for bit (also with every pair dead and every pair
+live). It times each kernel, its plain version and a
 PyTorch library yardstick with CUDA events (the kernel also over 50
 back-to-back calls, without the host's work per call), then
 drives the port's main paths through ``miniapp_cholesky.run``, each with
@@ -58,7 +63,8 @@ panels and native or Ozaki products): one timed factorization each, with
 its residual line and launch counts, and fails when the default is more
 than a quarter slower than the fastest of them. It factors a small ragged
 matrix against a float64 reference, profiles one float32 and two float64
-factorizations and one dist-L and one dist-f64 factorization, and prints a JSON line of per-kernel numbers, the card's name and power
+factorizations and one dist-L, one dist-U and one dist-f64 factorization,
+and prints a JSON line of per-kernel numbers, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Any failure
 exits non-zero. It needs no network and imports nothing of JAX.
 """
@@ -163,7 +169,7 @@ def bound(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
 
 
 def profile_factorization(torch, dev, argv, letter: str, dtype, n: int = 16384,
-                          nb: int = 256, grid_shape=None) -> None:
+                          nb: int = 256, grid_shape=None, uplo: str = "L") -> None:
     """Where the time of one main-path factorization goes: device time by
     kernel from ``torch.profiler``, and the device's busy share of the
     host wall (informational; prints what the profiler saw). With
@@ -181,13 +187,13 @@ def profile_factorization(torch, dev, argv, letter: str, dtype, n: int = 16384,
     grid = shared_grid(*grid_shape, dev) if grid_shape else None
     ref = Matrix.from_element_fn(hpd_element_fn(n, dtype), GlobalElementSize(n, n),
                                  TileElementSize(nb, nb), grid, dtype=dtype, device=dev)
-    cholesky("L", ref.clone(), donate=True)
+    cholesky(uplo, ref.clone(), donate=True)
     mat = ref.clone()
     del ref
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        cholesky("L", mat, donate=True)
+        cholesky(uplo, mat, donate=True)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans, by_name = [], {}
@@ -208,7 +214,7 @@ def profile_factorization(torch, dev, argv, letter: str, dtype, n: int = 16384,
             busy += e - max(s, end)
             end = e
     where = f" grid {grid_shape[0]}x{grid_shape[1]} on one card" if grid_shape else ""
-    print(f"[profile] n={n} nb={nb} {letter}{where} {' '.join(argv)}: host wall "
+    print(f"[profile] n={n} nb={nb} {letter} uplo {uplo}{where} {' '.join(argv)}: host wall "
           f"{wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
           f"({100 * busy / wall_us:.1f}% of wall)", flush=True)
     for name, (tot, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]:
@@ -236,16 +242,34 @@ def dist_kernels(torch, dev, randn, rows, check, time_ms, bound, card, uk, ok, o
     # ---- kernel #5: the predicated trailing update, in place ----
     for dt in (torch.float32, torch.bfloat16):
         tname = str(dt).split(".")[1]
-        for case, (r_, c_, b_, mode) in (
-                ("step-0 uplo L", (R, C, nb, step0["L"])),
-                ("step-0 uplo U", (R, C, nb, step0["U"])),
-                ("ragged nb=200 modes 0-3", (5, 7, 200, rng.integers(0, 4, (5, 7)))),):
+        for case, (r_, c_, b_, mode), layout in (
+                ("step-0 uplo L", (R, C, nb, step0["L"]), "rows"),
+                # as the uplo 'U' sweep passes them: vr a transposed view
+                ("step-0 uplo U", (R, C, nb, step0["U"]), "vr.mT"),
+                ("step-0 uplo U both .mT", (R, C, nb, step0["U"]), "both.mT"),
+                ("ragged nb=200 modes 0-3", (5, 7, 200, rng.integers(0, 4, (5, 7))), "rows"),
+                ("nb=136 modes 0-3 vr.mT", (6, 4, 136, rng.integers(0, 4, (6, 4))), "vr.mT"),
+                ("nb=136 every pair 2", (3, 3, 136, np.full((3, 3), 2)), "rows"),
+                ("nb=200 every pair 3 .mT", (3, 2, 200, np.full((3, 2), 3)), "both.mT"),
+                ("every pair dead", (4, 3, nb, np.zeros((4, 3), np.int64)), "rows"),
+                ("every pair live nb=200", (3, 4, 200, np.ones((3, 4), np.int64)), "rows"),
+                ("1x1 mode 1", (1, 1, nb, np.ones((1, 1), np.int64)), "rows"),
+                ("1x1 mode 3 nb=136 .mT", (1, 1, 136, np.full((1, 1), 3)), "both.mT"),
+                # nb off a multiple of 4: panels staged element by element
+                ("nb=130 modes 0-3", (3, 4, 130, rng.integers(0, 4, (3, 4))), "rows"),
+                ("nb=130 modes 0-3 .mT", (3, 4, 130, rng.integers(0, 4, (3, 4))), "both.mT")):
             # the block is a strided view of a shard one tile wider each way
             shard = randn(r_ + 1, c_ + 1, b_, b_).to(dt)
             before = shard.clone()
             vr, vc = randn(r_, b_, b_).to(dt), randn(c_, b_, b_).to(dt)
             mt = modes_tensor(mode)
             want = uk.masked_trailing_update_plain(before[1:, 1:], vr, vc, mt)
+            # the same operands as transposed views of contiguous stacks
+            if layout != "rows":
+                vr = vr.mT.contiguous().mT
+                if layout == "both.mT":
+                    vc = vc.mT.contiguous().mT
+                assert uk.panel_layout(vr) == 1
             uk.masked_trailing_update(shard[1:, 1:], vr, vc, mt)
             torch.cuda.synchronize()
             outside = torch.equal(shard[0], before[0]) and torch.equal(shard[:, 0], before[:, 0])
@@ -288,6 +312,10 @@ def dist_kernels(torch, dev, randn, rows, check, time_ms, bound, card, uk, ok, o
 
     # ---- times at the step-0 shape ----
     live = int((step0["L"] != 0).sum())
+    # the operations the data needs: a diagonal pair (mode 2 or 3) only its
+    # triangle, nb (nb + 1) / 2 entries of 2 nb each (not the whole pair)
+    full = int((step0["L"] == 1).sum())
+    upd_ops = full * 2 * nb ** 3 + (live - full) * nb * nb * (nb + 1)
     mt = modes_tensor(step0["L"])
     shard = randn(R + 1, C + 1, nb, nb)
     block = shard[1:, 1:]
@@ -300,7 +328,7 @@ def dist_kernels(torch, dev, randn, rows, check, time_ms, bound, card, uk, ok, o
             lambda: uk.masked_trailing_update_plain(block, vr, vc, mt),
             lambda: torch.matmul(vr.reshape(R * nb, nb), vc.reshape(C * nb, nb).mT),
             "float32 torch.matmul of the full 8192x256 @ 256x8192 rectangle",
-            (2 * live + R + C) * nb * nb * 4, live * 2 * nb ** 3, "float32"),
+            (2 * live + R + C) * nb * nb * 4, upd_ops, "float32"),
         "ozaki_masked_product": (
             lambda: ok.ozaki_masked_product(ia0, ib0, mt0),
             lambda: ok.ozaki_masked_product_plain(ia0, ib0, mt0),
@@ -319,6 +347,16 @@ def dist_kernels(torch, dev, randn, rows, check, time_ms, bound, card, uk, ok, o
               f"plain={r['plain_ms']:.4f} ms "
               f"{label}={lib_ms:.4f} ms bound={bms:.5f} ms ({by}; {live} live pairs of "
               f"{R}x{C}) [{card}]", flush=True)
+    whole = bound((2 * live + R + C) * nb * nb * 4, live * 2 * nb ** 3, "float32")[0]
+    print(f"[time] masked_trailing_update bound with the diagonal pairs counted whole: "
+          f"{whole:.5f} ms", flush=True)
+    # the uplo 'U' sweep's operands: the row panel a transposed view, read
+    # through the kernel's transpose flag (no copy)
+    vr_t, mt_u = vr.mT.contiguous().mT, modes_tensor(step0["U"])
+    kern = lambda: uk.masked_trailing_update(block, vr_t, vc, mt_u)  # noqa: E731
+    print(f"[time] masked_trailing_update uplo U (vr a transposed view) kernel="
+          f"{time_ms(torch, kern):.4f} ms (batched {batch_ms(torch, kern):.4f} ms) [{card}]",
+          flush=True)
 
 
 def main() -> int:
@@ -352,9 +390,12 @@ def main() -> int:
     print(f"[build] panel, ozaki and update kernels built and loaded in "
           f"{time.perf_counter() - t0:.1f} s ({pk.library_path()}, {ok.LIBRARY.path()}, "
           f"{uk.LIBRARY.path()})", flush=True)
-    if pk.LIBRARY.log and ok.LIBRARY.log:   # built here, not found from an earlier build
-        ptxas_report((pk.LIBRARY, ok.LIBRARY), ("potrf_kernelIf", "potrf_kernelI13__nv_bfloat16",
-                                                "slice_fold_kernel"))
+    if pk.LIBRARY.log and ok.LIBRARY.log and uk.LIBRARY.log:   # built here, not found earlier
+        ptxas_report((pk.LIBRARY, ok.LIBRARY, uk.LIBRARY),
+                     ("potrf_kernelIf", "potrf_kernelI13__nv_bfloat16", "trinv_kernelIf",
+                      "trinv_kernelI13__nv_bfloat16", "slice_fold_kernel",
+                      "masked_update_kernelIf", "masked_update_kernelI13__nv_bfloat16",
+                      "plan_kernel"))
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(20261016)
@@ -441,6 +482,43 @@ def main() -> int:
                 dg = diag if uplo == "L" else diag.mT.contiguous()
                 check("potrf", f"{tname} d={dd} uplo={uplo}",
                       [(pk.potrf(uplo, dg), pk.potrf_plain(uplo, dg))], dt, dd)
+    # the triangular inverse through the strip solve at every edge of its
+    # doubling levels and 8-row blocks, both diagonals and both triangles
+    for dt in (torch.float32, torch.bfloat16):
+        tname = str(dt).split(".")[1]
+        for dd in (256, 200, 129, 64, 9, 8, 1):
+            fac = pk.potrf_plain("L", hpd(dd)).float()
+            b = randn(300, dd).to(dt)
+            for diag_kind in ("N", "U"):
+                # unit: the factor scaled to a unit diagonal (well conditioned)
+                low = fac if diag_kind == "N" else fac / torch.diagonal(fac)[None, :]
+                for uplo in ("L", "U"):
+                    t = (low if uplo == "L" else low.mT.contiguous()).to(dt)
+                    combo = ("R", uplo, "C", diag_kind)
+                    check("solve", f"{tname} d={dd} {''.join(combo)}",
+                          [(pk.panel_solve(*combo, t, b), pk.panel_solve_plain(*combo, t, b))],
+                          dt, dd)
+    # a NaN pivot in the triangle: the solved strip's NaN columns are the
+    # plain version's (uplo L: from the pivot's column on, none before;
+    # uplo U takes the inverse's columns, NaN up to the pivot's 8-block end)
+    for dd in (256, 200):
+        b = randn(300, dd)
+        for piv in (1, 8, 9, 38, dd):
+            fac = pk.potrf_plain("L", hpd(dd)).float()
+            fac[piv - 1, piv - 1] = float("nan")
+            for uplo in ("L", "U"):
+                t = fac if uplo == "L" else fac.mT.contiguous()
+                got = pk.panel_solve("R", uplo, "C", "N", t, b)
+                ref = pk.panel_solve_plain("R", uplo, "C", "N", t, b)
+                rel_err(torch, got, ref)   # raises when the non-finite patterns differ
+                cols_k, cols_p = torch.isnan(got).any(0), torch.isnan(ref).any(0)
+                want = torch.arange(dd, device=dev) >= piv - 1
+                if not (torch.equal(cols_k, cols_p)
+                        and (uplo == "U" or torch.equal(cols_k, want))):
+                    raise AssertionError(f"solve d={dd} NaN pivot {piv} uplo={uplo}: NaN "
+                                         "columns differ")
+                print(f"[kernel] solve        NaN pivot d={dd} at {piv} uplo={uplo}: NaN "
+                      f"columns {int(cols_k.sum())} kernel = plain", flush=True)
     # indefinite tiles: the failing column and the whole NaN pattern must
     # match, through the factor alone and the two entries that factor
     # first; pivots at the edges of micro-panels and pairs, and an exactly
@@ -738,6 +816,8 @@ def main() -> int:
     profile_factorization(torch, dev, [], "f64 default", np.float64)
     profile_factorization(torch, dev, ["--dlaf:step-impl=fused"], "dist-L f32", np.float32,
                           grid_shape=(2, 2))
+    profile_factorization(torch, dev, ["--dlaf:panel-impl=fused", "--dlaf:step-impl=xla"],
+                          "dist-U f32", np.float32, n=8192, grid_shape=(2, 4), uplo="U")
     profile_factorization(torch, dev, ["--dlaf:f64-gemm=mxu", "--dlaf:f64-trsm=mixed"],
                           "dist-f64", np.float64, grid_shape=(2, 2))
 

@@ -23,9 +23,12 @@
 //     triangle per pair, in 8 x 4 register blocks, halves the trailing
 //     triangle's shared-memory traffic against rank-8 updates. `a` is
 //     read once (f32 by cp.async), `out` and the f32 `w` written once;
-//   * the inverse runs on ONE block over an f32 working copy in global
-//     memory (resident in the 50 MB L2), staging the 8 x 8 diagonal block
-//     in shared memory;
+//   * the inverse runs on ONE block of 512 threads with the triangle
+//     resident in shared memory in the same packed layout, inverted in
+//     place by recursive doubling (d^3/3 FMAs from shared memory in about
+//     a dozen barrier-separated phases, 4 x 4 register tiles; see
+//     trinv_kernel). The substitution's chain of d/8 block rows that read
+//     the growing inverse from global memory is gone;
 //   * the strip product and the slab update are separate launches on the
 //     same stream, tiled over many blocks, reading what the one-block
 //     launches wrote;
@@ -49,8 +52,8 @@ namespace {
 
 constexpr int MICRO = 8;
 constexpr int PANEL_MAX = 256;
-constexpr int FACTOR_THREADS = 512;
 constexpr int POTRF_THREADS = 512;
+constexpr int TRINV_THREADS = 512, TRINV_WARPS = TRINV_THREADS / 32;
 constexpr int BM = 64, BN = 64, BK = 16, GEMM_THREADS = 256;
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
@@ -82,6 +85,9 @@ __device__ __forceinline__ void to_smem(float* dst, const __nv_bfloat16* src) {
 constexpr int TRI_FLOATS = 32 * (PANEL_MAX / 8) * (PANEL_MAX / 8 + 1);  // row_off(PANEL_MAX)
 constexpr int LP_COLS = 2 * MICRO;  // the micro-panel pair of a rank-16 update
 constexpr int POTRF_SMEM = (TRI_FLOATS + LP_COLS * PANEL_MAX + MICRO * MICRO + MICRO) * 4;
+// the inverse: the packed triangle and the W of one doubling level (at
+// most d8 b / 2 floats, b <= d8 / 2)
+constexpr int TRINV_SMEM = (TRI_FLOATS + PANEL_MAX * PANEL_MAX / 4) * 4;
 
 // Factor the 8-wide micro-panel at column j0 in place (the diagonal block
 // by warp 0, then one thread per row below), its columns also into
@@ -281,57 +287,220 @@ potrf_kernel(const T* __restrict__ a, int lda, T* __restrict__ out, int ldo,
   }
 }
 
+// ---- the triangular inverse -------------------------------------------
+//
+// Recursive doubling on the packed triangle, in place in shared memory:
+// first every 8 x 8 diagonal block is inverted (by substitution, one
+// thread per column, all blocks at once); then for b = 8, 16, ..., 128
+// every pair of neighbouring inverted b-blocks [X11 0; T21 X22] becomes
+// one inverted 2b-block through
+//     W = T21 X11 (b2 x b, into a scratch), X21 = -X22 W (over T21),
+// all pairs of a level in one barrier-separated phase on the whole block.
+// Every product runs over the structurally non-zero range only (k >= c in
+// T21 X11, q <= i in X22 W), in 4 x 4 register tiles whose first chunk is
+// masked triangularly: a structural zero is never multiplied, so a NaN in
+// a row of the triangle reaches exactly the rows of the inverse that
+// depend on it (that row and every later one), as in the reference's
+// blocked substitution. Its diagonal 8 x 8 blocks are the reference's own
+// substitution, upper half included (a NaN pivot's column pattern).
+
+// The g-th work unit of a phase, with every odd round of NWARPS units
+// walked backwards: units are ordered by cost, so a warp's two rounds
+// even out.
+__device__ __forceinline__ int balanced(int u, int n, int nwarps) {
+  const int j = u / nwarps;
+  if ((j & 1) == 0) return u;
+  const int lo = j * nwarps, hi = min(lo + nwarps, n) - 1;
+  return lo + hi - u;
+}
+
+// W[i0 .. i0+3][c0 .. c0+3] = T21 X11 over k in [c, b), T21 the rows R2 ..
+// and columns C1 .. of x, X11 the inverted b-block at (C1, C1).
+__device__ __forceinline__ void trinv_tile_w(const float* x, float* w, int b, int C1, int R2,
+                                             int i0, int c0) {
+  float acc[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+  const float* trow[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) trow[r] = x + row_off(R2 + i0 + r) + C1;
+  {
+    // k = c0 .. c0+3: X11[k][c] is a structural zero for k < c
+    float tv[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float4 v = *reinterpret_cast<const float4*>(trow[r] + c0);
+      tv[r][0] = v.x, tv[r][1] = v.y, tv[r][2] = v.z, tv[r][3] = v.w;
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 v = *reinterpret_cast<const float4*>(x + row_off(C1 + c0 + kk) + C1 + c0);
+      const float xv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c <= kk; ++c) acc[r][c] = fmaf(tv[r][kk], xv[c], acc[r][c]);
+    }
+  }
+  for (int k = c0 + 4; k < b; k += 4) {
+    float tv[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float4 v = *reinterpret_cast<const float4*>(trow[r] + k);
+      tv[r][0] = v.x, tv[r][1] = v.y, tv[r][2] = v.z, tv[r][3] = v.w;
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 v = *reinterpret_cast<const float4*>(x + row_off(C1 + k + kk) + C1 + c0);
+      const float xv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(tv[r][kk], xv[c], acc[r][c]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    *reinterpret_cast<float4*>(w + (i0 + r) * b + c0) =
+        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+}
+
+// X21[i0 .. i0+3][c0 .. c0+3] = -(X22 W) over q in [0, i], written over
+// T21 (rows R2 .., columns C1 .. of x); X22 the inverted block at (R2, R2).
+__device__ __forceinline__ void trinv_tile_x(float* x, const float* w, int b, int C1, int R2,
+                                             int i0, int c0) {
+  float acc[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+  const float* xrow[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) xrow[r] = x + row_off(R2 + i0 + r) + R2;
+  for (int q = 0; q <= i0; q += 4) {
+    float xv[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float4 v = *reinterpret_cast<const float4*>(xrow[r] + q);
+      xv[r][0] = v.x, xv[r][1] = v.y, xv[r][2] = v.z, xv[r][3] = v.w;
+    }
+    const bool last = q == i0;  // X22[i][q] is a structural zero for q > i
+#pragma unroll
+    for (int qq = 0; qq < 4; ++qq) {
+      const float4 v = *reinterpret_cast<const float4*>(w + (q + qq) * b + c0);
+      const float wv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        if (last && r < qq) continue;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(xv[r][qq], wv[c], acc[r][c]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    *reinterpret_cast<float4*>(x + row_off(R2 + i0 + r) + C1 + c0) =
+        make_float4(-acc[r][0], -acc[r][1], -acc[r][2], -acc[r][3]);
+}
+
 // Inverse of the lower triangle of `t` (row stride ldt; unit diagonal when
-// `unit`) into the f32 (d, d) row-major `inv`, strict upper zero. Blocked
-// substitution: each MICRO-wide diagonal block is inverted by substitution,
-// then its block row below the inverted prefix is -Dinv (R Xprefix).
+// `unit`) into the f32 (d, d) row-major `inv`, zero above the diagonal 8 x 8
+// blocks (whose upper halves are 0 unless a pivot is not finite). The
+// triangle is read once (f32 by cp.async), identity-padded to d8 in the
+// factor's packed layout, inverted in place, and `inv` written once.
 template <typename T>
-__global__ void __launch_bounds__(FACTOR_THREADS)
+__global__ void __launch_bounds__(TRINV_THREADS, 1)
 trinv_kernel(const T* __restrict__ t, int ldt, int unit, float* __restrict__ inv, int d) {
-  __shared__ float D[MICRO][MICRO + 1];
-  __shared__ float DI[MICRO][MICRO + 1];
-  __shared__ float tmp[MICRO][PANEL_MAX];
-  const int tid = threadIdx.x, nth = blockDim.x;
-  for (int j0 = 0; j0 < d; j0 += MICRO) {
-    const int mw = min(MICRO, d - j0);
-    if (tid < MICRO * MICRO) {
-      const int r = tid / MICRO, c = tid % MICRO;
-      float v = 0.f;
-      if (r < mw && c <= r) v = (unit && r == c) ? 1.f : ld(t + (size_t)(j0 + r) * ldt + j0 + c);
-      D[r][c] = v;
+  extern __shared__ __align__(16) float sm[];
+  float* x = sm;                 // the packed lower triangle
+  float* wsc = x + TRI_FLOATS;   // W of every pair of a level: pair p at p b^2
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int d8 = (d + MICRO - 1) / MICRO * MICRO;
+
+  for (int i = warp; i < d8; i += TRINV_WARPS) {
+    float* row = x + row_off(i);
+#pragma unroll
+    for (int c = 0; c < PANEL_MAX / 32; ++c) {
+      const int j = lane + 32 * c;
+      if (j > (i | 7)) break;
+      if (i < d && j <= i && !(unit && j == i))
+        to_smem(row + j, t + (size_t)i * ldt + j);
+      else
+        row[j] = i == j ? 1.f : 0.f;
     }
-    __syncthreads();
-    if (tid < mw) {
-      const int c = tid;
-      for (int i = 0; i < mw; ++i) {
+  }
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncthreads();
+
+  // the 8 x 8 diagonal blocks, 8 threads each (thread c: column c), by the
+  // reference's substitution dinv[i] = (e_i - blk[i, :i] dinv[:i]) /
+  // blk[i, i] over the whole block row: its upper half comes out 0, or NaN
+  // from a non-finite pivot (0 / NaN), as the reference's does, and is
+  // written out with the inverse; the doubling below never reads it
+  {
+    const int blk = tid >> 3, c = tid & 7, j0 = MICRO * blk;
+    float v[MICRO];
+    if (j0 < d8) {
+      float D[MICRO][MICRO];
+#pragma unroll
+      for (int i = 0; i < MICRO; ++i)
+#pragma unroll
+        for (int k = 0; k <= i; ++k) D[i][k] = x[row_off(j0 + i) + j0 + k];
+#pragma unroll
+      for (int i = 0; i < MICRO; ++i) {
         float s = i == c ? 1.f : 0.f;
-        for (int k = 0; k < i; ++k) s -= D[i][k] * DI[k][c];
-        DI[i][c] = s / D[i][i];
+#pragma unroll
+        for (int k = 0; k < i; ++k) s -= D[i][k] * v[k];
+        v[i] = s / D[i][i];
+      }
+    }
+    __syncwarp();
+    if (j0 < d8) {
+#pragma unroll
+      for (int i = 0; i < MICRO; ++i) x[row_off(j0 + i) + j0 + c] = v[i];
+    }
+  }
+  __syncthreads();
+
+  for (int b = MICRO; b < d8; b *= 2) {
+    const int np = (d8 + 2 * b - 1) / (2 * b), nc = b / 4;
+    // W = T21 X11: a warp takes gw column groups x gh row groups, the
+    // cost falling with the column (k runs from c to b)
+    {
+      const int gw = min(8, nc), gh = 32 / gw, ng = nc / gw, nq = (nc + gh - 1) / gh;
+      const int n = np * ng * nq;
+      for (int u = warp; u < n; u += TRINV_WARPS) {
+        const int v = balanced(u, n, TRINV_WARPS);
+        const int g = v % ng, q = (v / ng) % nq, p = v / (ng * nq);
+        const int C1 = 2 * p * b, R2 = C1 + b;
+        const int ig = q * gh + lane / gw, cg = g * gw + lane % gw;
+        if (R2 < d8 && 4 * ig < min(b, d8 - R2))
+          trinv_tile_w(x, wsc + p * b * b, b, C1, R2, 4 * ig, 4 * cg);
       }
     }
     __syncthreads();
-    if (j0 > 0) {
-      for (int idx = tid; idx < mw * j0; idx += nth) {
-        const int q = idx / j0, c = idx - q * j0;
-        float s = 0.f;
-        for (int k = c; k < j0; ++k)
-          s += ld(t + (size_t)(j0 + q) * ldt + k) * inv[(size_t)k * d + c];
-        tmp[q][c] = s;
+    // X21 = -X22 W: a warp takes whole row groups, the cost rising with the row
+    {
+      const int gw = min(32, nc), gh = 32 / gw, nq = (nc + gh - 1) / gh;
+      const int n = np * nq;
+      for (int u = warp; u < n; u += TRINV_WARPS) {
+        const int v = balanced(u, n, TRINV_WARPS);
+        const int q = v % nq, p = v / nq;
+        const int C1 = 2 * p * b, R2 = C1 + b;
+        const int ig = q * gh + lane / gw, cg = lane % gw;
+        if (R2 < d8 && 4 * ig < min(b, d8 - R2))
+          trinv_tile_x(x, wsc + p * b * b, b, C1, R2, 4 * ig, 4 * cg);
       }
-      __syncthreads();
-      for (int idx = tid; idx < mw * j0; idx += nth) {
-        const int r = idx / j0, c = idx - r * j0;
-        float s = 0.f;
-        for (int q = 0; q <= r; ++q) s += DI[r][q] * tmp[q][c];
-        inv[(size_t)(j0 + r) * d + c] = -s;
-      }
-    }
-    const int tail = d - j0;
-    for (int idx = tid; idx < mw * tail; idx += nth) {
-      const int r = idx / tail, c = idx - r * tail;
-      inv[(size_t)(j0 + r) * d + j0 + c] = c < mw ? DI[r][c] : 0.f;
     }
     __syncthreads();
+  }
+
+  // the lower triangle and the diagonal blocks' upper halves; zeros above
+  for (int i = warp; i < d; i += TRINV_WARPS) {
+    const float* row = x + row_off(i);
+    for (int j = lane; j < d; j += 32) inv[(size_t)i * d + j] = j <= (i | 7) ? row[j] : 0.f;
   }
 }
 
@@ -406,21 +575,21 @@ gemm_kernel(const TA* __restrict__ A, int lda, const float* __restrict__ B, int 
   }
 }
 
-// Opt in to the factor's dynamic shared memory, once per device.
-template <typename T>
-void potrf_opt_in() {
-  static bool done[64] = {};
+// Opt in to a kernel's dynamic shared memory, once per device.
+template <typename K>
+void opt_in(K kernel, int bytes, bool* done) {
   int dev = 0;
   cudaGetDevice(&dev);
   if (dev < 0 || dev >= 64 || !done[dev]) {
-    cudaFuncSetAttribute(potrf_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, POTRF_SMEM);
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (dev >= 0 && dev < 64) done[dev] = true;
   }
 }
 
 template <typename T>
 int potrf_t(const void* a, int lda, void* out, int ldo, void* work, int d, cudaStream_t s) {
-  potrf_opt_in<T>();
+  static bool done[64] = {};
+  opt_in(potrf_kernel<T>, POTRF_SMEM, done);
   potrf_kernel<T><<<1, POTRF_THREADS, POTRF_SMEM, s>>>(static_cast<const T*>(a), lda,
                                                        static_cast<T*>(out), ldo,
                                                        static_cast<float*>(work), d);
@@ -429,8 +598,10 @@ int potrf_t(const void* a, int lda, void* out, int ldo, void* work, int d, cudaS
 
 template <typename T>
 int trinv_t(const void* t, int ldt, int unit, void* inv, int d, cudaStream_t s) {
-  trinv_kernel<T><<<1, FACTOR_THREADS, 0, s>>>(static_cast<const T*>(t), ldt, unit,
-                                               static_cast<float*>(inv), d);
+  static bool done[64] = {};
+  opt_in(trinv_kernel<T>, TRINV_SMEM, done);
+  trinv_kernel<T><<<1, TRINV_THREADS, TRINV_SMEM, s>>>(static_cast<const T*>(t), ldt, unit,
+                                                       static_cast<float*>(inv), d);
   return static_cast<int>(cudaGetLastError());
 }
 

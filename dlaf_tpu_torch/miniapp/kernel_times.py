@@ -14,13 +14,22 @@ dlaf_tpu_torch/miniapp/kernel_times.py --label change`` and so on. Only
 wrapper interfaces that every slice of the port keeps are called.
 
 For each kernel: ``device_ms``, the hand kernels' device time per call from
-``torch.profiler`` (what the kernel itself costs); ``batch_ms``, CUDA-event
-time over 50 back-to-back calls divided by 50 (the card's rate when the host
-keeps up); ``single_ms``, the median of 25 single calls timed with CUDA
-events, as ``chip_smoke.py`` times them (host work included). Shapes: f32
-panels d=256, strip m=16128; Ozaki slices s=8 of (16128, 256) and (256, 256)
-float64 operands; the pair product at the distributed Cholesky's first step
-on rank (0, 0) of a 2x2 grid (N=16384: 32 x 32 pairs of 256).
+``torch.profiler`` (what the kernel itself costs), and ``by_kernel``, the
+same split by CUDA kernel (the inverse apart from the strip product, say);
+``batch_ms``, CUDA-event time over 50 back-to-back calls divided by 50 (the
+card's rate when the host keeps up); ``single_ms``, the median of 25 single
+calls timed with CUDA events, as ``chip_smoke.py`` times them (host work
+included). Shapes: f32 panels d=256, strip m=16128; Ozaki slices s=8 of
+(16128, 256) and (256, 256) float64 operands; the pair product and the
+trailing update at the distributed Cholesky's first step on rank (0, 0) of a
+2x2 grid (N=16384: 32 x 32 pairs of 256), the update in place on a strided
+view of a shard, with the uplo 'L' panels and with the uplo 'U' ones (the
+row panel a transposed view).
+
+After the kernels it times the f32 paths ``chip_smoke.py`` drives through
+``miniapp_cholesky.run`` (main-L, panel-U, scan-f32, dist-L, dist-U, with
+the same arguments), one JSON line each with the best of three timed
+factorizations, so that walls too compare in one call.
 """
 
 from __future__ import annotations
@@ -50,8 +59,9 @@ def main() -> int:
     from dlaf_tpu_torch.tile_ops import ozaki as oz
     from dlaf_tpu_torch.tile_ops import ozaki_kernels as ok
     from dlaf_tpu_torch.tile_ops import panel_kernels as pk
+    from dlaf_tpu_torch.tile_ops import update_kernels as uk
 
-    cb.build_all([pk.LIBRARY, ok.LIBRARY])
+    cb.build_all([pk.LIBRARY, ok.LIBRARY, uk.LIBRARY])
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     dev = torch.device("cuda")
@@ -68,19 +78,31 @@ def main() -> int:
     diag = x @ x.T + d * torch.eye(d, device=dev)
     strip, slab = randn(m, d), randn(m, d)
     ia, ib = slices(randn(m, d, dtype=torch.float64), -1), slices(randn(d, d, dtype=torch.float64), -2)
+    fac = torch.linalg.cholesky(diag)
     g = np.arange(32) * 2
     mode = torch.tensor(_pair_modes(g, g, 0, 64, "L", True), dtype=torch.int32, device=dev)
+    mode_u = torch.tensor(_pair_modes(g, g, 0, 64, "U", True), dtype=torch.int32, device=dev)
+    block = randn(33, 33, d, d)[1:, 1:]
+    vr, vc = randn(32, d, d), randn(32, d, d)
+    vr_t = vr.mT.contiguous().mT      # as the uplo 'U' sweep passes its row panel
     pa = slices(randn(32 * d, d, dtype=torch.float64), -1).reshape(8, 32, d, d)
     pb = slices(randn(32 * d, d, dtype=torch.float64), -1).reshape(8, 32, d, d)
     panel = ("potrf_kernel", "trinv_kernel", "gemm_kernel")
+    # the copies the parent's update wrapper made of transposed panels count
+    update = ("masked_update_kernel", "plan_kernel", "elementwise_kernel", "Memcpy")
     kernels = {
         "potrf": (lambda: pk.potrf("L", diag), ("potrf_kernel",)),
+        "solve": (lambda: pk.panel_solve("R", "L", "C", "N", fac, strip), panel),
         "factor_solve": (lambda: pk.factor_solve("L", diag, strip), panel),
         "step": (lambda: pk.step("L", diag, strip, slab), panel),
         "ozaki_product": (lambda: ok.ozaki_product(ia, ib), ("slice_fold_kernel",)),
         "ozaki_masked_product": (lambda: ok.ozaki_masked_product(pa, pb, mode),
                                  ("slice_fold_kernel",)),
         "ozaki_syrk": (lambda: ok.ozaki_syrk(ia), ("slice_fold_kernel",)),
+        "masked_trailing_update": (lambda: uk.masked_trailing_update(block, vr, vc, mode),
+                                   update),
+        "masked_trailing_update_U": (lambda: uk.masked_trailing_update(block, vr_t, vc, mode_u),
+                                     update),
     }
 
     def events(fn, calls):
@@ -102,12 +124,44 @@ def main() -> int:
             for _ in range(10):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and any(n in e.name for n in names))
-        print(json.dumps({"label": args.label, "kernel": name, "device_ms": us / 10 / 1e3,
-                          "batch_ms": batch, "single_ms": single, "card": card}), flush=True)
+        by = {}
+        for e in prof.events():
+            hit = next((n for n in names if n in e.name), None)
+            if e.device_type == torch.autograd.DeviceType.CUDA and hit:
+                by[hit] = by.get(hit, 0.0) + e.time_range.elapsed_us() / 10 / 1e3
+        print(json.dumps({"label": args.label, "kernel": name, "device_ms": sum(by.values()),
+                          "by_kernel": by, "batch_ms": batch, "single_ms": single,
+                          "card": card}), flush=True)
+    walls(args.label, card)
     return 0
+
+
+def walls(label: str, card: str) -> None:
+    import contextlib
+    import io
+
+    from dlaf_tpu_torch.miniapp import miniapp_cholesky
+
+    timed = ["--nruns", "3", "--nwarmups", "1"]
+    share = ["--share-device", "--grid-rows", "2"]
+    paths = {
+        "main-L": ["-m", "16384", "--uplo", "L", "--dlaf:step-impl=fused",
+                   "--dlaf:cholesky-lookahead=1"],
+        "panel-U": ["-m", "8192", "--uplo", "U", "--dlaf:panel-impl=fused",
+                    "--dlaf:step-impl=xla"],
+        "scan-f32": ["-m", "8192", "--uplo", "L", "--dlaf:cholesky-trailing=scan",
+                     "--dlaf:step-impl=fused", "--dlaf:cholesky-lookahead=1"],
+        "dist-L": ["-m", "16384", "--uplo", "L", *share, "--grid-cols", "2",
+                   "--dlaf:step-impl=fused"],
+        "dist-U": ["-m", "8192", "--uplo", "U", *share, "--grid-cols", "4",
+                   "--dlaf:panel-impl=fused", "--dlaf:step-impl=xla"],
+    }
+    for name, argv in paths.items():
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = miniapp_cholesky.run(["-b", "256", "--type", "s", *argv, *timed])
+        print(json.dumps({"label": label, "path": name,
+                          "wall_s": min(r["time_s"] for r in res),
+                          "walls_s": [r["time_s"] for r in res], "card": card}), flush=True)
 
 
 if __name__ == "__main__":

@@ -24,8 +24,12 @@ first use into ``_build/``, bound with ``ctypes``; see
     ``fused_panel_solve`` (:311). Bound by the strip's bytes and the
     product's flops (m x d x d). The TPU kernel builds the inverse at grid
     step 0 and reuses it on later steps of its in-order grid; CUDA blocks
-    run in no order, so this is two launches on one stream: one block
-    inverts the triangle into f32 scratch (blocked substitution), then a
+    run in no order, so this is two launches on one stream: one block of
+    512 threads inverts the triangle into f32 scratch, the triangle
+    resident in shared memory and inverted in place by recursive doubling
+    (all 8 x 8 diagonal blocks at once, then ``X21 = -X22 (T21 X11)`` for
+    b = 8 .. 128, every loop over the non-zero range only, so that a NaN
+    reaches the rows it reaches in the reference's substitution), then a
     shared-memory tiled f32 product over many blocks forms
     ``b @ op(inv)``. Left-side solves map onto the right-side kernel by the
     transpose identity, as in the reference.

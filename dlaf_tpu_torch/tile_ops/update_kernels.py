@@ -9,15 +9,20 @@ rank's trailing block, ``a[r, c] -= vr[r] @ vc[c]^T`` under ``mode[r, c]``:
 uplo 'U' sweep passes transposed panel tiles). f32 accumulation, float32
 or bfloat16 storage. The kernel (``csrc/update.cu``, built with ``nvcc``
 for ``sm_90a`` at first use into ``_build/``, bound with ``ctypes``; see
-:mod:`.cuda_build`) is bound by the f32 operations of the live pairs; its
-design is in the source's header.
+:mod:`.cuda_build`) is bound by the f32 operations of the live pairs: a
+one-block plan kernel lists the live 128 x 128 sub-tiles from the mode
+table on the card, and a persistent kernel walks them with a cp.async
+ring; its design is in the source's header.
 
 The wrapper updates ``a`` IN PLACE (the reference returns a new block):
 ``a`` may be a strided view, a block of a rank's shard, whose tiles are
-contiguous; nothing outside it is touched. It uses the plain version
+contiguous; nothing outside it is touched. Each panel stack goes to the
+kernel as it is when it is contiguous or a transposed view of a contiguous
+stack (``x.mT``, as the uplo 'U' sweep passes its row panel); only other
+layouts are copied. It uses the plain version
 (:func:`masked_trailing_update_plain`, out of place) only for a tensor on
-the CPU; for a CUDA tensor it launches the kernel or raises. Each launch
-adds one to ``LAUNCHES["masked_trailing_update"]``.
+the CPU; for a CUDA tensor it launches the kernels or raises. Each call
+that launches adds one to ``LAUNCHES["masked_trailing_update"]``.
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ def reset_launches() -> None:
 
 def _bind(lib) -> None:
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.dlaf_masked_update.argtypes = [I, P, L, L, P, P, P, I, I, I, P]
+    lib.dlaf_masked_update.argtypes = [I, P, L, L, P, P, P, P, I, I, I, I, P]
     lib.dlaf_masked_update.restype = I
 
 
@@ -64,6 +69,20 @@ def masked_trailing_update_plain(a: torch.Tensor, vr: torch.Tensor, vc: torch.Te
     return torch.where(keep, upd, a.float()).to(a.dtype)
 
 
+def panel_layout(v: torch.Tensor) -> int | None:
+    """How the kernel can read the panel stack ``v`` (n, nb, nb) in place:
+    0 rows K-contiguous, 1 a transposed view of a contiguous stack, None
+    neither (a copy is needed)."""
+    n, nb, _ = v.shape
+    if n > 1 and v.stride(0) != nb * nb:
+        return None
+    if v.stride(2) == 1 and v.stride(1) == nb:
+        return 0
+    if v.stride(1) == 1 and v.stride(2) == nb:
+        return 1
+    return None
+
+
 @cb.on_device
 def masked_trailing_update(a: torch.Tensor, vr: torch.Tensor, vc: torch.Tensor,
                            mode: torch.Tensor) -> torch.Tensor:
@@ -71,8 +90,9 @@ def masked_trailing_update(a: torch.Tensor, vr: torch.Tensor, vc: torch.Tensor,
     / 2 tile lower / 3 tile upper triangle), in place; returns ``a``.
 
     Replaces ``pallas_kernels.masked_trailing_update``. Bound by the f32
-    operations of the live pairs; one block per 128 x 128 sub-tile of a
-    pair, dead pairs and dead sub-tiles return after one load."""
+    operations of the live pairs; a plan kernel lists the live 128 x 128
+    sub-tiles on the card and a persistent kernel walks them, so dead
+    pairs and dead sub-tiles cost nothing."""
     if a.device.type == "cpu":
         return a.copy_(masked_trailing_update_plain(a, vr, vc, mode))
     R, C, nb, nb2 = a.shape
@@ -90,12 +110,18 @@ def masked_trailing_update(a: torch.Tensor, vr: torch.Tensor, vc: torch.Tensor,
     for t in (vr, vc, mode):
         if t.device != a.device:
             raise ValueError(f"masked_trailing_update: operands on {t.device} and {a.device}")
-    vr, vc = vr.contiguous(), vc.contiguous()
+    lr, lc = panel_layout(vr), panel_layout(vc)
+    if lr is None:
+        vr, lr = vr.contiguous(), 0
+    if lc is None:
+        vc, lc = vc.contiguous(), 0
     mode = mode.to(torch.int32).contiguous()
+    nsub = -(-nb // 128)
+    plan = torch.empty(1 + R * C * nsub * nsub, dtype=torch.int32, device=a.device)
     cb.check(LIBRARY.load().dlaf_masked_update(
         0 if a.dtype == torch.float32 else 1, a.data_ptr(), a.stride(0), a.stride(1),
-        vr.data_ptr(), vc.data_ptr(), mode.data_ptr(), R, C, nb, cb.stream(a)),
-        "masked_trailing_update")
+        vr.data_ptr(), vc.data_ptr(), mode.data_ptr(), plan.data_ptr(), R, C, nb, lr | lc << 1,
+        cb.stream(a)), "masked_trailing_update")
     LAUNCHES["masked_trailing_update"] += 1
     return a
 

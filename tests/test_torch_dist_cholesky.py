@@ -187,6 +187,70 @@ def test_masked_update_in_place_on_a_strided_block():
     assert torch.equal(shard[:2], before[:2]) and torch.equal(shard[:, :1], before[:, :1])
 
 
+@pytest.mark.parametrize("diag_mode", [2, 3])
+@pytest.mark.parametrize("nb", [136, 200])
+def test_masked_update_plain_matches_pallas_ragged_diagonal(nb, diag_mode):
+    """At tile sizes off the kernel's 128-wide sub-tile (the diagonal of a
+    mode 2 or 3 pair runs through a sub-tile's interior, and the second
+    sub-tile is ragged), with that mode on every diagonal pair: the plain
+    version against the Pallas kernel, as in the f32 test above."""
+    R = C = 3
+    a, vr, vc, mode = update_inputs(R, C, nb, seed=nb + diag_mode)
+    np.fill_diagonal(mode, diag_mode)
+    ref = np.asarray(jpk.masked_trailing_update(jnp.asarray(a), jnp.asarray(vr),
+                                                jnp.asarray(vc), jnp.asarray(mode),
+                                                interpret=True))
+    got = uk.masked_trailing_update_plain(torch.tensor(a), torch.tensor(vr), torch.tensor(vc),
+                                          torch.tensor(mode)).numpy()
+    assert np.abs(got - ref).max() <= 1e-6 * np.abs(ref).max()
+    i = np.arange(nb)
+    tri = i[:, None] >= i[None, :] if diag_mode == 2 else i[:, None] <= i[None, :]
+    for r in range(R):
+        np.testing.assert_array_equal(got[r, r][~tri], a[r, r][~tri])
+
+
+def test_masked_update_transposed_operands():
+    """uplo 'U' passes transposed views of contiguous panel stacks: the
+    wrapper takes them as they are (layout 1, no copy on the card), alone
+    or beside a contiguous one, and gives what the same operands made
+    contiguous give; strided layouts are copied."""
+    R, C, nb = 3, 2, 16
+    a, xr, xc, mode = update_inputs(R, C, nb, seed=21)
+    xr, xc = torch.tensor(xr), torch.tensor(xc)
+    vr, vc = xr.mT, xc.mT
+    assert uk.panel_layout(vr) == uk.panel_layout(vc) == 1
+    assert uk.panel_layout(xr) == 0 and uk.panel_layout(xr[:, :8, :8]) is None
+    want = torch.tensor(a)
+    uk.masked_trailing_update(want, vr.contiguous(), vc.contiguous(), torch.tensor(mode))
+    for ops in ((vr, vc), (vr, vc.contiguous()), (vr.contiguous(), vc)):
+        got = torch.tensor(a)
+        uk.masked_trailing_update(got, *ops, torch.tensor(mode))
+        assert torch.equal(got, want)
+    ref = np.asarray(jpk.masked_trailing_update(jnp.asarray(a), jnp.asarray(vr.numpy()),
+                                                jnp.asarray(vc.numpy()), jnp.asarray(mode),
+                                                interpret=True))
+    assert np.abs(got.numpy() - ref).max() <= 1e-6 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("uplo", ["L", "U"])
+def test_sweeps_pass_panels_the_kernel_reads_in_place(uplo, monkeypatch):
+    """Both distributed sweeps hand the update kernel panel stacks it reads
+    as they are: uplo 'L' contiguous ones, uplo 'U' its row panel as a
+    transposed view (read through the kernel's transpose flag) beside a
+    contiguous column panel. Nothing is copied per launch."""
+    set_knobs(monkeypatch, {**FORCE, "panel_impl": "fused", "step_impl": "xla"})
+    layouts = []
+    fn = uk.masked_trailing_update
+
+    def spy(a, vr, vc, mode):
+        layouts.append((uk.panel_layout(vr), uk.panel_layout(vc)))
+        return fn(a, vr, vc, mode)
+
+    monkeypatch.setattr(uk, "masked_trailing_update", spy)
+    port_factor(hpd(64, np.float32, seed=3), uplo, 8, 2, 2)
+    assert layouts and set(layouts) == {(0, 0) if uplo == "L" else (1, 0)}
+
+
 def test_update_route_gate(monkeypatch):
     assert uk.supports_update(torch.float32, "cuda")
     assert uk.supports_update(torch.bfloat16, "cuda")

@@ -170,6 +170,47 @@ def test_indefinite_tile_nan_mask_and_info(d, pivot):
     np.testing.assert_array_equal(np.isfinite(got), np.isfinite(ref))
 
 
+@pytest.mark.parametrize("entry", ["factor_solve", "panel_solve", "panel_solve U"])
+@pytest.mark.parametrize("pivot", [1, 8, 9, 38, "last", "zero"])
+@pytest.mark.parametrize("d", [256, 200])
+def test_solved_strip_nan_columns_match_reference(d, pivot, entry):
+    """The contract the CUDA inverse is held to on the card, through the
+    strip product: column c of a solved strip is NaN exactly when row c of
+    the triangle's inverse holds a NaN, so the inverse must put NaN in the
+    rows where the reference's blocked ``_tri_inv_lower`` does (the failing
+    row and every later one) and in no row before. ``factor_solve`` factors
+    the indefinite tile first; ``panel_solve`` solves against the failed
+    factor of the same tile, stored lower or (``U``) upper: the upper
+    triangle's strip takes the inverse's columns instead. The port's plain
+    versions against the Pallas kernels, pivots as in
+    ``test_indefinite_tile_nan_mask_and_info``."""
+    a = hpd(d, seed=3)
+    if pivot == "zero":
+        a[37, :] = 0.0
+        a[:, 37] = 0.0
+        first = 37
+    else:
+        first = (d if pivot == "last" else pivot) - 1
+        a[first, first] = -1000.0
+    strip = np.random.default_rng(d).standard_normal((24, d)).astype(np.float32)
+    if entry == "factor_solve":
+        ref = np.asarray(ppan.fused_factor_solve("L", jnp.asarray(a), jnp.asarray(strip),
+                                                 interpret=True)[1])
+        got = pk.factor_solve("L", torch.tensor(a), torch.tensor(strip))[1].numpy()
+    else:
+        uplo = entry[-1] if entry.endswith("U") else "L"
+        fac = pk.potrf_plain("L", torch.tensor(a)).numpy()
+        fac = fac if uplo == "L" else fac.T.copy()
+        ref = np.asarray(ppan.fused_panel_solve("R", uplo, "C", "N", jnp.asarray(fac),
+                                                jnp.asarray(strip), interpret=True))
+        got = pk.panel_solve("R", uplo, "C", "N", torch.tensor(fac), torch.tensor(strip)).numpy()
+    nan_cols = np.isnan(got).any(axis=0)
+    np.testing.assert_array_equal(nan_cols, np.isnan(ref).any(axis=0))
+    if entry != "panel_solve U":
+        np.testing.assert_array_equal(nan_cols, np.arange(d) >= first)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+
+
 def test_cpu_wrappers_run_plain_versions_without_launching():
     pk.reset_launches()
     a = torch.tensor(hpd(16))
