@@ -50,7 +50,33 @@ and the distributed Cholesky with every rank of the grid on the one card
 8. dist-f64: N=16384, nb=256, float64, uplo L, 2x2, ``f64_gemm=mxu``,
    ``f64_trsm=mixed``: the Ozaki pair kernel for the bulk, the slice
    product for the panels and the look-ahead column;
-9. dist-z: N=4096, nb=256, complex128, uplo U, 2x2, native (no kernel).
+9. dist-z: N=4096, nb=256, complex128, uplo U, 2x2, native (no kernel);
+
+the distributed scan Cholesky (``cholesky_trailing=scan``, 2x2):
+
+10. dist-scan-L: N=16384, float32, uplo L, the fused factor+solve at the
+    panel site of every rank every step (4 nt launches), lookahead 1;
+    dist-scan-U: N=8192, float32, uplo U, the potrf and strip-solve
+    kernels there instead (4 nt each);
+11. dist-scan-f64: N=8192, float64, uplo U, ``f64_gemm=mxu``,
+    ``ozaki_impl=pallas``, ``f64_trsm=mixed``: the Ozaki pair kernel for
+    every step's bulk on every rank, slice products for the mixed panels
+    and the eager next row;
+
+and the triangular solver (``miniapp_triangular_solver.run``, m = n =
+8192, nb=256, 2x2 unless named local):
+
+12. trsm-d (BASELINE config #2, double, LLNN, default routes) under
+    ``dist_step_mode=unrolled`` and ``scan``;
+13. trsm-s: float32 LLN and RUC through the strip-solve kernel on every
+    rank every step (4 nt launches a solve);
+14. trsm-d-mxu: config #2 with ``f64_gemm=mxu``, ``f64_trsm=mixed``: slice
+    products for the mixed panels and the bulk, one of its products held
+    bit for bit against the plain version;
+15. trsm-local: one rank, float64 and float32 (the recursive solve above
+    order 2048);
+16. trmm-d: ``triangular_multiply`` in double on 2x2, unrolled, checked
+    against ``blas.trmm`` of the gathered matrices on the card.
 
 On one card the collectives are device-local copies and every rank
 repeats the diagonal tile's factor, so these walls do not measure
@@ -63,8 +89,8 @@ panels and native or Ozaki products): one timed factorization each, with
 its residual line and launch counts, and fails when the default is more
 than a quarter slower than the fastest of them. It factors a small ragged
 matrix against a float64 reference, profiles one float32 and two float64
-factorizations and one dist-L, one dist-U and one dist-f64 factorization,
-and prints a JSON line of per-kernel numbers, the card's name and power
+factorizations, one dist-L, dist-U, dist-f64 and dist-scan-L
+factorization and one config #2 solve unrolled and scan, and prints a JSON line of per-kernel numbers, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Any failure
 exits non-zero. It needs no network and imports nothing of JAX.
 """
@@ -168,32 +194,18 @@ def bound(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
     return max(bt, ot), "bytes" if bt >= ot else "operations"
 
 
-def profile_factorization(torch, dev, argv, letter: str, dtype, n: int = 16384,
-                          nb: int = 256, grid_shape=None, uplo: str = "L") -> None:
-    """Where the time of one main-path factorization goes: device time by
-    kernel from ``torch.profiler``, and the device's busy share of the
-    host wall (informational; prints what the profiler saw). With
-    ``grid_shape`` every rank of that grid is on ``dev``."""
+def profile_run(torch, label: str, fn) -> None:
+    """Where the time of one call of ``fn`` goes (after one warm-up call):
+    device time by kernel from ``torch.profiler``, and the device's busy
+    share of the host wall (informational; prints what the profiler
+    saw)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from dlaf_tpu_torch import config
-    from dlaf_tpu_torch.algorithms.cholesky import cholesky
-    from dlaf_tpu_torch.comm.grid import shared_grid
-    from dlaf_tpu_torch.common.index2d import GlobalElementSize, TileElementSize
-    from dlaf_tpu_torch.matrix.matrix import Matrix
-    from dlaf_tpu_torch.miniapp.generators import hpd_element_fn
-
-    config.initialize(argv=argv)
-    grid = shared_grid(*grid_shape, dev) if grid_shape else None
-    ref = Matrix.from_element_fn(hpd_element_fn(n, dtype), GlobalElementSize(n, n),
-                                 TileElementSize(nb, nb), grid, dtype=dtype, device=dev)
-    cholesky(uplo, ref.clone(), donate=True)
-    mat = ref.clone()
-    del ref
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        cholesky(uplo, mat, donate=True)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans, by_name = [], {}
@@ -213,12 +225,56 @@ def profile_factorization(torch, dev, argv, letter: str, dtype, n: int = 16384,
         if e > end:
             busy += e - max(s, end)
             end = e
-    where = f" grid {grid_shape[0]}x{grid_shape[1]} on one card" if grid_shape else ""
-    print(f"[profile] n={n} nb={nb} {letter} uplo {uplo}{where} {' '.join(argv)}: host wall "
-          f"{wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
-          f"({100 * busy / wall_us:.1f}% of wall)", flush=True)
+    print(f"[profile] {label}: host wall {wall_us / 1e3:.3f} ms, device busy "
+          f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}% of wall)", flush=True)
     for name, (tot, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]:
         print(f"[profile] {tot / 1e3:9.3f} ms {cnt:6d} launches  {name}", flush=True)
+
+
+def profile_factorization(torch, dev, argv, letter: str, dtype, n: int = 16384,
+                          nb: int = 256, grid_shape=None, uplo: str = "L") -> None:
+    """:func:`profile_run` of one main-path factorization; with
+    ``grid_shape`` every rank of that grid is on ``dev``."""
+    from dlaf_tpu_torch import config
+    from dlaf_tpu_torch.algorithms.cholesky import cholesky
+    from dlaf_tpu_torch.comm.grid import shared_grid
+    from dlaf_tpu_torch.common.index2d import GlobalElementSize, TileElementSize
+    from dlaf_tpu_torch.matrix.matrix import Matrix
+    from dlaf_tpu_torch.miniapp.generators import hpd_element_fn
+
+    config.initialize(argv=argv)
+    grid = shared_grid(*grid_shape, dev) if grid_shape else None
+    ref = Matrix.from_element_fn(hpd_element_fn(n, dtype), GlobalElementSize(n, n),
+                                 TileElementSize(nb, nb), grid, dtype=dtype, device=dev)
+    where = f" grid {grid_shape[0]}x{grid_shape[1]} on one card" if grid_shape else ""
+    mats = [ref.clone(), ref.clone()]
+    del ref
+    profile_run(torch, f"n={n} nb={nb} {letter} uplo {uplo}{where} {' '.join(argv)}",
+                lambda: cholesky(uplo, mats.pop(), donate=True))
+
+
+def profile_trsm(torch, dev, mode: str, n: int = 8192, nb: int = 256) -> None:
+    """:func:`profile_run` of one config #2 solve (double, m = n, LLNN, 2x2
+    on ``dev``) in ``dist_step_mode`` ``mode``."""
+    import numpy as np
+
+    from dlaf_tpu_torch import config
+    from dlaf_tpu_torch.algorithms.triangular import triangular_solve
+    from dlaf_tpu_torch.comm.grid import shared_grid
+    from dlaf_tpu_torch.common.index2d import GlobalElementSize, TileElementSize
+    from dlaf_tpu_torch.matrix.matrix import Matrix
+
+    config.initialize(argv=[f"--dlaf:dist-step-mode={mode}"])
+    grid = shared_grid(2, 2, dev)
+    size, block = GlobalElementSize(n, n), TileElementSize(nb, nb)
+    am = Matrix.from_element_fn(lambda i, j: 1.0 / (1.0 + (i - j).abs()) + 2.0 * n * (i == j),
+                                size, block, grid, dtype=np.float64, device=dev)
+    bm = Matrix.from_element_fn(lambda i, j: torch.cos(0.001 * (i + 1))
+                                + torch.sin(0.002 * (j + 1)), size, block, grid,
+                                dtype=np.float64, device=dev)
+    mats = [bm.clone(), bm.clone()]
+    profile_run(torch, f"trsm-d n={n} nb={nb} LLNN grid 2x2 on one card {mode}",
+                lambda: triangular_solve("L", "L", "N", "N", 1.0, am, mats.pop(), donate_b=True))
 
 
 def dist_kernels(torch, dev, randn, rows, check, time_ms, bound, card, uk, ok, oz) -> None:
@@ -357,6 +413,127 @@ def dist_kernels(torch, dev, randn, rows, check, time_ms, bound, card, uk, ok, o
     print(f"[time] masked_trailing_update uplo U (vr a transposed view) kernel="
           f"{time_ms(torch, kern):.4f} ms (batched {batch_ms(torch, kern):.4f} ms) [{card}]",
           flush=True)
+
+
+def scan_paths(torch, dev, card, drive, pk, ok, oz) -> None:
+    """The distributed scan Cholesky, the distributed and local triangular
+    solve and the distributed triangular multiply, every rank of a grid on
+    this card, each with its check line, wall, GFlop/s and launch counts.
+    Per step of the scan Cholesky every rank runs the panel site and the
+    bulk, the last step included; per step of the unrolled solve every rank
+    solves the pivot panel, and ranks with remaining slots (every rank
+    before the last step) run the bulk product."""
+    import numpy as np
+
+    from dlaf_tpu_torch import config
+    from dlaf_tpu_torch.algorithms.triangular import triangular_multiply
+    from dlaf_tpu_torch.comm.grid import shared_grid
+    from dlaf_tpu_torch.common.index2d import GlobalElementSize, TileElementSize
+    from dlaf_tpu_torch.matrix.matrix import Matrix
+    from dlaf_tpu_torch.miniapp import miniapp_triangular_solver as mts
+    from dlaf_tpu_torch.tile_ops import blas as tb
+
+    share = ["--share-device", "--nruns", "2", "--nwarmups", "1", "--check-result", "last"]
+    grid2 = ["--grid-rows", "2", "--grid-cols", "2"]
+    scan = "--dlaf:cholesky-trailing=scan"
+    for name, argv, n, letter, expect in (
+            # the fused factor+solve at the panel site of every rank, every step
+            ("dist-scan-L", ["--type", "s", "--uplo", "L", scan, "--dlaf:step-impl=fused",
+                             "--dlaf:cholesky-lookahead=1"], 16384, "s",
+             {"factor_solve": lambda nt: 4 * nt}),
+            # the potrf and strip-solve kernels at the panel site instead
+            ("dist-scan-U", ["--type", "s", "--uplo", "U", scan, "--dlaf:panel-impl=fused",
+                             "--dlaf:step-impl=xla"], 8192, "s",
+             {"potrf": lambda nt: 4 * nt, "solve": lambda nt: 4 * nt}),
+            # the pair kernel for the bulk of every step on every rank; slice
+            # products for the mixed panel on every rank and the eager next
+            # row on the two ranks that own it
+            ("dist-scan-f64", ["--type", "d", "--uplo", "U", scan, "--dlaf:f64-gemm=mxu",
+                               "--dlaf:ozaki-impl=pallas", "--dlaf:f64-trsm=mixed",
+                               "--dlaf:cholesky-lookahead=1"], 8192, "d",
+             {"ozaki_masked_product": lambda nt: 4 * nt,
+              "ozaki_product": lambda nt: 4 * nt + 2 * (nt - 1)})):
+        t = drive(["-m", str(n), "-b", "256", *grid2, *argv, *share], n, 256, 3, expect)
+        print(f"[scan] {name:13s} N={n} nb=256 2x2 on one card: {t:.6f} s "
+              f"{n ** 3 / 3 / t / 1e9:.2f} GFlop/s [{card}]", flush=True)
+
+    def trsm(name, argv, n, expect, nfact=3):
+        t = drive(["-m", str(n), "-n", str(n), "-b", "256", *argv], n, 256, nfact, expect,
+                  app=mts)
+        print(f"[trsm] {name:22s} m=n={n} nb=256: {t:.6f} s {n ** 3 / t / 1e9:.2f} GFlop/s "
+              f"[{card}]", flush=True)
+        return t
+
+    d2 = ["--type", "d", *grid2, *share]
+    # the two step forms in turns (the host's noise moves between runs)
+    walls = {"unrolled": [], "scan": []}
+    for _ in range(2):
+        for mode in walls:
+            walls[mode].append(trsm(f"trsm-d {mode}", [*d2, f"--dlaf:dist-step-mode={mode}"],
+                                    8192, {}))
+    print(f"[trsm] config #2 (d, 8192, nb=256, 2x2 on one card), best of 2 runs in each of 2 "
+          f"turns: unrolled {walls['unrolled']} s, scan {walls['scan']} s [{card}]", flush=True)
+    # the strip-solve kernel on every rank at every step
+    for combo in (["--side", "L", "--uplo", "L", "--op", "N"],
+                  ["--side", "R", "--uplo", "U", "--op", "C"]):
+        trsm("trsm-s " + "".join(combo[1::2]), ["--type", "s", *grid2, *share, *combo,
+                                                "--dlaf:panel-impl=fused"], 8192,
+             {"solve": lambda nt: 4 * nt})
+    # slice products: the mixed panel on every rank at every step, the bulk
+    # on every rank at every step but the last
+    trsm("trsm-d-mxu", [*d2, "--dlaf:f64-gemm=mxu", "--dlaf:f64-trsm=mixed"], 8192,
+         {"ozaki_product": lambda nt: 4 * nt + 4 * (nt - 1)})
+    for letter in ("d", "s"):
+        trsm(f"trsm-local {letter}", ["--type", letter, "--nruns", "2", "--nwarmups", "1",
+                                      "--check-result", "last"], 8192, {})
+
+    # a float64 product of trsm-d-mxu's bulk (step 0, one rank: 16 slots
+    # of 256 against 16 columns of 256) against its plain version
+    s = 8
+    gen = torch.Generator(device=dev).manual_seed(11)
+    a = torch.randn(4096, 256, generator=gen, device=dev, dtype=torch.float64)
+    b = torch.randn(256, 4096, generator=gen, device=dev, dtype=torch.float64)
+    ia = torch.stack(oz._peel_slices(oz._normalize(a, oz._scale(a, -1)), s))
+    ib = torch.stack(oz._peel_slices(oz._normalize(b, oz._scale(b, -2)), s))
+    got, ref = ok.ozaki_product(ia, ib), ok.ozaki_product_plain(ia, ib)
+    same = all(torch.equal(x, y) for x, y in zip(got, ref))
+    print(f"[kernel] ozaki_product trsm-d-mxu bulk 4096x4096 K=256 s={s}: hi and lo "
+          f"{'bitwise equal' if same else 'DIFFER'}", flush=True)
+    if not same:
+        raise AssertionError("ozaki_product at the trsm-d-mxu shape: not bitwise equal")
+    del a, b, ia, ib, got, ref
+
+    # trmm-d: the distributed multiply against blas.trmm of the gathered
+    # matrices, on the card
+    n, nb = 8192, 256
+    config.initialize(argv=["--dlaf:dist-step-mode=unrolled"])
+    grid = shared_grid(2, 2, dev)
+    am = Matrix.from_element_fn(lambda i, j: 1.0 / (1.0 + (i - j).abs()) + 2.0 * n * (i == j),
+                                GlobalElementSize(n, n), TileElementSize(nb, nb), grid,
+                                device=dev)
+    bm = Matrix.from_element_fn(lambda i, j: torch.cos(0.001 * (i + 1))
+                                + torch.sin(0.002 * (j + 1)), GlobalElementSize(n, n),
+                                TileElementSize(nb, nb), grid, device=dev)
+    counts0 = {**pk.LAUNCHES, **ok.LAUNCHES}
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = triangular_multiply("L", "L", "N", "N", 1.0, am, bm)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    want = tb.trmm("L", "L", "N", "N", am.to_global(), bm.to_global())
+    got = out.to_global()
+    err = float((got - want).abs().max() / want.abs().max())
+    tol = 60 * n * float(np.finfo(np.float64).eps)
+    t = min(times[1:])
+    print(f"[trmm] trmm-d LLNN d n={n} nb={nb} 2x2 on one card, unrolled: {t:.6f} s "
+          f"{n ** 3 / t / 1e9:.2f} GFlop/s rel_err={err:.3e} tol={tol:.3e} launches "
+          f"{ {k: v - counts0[k] for k, v in {**pk.LAUNCHES, **ok.LAUNCHES}.items()} } "
+          f"[{card}]", flush=True)
+    if not err <= tol:
+        raise AssertionError(f"trmm-d: rel_err {err} > {tol}")
+    print(f"check: PASSED trmm-d rel_err={err:.3e} tol={tol:.3e}", flush=True)
 
 
 def main() -> int:
@@ -654,16 +831,16 @@ def main() -> int:
     # ---- phase 2: the main paths through the miniapp ---------------------
     launches = {k: 0 for k in (*pk.LAUNCHES, *ok.LAUNCHES, *uk.LAUNCHES)}
 
-    def drive(argv, n, nb, nfact, expect):
+    def drive(argv, n, nb, nfact, expect, app=miniapp_cholesky):
         """One miniapp run; checks its residual line and launch counts and
-        returns its fastest timed factorization (s)."""
+        returns its fastest timed factorization (solve) (s)."""
         pk.reset_launches()
         ok.reset_launches()
         uk.reset_launches()
         buf = io.StringIO()
         t = time.perf_counter()
         with contextlib.redirect_stdout(buf):
-            res = miniapp_cholesky.run(argv)
+            res = app.run(argv)
         torch.cuda.synchronize()
         counts = {**pk.LAUNCHES, **ok.LAUNCHES, **uk.LAUNCHES}
         out = buf.getvalue()
@@ -744,6 +921,12 @@ def main() -> int:
               flush=True)
     print(f"[phase] distributed {time.perf_counter() - t_phase:.1f} s", flush=True)
 
+    # ---- phase 2c: the distributed scan Cholesky and the triangular solve
+    # and multiply (config #2: double, m = n = 8192, nb=256, 2x2) ----------
+    t_phase = time.perf_counter()
+    scan_paths(torch, dev, card, drive, pk, ok, oz)
+    print(f"[phase] scan and triangular {time.perf_counter() - t_phase:.1f} s", flush=True)
+
     # ---- phase 3: the float64 / complex128 routes "auto" picks from ------
     # the default (no knob) beside each route it could resolve to, uplo L,
     # lookahead as the default (1); launch counts per factorization
@@ -820,6 +1003,11 @@ def main() -> int:
                           "dist-U f32", np.float32, n=8192, grid_shape=(2, 4), uplo="U")
     profile_factorization(torch, dev, ["--dlaf:f64-gemm=mxu", "--dlaf:f64-trsm=mixed"],
                           "dist-f64", np.float64, grid_shape=(2, 2))
+    profile_factorization(torch, dev, ["--dlaf:cholesky-trailing=scan", "--dlaf:step-impl=fused",
+                                       "--dlaf:cholesky-lookahead=1"], "dist-scan-L f32",
+                          np.float32, grid_shape=(2, 2))
+    for mode in ("unrolled", "scan"):
+        profile_trsm(torch, dev, mode)
 
     order = (("potrf", "panel", "dlaf_tpu/tile_ops/pallas_panel.py:187"),
              ("solve", "panel", "dlaf_tpu/tile_ops/pallas_panel.py:296"),

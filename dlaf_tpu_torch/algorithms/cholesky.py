@@ -34,8 +34,9 @@ tests pin it) but the card's library need not.
 
 On a grid of several ranks, :func:`_cholesky_dist`: the reference's unrolled
 distributed builder as one controller's loop over the ranks (see its
-docstring). The distributed scan builder (``_build_dist_cholesky_scan``)
-is not ported yet.
+docstring); with trailing "scan", :func:`_cholesky_dist_scan`, the
+reference's distributed scan builder (``_build_dist_cholesky_scan``
+:1208-1686), as a Python loop at the reference's uniform shapes.
 
 The trailing products outside the kernels are ``torch.matmul``, as the
 reference leaves them to XLA. On a CUDA device ``cholesky`` sets
@@ -54,8 +55,8 @@ from ..comm.grid import COL_AXIS, ROW_AXIS
 from ..common.asserts import dlaf_assert
 from ..health import info as hinfo
 from ..matrix.matrix import Matrix
-from ..matrix.panel import (DistContext, to_device, transpose_col_to_rows,
-                            transpose_row_to_cols, uniform_slot_start)
+from ..matrix.panel import (DistContext, bcast_diag, pad_diag_identity, to_device,
+                            transpose_col_to_rows, transpose_row_to_cols, uniform_slot_start)
 from ..matrix.tiling import global_to_tiles, tiles_to_global
 from ..tile_ops import blas as tb
 from ..tile_ops import lapack as tl
@@ -64,7 +65,7 @@ from ..tile_ops import ozaki as oz
 from ..tile_ops import ozaki_kernels as ok
 from ..tile_ops import panel_kernels as pk
 from ..tile_ops import update_kernels as uk
-from ..types import ceil_div, telescope_segments
+from ..types import ceil_div, telescope_segments, telescope_windows
 
 _F64 = (torch.float64, torch.complex128)
 
@@ -522,10 +523,6 @@ def _cholesky_dist(lts, dist, *, uplo, use_pallas=False, use_mxu=False, use_mixe
         return (ctx.owner_r(k), ctx.owner_c(k), ctx.kr(k), ctx.kc(k),
                 uniform_slot_start(k + 1, P), uniform_slot_start(k + 1, Q))
 
-    def pad_identity(d, ts):
-        pad = torch.arange(mb, device=d.device) >= ts
-        return torch.where(pad[:, None] | pad[None, :], 0, d) + torch.diag(pad.to(d.dtype))
-
     def solve(side, up, lkk, src, inv):
         if panel_fused:
             return pk.panel_solve(side, up, "C", "N", lkk, src)
@@ -540,8 +537,7 @@ def _cholesky_dist(lts, dist, *, uplo, use_pallas=False, use_mxu=False, use_mixe
             cand = ranks(lambda r, c: la[0][r][c][slot])
         diag = cc.bcast2d(cand, owner_r, owner_c)
         ts = min(mb, n - k * mb)
-        if ts < mb:
-            diag = ranks(lambda r, c: pad_identity(diag[r][c], ts))
+        diag = ranks(lambda r, c: pad_diag_identity(diag[r][c], ts))
         fuse_step = step_fused and not use_mixed and k < nt - 1 and (
             (ltr - lu_r) if uplo == "L" else (ltc - lu_c)) > 0
         inv = None
@@ -692,14 +688,227 @@ def _cholesky_dist(lts, dist, *, uplo, use_pallas=False, use_mxu=False, use_mixe
             ch = panel_chain(k, la)
             la = step_pre(k, ch)
         step_bulk(k, ch, la is not None)
-    if not with_info:
-        return None
+    return _dist_info(lts, ctx, n) if with_info else None
+
+
+def _dist_info(lts, ctx: DistContext, n: int):
+    """Info of a distributed factor (reference ``_dist_factor_info``): each
+    rank's owner-masked bad-column vector, merged by an all-reduce max
+    over both grid axes."""
     if n == 0:
         return torch.zeros((), dtype=torch.int32, device=lts[0][0].device)
-    vec = ranks(lambda r, c: hinfo.dist_diag_bad(lts[r][c], ctx.rr(r), ctx.rc(c), Pr=P, Qc=Q,
-                                                 nt=nt, mb=mb, n=n))
+    vec = cc.per_rank(ctx.P, ctx.Q, lambda r, c: hinfo.dist_diag_bad(
+        lts[r][c], ctx.rr(r), ctx.rc(c), Pr=ctx.P, Qc=ctx.Q, nt=ctx.nt.row, mb=ctx.mb, n=n))
     vec = cc.all_reduce(cc.all_reduce(vec, ROW_AXIS, "max"), COL_AXIS, "max")
     return hinfo.first_bad_info(vec[0][0] > 0)
+
+
+def _cholesky_dist_scan(lts, dist, *, uplo, use_mxu=False, use_mixed=False,
+                        use_oz_pallas=False, lookahead=False, with_info=False,
+                        panel_fused=False, step_fused=False):
+    """The scan form of the distributed factorization, IN PLACE on the
+    per-rank shards ``lts[r][c]``; returns the info tensor with
+    ``with_info``, else None.
+
+    The reference's uniform step body (``_build_dist_cholesky_scan``):
+    every step factors the diagonal tile on every rank, solves the panel
+    over ALL local slots of the telescoped window and updates the
+    ALL-pairs trailing grid of the window under validity masks (about 2x
+    the panel work and 3x the trailing flops of the unrolled schedule).
+    The reference scans that body with ``lax.scan`` to compile O(1)
+    programs; here it is a Python loop over the same windows
+    (:func:`..types.telescope_windows`), shapes and masks, so the same
+    products are formed. Each kernel launches once per rank per step, the
+    last step included.
+
+    Routes, as the reference's gates: the float32 update kernel is
+    unrolled-only, so the bulk is the masked all-pairs ``torch.matmul``
+    product; ``use_oz_pallas`` runs the predicated pair kernel with the
+    step's mode table as data; ``step_fused`` defers the potrf into the
+    fused factor+solve kernel at the panel site, ``panel_fused`` runs the
+    potrf and solve kernels; ``use_mixed`` the mixed factor and inverse.
+    ``lookahead`` carries the panel pair of step k-1 and applies its bulk
+    product in step k, after step k's panel, with the next column (row)
+    updated eagerly; the pending pair crosses windows (the slots a window
+    drops are zero). The factor is bitwise the same with lookahead and
+    with_info on or off."""
+    ctx = DistContext(dist)
+    nt, mb, n = ctx.nt.row, ctx.mb, dist.size.row
+    P, Q, ltr, ltc = ctx.P, ctx.Q, ctx.ltr, ctx.ltc
+    other = "U" if uplo == "L" else "L"
+    lower = uplo == "L"
+    fuse_step = step_fused and not use_mixed
+
+    def ranks(fn):
+        return cc.per_rank(P, Q, fn)
+
+    def valid(g, k):
+        return (g > k) & (g < nt)
+
+    def pair_modes(rv, cv, gr, gc):
+        """(R, C) mode table: 1 a pair strictly inside the stored triangle,
+        2 (uplo 'L') / 3 ('U') a diagonal pair, 0 elsewhere."""
+        pair = rv[:, None] & cv[None, :]
+        ondiag = pair & (gr[:, None] == gc[None, :])
+        strict = pair & ((gr[:, None] > gc[None, :]) if lower else (gr[:, None] < gc[None, :]))
+        return strict.astype(np.int32) + (2 if lower else 3) * ondiag.astype(np.int32)
+
+    def sub_pairs(block, xr, xc, modes):
+        """``block -= mask(pair products)``: the (R, C) products of the row
+        tiles ``xr`` and the (transposed) column tiles ``xc``."""
+        R, C = xr.shape[0], xc.shape[0]
+        mode = to_device(modes, block.device, torch.int32)
+        if lower:
+            afl, bfl = xr.reshape(R * mb, mb), xc.conj().reshape(C * mb, mb)
+        else:
+            afl, bfl = xr.conj().mT.reshape(R * mb, mb), xc.mT.reshape(C * mb, mb)
+        if use_mxu and use_oz_pallas:
+            upd = _masked_oz_update(afl, bfl, mode, R, C, mb)
+        else:
+            full = _oz_product(afl, bfl.mT) if use_mxu else afl @ bfl.mT
+            upd = full.reshape(R, mb, C, mb).permute(0, 2, 1, 3)
+        _sub_masked_pairs(block, upd, mode, uplo)
+
+    def panel_site(subs, k, lu_r0, lu_c0, g_rows, g_cols):
+        """The diagonal tile on every rank, its factor, the panel over
+        every local slot of the window (masked, written back on the owner
+        column (row)), broadcast and transposed. Returns the window's row
+        and column panel tiles."""
+        owner_r, owner_c = ctx.owner_r(k), ctx.owner_c(k)
+        kr, kc = ctx.kr(k) - lu_r0, ctx.kc(k) - lu_c0
+        ts = min(mb, n - k * mb)
+        diag = bcast_diag(ctx, subs, k, row_off=lu_r0, col_off=lu_c0)
+        diag = ranks(lambda r, c: pad_diag_identity(diag[r][c], ts))
+        own = subs[owner_r][owner_c]
+        # the stored edge zeros of a short tile, kept by the write-back
+        cand = own[kr, kc].clone() if ts < mb else None
+        inv = None
+        if use_mixed:
+            fi = ranks(lambda r, c: mx.potrf_inv_refined(uplo, diag[r][c]))
+            lkk = ranks(lambda r, c: fi[r][c][0] + tb.tri_mask(diag[r][c], other, k=-1))
+            inv = ranks(lambda r, c: fi[r][c][1])
+        elif fuse_step:
+            lkk = None
+        else:
+            lkk = ranks(lambda r, c: pk.potrf(uplo, diag[r][c]) if panel_fused
+                        else tl.potrf(uplo, diag[r][c]))
+
+        def write_diag(t):
+            # the pivot's owner only: on the other ranks of its column
+            # (row) the slot holds another tile, solved or not
+            if cand is not None:
+                pad = torch.arange(mb, device=t.device) >= ts
+                t = torch.where(pad[:, None] | pad[None, :], cand, t)
+            own[kr, kc] = t
+
+        if lkk is not None:
+            write_diag(lkk[owner_r][owner_c])
+
+        def src(r, c):
+            return subs[r][c][:, kc] if lower else subs[r][c][kr, :]
+
+        side = "R" if lower else "L"
+        if fuse_step:
+            fs = ranks(lambda r, c: pk.factor_solve(uplo, diag[r][c], src(r, c)))
+            lkk = ranks(lambda r, c: fs[r][c][0])
+            pan = ranks(lambda r, c: fs[r][c][1])
+        elif panel_fused:
+            pan = ranks(lambda r, c: pk.panel_solve(side, uplo, "C", "N", lkk[r][c], src(r, c)))
+        else:
+            pan = ranks(lambda r, c: tb.trsm_panel(side, uplo, "C", "N", lkk[r][c], src(r, c),
+                                                   inv_a=inv[r][c] if inv is not None else None))
+        for r in range(P):
+            for c in range(Q):
+                a, b = _valid_range(g_rows[r] if lower else g_cols[c], k, nt)
+                pan[r][c][:a].zero_()
+                pan[r][c][b:].zero_()
+                if (c == owner_c) if lower else (r == owner_r):
+                    src(r, c)[a:b] = pan[r][c][a:b]
+        if fuse_step:
+            write_diag(lkk[owner_r][owner_c])
+        if lower:
+            vr = cc.bcast(pan, COL_AXIS, owner_c)
+            vc = transpose_col_to_rows(ctx, vr, lu_r0, ranks(lambda r, c: g_cols[c]))
+            for r in range(P):
+                for c in range(Q):
+                    a, b = _valid_range(g_cols[c], k, nt)
+                    vc[r][c][:a].zero_()
+                    vc[r][c][b:].zero_()
+            return vr, vc
+        vc = cc.bcast(pan, ROW_AXIS, owner_r)
+        vr = transpose_row_to_cols(ctx, vc, lu_c0, ranks(lambda r, c: g_rows[r]))
+        for r in range(P):
+            for c in range(Q):
+                a, b = _valid_range(g_rows[r], k, nt)
+                vr[r][c][:a].zero_()
+                vr[r][c][b:].zero_()
+        return vr, vc
+
+    def strip(subs, k, lu_r0, lu_c0, g_rows, g_cols, vr, vc):
+        """The next column (uplo 'L') or row ('U') updated eagerly from
+        this step's panel, on the ranks that own it."""
+        if lower:
+            kc1, c = ctx.kc(k + 1) - lu_c0, ctx.owner_c(k + 1)
+            for r in range(P):
+                xr = vr[r][c]
+                flat = xr.reshape(-1, mb)
+                pk1 = vc[r][c][kc1].conj().mT
+                upd = (_oz_product(flat, pk1) if use_mxu else flat @ pk1).reshape(xr.shape)
+                on = np.flatnonzero(g_rows[r] == k + 1)
+                diag_slot = int(on[0]) if on.size else None
+                a, b = _valid_range(g_rows[r], k + 1, nt)
+                _sub_masked_rows(subs[r][c][:, kc1], upd, (a, b), diag_slot, True)
+            return
+        kr1, r = ctx.kr(k + 1) - lu_r0, ctx.owner_r(k + 1)
+        for c in range(Q):
+            xc = vc[r][c]
+            flat = xc.mT.reshape(-1, mb)
+            pk1 = vr[r][c][kr1].conj().mT
+            upd = _oz_product(pk1, flat.mT) if use_mxu else pk1 @ flat.mT
+            upd = upd.reshape(mb, xc.shape[0], mb).permute(1, 0, 2)
+            on = np.flatnonzero(g_cols[c] == k + 1)
+            diag_slot = int(on[0]) if on.size else None
+            a, b = _valid_range(g_cols[c], k + 1, nt)
+            _sub_masked_rows(subs[r][c][kr1, :], upd, (a, b), diag_slot, False)
+
+    pend = None
+    windows = telescope_windows(nt, lambda k0, _len: (uniform_slot_start(k0, P),
+                                                      uniform_slot_start(k0, Q)))
+    for (lu_r0, lu_c0), k0, seg_len in windows:
+        ltr_s, ltc_s = ltr - lu_r0, ltc - lu_c0
+        subs = ranks(lambda r, c: lts[r][c][lu_r0:, lu_c0:])
+        g_rows = [ctx.g_rows(r, lu_r0, ltr_s) for r in range(P)]
+        g_cols = [ctx.g_cols(c, lu_c0, ltc_s) for c in range(Q)]
+        if lookahead:
+            if pend is None:
+                pend = tuple(ranks(lambda r, c: lts[r][c].new_zeros((cnt, mb, mb)))
+                             for cnt in (ltr_s, ltc_s))
+            else:
+                pend = (ranks(lambda r, c: pend[0][r][c][-ltr_s:]),
+                        ranks(lambda r, c: pend[1][r][c][-ltc_s:]))
+        for k in range(k0, k0 + seg_len):
+            vr, vc = panel_site(subs, k, lu_r0, lu_c0, g_rows, g_cols)
+            if not lookahead:
+                for r in range(P):
+                    for c in range(Q):
+                        sub_pairs(subs[r][c], vr[r][c], vc[r][c], pair_modes(
+                            valid(g_rows[r], k), valid(g_cols[c], k), g_rows[r], g_cols[c]))
+                continue
+            # the deferred bulk of step k-1, less the column (row) k its
+            # strip updated
+            for r in range(P):
+                for c in range(Q):
+                    rv, cv = valid(g_rows[r], k - 1), valid(g_cols[c], k - 1)
+                    if lower:
+                        cv &= g_cols[c] != k
+                    else:
+                        rv &= g_rows[r] != k
+                    sub_pairs(subs[r][c], pend[0][r][c], pend[1][r][c],
+                              pair_modes(rv, cv, g_rows[r], g_cols[c]))
+            if k + 1 < nt:
+                strip(subs, k, lu_r0, lu_c0, g_rows, g_cols, vr, vc)
+            pend = (vr, vc)
+    return _dist_info(lts, ctx, n) if with_info else None
 
 
 def _cholesky_distributed(uplo, mat, *, donate, with_info, trailing, lookahead, panel_fused,
@@ -709,9 +918,7 @@ def _cholesky_distributed(uplo, mat, *, donate, with_info, trailing, lookahead, 
     dev = mat.device.type
     dtype = mat.dtype
     nb = mat.block_size.row
-    if trailing == "scan":
-        raise NotImplementedError("cholesky_trailing='scan' on a grid: the distributed scan "
-                                  "builder is not ported yet")
+    scan = trailing == "scan"
     use_mxu = tb.f64_gemm_uses_mxu(dtype, nb, dev)
     use_mixed = tb.trsm_panel_uses_mixed(dtype, dev)
     comm_la = lookahead and config.resolve("comm_lookahead", dev) == "1"
@@ -722,16 +929,21 @@ def _cholesky_distributed(uplo, mat, *, donate, with_info, trailing, lookahead, 
                              f"ozaki_impl=pallas does not apply to dtype={dtype} mb={nb} on a "
                              f"grid (needs float64, mb<={ok.MASKED_MB_MAX}); using the "
                              "whole-rectangle Ozaki products")
-    use_pallas = uk.supports_update(dtype, dev) and not use_mxu
     shards = mat.storage if donate else [s.clone() for s in mat.storage]
     if donate:
         mat.storage = None
     P, Q = mat.dist.grid_size.row, mat.dist.grid_size.col
     lts = cc.per_rank(P, Q, lambda r, c: shards[r * Q + c])
-    info = _cholesky_dist(lts, mat.dist, uplo=uplo, use_pallas=use_pallas, use_mxu=use_mxu,
-                          use_mixed=use_mixed, use_oz_pallas=use_oz_pallas,
-                          lookahead=lookahead, comm_la=comm_la, with_info=with_info,
-                          panel_fused=panel_fused, step_fused=step_fused)
+    kw = dict(uplo=uplo, use_mxu=use_mxu, use_mixed=use_mixed, use_oz_pallas=use_oz_pallas,
+              lookahead=lookahead, with_info=with_info, panel_fused=panel_fused,
+              step_fused=step_fused)
+    if scan:
+        # the update kernel is unrolled-only, and the scan body already
+        # orders its panel chain ahead of the deferred bulk: no comm_la
+        info = _cholesky_dist_scan(lts, mat.dist, **kw)
+    else:
+        info = _cholesky_dist(lts, mat.dist, use_pallas=uk.supports_update(dtype, dev)
+                              and not use_mxu, comm_la=comm_la, **kw)
     res = Matrix(mat.dist, shards, mat.grid)
     return (res, info) if with_info else res
 

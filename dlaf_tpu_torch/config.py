@@ -1,7 +1,9 @@
-"""Runtime configuration: the knobs the local Cholesky path reads.
+"""Runtime configuration: the knobs the ported algorithms read.
 
 Counterpart of ``dlaf_tpu/config.py``, cut to the knobs of the local and
-distributed Cholesky and their f64/complex128 routes. Same layering (highest wins):
+distributed Cholesky, the triangular solve and multiply
+(``dist_step_mode``, ``trsm_rhs_chunk``) and their f64/complex128 routes.
+Same layering (highest wins):
 ``--dlaf:<knob>=<value>`` arguments > ``DLAF_<KNOB>`` environment
 variables > a user ``Configuration`` > the defaults.
 
@@ -88,6 +90,17 @@ class Configuration:
     #: diagonal ratio of the f32 seed factor; blocks above it take the
     #: native f64 factor.
     mixed_cond_limit: float = 100.0
+    #: Per-k step form of the distributed triangular solve and multiply:
+    #: "unrolled" (exact per-step shapes), "scan" (uniform masked steps
+    #: over telescoped windows, the reference's compile-latency form) or
+    #: "auto" (:func:`resolve_step_mode`). The Cholesky picks its scan form
+    #: with ``cholesky_trailing="scan"``.
+    dist_step_mode: str = "auto"
+    #: Free-axis chunk width of a local whole-matrix triangular solve (rhs
+    #: columns, rows for side 'R'): chunks are independent, so the result
+    #: is bitwise the same. 0 = off; -1 = auto, which chunks only where the
+    #: reference measured its memory limit, on the TPU, so 0 here.
+    trsm_rhs_chunk: int = -1
     #: Seed of the mixed panels: "xla" (one library f32 cholesky + one
     #: triangular solve, named after the reference's) or "recursive"
     #: (recursive blocks whose leaves are library calls).
@@ -107,6 +120,7 @@ _VALID_CHOICES = {
     "f64_gemm": ("native", "mxu", "auto"),
     "f64_trsm": ("native", "mixed", "auto"),
     "mixed_seed": ("xla", "recursive"),
+    "dist_step_mode": ("unrolled", "scan", "auto"),
 }
 
 #: auto resolution per device type: (cuda choice, cpu choice).
@@ -133,6 +147,9 @@ def _validate(cfg: Configuration) -> None:
     if not 0 <= cfg.f64_gemm_slices <= 9:
         raise ValueError(f"f64_gemm_slices={cfg.f64_gemm_slices}: must be in [1, 9], "
                          "or 0 for auto")
+    if cfg.trsm_rhs_chunk < -1:
+        raise ValueError(f"trsm_rhs_chunk={cfg.trsm_rhs_chunk}: must be -1 (auto), 0 (off) "
+                         "or a positive width")
     if cfg.mixed_seed_base < 1:
         raise ValueError(f"mixed_seed_base={cfg.mixed_seed_base}: must be >= 1")
 
@@ -212,3 +229,26 @@ def resolve_slices() -> int:
         return s
     _announce("f64_gemm_slices", "any", AUTO_SLICES)
     return AUTO_SLICES
+
+
+#: Step counts at which ``dist_step_mode="auto"`` picks the scan form, per
+#: device type. The reference's numbers are compile constants: 32 on its
+#: TPU, 128 on the CPU. Eager PyTorch compiles nothing, so cuda takes the
+#: CPU rule until the card's own unrolled-against-scan times
+#: (``chip_smoke.py``) argue another value.
+STEP_MODE_AUTO_SCAN_AT = {"cpu": 128, "cuda": 128}
+
+
+def resolve_step_mode(steps: int, device_type: str) -> str:
+    """``dist_step_mode`` for an algorithm of ``steps`` per-k steps, "auto"
+    resolved per device type (announced once per choice)."""
+    mode = get_configuration().dist_step_mode
+    if mode != "auto":
+        return mode
+    at = STEP_MODE_AUTO_SCAN_AT.get(device_type, 128)
+    choice = "scan" if steps >= at else "unrolled"
+    announce_once(("dist_step_mode", device_type, at),
+                  f"dist_step_mode=auto switches to 'scan' at {at} steps on device "
+                  f"{device_type!r} (the reference's cpu rule) — set the knob explicitly "
+                  "to override")
+    return choice

@@ -1,13 +1,15 @@
 """Failure detection: info values from factor diagonals.
 
-Counterpart of ``dlaf_tpu/health/info.py:31-92``. A failed Cholesky leaves
+Counterpart of ``dlaf_tpu/health/info.py:31-146``. A failed Cholesky leaves
 NaN from its first failing column on, and NaN propagates through every
 later trailing update, so the FIRST non-finite diagonal entry of the final
 factor is the blocked algorithm's info: the 1-based first failing global
 column, 0 on success. Computed on the device, with no host sync. On a
 grid each rank reads only the diagonal tiles it owns
 (:func:`dist_diag_bad`), and the distributed Cholesky merges the per-rank
-vectors with an all-reduce max over both grid axes.
+vectors with an all-reduce max over both grid axes. The triangular solve
+reads its info from the stored diagonal of ``A``
+(:func:`matrix_diag_info`).
 """
 
 from __future__ import annotations
@@ -65,3 +67,33 @@ def dist_diag_bad(lt: torch.Tensor, rr: int, rc: int, *, Pr: int, Qc: int, nt: i
             bad = bad_diag_mask(torch.diagonal(lt[lr, lc]), singular=singular)
             vec[g * mb:(g + 1) * mb] = bad.to(torch.int32)
     return vec[:n]
+
+
+def _diag_tile_coords(dist):
+    """Per global diagonal tile, in global order: ``(rank row, rank col,
+    local slot row, local slot col, extent)`` (the reference's storage
+    coordinates, as the port's per-rank shards address them)."""
+    from ..matrix import util_distribution as ud
+
+    mb, n = dist.block_size.row, dist.size.row
+    P, Q = dist.grid_size.row, dist.grid_size.col
+    sr, sc = dist.source_rank.row, dist.source_rank.col
+    return [(ud.rank_global_tile(k, P, sr), ud.rank_global_tile(k, Q, sc),
+             ud.local_tile_from_global_tile(k, P), ud.local_tile_from_global_tile(k, Q),
+             min(mb, n - k * mb)) for k in range(dist.nr_tiles.row)]
+
+
+def matrix_diag_info(mat, *, singular: bool = False) -> torch.Tensor:
+    """1-based first bad global diagonal column of ``mat`` (0 = clean), an
+    int32 tensor on the device of rank (0, 0), with no host sync.
+    ``singular=True`` is the triangular solve's detection (a zero or
+    non-finite diagonal entry); the default matches ``potrf_info``
+    (non-finite only)."""
+    coords = _diag_tile_coords(mat.dist)
+    if not coords:
+        return torch.zeros((), dtype=torch.int32, device=mat.device)
+    Q = mat.dist.grid_size.col
+    shards = mat.shards()
+    d = torch.cat([torch.diagonal(shards[r * Q + c][lr, lc])[:ts].to(mat.device)
+                   for r, c, lr, lc, ts in coords])
+    return first_bad_info(bad_diag_mask(d, singular=singular))

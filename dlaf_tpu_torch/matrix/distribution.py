@@ -102,3 +102,24 @@ class Distribution:
     def __str__(self) -> str:
         return (f"Distribution(size={self.size}, block={self.block_size}, "
                 f"grid={self.grid_size}, rank={self.rank}, src={self.source_rank})")
+
+
+def assert_slot_aligned(da: Distribution, db: Distribution, rows: bool = False,
+                        cols: bool = False, what: str = "operands") -> None:
+    """Raise unless the local tile slots of ``da`` and ``db`` address the
+    same global tiles along the requested axes (the same grid extent and
+    source rank there). The distributed solve and multiply combine one
+    operand's per-slot panels with the other's per-slot tiles, which is
+    right only under this alignment; a mismatch gives wrong numbers, not
+    an error (``dlaf_tpu/matrix/distribution.py:153-184``)."""
+    for on, axis, ga, gb, sa, sb in (
+            (rows, "row", da.grid_size.row, db.grid_size.row, da.source_rank.row,
+             db.source_rank.row),
+            (cols, "col", da.grid_size.col, db.grid_size.col, da.source_rank.col,
+             db.source_rank.col)):
+        if on:
+            dlaf_assert(ga == gb and sa == sb,
+                        f"{what}: {axis} slots misaligned — grid {axis}s {ga}/{gb}, source "
+                        f"{axis}s {sa}/{sb}; distributed algorithms require operands aligned "
+                        "on this axis (re-shard one operand, e.g. Matrix.from_global with the "
+                        "other's source_rank)")

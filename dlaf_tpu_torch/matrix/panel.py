@@ -1,13 +1,22 @@
-"""Panel exchange over the grid: per-rank index context and the
-transposed-panel exchange.
+"""Panel exchange over the grid: per-rank index context, the diagonal
+tile and panel broadcasts, and the transposed-panel exchange.
 
-Counterpart of ``dlaf_tpu/matrix/panel.py:29-93, 297-323`` (reference
+Counterpart of ``dlaf_tpu/matrix/panel.py:29-204, 297-323`` (reference
 ``matrix/panel.h``, ``broadcast_panel.h``). In the JAX package a
 ``DistContext`` holds trace-time constants and the rank's traced
 coordinates inside ``shard_map``; here the controller asks it for any rank,
 and every per-rank quantity (cycle position, global tile index of a local
 slot) is a host int. The transposed-panel exchange is the reference's:
 an all-gather along one grid axis, then an index select per rank.
+
+The reference has two forms of the broadcasts: a static ``k`` (unrolled
+builders) and a traced one (``*_dyn``, scan builders, whose slot windows
+are static offsets into a telescoped view). With one controller every
+``k`` is a host int, so one function serves both: :func:`col_panel` and
+:func:`row_panel` take the slot window of the ``_dyn`` forms as
+keywords, :func:`bcast_diag` the offsets of a telescoped view.
+``gather_sub_panel_dyn`` and ``tiles_of_rolled`` (reduction to band) come
+with that algorithm.
 """
 
 from __future__ import annotations
@@ -70,12 +79,65 @@ class DistContext:
     def kc(self, k: int) -> int:
         return ud.local_tile_from_global_tile(k, self.Q)
 
+
     def g_rows(self, r: int, lu: int, count: int) -> np.ndarray:
         """Global tile rows of grid row ``r``'s local slots lu..lu+count-1."""
         return (lu + np.arange(count)) * self.P + self.rr(r)
 
     def g_cols(self, c: int, lu: int, count: int) -> np.ndarray:
         return (lu + np.arange(count)) * self.Q + self.rc(c)
+
+
+def bcast_diag(ctx: DistContext, lts, k: int, *, row_off: int = 0, col_off: int = 0):
+    """The global diagonal tile ``(k, k)`` on every rank (one
+    :func:`..comm.collectives.bcast2d`); ``lts`` per-rank shards, or their
+    windows ``shard[row_off:, col_off:]``."""
+    P, Q = cc.grid_shape(lts)
+    kr, kc = ctx.kr(k) - row_off, ctx.kc(k) - col_off
+    cand = cc.per_rank(P, Q, lambda r, c: lts[r][c][kr, kc])
+    return cc.bcast2d(cand, ctx.owner_r(k), ctx.owner_c(k))
+
+
+def pad_diag_identity(tile: torch.Tensor, real_size: int) -> torch.Tensor:
+    """A short edge diagonal tile with its padded block replaced by the
+    identity, so that factorizations and solves stay nonsingular; a full
+    tile is returned as it is."""
+    mb = tile.shape[-1]
+    if real_size >= mb:
+        return tile
+    pad = torch.arange(mb, device=tile.device) >= real_size
+    cleared = torch.where(pad[:, None] | pad[None, :], 0, tile)
+    return cleared + torch.diag(pad.to(tile.dtype))
+
+
+def col_panel(ctx: DistContext, lts, k: int, *, lu: int = 0, count=None):
+    """Local-row tiles ``lu .. lu+count-1`` (default: to the end) of global
+    tile column ``k``, broadcast along the column axis from its owner; per
+    rank ``(count, mb, nb)``."""
+    P, Q = cc.grid_shape(lts)
+    kc = ctx.kc(k)
+
+    def mine(r, c):
+        lt = lts[r][c]
+        end = lt.shape[0] if count is None else lu + count
+        return lt[lu:end, kc]
+
+    return cc.bcast(cc.per_rank(P, Q, mine), COL_AXIS, ctx.owner_c(k))
+
+
+def row_panel(ctx: DistContext, lts, k: int, *, lu: int = 0, count=None):
+    """Local-column tiles ``lu .. lu+count-1`` of global tile row ``k``,
+    broadcast along the row axis from its owner (mirror of
+    :func:`col_panel`)."""
+    P, Q = cc.grid_shape(lts)
+    kr = ctx.kr(k)
+
+    def mine(r, c):
+        lt = lts[r][c]
+        end = lt.shape[1] if count is None else lu + count
+        return lt[kr, lu:end]
+
+    return cc.bcast(cc.per_rank(P, Q, mine), ROW_AXIS, ctx.owner_r(k))
 
 
 def _select(full: torch.Tensor, flat: np.ndarray) -> torch.Tensor:

@@ -74,16 +74,22 @@ def global_to_tiles(a: torch.Tensor, dist: Distribution) -> torch.Tensor:
 
 
 def tiles_to_global(t: torch.Tensor, dist: Distribution) -> torch.Tensor:
-    """Tile storage -> a new contiguous global ``(m, n)`` tensor."""
+    """Tile storage -> a new contiguous global ``(m, n)`` tensor that
+    shares no storage with ``t``: writing it never reaches the tiles."""
     m, n = dist.size.row, dist.size.col
     mb, nb = dist.block_size.row, dist.block_size.col
     nt = dist.nr_tiles
+    src = t
     if not dist.single_rank():
         _, _, ltr, ltc = storage_tile_grid(dist)
         t = _take(t, _axis_perm_inv(nt.row, dist.grid_size.row, dist.source_rank.row, ltr), 0)
         t = _take(t, _axis_perm_inv(nt.col, dist.grid_size.col, dist.source_rank.col, ltc), 1)
-    a = t.permute(0, 2, 1, 3).reshape(nt.row * mb, nt.col * nb)
-    return a[:m, :n].contiguous()
+    a = t.permute(0, 2, 1, 3).reshape(nt.row * mb, nt.col * nb)[:m, :n].contiguous()
+    if a.untyped_storage().data_ptr() == src.untyped_storage().data_ptr():
+        # one tile row or column (or nb = 1): the reshape needed no copy,
+        # so ``a`` is a view of the tiles
+        a = a.clone()
+    return a
 
 
 def split_shards(t: torch.Tensor, dist: Distribution, devices) -> list:

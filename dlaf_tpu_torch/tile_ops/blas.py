@@ -1,17 +1,20 @@
 """BLAS tile operations on torch.
 
 Counterpart of ``dlaf_tpu/tile_ops/blas.py`` (reference ``blas/tile.h``),
-cut to what the local and distributed Cholesky read. These are the
-composed route: plain
-``torch.matmul`` and ``torch.linalg.solve_triangular``, the port's analog
-of the reference's XLA route. The triangle a routine does not own passes
-through, as in LAPACK. The f64/complex128 route decisions (``mm_mxu``,
-``f64_gemm_uses_mxu``, ``trsm_panel_uses_mixed``) and the product and
-panel solve that follow them (``mm``, ``trsm_panel``) live here too, as in
-the reference.
+cut to what the Cholesky and the triangular solve and multiply read. These
+are the composed route: plain ``torch.matmul``, ``torch.einsum`` and
+``torch.linalg.solve_triangular``, the port's analog of the reference's
+XLA route. The triangle a routine does not own passes through, as in
+LAPACK. The f64/complex128 route decisions (``mm_mxu``,
+``f64_gemm_uses_mxu``, ``trsm_panel_uses_mixed``, ``resolve_chunk_width``)
+and the products and solves that follow them (``mm``, ``contract``,
+``trmm``, the recursive ``trsm``, ``trsm_panel``) live here too, as in the
+reference.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -76,17 +79,84 @@ def herk(uplo: str, op_a: str, a, c, *, alpha=1.0, beta=1.0):
     return _merge_triangle(upd, c, uplo)
 
 
-def trsm(side: str, uplo: str, op_a: str, diag: str, a, b, *, alpha=1.0):
-    """Solve ``op_a(A) x = alpha b`` (side 'L') or ``x op_a(A) = alpha b``
-    (side 'R') with the ``uplo`` triangle of ``a`` (unit diagonal for
-    ``diag='U'``), on ``torch.linalg.solve_triangular``."""
+def _tri(a: torch.Tensor, uplo: str, diag: str) -> torch.Tensor:
+    """The ``uplo`` triangle of ``a``, its diagonal set to one for
+    ``diag='U'``."""
+    t = tri_mask(a, uplo)
+    if diag == "U":
+        eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+        t = t - torch.diag_embed(torch.diagonal(t, dim1=-2, dim2=-1)) + eye
+    return t
+
+
+#: Triangles of a 2-D solve above this order split recursively
+#: (:func:`_trsm_rec`) instead of going to one library solve: the bulk of
+#: the flops become large products, which follow ``f64_gemm``.
+TRSM_RECURSE_MIN = 2048
+
+
+def _trsm_native(side, uplo, op_a, diag, a, b):
     t = tri_mask(a, uplo)
     upper = uplo == "U"
     if op_a != "N":
         t, upper = _op(t, op_a), not upper
-    return torch.linalg.solve_triangular(
-        t, alpha * b, upper=upper, left=side == "L",
-        unitriangular=diag == "U").to(b.dtype)
+    return torch.linalg.solve_triangular(t, b, upper=upper, left=side == "L",
+                                         unitriangular=diag == "U")
+
+
+def _trsm_rec(side, uplo, op_a, diag, a, b):
+    """Recursive blocked solve: split ``A`` 2x2 at a 256-aligned half,
+    solve the halves and connect them with one product (:func:`mm`); the
+    leaves at most ``TRSM_RECURSE_MIN`` go to the library solve."""
+    n = a.shape[-1]
+    if n <= TRSM_RECURSE_MIN:
+        return _trsm_native(side, uplo, op_a, diag, a, b)
+    h = max(TRSM_RECURSE_MIN // 2, (n // 2) // 256 * 256)
+    a11, a22 = a[:h, :h], a[h:, h:]
+    # the off-diagonal block of op(A): for op 'N' the stored block on the
+    # effective-lower side, otherwise the transpose of the other one
+    eff_lower = (uplo == "L") == (op_a == "N")
+    if eff_lower:
+        s = a[h:, :h] if op_a == "N" else _op(a[:h, h:], op_a)
+    else:
+        s = a[:h, h:] if op_a == "N" else _op(a[h:, :h], op_a)
+    if side == "L":
+        if eff_lower:       # op(A) = [[T11, 0], [S, T22]]
+            x1 = _trsm_rec(side, uplo, op_a, diag, a11, b[:h])
+            x2 = _trsm_rec(side, uplo, op_a, diag, a22, b[h:] - mm(s, x1))
+        else:               # op(A) = [[T11, S], [0, T22]]
+            x2 = _trsm_rec(side, uplo, op_a, diag, a22, b[h:])
+            x1 = _trsm_rec(side, uplo, op_a, diag, a11, b[:h] - mm(s, x2))
+        return torch.cat([x1, x2], dim=0)
+    if eff_lower:           # X [[T11, 0], [S, T22]] = [B1, B2]
+        x2 = _trsm_rec(side, uplo, op_a, diag, a22, b[..., h:])
+        x1 = _trsm_rec(side, uplo, op_a, diag, a11, b[..., :h] - mm(x2, s))
+    else:                   # X [[T11, S], [0, T22]] = [B1, B2]
+        x1 = _trsm_rec(side, uplo, op_a, diag, a11, b[..., :h])
+        x2 = _trsm_rec(side, uplo, op_a, diag, a22, b[..., h:] - mm(x1, s))
+    return torch.cat([x1, x2], dim=-1)
+
+
+def trsm(side: str, uplo: str, op_a: str, diag: str, a, b, *, alpha=1.0):
+    """Solve ``op_a(A) x = alpha b`` (side 'L') or ``x op_a(A) = alpha b``
+    (side 'R') with the ``uplo`` triangle of ``a`` (unit diagonal for
+    ``diag='U'``): ``torch.linalg.solve_triangular``, or for a 2-D
+    triangle of order above ``TRSM_RECURSE_MIN`` the recursive blocked
+    form (:func:`_trsm_rec`)."""
+    out_dtype = b.dtype
+    b = alpha * b
+    if a.dim() == 2 and b.dim() == 2 and a.shape[-1] > TRSM_RECURSE_MIN:
+        return _trsm_rec(side, uplo, op_a, diag, a, b).to(out_dtype)
+    return _trsm_native(side, uplo, op_a, diag, a, b).to(out_dtype)
+
+
+def trmm(side: str, uplo: str, op_a: str, diag: str, a, b, *, alpha=1.0):
+    """``alpha op_a(A) b`` (side 'L') or ``alpha b op_a(A)`` ('R') with the
+    ``uplo`` triangle of ``a`` (reference ``tile::trmm``); the product
+    follows ``f64_gemm`` (:func:`mm`)."""
+    t = _op(_tri(a, uplo, diag), op_a)
+    prod = mm(t, b) if side == "L" else mm(b, t)
+    return (alpha * prod).to(b.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -154,6 +224,52 @@ def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return mm_mxu(a, b)
 
 
+def contract(subscripts: str, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Two-operand einsum with the ``f64_gemm="mxu"`` reroute (the
+    reference's ``contract``). Natively ``torch.einsum``; on the Ozaki
+    route the contraction is one 2-D product of the operands transposed
+    to (free, contracted) and (contracted, free) and flattened, the form
+    einsum lowers to. Labels shared by both operands contract and may not
+    appear in the output (no batch labels), none repeats within an
+    operand."""
+    lhs, out = subscripts.split("->")
+    s1, s2 = lhs.split(",")
+    contracted = [c for c in s1 if c in s2]
+    free1 = [c for c in s1 if c not in s2]
+    free2 = [c for c in s2 if c not in s1]
+    assert (len(set(s1)) == len(s1) and len(set(s2)) == len(s2)
+            and not set(contracted) & set(out) and set(out) == set(free1 + free2)), subscripts
+    d1, d2 = dict(zip(s1, x.shape)), dict(zip(s2, y.shape))
+    f1 = math.prod(d1[c] for c in free1)
+    f2 = math.prod(d2[c] for c in free2)
+    kk = math.prod(d1[c] for c in contracted)
+    if not _mxu_f64(x, y, (max(f1, 1), max(kk, 1), max(f2, 1))):
+        return torch.einsum(subscripts, x, y)
+    xf = x.permute([s1.index(c) for c in free1 + contracted]).reshape(f1, kk)
+    yf = y.permute([s2.index(c) for c in contracted + free2]).reshape(kk, f2)
+    full = mm_mxu(xf, yf).reshape([d1[c] for c in free1] + [d2[c] for c in free2])
+    order = free1 + free2
+    return full.permute([order.index(c) for c in out])
+
+
+def resolve_chunk_width(knob: str, dtype: torch.dtype, gate_dim: int, chunk_axis: int,
+                        device_type: str) -> int:
+    """Width of a workspace-bounding chunk knob (``trsm_rhs_chunk``), or 0
+    for unchunked, also when the width would not be shorter than
+    ``chunk_axis``. 0 = off; an explicit width is raised to
+    ``f64_gemm_min_dim`` where the Ozaki route is on at ``gate_dim`` (a
+    narrower chunk would move its products off the route and change the
+    numbers); -1 = auto, which chunks only on the reference's TPU (where
+    its Ozaki workspaces ran out of memory), so never here."""
+    cfg = config.get_configuration()
+    width = getattr(cfg, knob)
+    if width <= 0:
+        return 0
+    if f64_gemm_uses_mxu(dtype, gate_dim, device_type):
+        width = max(width, cfg.f64_gemm_min_dim)
+    return width if width < chunk_axis else 0
+
+
 def trsm_panel(side: str, uplo: str, op_a: str, diag: str, a, b, *, alpha=1.0, inv_a=None):
     """``trsm`` of ONE triangular tile ``a`` against a possibly stacked
     rhs ``b`` (the distributed builders' per-tile panel solve). With
@@ -165,13 +281,8 @@ def trsm_panel(side: str, uplo: str, op_a: str, diag: str, a, b, *, alpha=1.0, i
             and b.dtype == a.dtype):
         from . import mixed as mx
 
-        inv = inv_a
-        if inv is None:
-            t = tri_mask(a, uplo)
-            if diag == "U":
-                t = t - torch.diag_embed(torch.diagonal(t)) + torch.eye(
-                    t.shape[-1], dtype=t.dtype, device=t.device)
-            inv = mx.tri_inv_refined(t, lower=uplo == "L")
+        inv = inv_a if inv_a is not None else mx.tri_inv_refined(_tri(a, uplo, diag),
+                                                                 lower=uplo == "L")
         ti = _op(inv, op_a)
         prod = mm(ti, b) if side == "L" else mm(b, ti)
         return (alpha * prod).to(b.dtype)

@@ -3,7 +3,7 @@
 Counterpart of ``dlaf_tpu/types.py`` (reference ``include/dlaf/types.h``):
 the s/d/c/z element types the miniapps name, ``total_ops``, the real-op
 count used for GFlop/s (a complex multiply counts 6, a complex add 2), and
-the scan builder's ``telescope_segments``.
+the scan builders' ``telescope_segments`` and ``telescope_windows``.
 """
 
 from __future__ import annotations
@@ -80,3 +80,22 @@ def telescope_segments(steps: int, min_chunk: int = 8, max_segments: int = 8):
     if steps % c:
         segs.append(steps % c)
     return tuple(segs)
+
+
+def telescope_windows(steps: int, window_fn):
+    """Coalesced ``(window, start, length)`` segments of the telescoped
+    scan builders (distributed Cholesky, triangular solve and multiply):
+    ``window_fn(start, length)`` maps a segment of
+    :func:`telescope_segments` to a hashable window (slot offsets and
+    extents), and adjacent segments with equal windows merge into one.
+    Copy of ``dlaf_tpu/types.py:telescope_windows``."""
+    segs = []
+    pos = 0
+    for seg_len in telescope_segments(steps):
+        win = window_fn(pos, seg_len)
+        if segs and segs[-1][0] == win:
+            segs[-1] = (win, segs[-1][1], segs[-1][2] + seg_len)
+        else:
+            segs.append((win, pos, seg_len))
+        pos += seg_len
+    return segs

@@ -462,7 +462,11 @@ def test_wrappers_launch_nothing_on_cpu(monkeypatch):
     assert set(uk.LAUNCHES.values()) == {0} and set(ok.LAUNCHES.values()) == {0}
 
 
-def test_donate_and_scan_on_grid(monkeypatch):
+def test_donate_and_scan_on_grid(monkeypatch, devices8):
+    """donate=True releases the shards (same factor); trailing "scan" on a
+    grid runs the distributed scan builder, held against the reference's
+    ``_build_dist_cholesky_scan`` at 60 n eps, and leaves the input
+    unchanged without donate."""
     a = hpd(40, np.float64)
     grid = shared_grid(2, 2, "cpu")
     keep = cholesky("L", Matrix.from_global(a, TileElementSize(8, 8), grid))
@@ -471,8 +475,14 @@ def test_donate_and_scan_on_grid(monkeypatch):
     assert mat.storage is None
     assert all(torch.equal(x, y) for x, y in zip(out.shards(), keep.shards()))
     set_knobs(monkeypatch, {"cholesky_trailing": "scan"})
-    with pytest.raises(NotImplementedError):
-        cholesky("L", Matrix.from_global(a, TileElementSize(8, 8), grid))
+    j_scan = counting(monkeypatch, jchol, "_build_dist_cholesky_scan")
+    ref = jax_factor(a, "L", 8, 2, 2, (0, 0), devices8)
+    mat = Matrix.from_global(a, TileElementSize(8, 8), grid)
+    before = [s.clone() for s in mat.shards()]
+    got = cholesky("L", mat).to_numpy()
+    assert j_scan[0] == 1
+    assert all(torch.equal(x, y) for x, y in zip(mat.shards(), before))
+    assert np.abs(got - ref).max() / np.abs(a).max() <= 60 * 40 * np.finfo(np.float64).eps
 
 
 # ---------------------------------------------------------------------------
