@@ -76,7 +76,30 @@ and the triangular solver (``miniapp_triangular_solver.run``, m = n =
 15. trsm-local: one rank, float64 and float32 (the recursive solve above
     order 2048);
 16. trmm-d: ``triangular_multiply`` in double on 2x2, unrolled, checked
-    against ``blas.trmm`` of the gathered matrices on the card.
+    against ``blas.trmm`` of the gathered matrices on the card;
+
+HEGST (``miniapp_gen_to_std.run``: B factored once by ``cholesky``, then
+warm-up and timed transforms of A, each with its check line and launch
+counts, the Cholesky of B's included):
+
+17. hegst-z-blocked, hegst-z-twosolve and hegst-z: BASELINE config #3
+    (complex128, N=8192, nb=256, 2x2) by each formulation and on the
+    default routes (no kernel);
+18. hegst-z-mxu: config #3 blocked under ``f64_gemm=mxu``,
+    ``f64_trsm=mixed``: the slice product (#6) for every pair, strip and
+    panel product (four per complex product), counted exactly; one pair
+    product at step 0's shape held bit for bit against the plain version;
+19. hegst-s: float32, N=16384, 2x2, blocked, ``panel_impl=fused``: the
+    strip solve (#2) 4(3nt-1) times a call; hegst-s-twosolve (#2 8nt a
+    call, in its two solves) and hegst-s-default; hegst-s-U: uplo U on
+    2x4 at N=8192, blocked; hegst-local-z and hegst-local-s: one rank,
+    N=8192, each by both formulations and the default (local twosolve
+    runs no kernel). The HEGST route phase fails when, in any of the four
+    cells (z and s, 2x2 and one rank), the default is more than a quarter
+    slower than the faster formulation;
+20. qr: ``panel_qr`` of a random float64 (16384, 128) panel and the T
+    factor from its reflectors, local and on 2x2 (blocks 512 x 128),
+    checked as a compact-WY factorization and against each other.
 
 On one card the collectives are device-local copies and every rank
 repeats the diagonal tile's factor, so these walls do not measure
@@ -90,8 +113,10 @@ its residual line and launch counts, and fails when the default is more
 than a quarter slower than the fastest of them. It factors a small ragged
 matrix against a float64 reference, profiles one float32 and two float64
 factorizations, one dist-L, dist-U, dist-f64 and dist-scan-L
-factorization and one config #2 solve unrolled and scan, and prints a JSON line of per-kernel numbers, the card's name and power
-limit, and as its last line ``{"ok": true, "device": {...}}``. Any failure
+factorization, one config #2 solve unrolled and scan and one config #3
+HEGST blocked and twosolve, and prints a JSON line of per-kernel numbers,
+the card's name and power limit, and as its last line ``{"ok": true,
+"device": {...}}``. Any failure
 exits non-zero. It needs no network and imports nothing of JAX.
 """
 
@@ -284,12 +309,12 @@ def dist_kernels(torch, dev, randn, rows, check, time_ms, bound, card, uk, ok, o
     on) and on ragged tiles; fills ``rows``."""
     import numpy as np
 
-    from dlaf_tpu_torch.algorithms.cholesky import _pair_modes
+    from dlaf_tpu_torch.algorithms.dist_step import pair_modes
 
     R = C = 32
     nb = 256
     g = np.arange(R) * 2                                   # rank (0, 0)'s tiles
-    step0 = {"L": _pair_modes(g, g, 0, 64, "L", True), "U": _pair_modes(g, g, 0, 64, "U", True)}
+    step0 = {"L": pair_modes(g, g, 0, 64, "L", True), "U": pair_modes(g, g, 0, 64, "U", True)}
     rng = np.random.default_rng(3)
 
     def modes_tensor(m):
@@ -534,6 +559,239 @@ def scan_paths(torch, dev, card, drive, pk, ok, oz) -> None:
     if not err <= tol:
         raise AssertionError(f"trmm-d: rel_err {err} > {tol}")
     print(f"check: PASSED trmm-d rel_err={err:.3e} tol={tol:.3e}", flush=True)
+
+
+#: Launches of the HEGST paths per call (grid P x Q, nt tiles a side,
+#: uplo L unless named), by the code's structure: every rank transforms the
+#: diagonal tile (two solves) every step and solves its slot of the panel
+#: on every step but the last; under ``f64_gemm=mxu`` and ``f64_trsm=mixed``
+#: each complex product is four slice products, each solve against the
+#: refined inverse one product: the two diagonal solves and the panel on
+#: every rank, the deferred row solve on the Q ranks of row k (k >= 1), its
+#: pair product on every rank while a rank keeps slots of rows below k
+#: (:func:`_rows_left`), the look-ahead column's two strips on the P ranks
+#: that own it and the bulk's two pair products on every rank (k <= nt-2).
+HEGST_LAUNCHES = {
+    "solve": lambda P, Q, nt: P * Q * (3 * nt - 1),
+    "ozaki_product": lambda P, Q, nt: 4 * (2 * P * Q * nt + P * Q * (nt - 1) + Q * (nt - 1)
+                                           + P * Q * _rows_left(P, nt) + 2 * P * (nt - 1)
+                                           + 2 * P * Q * (nt - 1)),
+}
+
+
+def _rows_left(P: int, nt: int) -> int:
+    """Steps 1 <= k < nt at which the uniform trailing slots (from
+    ``uniform_slot_start(k + 1, P)``) leave a rank any row slot."""
+    return sum(1 for k in range(1, nt) if -(-nt // P) > max(0, -(-(k + 2 - P) // P)))
+#: Launches of the Cholesky of B that each HEGST run factors once, on the
+#: cuda defaults (fused factor+solve, potrf at the last step, the update
+#: kernel for float32 grids) or, complex128 under mxu + mixed, four slice
+#: products for each rank's panel and bulk and each look-ahead strip.
+CHOL_F32_GRID = {"factor_solve": lambda P, Q, nt: P * Q * (nt - 1),
+                 "potrf": lambda P, Q, nt: P * Q,
+                 "masked_trailing_update": lambda P, Q, nt: P * Q * (nt - 1)}
+CHOL_F32_LOCAL = {"step": lambda P, Q, nt: nt - 1, "potrf": lambda P, Q, nt: 1}
+CHOL_Z_MXU_GRID = {"ozaki_product": lambda P, Q, nt: 4 * (2 * P * Q + P) * (nt - 1)}
+
+
+#: Launches of twosolve on a grid per call: each of its two distributed
+#: solves runs the strip-solve kernel on every rank at every step. The
+#: local solve runs no kernel.
+TWOSOLVE_LAUNCHES = {"solve": lambda P, Q, nt: 2 * P * Q * nt}
+
+
+def hegst_expect(P, Q, calls, hegst=(), chol=None, table=HEGST_LAUNCHES):
+    """Expected launches of one miniapp_gen_to_std run: ``calls`` HEGST
+    calls (warm-ups included) of the named ``hegst`` kernels (counts from
+    ``table``) and one Cholesky of B (``chol``), as functions of nt for
+    ``drive``."""
+    out = {}
+    for name in hegst:
+        out[name] = (lambda f: lambda nt: calls * f(P, Q, nt))(table[name])
+    for name, f in (chol or {}).items():
+        prev = out.get(name, lambda nt: 0)
+        out[name] = (lambda f, prev: lambda nt: prev(nt) + f(P, Q, nt))(f, prev)
+    return out
+
+
+def hegst_paths(torch, dev, card, drive, ok) -> None:
+    """HEGST through ``miniapp_gen_to_std.run`` (every rank of a grid on
+    this card), each with its check line, wall, GFlop/s (the reference's
+    model, n^3/2 multiplications and as many additions) and exact launch
+    counts; the route phase in four cells; one pair product of the Ozaki
+    route bit for bit against its plain version; one blocked call under the
+    profiler."""
+    import numpy as np
+
+    from dlaf_tpu_torch import config
+    from dlaf_tpu_torch.algorithms import gen_to_std as gs
+    from dlaf_tpu_torch.miniapp import miniapp_gen_to_std as mgs
+    from dlaf_tpu_torch.types import total_ops
+
+    runs = ["--nruns", "2", "--nwarmups", "1", "--check-result", "last"]
+    share = ["--share-device", *runs]
+    walls = {}
+
+    def hegst(name, argv, n, letter, expect, grid=(2, 2), nb=256):
+        t = drive(["-m", str(n), "-b", str(nb), "--type", letter, *argv], n, nb, 1, expect,
+                  app=mgs)
+        dt = {"s": np.float32, "d": np.float64, "z": np.complex128}[letter]
+        print(f"[hegst] {name:18s} N={n} nb={nb} {grid[0]}x{grid[1]}: {t:.6f} s "
+              f"{total_ops(dt, n ** 3 / 2, n ** 3 / 2) / t / 1e9:.2f} GFlop/s [{card}]",
+              flush=True)
+        walls[name] = t
+        return t
+
+    g22 = ["--grid-rows", "2", "--grid-cols", "2", *share]
+    blocked, twosolve = "--dlaf:hegst-impl=blocked", "--dlaf:hegst-impl=twosolve"
+    fused = "--dlaf:panel-impl=fused"
+    config.initialize()
+    default = config.resolve("hegst_impl", "cuda")
+    # BASELINE config #3: the two formulations by name, then the default
+    # routes; no kernel on the complex path
+    hegst("hegst-z-blocked", [*g22, blocked], 8192, "z", {})
+    hegst("hegst-z-twosolve", [*g22, twosolve], 8192, "z", {})
+    hegst("hegst-z", g22, 8192, "z", {})
+    hegst("hegst-z-mxu", ["--grid-rows", "2", "--grid-cols", "2", "--share-device",
+                          "--nruns", "1", "--nwarmups", "1", "--check-result", "last",
+                          blocked, "--dlaf:f64-gemm=mxu", "--dlaf:f64-trsm=mixed"], 8192, "z",
+          hegst_expect(2, 2, 2, ("ozaki_product",), CHOL_Z_MXU_GRID))
+    # float32: the strip-solve kernel on every rank, by both formulations
+    # and the default (panel_impl=fused is cuda's default too)
+    s22 = {"blocked": hegst_expect(2, 2, 3, ("solve",), CHOL_F32_GRID),
+           "twosolve": hegst_expect(2, 2, 3, ("solve",), CHOL_F32_GRID, TWOSOLVE_LAUNCHES)}
+    hegst("hegst-s", [*g22, blocked, fused], 16384, "s", s22["blocked"])
+    hegst("hegst-s-twosolve", [*g22, twosolve, fused], 16384, "s", s22["twosolve"])
+    hegst("hegst-s-default", g22, 16384, "s", s22[default])
+    hegst("hegst-s-U", ["--uplo", "U", "--grid-rows", "2", "--grid-cols", "4", *share,
+                        blocked, fused], 8192, "s",
+          hegst_expect(2, 4, 3, ("solve",), CHOL_F32_GRID), grid=(2, 4))
+    hegst("hegst-local-z", runs, 8192, "z", {}, grid=(1, 1))
+    hegst("hegst-local-z-blocked", [*runs, blocked], 8192, "z", {}, grid=(1, 1))
+    hegst("hegst-local-z-twosolve", [*runs, twosolve], 8192, "z", {}, grid=(1, 1))
+    s11 = {"blocked": hegst_expect(1, 1, 3, ("solve",), CHOL_F32_LOCAL),
+           "twosolve": hegst_expect(1, 1, 3, (), CHOL_F32_LOCAL)}
+    hegst("hegst-local-s", [*runs, blocked, fused], 8192, "s", s11["blocked"], grid=(1, 1))
+    hegst("hegst-local-s-twosolve", [*runs, twosolve, fused], 8192, "s", s11["twosolve"],
+          grid=(1, 1))
+    hegst("hegst-local-s-default", runs, 8192, "s", s11[default], grid=(1, 1))
+
+    # the route phase: in each cell, the default beside the two
+    # formulations it picks from
+    for cell, dflt, blk, two in (
+            ("z N=8192 2x2 (config #3)", "hegst-z", "hegst-z-blocked", "hegst-z-twosolve"),
+            ("s N=16384 2x2", "hegst-s-default", "hegst-s", "hegst-s-twosolve"),
+            ("z N=8192 local", "hegst-local-z", "hegst-local-z-blocked",
+             "hegst-local-z-twosolve"),
+            ("s N=8192 local", "hegst-local-s-default", "hegst-local-s",
+             "hegst-local-s-twosolve")):
+        best = min((walls[blk], "blocked"), (walls[two], "twosolve"))
+        print(f"[route] hegst {cell} nb=256: default ({default}) {walls[dflt]:.6f} s, blocked "
+              f"{walls[blk]:.6f} s, twosolve {walls[two]:.6f} s [{card}]", flush=True)
+        if walls[dflt] > 1.25 * best[0]:
+            raise AssertionError(f"hegst {cell}: the default route is slower than {best[1]}")
+
+    # one pair product of hegst-z-mxu's bulk at step 0 (a rank's 16 row
+    # tiles against its 16 column tiles, complex128: four slice products)
+    # through the kernel and through its plain version
+    config.initialize(argv=["--dlaf:ozaki-impl=pallas"])
+    gen = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn(16, 256, 256, generator=gen, device=dev, dtype=torch.complex128)
+    y = torch.randn(16, 256, 256, generator=gen, device=dev, dtype=torch.complex128)
+    got = gs._pair_product(x, y, True)
+    kernel = ok.ozaki_product
+    ok.ozaki_product = ok.ozaki_product_plain
+    try:
+        ref = gs._pair_product(x, y, True)
+    finally:
+        ok.ozaki_product = kernel
+    same = torch.equal(got, ref)
+    print(f"[kernel] ozaki_product hegst-z-mxu pair product 16x16 tiles of 256 complex128: "
+          f"{'bitwise equal' if same else 'DIFFER'} to the plain version", flush=True)
+    if not same:
+        raise AssertionError("hegst pair product: not bitwise equal to the plain version")
+    del x, y, got, ref
+
+    for impl in ("blocked", "twosolve"):
+        profile_hegst(torch, dev, impl)
+
+
+def profile_hegst(torch, dev, impl: str, n: int = 8192, nb: int = 256) -> None:
+    """:func:`profile_run` of one config #3 HEGST (complex128, uplo L, 2x2
+    on ``dev``) by the formulation ``impl``."""
+    import numpy as np
+
+    from dlaf_tpu_torch import config
+    from dlaf_tpu_torch.algorithms.cholesky import cholesky
+    from dlaf_tpu_torch.algorithms.gen_to_std import gen_to_std
+    from dlaf_tpu_torch.comm.grid import shared_grid
+    from dlaf_tpu_torch.common.index2d import GlobalElementSize, TileElementSize
+    from dlaf_tpu_torch.matrix.matrix import Matrix
+    from dlaf_tpu_torch.miniapp.generators import herm_element_fn, hpd_element_fn
+
+    config.initialize(argv=[f"--dlaf:hegst-impl={impl}"])
+    grid = shared_grid(2, 2, dev)
+    size, block = GlobalElementSize(n, n), TileElementSize(nb, nb)
+    am = Matrix.from_element_fn(herm_element_fn(n, np.complex128), size, block, grid,
+                                dtype=np.complex128, device=dev)
+    bf = cholesky("L", Matrix.from_element_fn(hpd_element_fn(n, np.complex128), size, block,
+                                              grid, dtype=np.complex128, device=dev),
+                  donate=True)
+    mats = [am.clone(), am.clone()]
+    profile_run(torch, f"hegst-z n={n} nb={nb} uplo L grid 2x2 on one card {impl}",
+                lambda: gen_to_std("L", mats.pop(), bf, donate=True))
+
+
+def qr_phase(torch, dev, card) -> None:
+    """The QR T factor at reduction to band's panel width at config #4:
+    reflectors from ``panel_qr`` of a random float64 (16384, 128) panel,
+    then ``t_factor`` locally (``larft``) and on a 2x2 grid on this card
+    (blocks 512 x 128, one block column). Checks the compact-WY
+    factorization ``|(I - V T V^H) R - A| / |A|`` and the orthogonality of
+    its first 128 columns against ``100 m eps``, and the grid's T against
+    the local one to 1e-12 relative."""
+    import numpy as np
+
+    from dlaf_tpu_torch.algorithms.qr import t_factor
+    from dlaf_tpu_torch.comm.grid import shared_grid
+    from dlaf_tpu_torch.common.index2d import TileElementSize
+    from dlaf_tpu_torch.matrix.matrix import Matrix
+    from dlaf_tpu_torch.tile_ops.qr_panel import householder_qr, panel_qr
+
+    m, k = 16384, 128
+    gen = torch.Generator(device=dev).manual_seed(13)
+    a = torch.randn(m, k, generator=gen, device=dev, dtype=torch.float64)
+    walls = {}
+    for name, fn in (("panel_qr (geqrf)", lambda: panel_qr(a)),
+                     ("householder_qr", lambda: householder_qr(a))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vfull, taus = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+    vfull, taus = panel_qr(a)
+    t_loc = t_factor(vfull, taus)
+    vm = Matrix.from_global(vfull, TileElementSize(512, k), shared_grid(2, 2, dev), device=dev)
+    t0 = time.perf_counter()
+    t_grid = t_factor(vm, taus)
+    torch.cuda.synchronize()
+    t_grid_s = time.perf_counter() - t0
+    v = torch.tril(vfull, -1) + torch.eye(m, k, dtype=vfull.dtype, device=dev)
+    qk = torch.eye(m, k, dtype=v.dtype, device=dev) - v @ (t_loc @ v[:k].mH)
+    r = torch.triu(vfull[:k])
+    fact = float(torch.linalg.norm(qk @ r - a) / torch.linalg.norm(a))
+    orth = float(torch.linalg.norm(qk.mH @ qk - torch.eye(k, dtype=v.dtype, device=dev)))
+    same = float(torch.linalg.norm(t_grid - t_loc) / torch.linalg.norm(t_loc))
+    tol = 100 * m * float(np.finfo(np.float64).eps)
+    print(f"[qr] m={m} k={k} f64: panel_qr {walls['panel_qr (geqrf)']:.6f} s, householder_qr "
+          f"{walls['householder_qr']:.6f} s, t_factor 2x2 {t_grid_s:.6f} s; factorization "
+          f"{fact:.3e} orthogonality {orth:.3e} tol {tol:.3e}; T grid vs local {same:.3e} "
+          f"[{card}]", flush=True)
+    if not (fact < tol and orth < tol and same <= 1e-12 and tuple(t_grid.shape) == (k, k)):
+        raise AssertionError("qr: the T factor fails its checks")
+    print(f"check: PASSED qr factorization={fact:.3e} orthogonality={orth:.3e} "
+          f"grid_vs_local={same:.3e}", flush=True)
 
 
 def main() -> int:
@@ -926,6 +1184,15 @@ def main() -> int:
     t_phase = time.perf_counter()
     scan_paths(torch, dev, card, drive, pk, ok, oz)
     print(f"[phase] scan and triangular {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # ---- phase 2d: HEGST (BASELINE config #3: complex128, N=8192, nb=256,
+    # 2x2 on this card) and the QR T factor --------------------------------
+    t_phase = time.perf_counter()
+    hegst_paths(torch, dev, card, drive, ok)
+    print(f"[phase] hegst {time.perf_counter() - t_phase:.1f} s", flush=True)
+    t_phase = time.perf_counter()
+    qr_phase(torch, dev, card)
+    print(f"[phase] qr {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # ---- phase 3: the float64 / complex128 routes "auto" picks from ------
     # the default (no knob) beside each route it could resolve to, uplo L,

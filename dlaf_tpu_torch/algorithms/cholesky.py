@@ -66,6 +66,7 @@ from ..tile_ops import ozaki_kernels as ok
 from ..tile_ops import panel_kernels as pk
 from ..tile_ops import update_kernels as uk
 from ..types import ceil_div, telescope_segments, telescope_windows
+from . import dist_step as ds
 
 _F64 = (torch.float64, torch.complex128)
 
@@ -85,14 +86,6 @@ def _add_tri(x: torch.Tensor, upd: torch.Tensor, uplo: str) -> None:
     else:
         upd.triu_()
     x.add_(upd)
-
-
-def _oz_product(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """``x @ y`` on the Ozaki route (complex: the 4-real-product form), the
-    lookahead split's strip on the same route as the bulk it was split
-    from."""
-    mm = oz.matmul_c128 if x.is_complex() else oz.matmul_f64
-    return mm(x, y, slices=tb._oz_slices())
 
 
 def _oz_gram(x: torch.Tensor, uplo: str) -> torch.Tensor:
@@ -211,7 +204,7 @@ def _cholesky_local(a: torch.Tensor, *, uplo: str, nb: int, trailing: str = "loo
                 cmask = (torch.arange(m, device=a.device)[:, None]
                          >= torch.arange(w, device=a.device)[None, :])
                 pj = panel[:w].mH
-                _add_masked(a[k1:, k1:k1 + w], _oz_product(panel, pj) if use_oz
+                _add_masked(a[k1:, k1:k1 + w], ds.oz_product(panel, pj) if use_oz
                             else panel @ pj, cmask)
                 if m > w:
                     pr = panel[w:]
@@ -239,7 +232,7 @@ def _cholesky_local(a: torch.Tensor, *, uplo: str, nb: int, trailing: str = "loo
                 rmask = (torch.arange(w, device=a.device)[:, None]
                          <= torch.arange(m, device=a.device)[None, :])
                 pt = panel.mH
-                _add_masked(a[k1:k1 + w, k1:], _oz_product(pt[:w], panel) if use_oz
+                _add_masked(a[k1:k1 + w, k1:], ds.oz_product(pt[:w], panel) if use_oz
                             else panel[:, :w].mH @ panel, rmask)
                 if m > w:
                     pr = panel[:, w:]
@@ -373,11 +366,11 @@ def _cholesky_local_scan(a: torch.Tensor, *, uplo: str, nb: int, use_mxu: bool =
             near = k1 + torch.arange(nb, device=acc.device)
             if uplo == "L":
                 nstrip = panel[k1:k1 + nb].mH
-                upd = _oz_product(panel, nstrip) if use_mxu else panel @ nstrip
+                upd = ds.oz_product(panel, nstrip) if use_mxu else panel @ nstrip
                 _add_masked(acc[:, k1:k1 + nb], upd, idx[:, None] >= near[None, :])
             else:
                 nstrip = panel[:, k1:k1 + nb].mH
-                upd = _oz_product(nstrip, panel) if use_mxu else nstrip @ panel
+                upd = ds.oz_product(nstrip, panel) if use_mxu else nstrip @ panel
                 _add_masked(acc[k1:k1 + nb, :], upd, near[:, None] <= idx[None, :])
         return panel
 
@@ -422,57 +415,6 @@ def _masked_oz_update(afl, bfl, mode, nrows, ncols, mb):
     acc = hi.double().add_(lo)
     del hi, lo
     return acc.mul_(4.0).mul_(sa.reshape(nrows, 1, mb, 1)).mul_(sb.reshape(1, ncols, 1, mb))
-
-
-def _valid_range(g: np.ndarray, k: int, nt: int) -> tuple[int, int]:
-    """[a, b): the slots whose (increasing) global tile index lies in
-    (k, nt) — the reference's ``(g > k) & (g < nt)`` mask as a range."""
-    a = int(np.searchsorted(g, k, side="right"))
-    return a, max(a, int(np.searchsorted(g, nt, side="left")))
-
-
-def _pair_modes(g_rows, g_cols, k, nt, uplo, stripped):
-    """The bulk update's (R, C) mode table of one rank: 1 a tile pair
-    strictly inside the trailing triangle, 2 (uplo 'L') / 3 ('U') a
-    diagonal tile, 0 elsewhere; ``stripped`` leaves out the column (row)
-    k+1 that the look-ahead strip updated."""
-    rv = (g_rows > k) & (g_rows < nt)
-    cv = (g_cols > k) & (g_cols < nt)
-    pair = rv[:, None] & cv[None, :]
-    ondiag = pair & (g_rows[:, None] == g_cols[None, :])
-    if uplo == "L":
-        off = pair & (g_rows[:, None] > g_cols[None, :])
-        if stripped:
-            keep = (g_cols != k + 1)[None, :]
-            off, ondiag = off & keep, ondiag & keep
-        return off.astype(np.int32) + 2 * ondiag.astype(np.int32)
-    off = pair & (g_rows[:, None] < g_cols[None, :])
-    if stripped:
-        keep = (g_rows != k + 1)[:, None]
-        off, ondiag = off & keep, ondiag & keep
-    return off.astype(np.int32) + 3 * ondiag.astype(np.int32)
-
-
-def _sub_masked_pairs(block, upd, mode, uplo):
-    """``block -= where(mask, upd, 0)`` in place: the whole tile where the
-    mode is 1, its ``uplo`` triangle where it is 2 or 3."""
-    mb = block.shape[-1]
-    i = torch.arange(mb, device=block.device)
-    tri = (i[:, None] >= i[None, :]) if uplo == "L" else (i[:, None] <= i[None, :])
-    m = mode[:, :, None, None]
-    block.sub_(torch.where((m == 1) | ((m > 1) & tri), upd, 0.0))
-
-
-def _sub_masked_rows(col, upd, full, diag_slot, lower):
-    """The look-ahead strip's masked subtract, in place: ``upd`` wholly on
-    the slots ``full`` = [a, b), its lower (``lower``) or upper triangle on
-    ``diag_slot``."""
-    a, b = full
-    if b > a:
-        col[a:b].sub_(upd[a:b])
-    if diag_slot is not None:
-        tri = torch.tril if lower else torch.triu
-        col[diag_slot].sub_(tri(upd[diag_slot]))
 
 
 def _cholesky_dist(lts, dist, *, uplo, use_pallas=False, use_mxu=False, use_mixed=False,
@@ -577,7 +519,7 @@ def _cholesky_dist(lts, dist, *, uplo, use_pallas=False, use_mxu=False, use_mixe
                                            inv[r][c] if inv is not None else None))
         for r in range(P):
             for c in range(Q):
-                a, b = _valid_range(g_own[r][c], k, nt)
+                a, b = ds.valid_range(g_own[r][c], k, nt)
                 pan[r][c][:a].zero_()
                 pan[r][c][b:].zero_()
         vb = cc.bcast(pan, COL_AXIS if lower else ROW_AXIS, owner_c if lower else owner_r)
@@ -590,7 +532,7 @@ def _cholesky_dist(lts, dist, *, uplo, use_pallas=False, use_mxu=False, use_mixe
               else transpose_row_to_cols(ctx, vb, lu_c, g_t))
         for r in range(P):
             for c in range(Q):
-                a, b = _valid_range(g_t[r][c], k, nt)
+                a, b = ds.valid_range(g_t[r][c], k, nt)
                 vt[r][c][:a].zero_()
                 vt[r][c][b:].zero_()
         return lkk, pan, vb, vt
@@ -607,7 +549,7 @@ def _cholesky_dist(lts, dist, *, uplo, use_pallas=False, use_mxu=False, use_mixe
         for r, c in ([(r, owner_c) for r in range(P)] if lower
                      else [(owner_r, c) for c in range(Q)]):
             g = ctx.g_rows(r, lu_r, count) if lower else ctx.g_cols(c, lu_c, count)
-            a, b = _valid_range(g, k, nt)
+            a, b = ds.valid_range(g, k, nt)
             if lower:
                 lts[r][c][lu_r + a:lu_r + b, kc] = pan[r][c][a:b]
             else:
@@ -626,19 +568,19 @@ def _cholesky_dist(lts, dist, *, uplo, use_pallas=False, use_mxu=False, use_mixe
                 if lower:
                     panel, pk1 = vb[r][c], vt[r][c][slot1 - lu_c]
                     flat = panel.reshape(count * mb, mb)
-                    upd = (_oz_product(flat, pk1.conj().mT) if use_mxu
+                    upd = (ds.oz_product(flat, pk1.conj().mT) if use_mxu
                            else flat @ pk1.conj().mT).reshape(count, mb, mb)
                 else:
                     panel, pk1 = vb[r][c], vt[r][c][slot1 - lu_r]
                     flat = panel.mT.reshape(count * mb, mb)
-                    upd = (_oz_product(pk1.conj().mT, flat.mT) if use_mxu
+                    upd = (ds.oz_product(pk1.conj().mT, flat.mT) if use_mxu
                            else pk1.conj().mT @ flat.mT)
                     upd = upd.reshape(mb, count, mb).permute(1, 0, 2)
                 g = ctx.g_rows(r, lu_r, count) if lower else ctx.g_cols(c, lu_c, count)
-                a, b = _valid_range(g, k, nt)
+                a, b = ds.valid_range(g, k, nt)
                 on = [i for i in range(a, b) if g[i] == k + 1]
                 full = (on[0] + 1 if on else a, b)
-                _sub_masked_rows(col, upd, full, on[0] if on else None, lower)
+                ds.sub_masked_rows(col, upd, full, on[0] if on else None, lower)
             return col.clone()
 
         return ranks(one), (lu_r if lower else lu_c)
@@ -652,7 +594,7 @@ def _cholesky_dist(lts, dist, *, uplo, use_pallas=False, use_mxu=False, use_mixe
         for r in range(P):
             for c in range(Q):
                 block = lts[r][c][lu_r:, lu_c:]
-                mode = to_device(_pair_modes(ctx.g_rows(r, lu_r, nrows),
+                mode = to_device(ds.pair_modes(ctx.g_rows(r, lu_r, nrows),
                                              ctx.g_cols(c, lu_c, ncols), k, nt, uplo, stripped),
                                  block.device, torch.int32)
                 if uplo == "L":
@@ -673,9 +615,9 @@ def _cholesky_dist(lts, dist, *, uplo, use_pallas=False, use_mxu=False, use_mixe
                 if use_mxu and use_oz_pallas:
                     upd = _masked_oz_update(afl, bfl, mode, nrows, ncols, mb)
                 else:
-                    full = _oz_product(afl, bfl.mT) if use_mxu else afl @ bfl.mT
+                    full = ds.oz_product(afl, bfl.mT) if use_mxu else afl @ bfl.mT
                     upd = full.reshape(nrows, mb, ncols, mb).permute(0, 2, 1, 3)
-                _sub_masked_pairs(block, upd, mode, uplo)
+                ds.sub_masked_pairs(block, upd, mode, uplo)
 
     la = None
     ch_next = None
@@ -765,9 +707,9 @@ def _cholesky_dist_scan(lts, dist, *, uplo, use_mxu=False, use_mixed=False,
         if use_mxu and use_oz_pallas:
             upd = _masked_oz_update(afl, bfl, mode, R, C, mb)
         else:
-            full = _oz_product(afl, bfl.mT) if use_mxu else afl @ bfl.mT
+            full = ds.oz_product(afl, bfl.mT) if use_mxu else afl @ bfl.mT
             upd = full.reshape(R, mb, C, mb).permute(0, 2, 1, 3)
-        _sub_masked_pairs(block, upd, mode, uplo)
+        ds.sub_masked_pairs(block, upd, mode, uplo)
 
     def panel_site(subs, k, lu_r0, lu_c0, g_rows, g_cols):
         """The diagonal tile on every rank, its factor, the panel over
@@ -819,7 +761,7 @@ def _cholesky_dist_scan(lts, dist, *, uplo, use_mxu=False, use_mixed=False,
                                                    inv_a=inv[r][c] if inv is not None else None))
         for r in range(P):
             for c in range(Q):
-                a, b = _valid_range(g_rows[r] if lower else g_cols[c], k, nt)
+                a, b = ds.valid_range(g_rows[r] if lower else g_cols[c], k, nt)
                 pan[r][c][:a].zero_()
                 pan[r][c][b:].zero_()
                 if (c == owner_c) if lower else (r == owner_r):
@@ -831,7 +773,7 @@ def _cholesky_dist_scan(lts, dist, *, uplo, use_mxu=False, use_mixed=False,
             vc = transpose_col_to_rows(ctx, vr, lu_r0, ranks(lambda r, c: g_cols[c]))
             for r in range(P):
                 for c in range(Q):
-                    a, b = _valid_range(g_cols[c], k, nt)
+                    a, b = ds.valid_range(g_cols[c], k, nt)
                     vc[r][c][:a].zero_()
                     vc[r][c][b:].zero_()
             return vr, vc
@@ -839,7 +781,7 @@ def _cholesky_dist_scan(lts, dist, *, uplo, use_mxu=False, use_mixed=False,
         vr = transpose_row_to_cols(ctx, vc, lu_c0, ranks(lambda r, c: g_rows[r]))
         for r in range(P):
             for c in range(Q):
-                a, b = _valid_range(g_rows[r], k, nt)
+                a, b = ds.valid_range(g_rows[r], k, nt)
                 vr[r][c][:a].zero_()
                 vr[r][c][b:].zero_()
         return vr, vc
@@ -853,23 +795,23 @@ def _cholesky_dist_scan(lts, dist, *, uplo, use_mxu=False, use_mixed=False,
                 xr = vr[r][c]
                 flat = xr.reshape(-1, mb)
                 pk1 = vc[r][c][kc1].conj().mT
-                upd = (_oz_product(flat, pk1) if use_mxu else flat @ pk1).reshape(xr.shape)
+                upd = (ds.oz_product(flat, pk1) if use_mxu else flat @ pk1).reshape(xr.shape)
                 on = np.flatnonzero(g_rows[r] == k + 1)
                 diag_slot = int(on[0]) if on.size else None
-                a, b = _valid_range(g_rows[r], k + 1, nt)
-                _sub_masked_rows(subs[r][c][:, kc1], upd, (a, b), diag_slot, True)
+                a, b = ds.valid_range(g_rows[r], k + 1, nt)
+                ds.sub_masked_rows(subs[r][c][:, kc1], upd, (a, b), diag_slot, True)
             return
         kr1, r = ctx.kr(k + 1) - lu_r0, ctx.owner_r(k + 1)
         for c in range(Q):
             xc = vc[r][c]
             flat = xc.mT.reshape(-1, mb)
             pk1 = vr[r][c][kr1].conj().mT
-            upd = _oz_product(pk1, flat.mT) if use_mxu else pk1 @ flat.mT
+            upd = ds.oz_product(pk1, flat.mT) if use_mxu else pk1 @ flat.mT
             upd = upd.reshape(mb, xc.shape[0], mb).permute(1, 0, 2)
             on = np.flatnonzero(g_cols[c] == k + 1)
             diag_slot = int(on[0]) if on.size else None
-            a, b = _valid_range(g_cols[c], k + 1, nt)
-            _sub_masked_rows(subs[r][c][kr1, :], upd, (a, b), diag_slot, False)
+            a, b = ds.valid_range(g_cols[c], k + 1, nt)
+            ds.sub_masked_rows(subs[r][c][kr1, :], upd, (a, b), diag_slot, False)
 
     pend = None
     windows = telescope_windows(nt, lambda k0, _len: (uniform_slot_start(k0, P),

@@ -2,7 +2,8 @@
 
 Counterpart of ``dlaf_tpu/config.py``, cut to the knobs of the local and
 distributed Cholesky, the triangular solve and multiply
-(``dist_step_mode``, ``trsm_rhs_chunk``) and their f64/complex128 routes.
+(``dist_step_mode``, ``trsm_rhs_chunk``), HEGST (``hegst_impl``) and
+their f64/complex128 routes.
 Same layering (highest wins):
 ``--dlaf:<knob>=<value>`` arguments > ``DLAF_<KNOB>`` environment
 variables > a user ``Configuration`` > the defaults.
@@ -18,14 +19,18 @@ Ozaki int8 route that the reference picks on its TPU (there f64 is
 emulated); ``ozaki_impl`` "pallas", so a call that asks for the Ozaki
 route runs its hand-written kernels; ``comm_lookahead`` 1, since the
 hoisted panel chain is what lets the collectives' copies overlap the bulk
-update there. ``f64_gemm_slices=0`` resolves to 8
-on both: the reference's choice where f64 is native. Every auto
+update there; ``hegst_impl`` "twosolve" (two whole solves beat the
+blocked transform's per-step panel chain in complex128 and float32, on a
+2x2 grid and on one rank), where ``cpu`` takes the reference's "blocked".
+``f64_gemm_slices=0`` resolves to 8 on both: the reference's choice where
+f64 is native. Every auto
 resolution is announced once on stderr so the route in effect is never
 silent.
 
 Not ported: ``ozaki_dot``, ``ozaki_group`` and ``ozaki_accum``. They pick
 the TPU's schedule of the same integer sums and give bit-identical
-results; the port has one schedule per route.
+results; the port has one schedule per route. ``qr_panel`` neither: the
+port's panel QR is always geqrf, the reference's choice off its TPU.
 """
 
 from __future__ import annotations
@@ -107,6 +112,11 @@ class Configuration:
     mixed_seed: str = "xla"
     #: Leaf size of the recursive seed.
     mixed_seed_base: int = 64
+    #: HEGST formulation: "blocked" (the per-step two-sided update with
+    #: deferred solves, about n^3 real operations), "twosolve" (hermitianize,
+    #: then two whole triangular solves, about twice the operations) or
+    #: "auto". The scan step mode always takes twosolve.
+    hegst_impl: str = "auto"
 
 
 _VALID_CHOICES = {
@@ -121,6 +131,7 @@ _VALID_CHOICES = {
     "f64_trsm": ("native", "mixed", "auto"),
     "mixed_seed": ("xla", "recursive"),
     "dist_step_mode": ("unrolled", "scan", "auto"),
+    "hegst_impl": ("blocked", "twosolve", "auto"),
 }
 
 #: auto resolution per device type: (cuda choice, cpu choice).
@@ -133,6 +144,14 @@ _AUTO = {
     "f64_gemm": ("native", "native"),
     "f64_trsm": ("native", "native"),
     "ozaki_impl": ("pallas", "jnp"),
+    # cuda: twosolve was the faster in each cell of chip_smoke.py's HEGST
+    # route phase (nb=256, one H100 80GB HBM3 at 700 W, PERF.md): 0.222925
+    # s against blocked's 0.303872 s at BASELINE config #3 (complex128,
+    # N=8192, 2x2), 0.447194 s against 0.698919 s (float32, N=16384, 2x2),
+    # 0.116541 s against 0.151974 s (complex128, N=8192, one rank) and
+    # 0.040097 s against 0.055603 s (float32, N=8192, one rank); float64
+    # was not timed. cpu: the reference's choice off its TPU
+    "hegst_impl": ("twosolve", "blocked"),
 }
 
 #: ``f64_gemm_slices=0`` resolves to this on every device (native f64).

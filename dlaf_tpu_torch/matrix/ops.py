@@ -1,0 +1,146 @@
+"""Whole-matrix structural ops: transpose, hermitianize, triangle merge,
+copy and the host mirror.
+
+Counterpart of ``dlaf_tpu/matrix/ops.py`` (reference ``matrix/copy.h``,
+``MatrixMirror``). The JAX package runs each op on the global view inside
+one jit and lets GSPMD move the tiles. Here each op runs per rank on the
+rank's shard (one shard without a grid): the element-wise ops with the
+global element indices of the shard, and the (conjugate) transpose by
+copying every tile from the rank that owns its mirror.
+
+A result never shares storage with an input the caller keeps: only
+``hermitianize(..., donate=True)`` and ``merge_triangle(...,
+donate_new=True)`` give an input's storage to the result, and a donated
+input must not be used afterwards.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..common.asserts import dlaf_assert
+from . import util_distribution as ud
+from .matrix import Matrix
+from .tiling import shard_element_indices, storage_tile_grid
+
+
+def _rank_shards(mat: Matrix):
+    """``[(r, c, shard)]`` in row-major rank order."""
+    Q = mat.dist.grid_size.col
+    return [(i // Q, i % Q, s) for i, s in enumerate(mat.shards())]
+
+
+def _from_shards(mat: Matrix, shards: list) -> Matrix:
+    return mat.with_storage(shards if mat.distributed else shards[0])
+
+
+def _element_index(mat: Matrix, r: int, c: int, device):
+    """Global element row and column of every entry of rank ``(r, c)``'s
+    shard, broadcastable to its ``(ltr, ltc, mb, nb)`` layout."""
+    _, _, ltr, ltc = storage_tile_grid(mat.dist)
+    mb, nb = mat.block_size.row, mat.block_size.col
+    i, j, _, _ = shard_element_indices(mat.dist, r, c, device)
+    return i.reshape(ltr, 1, mb, 1), j.reshape(1, ltc, 1, nb)
+
+
+def _transposed_shards(mat: Matrix, conj: bool) -> list:
+    """The shards of ``op(A)`` (``A^H`` with ``conj``, else ``A^T``) in
+    ``A``'s distribution: each tile ``(I, J)`` is tile ``(J, I)``
+    transposed, fetched from the rank that owns it, one gather per pair
+    of ranks."""
+    dist = mat.dist
+    P, Q = dist.grid_size.row, dist.grid_size.col
+    sr, sc = dist.source_rank.row, dist.source_rank.col
+    nt = dist.nr_tiles.row
+    _, _, ltr, ltc = storage_tile_grid(dist)
+    src = mat.shards()
+    out = []
+    for r, c, shard in _rank_shards(mat):
+        dst = torch.zeros_like(shard)
+        gi = np.arange(ltr) * P + (r - sr) % P
+        gj = np.arange(ltc) * Q + (c - sc) % Q
+        li, lj = np.meshgrid(np.flatnonzero(gi < nt), np.flatnonzero(gj < nt), indexing="ij")
+        li, lj = li.ravel(), lj.ravel()
+        big_i, big_j = gi[li], gj[lj]
+        # the mirror tile (J, I): owner and local slot
+        owner = (np.array([ud.rank_global_tile(int(J), P, sr) for J in big_j], dtype=np.int64),
+                 np.array([ud.rank_global_tile(int(I), Q, sc) for I in big_i], dtype=np.int64))
+        for r2 in range(P):
+            for c2 in range(Q):
+                sel = (owner[0] == r2) & (owner[1] == c2)
+                if not sel.any():
+                    continue
+                tiles = src[r2 * Q + c2][torch.as_tensor(big_j[sel] // P),
+                                         torch.as_tensor(big_i[sel] // Q)]
+                tiles = tiles.transpose(-1, -2)
+                dst[torch.as_tensor(li[sel]), torch.as_tensor(lj[sel])] = (
+                    tiles.conj() if conj else tiles).to(dst.device)
+        out.append(dst)
+    return out
+
+
+def transpose(mat: Matrix, conj: bool = True) -> Matrix:
+    """(Conjugate-)transpose of a square matrix with square blocks, in the
+    same distribution."""
+    dlaf_assert(mat.size.row == mat.size.col and mat.block_size.row == mat.block_size.col,
+                "transpose: square matrices only (rectangular lands later)")
+    return _from_shards(mat, _transposed_shards(mat, conj))
+
+
+def hermitianize(mat: Matrix, uplo: str, *, donate: bool = False) -> Matrix:
+    """Full Hermitian matrix from its stored ``uplo`` triangle (the
+    whole-matrix ``hermitian_from``): the strict triangle, its conjugate
+    mirror and the real part of the diagonal. ``donate=True`` lets the
+    result take ``mat``'s storage (``mat`` must not be used afterwards)."""
+    dlaf_assert(uplo in ("L", "U"), f"hermitianize: bad uplo {uplo!r}")
+    mirror = _transposed_shards(mat, conj=True)
+    out = []
+    for (r, c, a), t in zip(_rank_shards(mat), mirror):
+        i, j = _element_index(mat, r, c, a.device)
+        own = (i > j) if uplo == "L" else (i < j)
+        other = (i < j) if uplo == "L" else (i > j)
+        d = a.real.to(a.dtype) if a.is_complex() else a
+        res = torch.where(own, a, 0.0) + torch.where(other, t, 0.0) + torch.where(i == j, d, 0.0)
+        if donate:
+            res = a.copy_(res)
+        out.append(res)
+    return _from_shards(mat, out)
+
+
+def merge_triangle(new: Matrix, orig: Matrix, uplo: str, *, donate_new: bool = False,
+                   donate_orig: bool = False) -> Matrix:
+    """``uplo`` triangle (diagonal included) from ``new``, the opposite
+    strict triangle from ``orig`` (LAPACK's in-place update at matrix
+    scope), in fresh storage. ``donate_new=True`` writes the result into
+    ``new``'s storage instead and ``donate_orig=True`` releases ``orig``'s;
+    a donated input must not be used afterwards."""
+    dlaf_assert(uplo in ("L", "U"), f"merge_triangle: bad uplo {uplo!r}")
+    dlaf_assert(new.dist == orig.dist, "merge_triangle: distributions differ")
+    out = []
+    for (r, c, x), y in zip(_rank_shards(new), orig.shards()):
+        i, j = _element_index(new, r, c, x.device)
+        keep = (i >= j) if uplo == "L" else (i <= j)
+        if donate_new:
+            out.append(x.masked_fill_(~keep, 0.0).add_(torch.where(keep, 0.0, y)))
+        else:
+            out.append(torch.where(keep, x, y))
+    if donate_orig:
+        orig.storage = None
+    return _from_shards(new, out)
+
+
+def copy(mat: Matrix) -> Matrix:
+    """Fresh storage with the same contents (reference ``matrix::copy``)."""
+    return mat.clone()
+
+
+def mirror_to_host(mat: Matrix) -> np.ndarray:
+    """Device-to-host mirror (``MatrixMirror``'s host side)."""
+    return mat.to_numpy()
+
+
+def mirror_to_device(a: np.ndarray, like: Matrix) -> Matrix:
+    """Host-to-device mirror in ``like``'s layout, grid and device."""
+    return Matrix.from_global(a, like.block_size, grid=like.grid,
+                              source_rank=like.dist.source_rank, device=like.device)

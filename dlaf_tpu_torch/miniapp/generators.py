@@ -1,8 +1,9 @@
 """Analytic matrix generators for the miniapps and tests.
 
-A copy of ``dlaf_tpu/miniapp/generators.py:hpd_element_fn``: a
-closed-form, deterministic element function, so inputs at N=16384 need no
-O(n^3) host set-up. It works on numpy arrays and on torch tensors alike.
+A copy of ``dlaf_tpu/miniapp/generators.py:hpd_element_fn``, and a
+Hermitian companion for HEGST's A: closed-form, deterministic element
+functions, so inputs at N=16384 need no O(n^3) host set-up. They work on
+numpy arrays and on torch tensors alike.
 """
 
 from __future__ import annotations
@@ -20,6 +21,20 @@ def hpd_element_fn(n: int, dtype):
     def fn(i, j):
         d = abs(i - j)
         base = 1.0 / (1.0 + d) + n * (i == j)
+        if is_complex(dtype):
+            sign = 1.0 * (j > i) - 1.0 * (j < i)
+            return base + 1j * (sign / (1.0 + d) / 2.0)
+        return base
+    return fn
+
+
+def herm_element_fn(n: int, dtype):
+    """Hermitian (indefinite) element function, not a multiple of
+    :func:`hpd_element_fn`: ``a(i,j) = (i+j+1) / (n (1+|i-j|))`` (+ the
+    same small skew-Hermitian imaginary part for complex types)."""
+    def fn(i, j):
+        d = abs(i - j)
+        base = (i + j + 1.0) / (n * (1.0 + d))
         if is_complex(dtype):
             sign = 1.0 * (j > i) - 1.0 * (j < i)
             return base + 1j * (sign / (1.0 + d) / 2.0)

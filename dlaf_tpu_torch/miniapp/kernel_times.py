@@ -54,7 +54,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device visible", file=sys.stderr)
         return 2
-    from dlaf_tpu_torch.algorithms.cholesky import _pair_modes
+    from dlaf_tpu_torch.algorithms.dist_step import pair_modes
     from dlaf_tpu_torch.tile_ops import cuda_build as cb
     from dlaf_tpu_torch.tile_ops import ozaki as oz
     from dlaf_tpu_torch.tile_ops import ozaki_kernels as ok
@@ -80,8 +80,8 @@ def main() -> int:
     ia, ib = slices(randn(m, d, dtype=torch.float64), -1), slices(randn(d, d, dtype=torch.float64), -2)
     fac = torch.linalg.cholesky(diag)
     g = np.arange(32) * 2
-    mode = torch.tensor(_pair_modes(g, g, 0, 64, "L", True), dtype=torch.int32, device=dev)
-    mode_u = torch.tensor(_pair_modes(g, g, 0, 64, "U", True), dtype=torch.int32, device=dev)
+    mode = torch.tensor(pair_modes(g, g, 0, 64, "L", True), dtype=torch.int32, device=dev)
+    mode_u = torch.tensor(pair_modes(g, g, 0, 64, "U", True), dtype=torch.int32, device=dev)
     block = randn(33, 33, d, d)[1:, 1:]
     vr, vc = randn(32, d, d), randn(32, d, d)
     vr_t = vr.mT.contiguous().mT      # as the uplo 'U' sweep passes its row panel

@@ -1,15 +1,15 @@
 """BLAS tile operations on torch.
 
 Counterpart of ``dlaf_tpu/tile_ops/blas.py`` (reference ``blas/tile.h``),
-cut to what the Cholesky and the triangular solve and multiply read. These
-are the composed route: plain ``torch.matmul``, ``torch.einsum`` and
-``torch.linalg.solve_triangular``, the port's analog of the reference's
-XLA route. The triangle a routine does not own passes through, as in
+cut to what the Cholesky, the triangular solve and multiply and HEGST
+read. These are the composed route: plain ``torch.matmul``,
+``torch.einsum`` and ``torch.linalg.solve_triangular``, the port's analog
+of the reference's XLA route. The triangle a routine does not own passes through, as in
 LAPACK. The f64/complex128 route decisions (``mm_mxu``,
 ``f64_gemm_uses_mxu``, ``trsm_panel_uses_mixed``, ``resolve_chunk_width``)
-and the products and solves that follow them (``mm``, ``contract``,
-``trmm``, the recursive ``trsm``, ``trsm_panel``) live here too, as in the
-reference.
+and the products and solves that follow them (``mm`` and through it
+``gemm``, ``hemm``, ``her2k``, ``trmm``; ``herk``, ``contract``, the
+recursive ``trsm``, ``trsm_panel``) live here too, as in the reference.
 """
 
 from __future__ import annotations
@@ -61,22 +61,53 @@ def _merge_triangle(update: torch.Tensor, orig: torch.Tensor, uplo: str) -> torc
 
 
 def gemm(a, b, c=None, *, alpha=1.0, beta=0.0, op_a: str = "N", op_b: str = "N"):
-    """``alpha op_a(a) op_b(b) + beta c``."""
-    out = alpha * (_op(a, op_a) @ _op(b, op_b))
+    """``alpha op_a(a) op_b(b) + beta c``; the product follows ``f64_gemm``
+    (:func:`mm`)."""
+    out = alpha * mm(_op(a, op_a), _op(b, op_b))
     if c is not None and beta != 0.0:
         out = out + beta * c
     return out.to(a.dtype)
 
 
+def hemm(side: str, uplo: str, a, b, c=None, *, alpha=1.0, beta=0.0):
+    """``alpha A b + beta c`` (side 'L') or ``alpha b A + beta c`` ('R')
+    with Hermitian ``A`` stored in its ``uplo`` triangle; the product
+    follows ``f64_gemm``."""
+    af = hermitian_from(a, uplo)
+    out = alpha * (mm(af, b) if side == "L" else mm(b, af))
+    if c is not None and beta != 0.0:
+        out = out + beta * c
+    return out.to(b.dtype)
+
+
 def herk(uplo: str, op_a: str, a, c, *, alpha=1.0, beta=1.0):
     """``alpha op_a(a) op_a(a)^H + beta c`` on the ``uplo`` triangle of
-    ``c``; the other triangle passes through (alpha, beta real)."""
+    ``c``; the other triangle passes through (alpha, beta real). Under
+    ``f64_gemm="mxu"`` the gram is the Ozaki syrk (complex128: two syrks
+    and one product), as the reference's ``herk``."""
     oa = _op(a, op_a)
-    upd = alpha * (oa @ oa.transpose(-1, -2).conj()) + beta * c
+    if _mxu_f64(oa, oa, (oa.shape[-2], oa.shape[-1])):
+        from . import ozaki
+
+        gram = ozaki.herk_c128 if oa.is_complex() else ozaki.syrk_f64
+        prod = gram(oa, slices=_oz_slices())
+    else:
+        prod = oa @ oa.transpose(-1, -2).conj()
+    upd = alpha * prod + beta * c
     if c.is_complex():  # herk guarantees a real diagonal
         d = torch.diagonal(upd, dim1=-2, dim2=-1)
         upd = upd - torch.diag_embed(d - d.real.to(upd.dtype))
     return _merge_triangle(upd, c, uplo)
+
+
+def her2k(uplo: str, op: str, a, b, c, *, alpha=1.0, beta=1.0):
+    """``alpha op(a) op(b)^H + conj(alpha) op(b) op(a)^H + beta c`` on the
+    ``uplo`` triangle of ``c`` (beta real), the other triangle passed
+    through; the one product follows ``f64_gemm``."""
+    oa, ob = _op(a, op), _op(b, op)
+    prod = alpha * mm(oa, ob.transpose(-1, -2).conj())
+    prod = prod + prod.transpose(-1, -2).conj()
+    return _merge_triangle(prod + beta * c, c, uplo)
 
 
 def _tri(a: torch.Tensor, uplo: str, diag: str) -> torch.Tensor:

@@ -1,7 +1,9 @@
-"""LAPACK tile operations on torch: ``potrf`` and ``potrf_info``.
+"""LAPACK tile operations on torch: ``potrf``, ``potrf_info`` and
+``larft``.
 
-Counterpart of ``dlaf_tpu/tile_ops/lapack.py:71-99``, the reference's XLA
-route, so a library call is right here: ``torch.linalg.cholesky_ex``. The
+Counterpart of ``dlaf_tpu/tile_ops/lapack.py:71-99, 148-174``, the
+reference's XLA route, so library calls are right here:
+``torch.linalg.cholesky_ex`` and ``torch.linalg.solve_triangular``. The
 factor lands in the ``uplo`` triangle and the opposite triangle of the
 input passes through.
 
@@ -46,3 +48,29 @@ def potrf_info(uplo: str, a: torch.Tensor):
 
     f = potrf(uplo, a)
     return f, first_bad_info(bad_diag_mask(torch.diagonal(f, dim1=-2, dim2=-1)))
+
+
+def larft(v: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
+    """T factor of a block of forward, columnwise Householder reflectors
+    (reference ``tile::larft``): ``v`` (m, k), unit lower trapezoidal with
+    the ones implicit (its upper triangle is not read), ``tau`` (k,).
+    ``T^-1 = diag(1/tau) + strict_upper(V^H V)``, solved for T; a null
+    reflector (``tau == 0``) gives a zero row and column of T, and its
+    stored sub-diagonal is not read, as LAPACK's ``larft`` does."""
+    k = tau.shape[-1]
+    vlow = torch.where((tau == 0)[..., None, :], 0.0, tri_mask(v, "L", k=-1))
+    vv = vlow + torch.eye(v.shape[-2], k, dtype=v.dtype, device=v.device)
+    return t_from_gram(vv.mH @ vv, tau)
+
+
+def t_from_gram(gram: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
+    """T from the Gram matrix ``V^H V`` of the reflectors and their
+    ``tau``: the triangular solve of :func:`larft` (and of the
+    distributed T factor, whose Gram is a sum over ranks)."""
+    k = tau.shape[-1]
+    eye = torch.eye(k, dtype=gram.dtype, device=gram.device)
+    tau_safe = torch.where(tau == 0, torch.ones_like(tau), tau)
+    tinv = tri_mask(gram, "U", k=-1) + (1.0 / tau_safe)[..., :, None] * eye
+    t = torch.linalg.solve_triangular(tinv, eye.expand(tinv.shape), upper=True)
+    nz = tau != 0
+    return torch.where(nz[..., :, None] & nz[..., None, :], t, 0.0)

@@ -16,6 +16,9 @@ come from two libraries). ``factor_solve``'s plain version agrees with the
 Pallas kernel to ``8 * d * eps_f32`` (same math, another summation order).
 Inside the port the knob contracts are bitwise: lookahead on/off and
 with_info on/off.
+
+The "loop" route's per-column herk and gemm follow ``f64_gemm`` in both
+packages: under "mxu" both make the same (nonzero) number of Ozaki calls.
 """
 
 import contextlib
@@ -31,6 +34,7 @@ from dlaf_tpu import config as jcfg
 from dlaf_tpu.algorithms.cholesky import cholesky as jax_cholesky
 from dlaf_tpu.common.index2d import TileElementSize as JTileElementSize
 from dlaf_tpu.matrix.matrix import Matrix as JMatrix
+from dlaf_tpu.tile_ops import ozaki as joz
 from dlaf_tpu.tile_ops import pallas_panel as ppan
 from dlaf_tpu_torch import config
 from dlaf_tpu_torch.algorithms.cholesky import cholesky
@@ -269,3 +273,38 @@ def test_miniapp_f64_routes_on_cpu(letter, uplo, extra):
     assert len(res) == 1
     assert f" {letter}{uplo} (72, 72) (32, 32) (1, 1) " in lines[0]
     assert lines[-1].startswith("check: PASSED residual=")
+
+
+def count_entry_calls(monkeypatch, module):
+    """Calls of ``module``'s real Ozaki entries (``matmul_f64``,
+    ``syrk_f64``): every product and gram on the Ozaki route."""
+    calls = [0]
+    for name in ("matmul_f64", "syrk_f64"):
+        fn = getattr(module, name)
+
+        def wrapper(*args, _fn=fn, **kw):
+            calls[0] += 1
+            return _fn(*args, **kw)
+
+        monkeypatch.setattr(module, name, wrapper)
+    return calls
+
+
+@pytest.mark.parametrize("dtype,impl", [(np.float64, "jnp"), (np.float64, "pallas"),
+                                        (np.complex128, "jnp")])
+def test_loop_route_follows_f64_gemm(dtype, impl, monkeypatch):
+    """``cholesky_trailing=loop`` under ``f64_gemm=mxu``: the per-column
+    herk and gemm take the Ozaki route in the port as in the reference
+    (equal, nonzero call counts: the reference's program is traced afresh
+    for the knobs), and the factors agree."""
+    set_knobs(monkeypatch, {"cholesky_trailing": "loop", "f64_gemm": "mxu",
+                            "f64_gemm_min_dim": 16, "ozaki_impl": impl})
+    n = 64
+    a = hpd(n, dtype, seed=5)
+    jcalls = count_entry_calls(monkeypatch, joz)
+    ref = jax_factor(a, "L", 16)
+    pcalls = count_entry_calls(monkeypatch, oz)
+    got = port_factor(a, "L", 16)
+    assert pcalls[0] == jcalls[0] > 0
+    eps = np.finfo(dtype).eps
+    assert np.abs(np.tril(got) - np.tril(ref)).max() / np.abs(ref).max() <= 60 * n * eps
