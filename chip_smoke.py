@@ -99,7 +99,31 @@ counts, the Cholesky of B's included):
     slower than the faster formulation;
 20. qr: ``panel_qr`` of a random float64 (16384, 128) panel and the T
     factor from its reflectors, local and on 2x2 (blocks 512 x 128),
-    checked as a compact-WY factorization and against each other.
+    checked as a compact-WY factorization and against each other;
+
+reduction to band (``miniapp_reduction_to_band.run``: warm-up and timed
+reductions, each with its eigenvalue check on the card, wall, GFlop/s,
+peak device memory and launch counts) and the chase:
+
+21. red2band-d and red2band-d-scan: BASELINE config #4 (float64,
+    N=16384, nb=512, band 128, 4x4) by the default step mode (unrolled at
+    127 panels) and by scan; red2band-local-d and red2band-local-d-scan:
+    the same matrix on one rank; red2band-z: complex128, N=8192, nb=256,
+    band 256, 2x2 (no kernel on any of them);
+22. red2band-mxu: float64, N=4096, nb=512, band 128, 2x2 under
+    ``f64_gemm=mxu``: #6 exactly ``red2band_mxu_launches`` a call; one
+    bulk product at panel 0 (2048 x 2048, K = 128) and one W product
+    (K = 1024) through #6 bit for bit against its plain version;
+23. b2t-d and b2t-z: a seeded random Hermitian A reduced on the card
+    (config #4 on 4x4; complex128 N=4096, nb=256, band 128 on one rank),
+    its band extracted and chased by the native chase on the host, the
+    eigenvalues of (d, e) (scipy) against ``torch.linalg.eigvalsh(A)``
+    below 100 n eps: the pipeline's end-to-end check; then the same random
+    A through each other builder the red2band cells drive (config #4 scan
+    on 4x4 and on one rank, complex128 N=8192 on 2x2, red2band-mxu's cell
+    with its exact #6 count), the band's eigenvalues against A's below
+    100 n eps: the analytic setter of those cells has rank at most 4, so
+    only a full spectrum checks their later panels.
 
 On one card the collectives are device-local copies and every rank
 repeats the diagonal tile's factor, so these walls do not measure
@@ -113,8 +137,9 @@ its residual line and launch counts, and fails when the default is more
 than a quarter slower than the fastest of them. It factors a small ragged
 matrix against a float64 reference, profiles one float32 and two float64
 factorizations, one dist-L, dist-U, dist-f64 and dist-scan-L
-factorization, one config #2 solve unrolled and scan and one config #3
-HEGST blocked and twosolve, and prints a JSON line of per-kernel numbers,
+factorization, one config #2 solve unrolled and scan, one config #3
+HEGST blocked and twosolve and one config #4 reduction to band, and prints
+a JSON line of per-kernel numbers,
 the card's name and power limit, and as its last line ``{"ok": true,
 "device": {...}}``. Any failure
 exits non-zero. It needs no network and imports nothing of JAX.
@@ -219,16 +244,19 @@ def bound(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
     return max(bt, ot), "bytes" if bt >= ot else "operations"
 
 
-def profile_run(torch, label: str, fn) -> None:
+def profile_run(torch, label: str, fn, host_ops: bool = True) -> None:
     """Where the time of one call of ``fn`` goes (after one warm-up call):
     device time by kernel from ``torch.profiler``, and the device's busy
     share of the host wall (informational; prints what the profiler
-    saw)."""
+    saw). ``host_ops=False`` records the device activity alone: a call of
+    tens of thousands of host operations is then parsed in seconds, not a
+    minute."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host_ops else [ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -794,6 +822,246 @@ def qr_phase(torch, dev, card) -> None:
           f"grid_vs_local={same:.3e}", flush=True)
 
 
+def red2band_mxu_launches(P: int, Q: int, n: int, nb: int, b: int, k_max: int = 1024,
+                          min_dim: int = 128) -> int:
+    """Launches of #6 in one distributed unrolled reduction to band under
+    ``f64_gemm=mxu`` (float64, ``ozaki_impl=pallas``), every rank of the
+    P x Q grid on one card: per panel with a trailing block, W's partial
+    product on every rank when its contraction (the rank's trailing
+    columns) is at most ``k_max`` deep (deeper ones take the composed
+    route, no kernel), M's once per grid row (its partial product is the
+    same on every rank of a row, formed once per device) when the row's
+    trailing rows are, and the bulk's two products on every rank
+    (contraction ``b``); each only where every dimension is at least
+    ``min_dim``. The eager strip under ``comm_lookahead`` reuses the
+    bulk's products."""
+    nt = -(-n // nb)
+    ltr, ltc = -(-nt // P), -(-nt // Q)
+
+    def slot(k, p):
+        return max(0, -(-(k + 1 - p) // p))
+
+    total = 0
+    for p in range(-(-n // b) - 1):
+        tr0 = ((p + 1) * b) // nb
+        rows, cols = (ltr - slot(tr0, P)) * nb, (ltc - slot(tr0, Q)) * nb
+        if rows <= 0 or cols <= 0:
+            continue
+        w = cols <= k_max and min(rows, cols, b) >= min_dim
+        m = rows <= k_max and min(rows, b) >= min_dim
+        bulk = 2 * (min(rows, b, cols) >= min_dim)
+        total += P * Q * (w + bulk) + P * m
+    return total
+
+
+def red2band_paths(torch, dev, card, drive, ok) -> None:
+    """Reduction to band through ``miniapp_reduction_to_band.run`` (every
+    rank of a grid on this card), each with its check line (the band's
+    eigenvalues against A's on the card, below 100 n eps), wall, GFlop/s
+    (the reference's model, 2n^3/3 multiplications and as many additions),
+    peak device memory and exact launch counts: BASELINE config #4 by the
+    default step mode and by scan, the same matrix on one rank both ways,
+    complex128 with band = nb, and float64 under ``f64_gemm=mxu`` with
+    #6 counted exactly; then two of red2band-mxu's products through #6
+    bit for bit against its plain version (:func:`red2band_mxu_products`)."""
+    import numpy as np
+
+    from dlaf_tpu_torch import config
+    from dlaf_tpu_torch.miniapp import miniapp_reduction_to_band as mrb
+    from dlaf_tpu_torch.types import total_ops
+
+    one = ["--nruns", "1", "--nwarmups", "1", "--check-result", "last"]
+    c4 = ["-m", "16384", "-b", "512", "--band-size", "128", "--type", "d"]
+    g44 = ["--grid-rows", "4", "--grid-cols", "4", "--share-device"]
+    g22 = ["--grid-rows", "2", "--grid-cols", "2", "--share-device"]
+    config.initialize()
+    print(f"[red2band] dist_step_mode auto at 127 panels on cuda: "
+          f"{config.resolve_step_mode(127, 'cuda')}", flush=True)
+
+    def r2b(name, argv, n, nb, letter, grid, expect=None):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = drive([*argv, *one], n, nb, 2, expect or {}, app=mrb)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        dt = {"d": np.float64, "z": np.complex128}[letter]
+        print(f"[red2band] {name:22s} N={n} nb={nb} {grid}: {t:.6f} s "
+              f"{total_ops(dt, 2 * n ** 3 / 3, 2 * n ** 3 / 3) / t / 1e9:.2f} GFlop/s, peak "
+              f"{peak:.2f} GiB [{card}]", flush=True)
+
+    r2b("red2band-d", [*c4, *g44], 16384, 512, "d", "4x4 band 128")
+    r2b("red2band-d-scan", [*c4, *g44, "--dlaf:dist-step-mode=scan"], 16384, 512, "d",
+        "4x4 band 128")
+    r2b("red2band-local-d", c4, 16384, 512, "d", "1x1 band 128")
+    r2b("red2band-local-d-scan", [*c4, "--dlaf:dist-step-mode=scan"], 16384, 512, "d",
+        "1x1 band 128")
+    r2b("red2band-z", ["-m", "8192", "-b", "256", "--type", "z", *g22], 8192, 256, "z",
+        "2x2 band 256")
+    count = red2band_mxu_launches(2, 2, 4096, 512, 128)
+    r2b("red2band-mxu", ["-m", "4096", "-b", "512", "--band-size", "128", "--type", "d", *g22,
+                         "--dlaf:f64-gemm=mxu", "--dlaf:ozaki-impl=pallas"], 4096, 512, "d",
+        "2x2 band 128", {"ozaki_product": lambda nt: count})
+    red2band_mxu_products(torch, dev, ok)
+
+
+def red2band_mxu_products(torch, dev, ok) -> None:
+    """Two of red2band-mxu's products under ``f64_gemm=mxu``,
+    ``ozaki_impl=pallas``, at that path's shapes, through #6 and then with
+    it swapped for its plain version, bit for bit: the bulk's ``X V^H`` of
+    one rank at panel 0 (2048 x 2048 tiles' rows and columns, contraction
+    b = 128) and W's partial product of one rank where its contraction is
+    1024 deep (1024 trailing rows and columns). Each must launch #6."""
+    from dlaf_tpu_torch import config
+    from dlaf_tpu_torch.tile_ops import blas as tb
+
+    config.initialize(argv=["--dlaf:f64-gemm=mxu", "--dlaf:ozaki-impl=pallas"])
+    gen = torch.Generator(device=dev).manual_seed(15)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev, dtype=torch.float64)
+
+    xr, vc = randn(4, 512, 128), randn(4, 512, 128)
+    atr, vtl = randn(2, 2, 512, 512), randn(2, 512, 128)
+    for name, fn in (("bulk X V^H 2048x2048, K=128",
+                      lambda: tb.contract("rad,cbd->rcab", xr, vc.conj())),
+                     ("W partial 1024x128, K=1024",
+                      lambda: tb.contract("rcab,cbd->rad", atr, vtl))):
+        before = ok.LAUNCHES["ozaki_product"]
+        got = fn()
+        torch.cuda.synchronize()
+        launched = ok.LAUNCHES["ozaki_product"] - before
+        kernel = ok.ozaki_product
+        ok.ozaki_product = ok.ozaki_product_plain
+        try:
+            ref = fn()
+        finally:
+            ok.ozaki_product = kernel
+        same = torch.equal(got, ref)
+        print(f"[kernel] ozaki_product red2band-mxu {name}: {launched} launch(es), "
+              f"{'bitwise equal' if same else 'DIFFER'} to the plain version", flush=True)
+        if launched < 1 or not same:
+            raise AssertionError(f"red2band-mxu {name}: #6 not launched or not bitwise equal")
+    config.initialize()
+
+
+_SCAN, _MXU = "--dlaf:dist-step-mode=scan", "--dlaf:f64-gemm=mxu"
+#: :func:`b2t_paths`' cases: name, n, nb, band, type, grid (None: one
+#: rank), knobs, chased (else the band's eigenvalues are checked)
+B2T_CASES = (("b2t-d", 16384, 512, 128, "d", (4, 4), [], True),
+             ("rand-d-scan", 16384, 512, 128, "d", (4, 4), [_SCAN], False),
+             ("rand-local-d-scan", 16384, 512, 128, "d", None, [_SCAN], False),
+             ("rand-z", 8192, 256, 256, "z", (2, 2), [], False),
+             ("b2t-z", 4096, 256, 128, "z", None, [], True),
+             ("rand-mxu", 4096, 512, 128, "d", (2, 2), [_MXU, "--dlaf:ozaki-impl=pallas"], False))
+
+
+def b2t_paths(torch, dev, card, ok) -> None:
+    """The pipeline end to end, and every builder of the red2band cells on
+    a full spectrum. A seeded random Hermitian A (its eigenvalues by
+    ``torch.linalg.eigvalsh`` on the card, once per size and type) is
+    reduced to band on the card and its band extracted (only the band's
+    diagonals cross to the host). b2t-d (config #4: float64, N=16384,
+    nb=512, band 128, 4x4 unrolled) and b2t-z (complex128, N=4096, nb=256,
+    band 128, one rank) chase it to a real tridiagonal by the native chase
+    and hold the eigenvalues of (d, e) (scipy) against A's, the phases of
+    unit modulus; rand-d-scan and rand-local-d-scan (config #4 on 4x4 and
+    on one rank, scan), rand-z (red2band-z's shape: complex128, N=8192,
+    nb=256, band 256, 2x2) and rand-mxu (red2band-mxu's, with #6 exactly
+    ``red2band_mxu_launches``) hold the band's eigenvalues (``eigvalsh`` on
+    the card) against A's. Each below 100 n eps. The red2band cells' own
+    check reads the reference's analytic setter, of rank at most 4: after
+    its first panel the trailing matrix is at roundoff, so these are the
+    checks of the later panels."""
+    import numpy as np
+
+    from dlaf_tpu_torch import config
+    from dlaf_tpu_torch.comm.grid import shared_grid
+    from dlaf_tpu_torch.common.index2d import TileElementSize
+    from dlaf_tpu_torch.eigensolver.band_to_tridiag import band_to_tridiag
+    from dlaf_tpu_torch.eigensolver.reduction_to_band import extract_band, reduction_to_band
+    from dlaf_tpu_torch.matrix.matrix import Matrix
+    from dlaf_tpu_torch.miniapp import miniapp_reduction_to_band as mrb
+    from dlaf_tpu_torch.miniapp.miniapp_band_to_tridiag import tridiag_drift
+    from dlaf_tpu_torch.native import bindings
+
+    held = None
+    for name, n, nb, b, letter, grid, knobs, chase in B2T_CASES:
+        dtype = {"d": torch.float64, "z": torch.complex128}[letter]
+        want6 = (red2band_mxu_launches(*grid, n, nb, b) if "--dlaf:f64-gemm=mxu" in knobs
+                 else 0)
+        if held is None or held[0] != (n, dtype):
+            held = None
+            gen = torch.Generator(device=dev).manual_seed(14)
+            x = torch.randn(n, n, generator=gen, device=dev, dtype=dtype)
+            a = (x + x.mH) / 2
+            del x
+            held = ((n, dtype), a, torch.linalg.eigvalsh(a))
+        _, a, w_ref = held
+        config.initialize(argv=knobs)
+        mat = Matrix.from_global(a, TileElementSize(nb, nb),
+                                 shared_grid(*grid, dev) if grid else None, device=dev)
+        before6 = ok.LAUNCHES["ozaki_product"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        red = reduction_to_band(mat, band_size=b, donate=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        launched6 = ok.LAUNCHES["ozaki_product"] - before6
+        band = extract_band(red)
+        t2 = time.perf_counter()
+        del mat, red
+        tol = 100 * n * float(np.finfo(np.float64).eps)
+        shape = f"{grid[0]}x{grid[1]}" if grid else "1x1"
+        if chase:
+            res = band_to_tridiag(band, b)
+            t3 = time.perf_counter()
+            resid = tridiag_drift(w_ref, res)
+            unit = float(np.abs(np.abs(res.phase) - 1).max())
+            print(f"[b2t] {name} N={n} nb={nb} band={b} {shape}: reduction {t1 - t0:.6f} s, "
+                  f"extract_band {t2 - t1:.6f} s, native chase {t3 - t2:.6f} s "
+                  f"({bindings.chase_threads()} threads, "
+                  f"{6 * n * n * b * (4 if dtype.is_complex else 1) / (t3 - t2) / 1e9:.2f} "
+                  f"GFlop/s); eigenvalue drift {resid:.3e} tol {tol:.3e}, phases off unit "
+                  f"{unit:.1e} [{card}]", flush=True)
+            good = (unit < 1e-12 and res.d.shape == (n,) and res.e.shape == (n - 1,)
+                    and np.isfinite(res.d).all() and np.isfinite(res.e).all())
+        else:
+            w = torch.linalg.eigvalsh(mrb.wide(mrb.band_matrix(band, dev)))
+            resid = mrb.eigenvalue_drift(w_ref, w)
+            print(f"[b2t] {name} N={n} nb={nb} band={b} {shape} {' '.join(knobs) or 'default'}: "
+                  f"reduction {t1 - t0:.6f} s, #6 launches {launched6}; band eigenvalue drift "
+                  f"{resid:.3e} tol {tol:.3e} [{card}]", flush=True)
+            good = bool(torch.isfinite(w).all())
+        if not (good and resid < tol):
+            raise AssertionError(f"{name}: the eigenvalues disagree with A's")
+        if launched6 != want6:
+            raise AssertionError(f"{name}: #6 launched {launched6} times, expected {want6}")
+        print(f"check: PASSED {name} residual={resid:.3e} tol={tol:.3e}", flush=True)
+    del held, a, w_ref
+    config.initialize()
+
+
+def profile_red2band(torch, dev, n: int = 16384, nb: int = 512, band: int = 128) -> None:
+    """:func:`profile_run` of one config #4 reduction to band (float64, the
+    analytic setter, 4x4 on ``dev``) by the default step mode."""
+    import numpy as np
+
+    from dlaf_tpu_torch import config
+    from dlaf_tpu_torch.comm.grid import shared_grid
+    from dlaf_tpu_torch.common.index2d import GlobalElementSize, TileElementSize
+    from dlaf_tpu_torch.eigensolver.reduction_to_band import reduction_to_band
+    from dlaf_tpu_torch.matrix.matrix import Matrix
+    from dlaf_tpu_torch.miniapp.miniapp_reduction_to_band import herm_setter
+
+    config.initialize()
+    ref = Matrix.from_element_fn(herm_setter, GlobalElementSize(n, n), TileElementSize(nb, nb),
+                                 shared_grid(4, 4, dev), dtype=np.float64, device=dev)
+    mats = [ref.clone(), ref.clone()]
+    del ref
+    profile_run(torch, f"red2band-d n={n} nb={nb} band={band} grid 4x4 on one card default",
+                lambda: reduction_to_band(mats.pop(), band_size=band, donate=True),
+                host_ops=False)
+
+
 def main() -> int:
     import torch
 
@@ -1194,6 +1462,16 @@ def main() -> int:
     qr_phase(torch, dev, card)
     print(f"[phase] qr {time.perf_counter() - t_phase:.1f} s", flush=True)
 
+    # ---- phase 2e: reduction to band (BASELINE config #4: float64,
+    # N=16384, nb=512, band 128, 4x4 on this card) and the chase to a
+    # tridiagonal, the pipeline's end-to-end eigenvalue check --------------
+    t_phase = time.perf_counter()
+    red2band_paths(torch, dev, card, drive, ok)
+    print(f"[phase] red2band {time.perf_counter() - t_phase:.1f} s", flush=True)
+    t_phase = time.perf_counter()
+    b2t_paths(torch, dev, card, ok)
+    print(f"[phase] band_to_tridiag {time.perf_counter() - t_phase:.1f} s", flush=True)
+
     # ---- phase 3: the float64 / complex128 routes "auto" picks from ------
     # the default (no knob) beside each route it could resolve to, uplo L,
     # lookahead as the default (1); launch counts per factorization
@@ -1275,6 +1553,7 @@ def main() -> int:
                           np.float32, grid_shape=(2, 2))
     for mode in ("unrolled", "scan"):
         profile_trsm(torch, dev, mode)
+    profile_red2band(torch, dev)
 
     order = (("potrf", "panel", "dlaf_tpu/tile_ops/pallas_panel.py:187"),
              ("solve", "panel", "dlaf_tpu/tile_ops/pallas_panel.py:296"),

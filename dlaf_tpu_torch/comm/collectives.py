@@ -30,6 +30,12 @@ Semantics follow the reference (``collectives.py:69-255``):
 ``axis`` ``"row"`` runs along grid rows, among the ranks of one grid
 column (the reference's column communicator), ``"col"`` among the ranks
 of one grid row.
+
+``shared=True`` (:func:`bcast`, :func:`all_reduce`, :func:`all_gather`)
+is for receivers that only read the result: the ranks of one line that
+share a device then get one tensor, formed once (:func:`per_rank_once`),
+instead of a copy each. The values are the same either way; with one
+device per rank nothing is shared.
 """
 
 from __future__ import annotations
@@ -63,6 +69,28 @@ def _pos(axis: str, r: int, c: int) -> int:
     return r if axis == ROW_AXIS else c
 
 
+def per_rank_once(P: int, Q: int, key, make) -> list:
+    """``per_rank`` of ``make``, called once per ``key(r, c)``: the ranks
+    with one key share the result and only read it."""
+    done = {}
+
+    def one(r, c):
+        k = key(r, c)
+        if k not in done:
+            done[k] = make(r, c)
+        return done[k]
+
+    return per_rank(P, Q, one)
+
+
+def _per_receiver(xs, axis: str, shared: bool, fn):
+    """``per_rank`` of ``fn``; with ``shared`` once per (line, device)."""
+    P, Q = grid_shape(xs)
+    if not shared:
+        return per_rank(P, Q, fn)
+    return per_rank_once(P, Q, lambda r, c: (c if axis == ROW_AXIS else r, xs[r][c].device), fn)
+
+
 def _received(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """The broadcast's received value on ``like``'s device: a new tensor,
     ``x + 0.0`` for floating types."""
@@ -70,11 +98,11 @@ def _received(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return y.add_(0.0) if (y.is_floating_point() or y.is_complex()) else y
 
 
-def bcast(xs, axis: str, src: int):
+def bcast(xs, axis: str, src: int, *, shared: bool = False):
     """Broadcast the value of rank ``src`` along ``axis`` (reference
     ``kernels/broadcast.h``)."""
-    P, Q = grid_shape(xs)
-    return per_rank(P, Q, lambda r, c: _received(_line(xs, axis, r, c)[src], xs[r][c]))
+    return _per_receiver(xs, axis, shared,
+                         lambda r, c: _received(_line(xs, axis, r, c)[src], xs[r][c]))
 
 
 def bcast2d(xs, owner_r: int, owner_c: int):
@@ -87,11 +115,10 @@ def bcast2d(xs, owner_r: int, owner_c: int):
 _FOLD = {"sum": torch.add, "max": torch.maximum, "min": torch.minimum}
 
 
-def all_reduce(xs, axis: str, op: str = "sum"):
+def all_reduce(xs, axis: str, op: str = "sum", *, shared: bool = False):
     """All-reduce along ``axis`` (reference ``kernels/all_reduce.h``)."""
     if op not in _FOLD:
         raise ValueError(f"unsupported reduce op {op!r}")
-    P, Q = grid_shape(xs)
 
     def one(r, c):
         dev = xs[r][c].device
@@ -101,7 +128,7 @@ def all_reduce(xs, axis: str, op: str = "sum"):
             acc = _FOLD[op](acc, v.to(dev))
         return acc
 
-    return per_rank(P, Q, one)
+    return _per_receiver(xs, axis, shared, one)
 
 
 def reduce(xs, axis: str, root: int, op: str = "sum"):
@@ -121,18 +148,18 @@ def send_recv(xs, axis: str, src: int, dst: int):
                     if _pos(axis, r, c) == dst else torch.zeros_like(xs[r][c]))
 
 
-def all_gather(xs, axis: str, *, tiled: bool = False, concat_axis: int = 0):
+def all_gather(xs, axis: str, *, tiled: bool = False, concat_axis: int = 0,
+               shared: bool = False):
     """Every rank's value along ``axis`` on every rank: stacked on a new
     axis ``concat_axis`` (of the axis' size), or concatenated along it
     when ``tiled``."""
-    P, Q = grid_shape(xs)
     join = torch.cat if tiled else torch.stack
 
     def one(r, c):
         dev = xs[r][c].device
         return join([v.to(dev) for v in _line(xs, axis, r, c)], dim=concat_axis)
 
-    return per_rank(P, Q, one)
+    return _per_receiver(xs, axis, shared, one)
 
 
 def barrier_value(xs, axis: str):

@@ -2,8 +2,9 @@
 
 Counterpart of ``dlaf_tpu/config.py``, cut to the knobs of the local and
 distributed Cholesky, the triangular solve and multiply
-(``dist_step_mode``, ``trsm_rhs_chunk``), HEGST (``hegst_impl``) and
-their f64/complex128 routes.
+(``dist_step_mode``, ``trsm_rhs_chunk``), HEGST (``hegst_impl``), the
+band-to-tridiagonal chase (``chase_threads``) and their f64/complex128
+routes.
 Same layering (highest wins):
 ``--dlaf:<knob>=<value>`` arguments > ``DLAF_<KNOB>`` environment
 variables > a user ``Configuration`` > the defaults.
@@ -117,6 +118,10 @@ class Configuration:
     #: then two whole triangular solves, about twice the operations) or
     #: "auto". The scan step mode always takes twosolve.
     hegst_impl: str = "auto"
+    #: Worker threads of the native chase's pipelined sweeps: 0 = the
+    #: process's CPU affinity count, 1 = sequential. Any count gives
+    #: bitwise the same result.
+    chase_threads: int = 0
 
 
 _VALID_CHOICES = {
