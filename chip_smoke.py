@@ -6,9 +6,10 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the hand-written kernels (``dlaf_tpu_torch/csrc/panel.cu``,
-``csrc/ozaki.cu`` and ``csrc/update.cu``, one nvcc each, started together)
-from the checkout, prints ptxas's registers, shared memory and spills of
-the potrf, inverse, slice and update kernels (and fails on a spill), and
+``csrc/ozaki.cu``, ``csrc/update.cu`` and ``csrc/givens.cu``, one nvcc
+each, started together) from the checkout, prints ptxas's registers,
+shared memory and spills of the potrf, inverse, slice, update and Givens
+kernels (and fails on a spill), and
 holds each kernel against its plain PyTorch version on the card: the panel
 kernels (potrf, strip solve, factor+solve, fused step) in float32 and
 bfloat16, potrf alone and the triangular inverse (through the strip solve,
@@ -114,16 +115,46 @@ peak device memory and launch counts) and the chase:
     ``f64_gemm=mxu``: #6 exactly ``red2band_mxu_launches`` a call; one
     bulk product at panel 0 (2048 x 2048, K = 128) and one W product
     (K = 1024) through #6 bit for bit against its plain version;
-23. b2t-d and b2t-z: a seeded random Hermitian A reduced on the card
-    (config #4 on 4x4; complex128 N=4096, nb=256, band 128 on one rank),
-    its band extracted and chased by the native chase on the host, the
-    eigenvalues of (d, e) (scipy) against ``torch.linalg.eigvalsh(A)``
-    below 100 n eps: the pipeline's end-to-end check; then the same random
-    A through each other builder the red2band cells drive (config #4 scan
+23. b2t-z: a seeded random Hermitian A reduced on the card (complex128
+    N=4096, nb=256, band 128 on one rank), its band extracted and chased
+    by the native chase on the host, the eigenvalues of (d, e) (scipy)
+    against ``torch.linalg.eigvalsh(A)`` below 100 n eps; then a random A
+    through each other builder the red2band cells drive (config #4 scan
     on 4x4 and on one rank, complex128 N=8192 on 2x2, red2band-mxu's cell
     with its exact #6 count), the band's eigenvalues against A's below
     100 n eps: the analytic setter of those cells has rank at most 4, so
-    only a full spectrum checks their later panels.
+    only a full spectrum checks their later panels (config #4's unrolled
+    reduction and chase on a random A run in evp-d below);
+
+the eigensolver (``eigensolver`` / ``gen_eigensolver`` with a PhaseTimer:
+each stage's wall and share, GFlop/s by ``total_ops(5n^3/3, 5n^3/3)``,
+peak device and host memory, the D&C's deflation fraction, Givens
+rotations and secular route per level, launch counts; checked: the
+eigenvalues against ``torch.linalg.eigvalsh`` below 100 n eps where A is
+random, the eigenpair residual and the orthogonality below 200 n eps):
+
+24. evp-d: a seeded random Hermitian A at BASELINE config #4's shape
+    (float64, N=16384, nb=512, band 128, 4x4) by the default routes; and
+    evp-d-analytic, the analytic setter at the same shape (its deflation
+    and rotations);
+25. evp-local-d (float64, N=8192, nb=512, band 128, one rank: the local
+    back-transforms), evp-z (complex128, N=4096, nb=256, band 128, 2x2),
+    evp-scan (evp-z's shape in float64, ``dist_step_mode=scan``: both scan
+    builders), evp-mxu (float64, N=4096, nb=512, band 128, 2x2,
+    ``f64_gemm=mxu``: #6 exactly ``evp_mxu_launches`` a call, and bit for
+    bit at a D&C merge product's and a chase back-transform's shape);
+26. gen-evp-d and gen-evp-s: ``gen_eigensolver`` in float64 and float32
+    (N=8192, nb=256, 2x2, uplo L, B the HPD generator's), the float32
+    one with #1, #2, #3 and #5 exactly ``GEN_EVP_F32_GRID``;
+27. dc-route: the D&C of evp-d's tridiagonal by ``secular_device_min_k``
+    2048, 4096, 8192 and host-only, with walls and peak memory, the
+    host-only result checked; the defaults on an iid normal (d, e) and on a Toeplitz T, whose
+    largest Givens undo (the hand-written kernel beside the eight) is
+    held bit for bit against its plain loop and timed;
+28. ``miniapp_eigensolver`` at N=4096, nb=256, 2x2, standard and
+    ``--generalized``, with its check lines; the chase back-transform's
+    blocked form (the path's) and the reference's sweeps form on evp-d's
+    reflectors (512 columns);
 
 On one card the collectives are device-local copies and every rank
 repeats the diagonal tile's factor, so these walls do not measure
@@ -138,8 +169,9 @@ than a quarter slower than the fastest of them. It factors a small ragged
 matrix against a float64 reference, profiles one float32 and two float64
 factorizations, one dist-L, dist-U, dist-f64 and dist-scan-L
 factorization, one config #2 solve unrolled and scan, one config #3
-HEGST blocked and twosolve and one config #4 reduction to band, and prints
-a JSON line of per-kernel numbers,
+HEGST blocked and twosolve, one config #4 reduction to band and evp-d's
+device stages (the D&C and both back-transforms), and prints a JSON line
+of per-kernel numbers,
 the card's name and power limit, and as its last line ``{"ok": true,
 "device": {...}}``. Any failure
 exits non-zero. It needs no network and imports nothing of JAX.
@@ -150,6 +182,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -158,7 +191,10 @@ import time
 #: Published peaks of one H100 SXM (NVIDIA data sheet, dense): HBM bytes/s
 #: and operations/s by input type (float32 outside the tensor cores).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
+PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12,
+            # float64 outside the tensor cores (NVIDIA's data sheet): the
+            # Givens undo's arithmetic
+            "float64": 34e12}
 
 EPS = {"float32": 2.0 ** -23, "bfloat16": 2.0 ** -8}
 
@@ -244,8 +280,9 @@ def bound(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
     return max(bt, ot), "bytes" if bt >= ot else "operations"
 
 
-def profile_run(torch, label: str, fn, host_ops: bool = True) -> None:
-    """Where the time of one call of ``fn`` goes (after one warm-up call):
+def profile_run(torch, label: str, fn, host_ops: bool = True, warm: bool = True) -> None:
+    """Where the time of one call of ``fn`` goes (after one warm-up call,
+    unless ``warm`` is False: the caller ran the same shapes already):
     device time by kernel from ``torch.profiler``, and the device's busy
     share of the host wall (informational; prints what the profiler
     saw). ``host_ops=False`` records the device activity alone: a call of
@@ -253,7 +290,8 @@ def profile_run(torch, label: str, fn, host_ops: bool = True) -> None:
     minute."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host_ops else [ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
@@ -822,6 +860,12 @@ def qr_phase(torch, dev, card) -> None:
           f"grid_vs_local={same:.3e}", flush=True)
 
 
+def _slot(k: int, p: int) -> int:
+    """Uniform local slot covering every rank's tiles from global tile
+    ``k`` on a ``p``-rank axis (``matrix.panel.uniform_slot_start``)."""
+    return max(0, -(-(k + 1 - p) // p))
+
+
 def red2band_mxu_launches(P: int, Q: int, n: int, nb: int, b: int, k_max: int = 1024,
                           min_dim: int = 128) -> int:
     """Launches of #6 in one distributed unrolled reduction to band under
@@ -837,14 +881,10 @@ def red2band_mxu_launches(P: int, Q: int, n: int, nb: int, b: int, k_max: int = 
     bulk's products."""
     nt = -(-n // nb)
     ltr, ltc = -(-nt // P), -(-nt // Q)
-
-    def slot(k, p):
-        return max(0, -(-(k + 1 - p) // p))
-
     total = 0
     for p in range(-(-n // b) - 1):
         tr0 = ((p + 1) * b) // nb
-        rows, cols = (ltr - slot(tr0, P)) * nb, (ltc - slot(tr0, Q)) * nb
+        rows, cols = (ltr - _slot(tr0, P)) * nb, (ltc - _slot(tr0, Q)) * nb
         if rows <= 0 or cols <= 0:
             continue
         w = cols <= k_max and min(rows, cols, b) >= min_dim
@@ -946,8 +986,7 @@ def red2band_mxu_products(torch, dev, ok) -> None:
 _SCAN, _MXU = "--dlaf:dist-step-mode=scan", "--dlaf:f64-gemm=mxu"
 #: :func:`b2t_paths`' cases: name, n, nb, band, type, grid (None: one
 #: rank), knobs, chased (else the band's eigenvalues are checked)
-B2T_CASES = (("b2t-d", 16384, 512, 128, "d", (4, 4), [], True),
-             ("rand-d-scan", 16384, 512, 128, "d", (4, 4), [_SCAN], False),
+B2T_CASES = (("rand-d-scan", 16384, 512, 128, "d", (4, 4), [_SCAN], False),
              ("rand-local-d-scan", 16384, 512, 128, "d", None, [_SCAN], False),
              ("rand-z", 8192, 256, 256, "z", (2, 2), [], False),
              ("b2t-z", 4096, 256, 128, "z", None, [], True),
@@ -959,11 +998,11 @@ def b2t_paths(torch, dev, card, ok) -> None:
     a full spectrum. A seeded random Hermitian A (its eigenvalues by
     ``torch.linalg.eigvalsh`` on the card, once per size and type) is
     reduced to band on the card and its band extracted (only the band's
-    diagonals cross to the host). b2t-d (config #4: float64, N=16384,
-    nb=512, band 128, 4x4 unrolled) and b2t-z (complex128, N=4096, nb=256,
-    band 128, one rank) chase it to a real tridiagonal by the native chase
-    and hold the eigenvalues of (d, e) (scipy) against A's, the phases of
-    unit modulus; rand-d-scan and rand-local-d-scan (config #4 on 4x4 and
+    diagonals cross to the host). b2t-z (complex128, N=4096, nb=256, band
+    128, one rank) chases it to a real tridiagonal by the native chase and
+    holds the eigenvalues of (d, e) (scipy) against A's, the phases of
+    unit modulus (config #4's unrolled reduction and chase of a random A
+    run in the eigensolver's evp-d); rand-d-scan and rand-local-d-scan (config #4 on 4x4 and
     on one rank, scan), rand-z (red2band-z's shape: complex128, N=8192,
     nb=256, band 256, 2x2) and rand-mxu (red2band-mxu's, with #6 exactly
     ``red2band_mxu_launches``) hold the band's eigenvalues (``eigvalsh`` on
@@ -1040,6 +1079,552 @@ def b2t_paths(torch, dev, card, ok) -> None:
     config.initialize()
 
 
+# ---------------------------------------------------------------------------
+# The eigensolver: the D&C, both back-transforms and the drivers
+# ---------------------------------------------------------------------------
+
+def _mxu_product(m: int, k: int, n: int, k_max: int, min_dim: int) -> int:
+    """1 when an (m x k) @ (k x n) float64 product under ``f64_gemm=mxu``
+    (``ozaki_impl=pallas``) launches #6: every dimension at least
+    ``min_dim`` and the contraction at most ``k_max`` deep."""
+    return int(min(m, k, n) >= min_dim and k <= k_max)
+
+
+def dc_mxu_launches(n: int, nb: int, k_max: int = 1024, min_dim: int = 128) -> int:
+    """#6 launches of one D&C of order ``n`` (leaves of at most ``nb``)
+    under ``f64_gemm=mxu``: each merge's two products ``Q1 @ qc[:n1]``
+    (n1 x n1 by n1 x n) and ``Q2 @ qc[n1:]``, over the solver's split
+    tree."""
+    def walk(size):
+        if size <= max(nb, 2):
+            return 0
+        m = (size // 2 // nb) * nb
+        if m == 0 or m == size:
+            m = size // 2
+        return (walk(m) + walk(size - m) + _mxu_product(m, m, size, k_max, min_dim)
+                + _mxu_product(size - m, size - m, size, k_max, min_dim))
+    return walk(n)
+
+
+def bt_b2t_mxu_launches(n: int, b: int, m: int, k_max: int = 1024, min_dim: int = 128) -> int:
+    """#6 launches of the blocked chase back-transform (cuda's group: the
+    band) of an ``(n, m)`` E on one card: per step level the products
+    ``V^H E`` (G x L by L x m) and ``V W`` (L x G by G x m)."""
+    n_sweeps = max(n - 2, 0)
+    if n_sweeps == 0:
+        return 0
+    g = max(1, min(b, b + 1, n_sweeps))
+    L = b + g - 1
+    levels = -(-n_sweeps // g) * -(-(n - 1) // b)
+    return levels * (_mxu_product(g, L, m, k_max, min_dim) + _mxu_product(L, g, m, k_max, min_dim))
+
+
+def bt_r2b_mxu_launches(P: int, Q: int, n: int, nb: int, b: int, k_max: int = 1024,
+                        min_dim: int = 128) -> int:
+    """#6 launches of the distributed unrolled reflector-block
+    back-transform, every rank on one card: per panel with trailing rows,
+    ``V^H C`` on every rank (contraction: the rank's trailing rows), ``T
+    W2`` once per grid column (the same on the column's ranks) and ``V
+    W2`` on every rank (contraction b)."""
+    nt = -(-n // nb)
+    ltr, ltc = -(-nt // P), -(-nt // Q)
+    total = 0
+    for p in range(-(-n // b) - 1):
+        rows = (ltr - _slot(((p + 1) * b) // nb, P)) * nb
+        if rows <= 0:
+            continue
+        cols = ltc * nb
+        total += (P * Q * _mxu_product(b, rows, cols, k_max, min_dim)
+                  + Q * _mxu_product(b, b, cols, k_max, min_dim)
+                  + P * Q * _mxu_product(rows, b, cols, k_max, min_dim))
+    return total
+
+
+def evp_mxu_launches(P: int, Q: int, n: int, nb: int, b: int, k_max: int = 1024,
+                     min_dim: int = 128) -> int:
+    """#6 launches of one distributed ``eigensolver`` call under
+    ``f64_gemm=mxu``, every rank of the P x Q grid on one card (unrolled
+    steps): the reduction to band, the D&C's merge products, the blocked
+    chase back-transform of the columns the ranks received side by side,
+    and the reflector-block back-transform."""
+    nt = -(-n // nb)
+    ltc = -(-nt // Q)
+    m = P * Q * -(-ltc // P) * nb
+    return (red2band_mxu_launches(P, Q, n, nb, b, k_max, min_dim)
+            + dc_mxu_launches(n, nb, k_max, min_dim)
+            + bt_b2t_mxu_launches(n, b, m, k_max, min_dim)
+            + bt_r2b_mxu_launches(P, Q, n, nb, b, k_max, min_dim))
+
+
+#: Launches of one float32 ``gen_eigensolver`` call on a P x Q grid on the
+#: cuda defaults: the Cholesky of B (fused factor+solve, potrf at the last
+#: step, the update kernel), HEGST by twosolve (two solves, the strip solve
+#: on every rank every step) and the back-substitution (one more such
+#: solve); the eigensolver's float32 stages run no kernel.
+GEN_EVP_F32_GRID = {**CHOL_F32_GRID, "solve": lambda P, Q, nt: 3 * P * Q * nt}
+
+
+class HostPeak:
+    """Peak resident set of this process over a ``with`` block, GiB:
+    ``/proc/self/statm`` sampled every 10 ms by a thread (the kernel's own
+    high-water mark, ``VmHWM``, spans the process's life), beside the
+    resident set on entry, so that the block's own growth shows. None where
+    there is no ``/proc``."""
+
+    def __init__(self):
+        import threading
+
+        self.peak = None
+        self.entry = None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    @staticmethod
+    def _rss():
+        try:
+            with open("/proc/self/statm") as f:
+                return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+        except (OSError, ValueError):
+            return None
+
+    def _run(self):
+        while True:
+            rss = self._rss()
+            if rss is not None:
+                self.peak = max(self.peak or 0, rss / 2 ** 30)
+            if self._stop.wait(0.01):
+                return
+
+    def __enter__(self):
+        rss = self._rss()
+        self.entry = None if rss is None else rss / 2 ** 30
+        self._thread.start()
+        return self
+
+    def text(self) -> str:
+        """``peak (growth above entry)``, or "not measured"."""
+        if self.peak is None or self.entry is None:
+            return "not measured"
+        return f"{self.peak:.2f} GiB ({self.peak - self.entry:.2f} GiB above entry)"
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=10)
+        return False
+
+
+def _dc_levels(stats) -> str:
+    """Deflation fraction, merges, rotations (total, largest a merge) and
+    secular routes per level of a D&C walk."""
+    out = []
+    for lvl in sorted({s.level for s in stats}):
+        ss = [s for s in stats if s.level == lvl]
+        merged = sum(s.n for s in ss)
+        defl = sum(s.n - s.k for s in ss)
+        routes = ",".join(f"{r}:{sum(s.route == r for s in ss)}"
+                          for r in ("host", "device", "decoupled") if any(s.route == r for s in ss))
+        out.append(f"L{lvl} n={ss[0].n}x{len(ss)} deflated {defl / merged:.4f} rotations "
+                   f"{sum(s.rotations for s in ss)} (max {max(s.rotations for s in ss)}) {routes}")
+    return "; ".join(out)
+
+
+def evp_cell(torch, dev, card, kmods, name, a, nb, band, grid, knobs=(), b=None, w_ref=None,
+             expect=None, keep=None):
+    """One ``eigensolver`` (``gen_eigensolver`` with ``b``) call on the
+    global ``a`` (every rank of ``grid`` on ``dev``), with a PhaseTimer:
+    prints the stage walls, GFlop/s (``total_ops(5n^3/3, 5n^3/3)``), peak
+    device and host memory, the D&C's deflation per level and the
+    launches; checks the eigenvalues against ``w_ref`` (100 n eps), the
+    eigenpair residual and the orthogonality (200 n eps, with B), and the
+    launch counts against ``expect`` (name -> count; every other kernel 0
+    but the Givens undo, whose count follows the data). Returns the
+    launches."""
+    import numpy as np
+
+    from dlaf_tpu_torch import config
+    from dlaf_tpu_torch.comm.grid import shared_grid
+    from dlaf_tpu_torch.common.index2d import TileElementSize
+    from dlaf_tpu_torch.common.timer import PhaseTimer
+    from dlaf_tpu_torch.eigensolver.eigensolver import eigensolver, gen_eigensolver
+    from dlaf_tpu_torch.matrix.matrix import Matrix
+    from dlaf_tpu_torch.miniapp import miniapp_reduction_to_band as mrb
+    from dlaf_tpu_torch.miniapp.checks import effective_eps
+    from dlaf_tpu_torch.miniapp.miniapp_eigensolver import eigen_residuals
+    from dlaf_tpu_torch.types import total_ops
+
+    config.initialize(argv=list(knobs))
+    n = a.shape[0]
+    g = shared_grid(*grid, dev) if grid else None
+    mat = Matrix.from_global(a, TileElementSize(nb, nb), g, device=dev)
+    bm = Matrix.from_global(b, TileElementSize(nb, nb), g, device=dev) if b is not None else None
+    keep = {} if keep is None else keep
+    pt = PhaseTimer()
+    for m in kmods:
+        m.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with HostPeak() as host:
+        t0 = time.perf_counter()
+        if bm is None:
+            res = eigensolver("L", mat, phases=pt, band_size=band, donate=True, keep=keep)
+        else:
+            res = gen_eigensolver("L", mat, bm, phases=pt, band_size=band, donate=True,
+                                  keep=keep)
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+    peak_dev = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = {k: v for m in kmods for k, v in m.LAUNCHES.items()}
+    del mat
+    z = res.eigenvectors.to_global()
+    vals = eigen_residuals(a, b, res.eigenvalues, z)
+    del z
+    eps, _ = effective_eps(a.dtype)
+    tol = 200 * n * eps
+    drift = (mrb.eigenvalue_drift(w_ref.cpu(), torch.as_tensor(res.eigenvalues))
+             if w_ref is not None else None)
+    shape = f"{grid[0]}x{grid[1]}" if grid else "1x1"
+    dt = str(a.dtype).removeprefix("torch.")
+    flops = total_ops(dt, 5 * n ** 3 / 3, 5 * n ** 3 / 3)
+    print(f"[evp] {name} N={n} nb={nb} band={band or nb} {shape} {dt} "
+          f"{' '.join(knobs) or 'default'}: {t:.6f} s {flops / t / 1e9:.2f} GFlop/s, peak device "
+          f"{peak_dev:.2f} GiB, peak host {host.text()} [{card}]", flush=True)
+    stages = pt.report()
+    print(f"[evp] {name} stages: " + ", ".join(
+        f"{k.removeprefix('stage.')} {v:.6f} s ({100 * v / t:.1f}%)" for k, v in stages.items()),
+        flush=True)
+    if keep.get("dc_stats"):
+        print(f"[evp] {name} D&C: {_dc_levels(keep['dc_stats'])}", flush=True)
+    print(f"[evp] {name} launches {counts}", flush=True)
+    ok_ = (vals["eigen_residual"] < tol and vals["orthogonality"] < tol
+           and (drift is None or drift < 100 * n * eps)
+           and bool(np.isfinite(res.eigenvalues).all()) and res.eigenvalues.shape == (n,))
+    print(f"check: {'PASSED' if ok_ else 'FAILED'} {name} residual={vals['eigen_residual']:.3e} "
+          f"orthogonality={vals['orthogonality']:.3e} eigenvalue_drift="
+          f"{'not checked' if drift is None else f'{drift:.3e}'} tol={tol:.3e} "
+          f"(drift tol {100 * n * eps:.3e})", flush=True)
+    if not ok_:
+        raise AssertionError(f"{name}: eigenpairs fail their check")
+    want = {k: (expect or {}).get(k, 0) for k in counts if k != "givens_undo"}
+    got = {k: v for k, v in counts.items() if k != "givens_undo"}
+    if got != want:
+        raise AssertionError(f"{name}: launches {got}, expected {want}")
+    return counts, res, stages, t
+
+
+def _random_herm(torch, dev, n, dtype, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(n, n, generator=gen, device=dev, dtype=dtype)
+    return (x + x.mH) / 2
+
+
+def _gen_reference(torch, a, b):
+    """The generalized eigenvalues of (A, B) in float64 on the card."""
+    from dlaf_tpu_torch.miniapp.miniapp_reduction_to_band import wide
+
+    lf = torch.linalg.cholesky(wide(b))
+    c = torch.linalg.solve_triangular(lf, wide(a), upper=False)
+    c = torch.linalg.solve_triangular(lf, c.mH, upper=False)
+    return torch.linalg.eigvalsh((c + c.mH) / 2)
+
+
+#: :func:`evp_paths`' cells: name, n, nb, band (None: nb), type, grid (None:
+#: one rank), knobs, generalized, A (a seeded random Hermitian A with a
+#: full spectrum, or the miniapps' analytic setter, of rank at most 4).
+#: Cells of one (n, type, problem) share their A; the float32 generalized
+#: cell takes the float64 one's A and B.
+EVP_CASES = (("evp-d", 16384, 512, 128, "d", (4, 4), [], False, "random"),
+             ("evp-d-analytic", 16384, 512, 128, "d", (4, 4), [], False, "analytic"),
+             ("evp-local-d", 8192, 512, 128, "d", None, [], False, "random"),
+             ("evp-z", 4096, 256, 128, "z", (2, 2), [], False, "random"),
+             ("evp-scan", 4096, 256, 128, "d", (2, 2), [_SCAN], False, "random"),
+             ("evp-mxu", 4096, 512, 128, "d", (2, 2), [_MXU], False, "random"),
+             ("gen-evp-d", 8192, 256, None, "d", (2, 2), [], True, "random"),
+             ("gen-evp-s", 8192, 256, None, "s", (2, 2), [], True, "random"))
+
+
+def evp_paths(torch, dev, card, kmods, ok, launches) -> dict:
+    """The eigensolver cells of :data:`EVP_CASES`, every rank of a grid on
+    this card, each checked (:func:`evp_cell`; the eigenvalues where A is
+    random): evp-d (config #4's shape by the default routes), the same
+    with the analytic setter (its deflation and rotations), evp-local-d,
+    evp-z, evp-scan (both scan builders), evp-mxu (#6 exactly
+    :func:`evp_mxu_launches`, and bit for bit at a merge product's and a
+    chase back-transform's shape), gen-evp-d and gen-evp-s (B the HPD
+    generator's; float32 with exact kernel launches). Returns the first
+    cell's intermediate results for the D&C route sweep and the profile
+    phase."""
+    import numpy as np
+
+    from dlaf_tpu_torch.miniapp.generators import hpd_element_fn
+    from dlaf_tpu_torch.miniapp.miniapp_reduction_to_band import herm_setter
+
+    dtypes = {"s": torch.float32, "d": torch.float64, "z": torch.complex128}
+    held, first = {}, None
+    for name, n, nb, band, letter, grid, knobs, gen, kind in EVP_CASES:
+        key = (n, torch.complex128 if letter == "z" else torch.float64, gen, kind)
+        if key not in held:
+            held.clear()
+            i = torch.arange(n, device=dev, dtype=torch.float64)
+            a = (_random_herm(torch, dev, n, key[1], 20 + len(name) + n % 97)
+                 if kind == "random" else herm_setter(i[:, None], i[None, :]).to(key[1]))
+            b = hpd_element_fn(n, np.float64)(i[:, None], i[None, :]) if gen else None
+            w = None
+            if kind == "random":
+                w = torch.linalg.eigvalsh(a) if b is None else _gen_reference(torch, a, b)
+            held[key] = (a, b, w)
+        a, b, w = held[key]
+        if letter == "s":
+            a, b = a.float(), b.float() if b is not None else None
+            w = torch.linalg.eigvalsh(a.double()) if b is None else _gen_reference(torch, a, b)
+        expect = None
+        if _MXU in knobs:
+            expect = {"ozaki_product": evp_mxu_launches(*grid, n, nb, band)}
+        elif letter == "s" and gen:
+            expect = {k: f(*grid, -(-n // nb)) for k, f in GEN_EVP_F32_GRID.items()}
+        keep = {} if first is None else None
+        counts, _, _, _ = evp_cell(torch, dev, card, kmods, name, a.to(dtypes[letter]), nb,
+                                   band, grid, knobs, b=b, w_ref=w, expect=expect, keep=keep)
+        first = keep if first is None else first
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        if _MXU in knobs:
+            evp_mxu_products(torch, dev, ok)
+    held.clear()
+    return first
+
+
+def evp_mxu_products(torch, dev, ok) -> None:
+    """Two of evp-mxu's products under ``f64_gemm=mxu``, through #6 and
+    then with it swapped for its plain version, bit for bit: the D&C's
+    merge product at n = 2048 (Q1 1024 x 1024 by qc 1024 x 2048) and a
+    step level of the chase back-transform (V^H 128 x 255 by E 255 x
+    4096). Each must launch #6."""
+    from dlaf_tpu_torch import config
+    from dlaf_tpu_torch.tile_ops import blas as tb
+
+    config.initialize(argv=["--dlaf:f64-gemm=mxu"])
+    gen = torch.Generator(device=dev).manual_seed(16)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev, dtype=torch.float64)
+
+    q1, qc, vh, seg = randn(1024, 1024), randn(1024, 2048), randn(128, 255), randn(255, 4096)
+    for name, fn in (("D&C merge Q1 @ qc, 1024 x 2048, K=1024", lambda: tb.mm(q1, qc)),
+                     ("chase back-transform V^H E, 128 x 4096, K=255", lambda: tb.mm(vh, seg))):
+        before = ok.LAUNCHES["ozaki_product"]
+        got = fn()
+        torch.cuda.synchronize()
+        launched = ok.LAUNCHES["ozaki_product"] - before
+        kernel = ok.ozaki_product
+        ok.ozaki_product = ok.ozaki_product_plain
+        try:
+            ref = fn()
+        finally:
+            ok.ozaki_product = kernel
+        same = torch.equal(got, ref)
+        print(f"[kernel] ozaki_product evp-mxu {name}: {launched} launch(es), "
+              f"{'bitwise equal' if same else 'DIFFER'} to the plain version", flush=True)
+        if launched < 1 or not same:
+            raise AssertionError(f"evp-mxu {name}: #6 not launched or not bitwise equal")
+    config.initialize()
+
+
+def dc_route(torch, dev, card, gk, rows, launches, tri, nb: int = 512) -> None:
+    """The D&C's route sweep on evp-d's tridiagonal ``tri`` (a seeded random
+    Hermitian A of config #4's shape, chased; leaves ``nb``):
+    ``secular_device_min_k`` at 2048, 4096, 8192 and host-only, with walls,
+    peak device and host memory; the host-only result checked (eigenvalues
+    against scipy's, residual and orthogonality on the card).
+    Then the defaults on a (d, e) of independent normal entries (its
+    eigenvectors are localized: nearly every pole deflates) and on a
+    constant-diagonal Toeplitz T (near-equal poles at every merge,
+    deflated by rotations), whose largest Givens undo is held bit for bit
+    against the plain loop and timed."""
+    import numpy as np
+    import scipy.linalg as sla
+
+    from dlaf_tpu_torch import config
+    from dlaf_tpu_torch.eigensolver import tridiag_solver as ts
+
+    d, e = tri.d, tri.e
+    n = d.shape[0]
+    eps = float(np.finfo(np.float64).eps)
+
+    def solve(dd, ee, knobs):
+        config.initialize(argv=knobs)
+        stats = []
+        gk.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with HostPeak() as host:
+            t0 = time.perf_counter()
+            lam, q = ts.tridiag_solver(dd, ee, nb, device=dev, stats=stats)
+            torch.cuda.synchronize()
+            t = time.perf_counter() - t0
+        launches["givens_undo"] = launches.get("givens_undo", 0) + gk.LAUNCHES["givens_undo"]
+        return lam, q, stats, t, torch.cuda.max_memory_allocated() / 2 ** 30, host.text()
+
+    def check(name, dd, ee, lam, q):
+        t_ = torch.as_tensor
+        dq = t_(dd, device=dev)[:, None] * q
+        dq[:-1] += t_(ee, device=dev)[:, None] * q[1:]
+        dq[1:] += t_(ee, device=dev)[:, None] * q[:-1]
+        scale = max(np.abs(dd).max(), np.abs(ee).max(), 1.0)
+        resid = float(torch.linalg.matrix_norm(dq - q * t_(lam, device=dev)[None, :])) / scale
+        gram = q.T @ q
+        gram.diagonal().sub_(1.0)
+        orth = float(torch.linalg.matrix_norm(gram))
+        w = sla.eigvalsh_tridiagonal(dd, ee)
+        drift = float(np.abs(lam - w).max()) / scale
+        tol = 200 * n * eps
+        good = resid < tol and orth < tol and drift < 100 * n * eps
+        print(f"check: {'PASSED' if good else 'FAILED'} {name} residual={resid:.3e} "
+              f"orthogonality={orth:.3e} eigenvalue_drift={drift:.3e} tol={tol:.3e}", flush=True)
+        if not good:
+            raise AssertionError(f"{name}: the D&C's eigenpairs fail their check")
+
+    host = 1 << 62
+    for mk in (2048, 4096, 8192, host):
+        lam, q, stats, t, pdev, phost = solve(d, e, [f"--dlaf:secular-device-min-k={mk}"])
+        label = "host-only" if mk == host else str(mk)
+        print(f"[dc-route] N={n} nb={nb} secular_device_min_k={label:9s}: {t:.6f} s, peak device "
+              f"{pdev:.2f} GiB, peak host {phost}, device secular merges "
+              f"{sum(s.route == 'device' for s in stats)} [{card}]", flush=True)
+        if mk != host:
+            del q
+    print(f"[dc-route] D&C: {_dc_levels(stats)}", flush=True)
+    check("dc-route evp-d T host-only", d, e, lam, q)
+    del q
+    rng = np.random.default_rng(9)
+    di, ei = rng.standard_normal(n), rng.standard_normal(n - 1)
+    lam, q, stats, t, pdev, phost = solve(di, ei, [])
+    print(f"[dc-route] iid normal (d, e) N={n} nb={nb} default: {t:.6f} s, peak device "
+          f"{pdev:.2f} GiB, peak host {phost} [{card}]; D&C: {_dc_levels(stats)}",
+          flush=True)
+    check("dc-route iid", di, ei, lam, q)
+    del q
+    config.initialize()
+    print(f"[dc-route] cuda auto: secular_device_min_k={config.resolve_secular_device_min_k('cuda')}"
+          f" ({config.DC_AUTO_NOTE})", flush=True)
+
+    # a Toeplitz T: near-equal poles at every merge, deflated by rotations
+    dt_, et_ = np.full(n, 2.0), np.full(n - 1, 1.0)
+    biggest = {}
+    kernel = gk.givens_undo
+
+    def record(u, giv):
+        if len(giv) > len(biggest.get("giv", ())):
+            biggest.update(u=u.clone(), giv=np.asarray(giv).copy())
+        return kernel(u, giv)
+
+    gk.givens_undo = record
+    try:
+        lam, q, stats, t, pdev, phost = solve(dt_, et_, [])
+    finally:
+        gk.givens_undo = kernel
+    used = gk.LAUNCHES["givens_undo"]
+    print(f"[dc-route] toeplitz N={n} nb={nb} default: {t:.6f} s, peak device {pdev:.2f} GiB, "
+          f"Givens undo launches {used} [{card}]; D&C: {_dc_levels(stats)}", flush=True)
+    check("dc-route toeplitz", dt_, et_, lam, q)
+    del q
+    if used < 1 or not biggest:
+        raise AssertionError("dc-route toeplitz: the Givens undo kernel was not launched")
+    u0, giv = biggest["u"], biggest["giv"]
+    got = gk.givens_undo(u0.clone(), giv)
+    ref = gk.givens_undo_plain(u0.clone(), giv)
+    torch.cuda.synchronize()
+    same = torch.equal(got, ref)
+    err = float((got - ref).abs().max())
+    print(f"[kernel] givens_undo u {tuple(u0.shape)}, {len(giv)} rotations: "
+          f"{'bitwise equal' if same else 'DIFFERS'} to the plain loop", flush=True)
+    if not same:
+        raise AssertionError("givens_undo differs from its plain version")
+    w = u0.shape[1]
+    touched = len(np.unique(giv[:, :2]))
+    nbytes = 2 * touched * w * 8 + giv.nbytes
+    bms, by = bound(nbytes, 6.0 * len(giv) * w, "float64")
+    rows["givens_undo"] = dict(max_abs_err=err, ms=time_ms(torch, lambda: gk.givens_undo(
+        u0.clone(), giv)), batch_ms=batch_ms(torch, lambda: gk.givens_undo(u0.clone(), giv),
+                                              calls=10),
+        plain_ms=time_ms(torch, lambda: gk.givens_undo_plain(u0.clone(), giv), reps=1, warm=0),
+        library_ms=None, bound_ms=bms, bound_by=by)
+    clone_ms = time_ms(torch, lambda: u0.clone())
+    r = rows["givens_undo"]
+    print(f"[time] givens_undo   kernel={r['ms']:.4f} ms (batched {r['batch_ms']:.4f} ms) "
+          f"plain={r['plain_ms']:.4f} ms (each with a {clone_ms:.4f} ms copy of u) "
+          f"bound={bms:.5f} ms ({by}) [{card}]", flush=True)
+
+
+def evp_miniapp(torch, drive, card) -> None:
+    """``miniapp_eigensolver`` at N=4096, nb=256, 2x2 on this card, standard
+    and ``--generalized`` (the analytic setter, B the HPD generator's), one
+    warm-up and one timed run each with its check line: the CLI end to
+    end."""
+    from dlaf_tpu_torch.miniapp import miniapp_eigensolver as mes
+
+    base = ["-m", "4096", "-b", "256", "--grid-rows", "2", "--grid-cols", "2", "--share-device",
+            "--nruns", "1", "--nwarmups", "1", "--check-result", "last"]
+    for name, extra in (("evp", []), ("gen_evp", ["--generalized"])):
+        t = drive([*base, *extra], 4096, 256, 1, {}, app=mes)
+        print(f"[miniapp] miniapp_eigensolver {name} N=4096 nb=256 2x2 d: {t:.6f} s "
+              f"{10 * 4096 ** 3 / 3 / t / 1e9:.2f} GFlop/s [{card}]", flush=True)
+
+
+def profile_evp(torch, dev, keep) -> None:
+    """:func:`profile_run` of evp-d's device stages on its chase output:
+    the D&C, the chase back-transform onto the 4x4 grid and the
+    reflector-block back-transform (no warm-up: evp-d ran these shapes)."""
+    from dlaf_tpu_torch import config
+    from dlaf_tpu_torch.eigensolver.back_transform import bt_band_to_tridiag, bt_reduction_to_band
+    from dlaf_tpu_torch.eigensolver.tridiag_solver import tridiag_solver
+    from dlaf_tpu_torch.matrix.matrix import Matrix
+
+    config.initialize()
+    red, tri = keep["reduction"], keep["tridiag"]
+    mat = red.matrix
+
+    def stages():
+        _, z = tridiag_solver(tri.d, tri.e, mat.block_size.row, device=dev)
+        zb = bt_band_to_tridiag(tri, Matrix.from_global(z, mat.block_size, grid=mat.grid,
+                                                        source_rank=mat.dist.source_rank))
+        del z
+        return bt_reduction_to_band(red, zb)
+
+    profile_run(torch, "evp-d device stages (D&C, bt_b2t, bt_r2b) n=16384 nb=512 band=128 "
+                "grid 4x4 on one card default", stages, host_ops=False, warm=False)
+
+
+def b2t_forms(torch, dev, card, keep, cols: int = 512) -> None:
+    """The chase back-transform on evp-d's reflectors by the path's blocked
+    form (``bt_band_to_tridiag``) against the reference's sweeps form
+    (``_bt_b2t_scan``, on no path), one call each on a ``cols``-column
+    random E on one device: sweeps at evp-d's full width would take about
+    a minute (16k rank-1 segment updates of 2 GB each)."""
+    from dlaf_tpu_torch.eigensolver import back_transform as bt
+
+    tri = keep["tridiag"]
+    n = tri.d.shape[0]
+    e = torch.randn(n, cols, generator=torch.Generator(device=dev).manual_seed(17), device=dev,
+                    dtype=torch.float64)
+    v, tau, _ = bt._reflectors(tri, e.device)
+    forms = (("blocked", lambda: bt.bt_band_to_tridiag(tri, e)),
+             ("sweeps", lambda: bt._bt_b2t_scan(v, tau, e, b=tri.band, n=n)))
+    walls, outs = {}, {}
+    for name, fn in forms:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[name] = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+    diff = float((outs["blocked"] - outs["sweeps"]).abs().max())
+    for name, wall in walls.items():
+        print(f"[bt_b2t] evp-d reflectors N={n} band={tri.band} on {cols} columns, {name}: "
+              f"{wall:.6f} s [{card}]", flush=True)
+    print(f"[bt_b2t] blocked against sweeps: max abs difference {diff:.3e}", flush=True)
+    if not diff < 1e-10:
+        raise AssertionError("bt_b2t: blocked and sweeps disagree")
+
+
 def profile_red2band(torch, dev, n: int = 16384, nb: int = 512, band: int = 128) -> None:
     """:func:`profile_run` of one config #4 reduction to band (float64, the
     analytic setter, 4x4 on ``dev``) by the default step mode."""
@@ -1077,6 +1662,7 @@ def main() -> int:
     from dlaf_tpu_torch.matrix.matrix import Matrix
     from dlaf_tpu_torch.miniapp import miniapp_cholesky
     from dlaf_tpu_torch.tile_ops import cuda_build as cb
+    from dlaf_tpu_torch.tile_ops import givens_kernels as gk
     from dlaf_tpu_torch.tile_ops import ozaki as oz
     from dlaf_tpu_torch.tile_ops import ozaki_kernels as ok
     from dlaf_tpu_torch.tile_ops import panel_kernels as pk
@@ -1087,18 +1673,19 @@ def main() -> int:
     print(f"[versions] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
-    cb.build_all([pk.LIBRARY, ok.LIBRARY, uk.LIBRARY])
-    for lib in (pk.LIBRARY, ok.LIBRARY, uk.LIBRARY):
+    libs = (pk.LIBRARY, ok.LIBRARY, uk.LIBRARY, gk.LIBRARY)
+    cb.build_all(libs)
+    for lib in libs:
         lib.load()
-    print(f"[build] panel, ozaki and update kernels built and loaded in "
-          f"{time.perf_counter() - t0:.1f} s ({pk.library_path()}, {ok.LIBRARY.path()}, "
-          f"{uk.LIBRARY.path()})", flush=True)
-    if pk.LIBRARY.log and ok.LIBRARY.log and uk.LIBRARY.log:   # built here, not found earlier
-        ptxas_report((pk.LIBRARY, ok.LIBRARY, uk.LIBRARY),
+    print(f"[build] panel, ozaki, update and givens kernels built and loaded in "
+          f"{time.perf_counter() - t0:.1f} s ({', '.join(lib.path() for lib in libs)})",
+          flush=True)
+    if all(lib.log for lib in libs):   # built here, not found earlier
+        ptxas_report(libs,
                      ("potrf_kernelIf", "potrf_kernelI13__nv_bfloat16", "trinv_kernelIf",
                       "trinv_kernelI13__nv_bfloat16", "slice_fold_kernel",
                       "masked_update_kernelIf", "masked_update_kernelI13__nv_bfloat16",
-                      "plan_kernel"))
+                      "plan_kernel", "givens_undo_kernel"))
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(20261016)
@@ -1355,14 +1942,16 @@ def main() -> int:
     print(f"[phase] kernels {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # ---- phase 2: the main paths through the miniapp ---------------------
-    launches = {k: 0 for k in (*pk.LAUNCHES, *ok.LAUNCHES, *uk.LAUNCHES)}
+    launches = {k: 0 for k in (*pk.LAUNCHES, *ok.LAUNCHES, *uk.LAUNCHES, *gk.LAUNCHES)}
 
     def drive(argv, n, nb, nfact, expect, app=miniapp_cholesky):
         """One miniapp run; checks its residual line and launch counts and
-        returns its fastest timed factorization (solve) (s)."""
+        returns its fastest timed factorization (solve) (s). The Givens
+        undo's launches follow the data: added up, not checked."""
         pk.reset_launches()
         ok.reset_launches()
         uk.reset_launches()
+        gk.reset_launches()
         buf = io.StringIO()
         t = time.perf_counter()
         with contextlib.redirect_stdout(buf):
@@ -1379,7 +1968,7 @@ def main() -> int:
             raise AssertionError("main path: no 'check: PASSED' line")
         if counts != want:
             raise AssertionError(f"main path: launches {counts}, expected {want}")
-        for k, v in counts.items():
+        for k, v in {**counts, **gk.LAUNCHES}.items():
             launches[k] += v
         return min(r["time_s"] for r in res)
 
@@ -1472,6 +2061,20 @@ def main() -> int:
     b2t_paths(torch, dev, card, ok)
     print(f"[phase] band_to_tridiag {time.perf_counter() - t_phase:.1f} s", flush=True)
 
+    # ---- phase 2f: the eigensolver: evp-d (config #4's shape), the other
+    # eigensolver cells, the D&C's route sweep, the miniapp ---------------
+    t_phase = time.perf_counter()
+    evp_keep = evp_paths(torch, dev, card, (pk, ok, uk, gk), ok, launches)
+    print(f"[phase] eigensolver {time.perf_counter() - t_phase:.1f} s", flush=True)
+    t_phase = time.perf_counter()
+    dc_route(torch, dev, card, gk, rows, launches, evp_keep["tridiag"])
+    print(f"[phase] dc-route {time.perf_counter() - t_phase:.1f} s", flush=True)
+    t_phase = time.perf_counter()
+    evp_miniapp(torch, drive, card)
+    b2t_forms(torch, dev, card, evp_keep)
+    print(f"[phase] eigensolver miniapp and bt_b2t forms {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
     # ---- phase 3: the float64 / complex128 routes "auto" picks from ------
     # the default (no knob) beside each route it could resolve to, uplo L,
     # lookahead as the default (1); launch counts per factorization
@@ -1554,6 +2157,8 @@ def main() -> int:
     for mode in ("unrolled", "scan"):
         profile_trsm(torch, dev, mode)
     profile_red2band(torch, dev)
+    profile_evp(torch, dev, evp_keep)
+    del evp_keep
 
     order = (("potrf", "panel", "dlaf_tpu/tile_ops/pallas_panel.py:187"),
              ("solve", "panel", "dlaf_tpu/tile_ops/pallas_panel.py:296"),
@@ -1562,7 +2167,9 @@ def main() -> int:
              ("masked_trailing_update", "update", "dlaf_tpu/tile_ops/pallas_kernels.py:69"),
              ("ozaki_product", "ozaki", "dlaf_tpu/tile_ops/pallas_ozaki.py:133"),
              ("ozaki_masked_product", "ozaki", "dlaf_tpu/tile_ops/pallas_ozaki.py:208"),
-             ("ozaki_syrk", "ozaki", "dlaf_tpu/tile_ops/pallas_ozaki.py:269"))
+             ("ozaki_syrk", "ozaki", "dlaf_tpu/tile_ops/pallas_ozaki.py:269"),
+             # not a Pallas kernel: the reference's lax.scan of the rotations
+             ("givens_undo", "givens", "dlaf_tpu/eigensolver/tridiag_solver.py:314"))
     kernels = [dict(name=name, route="cuda", source=f"dlaf_tpu_torch/csrc/{src}.cu",
                     replaces=rep, launches=launches[name], **rows[name])
                for name, src, rep in order]

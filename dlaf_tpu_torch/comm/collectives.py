@@ -26,6 +26,10 @@ Semantics follow the reference (``collectives.py:69-255``):
 * :func:`send_recv` gives ``dst`` the value of ``src`` (per line along the
   axis) and every other rank zeros, as ``ppermute``.
 * :func:`all_gather` stacks the values along the axis in rank order.
+* :func:`all_to_all` is the tiled all-to-all: each rank cuts its value
+  into as many chunks along ``split_axis`` as the axis has ranks, sends
+  chunk ``j`` to rank ``j`` and joins what it receives along
+  ``concat_axis`` in rank order.
 
 ``axis`` ``"row"`` runs along grid rows, among the ranks of one grid
 column (the reference's column communicator), ``"col"`` among the ranks
@@ -160,6 +164,25 @@ def all_gather(xs, axis: str, *, tiled: bool = False, concat_axis: int = 0,
         return join([v.to(dev) for v in _line(xs, axis, r, c)], dim=concat_axis)
 
     return _per_receiver(xs, axis, shared, one)
+
+
+def all_to_all(xs, axis: str, *, split_axis: int, concat_axis: int):
+    """Tiled all-to-all along ``axis`` (reference ``collectives.py:231``,
+    the layout transpose of the distributed chase back-transform). Every
+    value's ``split_axis`` must divide by the axis' rank count."""
+    def one(r, c):
+        dev = xs[r][c].device
+        line = _line(xs, axis, r, c)
+        me = _pos(axis, r, c)
+        parts = [v.chunk(len(line), dim=split_axis)[me].to(dev) for v in line]
+        return torch.cat(parts, dim=concat_axis)
+
+    for v in (x for row in xs for x in row):
+        if v.shape[split_axis] % len(_line(xs, axis, 0, 0)):
+            raise ValueError(f"all_to_all: axis {split_axis} of {tuple(v.shape)} does not "
+                             f"divide by the {len(_line(xs, axis, 0, 0))} ranks along {axis!r}")
+    P, Q = grid_shape(xs)
+    return per_rank(P, Q, one)
 
 
 def barrier_value(xs, axis: str):

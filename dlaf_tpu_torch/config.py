@@ -3,7 +3,8 @@
 Counterpart of ``dlaf_tpu/config.py``, cut to the knobs of the local and
 distributed Cholesky, the triangular solve and multiply
 (``dist_step_mode``, ``trsm_rhs_chunk``), HEGST (``hegst_impl``), the
-band-to-tridiagonal chase (``chase_threads``) and their f64/complex128
+band-to-tridiagonal chase (``chase_threads``), the divide-and-conquer
+tridiagonal solver (``secular_device_min_k``) and their f64/complex128
 routes.
 Same layering (highest wins):
 ``--dlaf:<knob>=<value>`` arguments > ``DLAF_<KNOB>`` environment
@@ -32,6 +33,8 @@ Not ported: ``ozaki_dot``, ``ozaki_group`` and ``ozaki_accum``. They pick
 the TPU's schedule of the same integer sums and give bit-identical
 results; the port has one schedule per route. ``qr_panel`` neither: the
 port's panel QR is always geqrf, the reference's choice off its TPU.
+``secular_impl`` neither: the merge's host secular solve is always the
+native one (a failed build raises), the numpy bisection its test twin.
 """
 
 from __future__ import annotations
@@ -122,6 +125,11 @@ class Configuration:
     #: process's CPU affinity count, 1 = sequential. Any count gives
     #: bitwise the same result.
     chase_threads: int = 0
+    #: Deflated merge size from which the D&C merge's secular solve and
+    #: Gu-Eisenstat refinement run on the device (float64 torch, 300
+    #: bisection halvings over a k x k array) instead of the host's native
+    #: solver and numpy; 0 = auto (:func:`resolve_secular_device_min_k`).
+    secular_device_min_k: int = 0
 
 
 _VALID_CHOICES = {
@@ -158,6 +166,19 @@ _AUTO = {
     # was not timed. cpu: the reference's choice off its TPU
     "hegst_impl": ("twosolve", "blocked"),
 }
+
+#: ``secular_device_min_k=0`` per device type: cuda by the dc-route sweep
+#: of ``chip_smoke.py`` (DC_AUTO_NOTE); cpu never (the reference's CPU
+#: rule: its device route lost to the native host solver at every size).
+SECULAR_DEVICE_MIN_K_AUTO = {"cuda": 2048, "cpu": 1 << 62}
+
+#: Where cuda's auto of ``secular_device_min_k`` comes from: the D&C of a
+#: random A's tridiagonal at N=16384 (leaves 512) on one H100 80GB HBM3 at
+#: 700 W, in two calls of chip_smoke.py's dc-route sweep: device secular
+#: solve from k=2048 3.547 / 3.094 s, from 4096 5.378 / 5.180 s, from 8192
+#: 8.682 / 7.793 s, host only 15.145 / 14.545 s (PERF.md §6).
+DC_AUTO_NOTE = ("dc-route sweep, N=16384, two calls: from k=2048 3.547/3.094 s, "
+                "4096 5.378/5.180, 8192 8.682/7.793, host-only 15.145/14.545")
 
 #: ``f64_gemm_slices=0`` resolves to this on every device (native f64).
 AUTO_SLICES = 8
@@ -253,6 +274,17 @@ def resolve_slices() -> int:
         return s
     _announce("f64_gemm_slices", "any", AUTO_SLICES)
     return AUTO_SLICES
+
+
+def resolve_secular_device_min_k(device_type: str) -> int:
+    """``secular_device_min_k`` with 0 resolved for ``device_type``,
+    announced once per (device type, choice)."""
+    s = get_configuration().secular_device_min_k
+    if s != 0:
+        return s
+    s = SECULAR_DEVICE_MIN_K_AUTO.get(device_type, SECULAR_DEVICE_MIN_K_AUTO["cpu"])
+    _announce("secular_device_min_k", device_type, "host-always" if s >= 1 << 62 else s)
+    return s
 
 
 #: Step counts at which ``dist_step_mode="auto"`` picks the scan form, per

@@ -1,0 +1,146 @@
+"""Eigensolver benchmark miniapp, standard and generalized.
+
+Port of ``dlaf_tpu/miniapp/miniapp_eigensolver.py:1-198`` (reference
+``miniapp/miniapp_eigensolver.cpp`` and ``miniapp_gen_eigensolver.cpp``):
+A is the reference's analytic Hermitian setter, B (``--generalized``) its
+HPD ``hpd_element_fn``; each timed run solves a fresh copy of A (donated),
+fenced; the flop model is the reference's ``total_ops(5n^3/3, 5n^3/3)``,
+and the per-run line is
+
+    [i] <t>s <gflops>GFlop/s <type><uplo> evp|gen_evp (n, n) (nb, nb) (P, Q) <threads> <backend>
+
+then ``check: PASSED|FAILED residual=... orthogonality=... tol=...``: the
+eigenpair residual ``|A Z - [B] Z diag(lambda)|_F / |A|_F`` and the
+orthogonality ``|Z^H [B] Z - I|_F``, both below ``200 n eps`` (the
+reference's ``EIGEN_BUDGETS``), computed on the device with library
+products in float64 (complex128); a failed check exits 1.
+``--band-size`` (default: the block size) must divide the block size. A
+grid (``--grid-rows``, ``--grid-cols``; ``--share-device`` for every rank
+on one device) runs the distributed pipeline.
+
+BASELINE config #5: gen_eigensolver, float64, N=32768, nb=512, 8x8.
+
+Run:  python -m dlaf_tpu_torch.miniapp.miniapp_eigensolver -m 4096 -b 256 --check-result last
+      python -m dlaf_tpu_torch.miniapp.miniapp_eigensolver -m 4096 -b 256 --generalized \\
+          --grid-rows 2 --grid-cols 2 --share-device --check-result last
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+import torch
+
+from .. import config
+from ..comm.grid import Grid
+from ..comm.sync import barrier
+from ..common.index2d import GlobalElementSize, TileElementSize
+from ..eigensolver.eigensolver import eigensolver, gen_eigensolver
+from ..matrix.matrix import Matrix
+from ..types import total_ops, type_letter
+from .checks import effective_eps
+from .generators import hpd_element_fn
+from .miniapp_reduction_to_band import herm_setter, wide
+from .options import CheckIterFreq, add_miniapp_arguments, parse_miniapp_options, select_devices
+
+#: Tolerance factors ``c`` of ``c n eps`` (the reference's EIGEN_BUDGETS).
+EIGEN_BUDGETS = {"eigen_residual": 200.0, "orthogonality": 200.0}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("-m", "--matrix-size", type=int, default=1024)
+    p.add_argument("-b", "--block-size", type=int, default=256)
+    p.add_argument("--uplo", choices=["L", "U"], default="L")
+    p.add_argument("--generalized", action="store_true",
+                   help="solve A x = lambda B x (miniapp_gen_eigensolver)")
+    p.add_argument("--band-size", type=int, default=-1,
+                   help="reduction bandwidth; negative = the block size (must divide it)")
+    add_miniapp_arguments(p)
+    return p
+
+
+def run(argv=None) -> list[dict]:
+    """Run the miniapp; returns one dict per timed run. ``--dlaf:<knob>=``
+    arguments reach :mod:`dlaf_tpu_torch.config`."""
+    args, extra = build_parser().parse_known_args(argv)
+    config.initialize(argv=extra)
+    opts = parse_miniapp_options(args)
+    devices = select_devices(opts)
+    grid = Grid(opts.grid_rows, opts.grid_cols, devices=devices,
+                ordering=config.get_configuration().grid_ordering)
+    use_grid = grid if grid.num_devices > 1 else None
+    device = devices[0]
+    n, nb = args.matrix_size, args.block_size
+    band = None if args.band_size < 0 else args.band_size
+    size, block = GlobalElementSize(n, n), TileElementSize(nb, nb)
+    am = Matrix.from_element_fn(herm_setter, size, block, use_grid, dtype=opts.dtype,
+                                device=device)
+    bm = (Matrix.from_element_fn(hpd_element_fn(n, opts.dtype), size, block, use_grid,
+                                 dtype=opts.dtype, device=device) if args.generalized else None)
+    flops = total_ops(opts.dtype, 5 * n ** 3 / 3, 5 * n ** 3 / 3)
+    name = "gen_evp" if args.generalized else "evp"
+    results = []
+    for run_i in range(-opts.nwarmups, opts.nruns):
+        a_in = am.clone()     # this run's copy, consumed by the solve
+        barrier(a_in)
+        t0 = time.perf_counter()
+        if args.generalized:
+            res = gen_eigensolver(args.uplo, a_in, bm, band_size=band, donate=True)
+        else:
+            res = eigensolver(args.uplo, a_in, band_size=band, donate=True)
+        barrier(res.eigenvectors)
+        t = time.perf_counter() - t0
+        if run_i < 0:
+            continue
+        gflops = flops / t / 1e9
+        print(f"[{run_i}] {t:.6f}s {gflops:.2f}GFlop/s {type_letter(opts.dtype)}{args.uplo} "
+              f"{name} ({n}, {n}) ({nb}, {nb}) ({opts.grid_rows}, {opts.grid_cols}) "
+              f"{os.cpu_count()} {device.type}", flush=True)
+        results.append({"run": run_i, "time_s": t, "gflops": gflops})
+        if opts.check is CheckIterFreq.ALL or (
+                opts.check is CheckIterFreq.LAST and run_i == opts.nruns - 1):
+            check(am, bm, res)
+    return results
+
+
+def eigen_residuals(a: torch.Tensor, b, lam, z: torch.Tensor) -> dict:
+    """``{"eigen_residual": |A Z - [B] Z diag(lam)|_F / |A|_F,
+    "orthogonality": |Z^H [B] Z - I|_F}`` of the global matrices ``a``,
+    ``b`` (None: the identity) and ``z`` by library products in float64
+    (complex128) on ``z``'s device."""
+    a, z = wide(a), wide(z)
+    lam_t = torch.as_tensor(lam, dtype=torch.float64, device=z.device)
+    bz = z if b is None else wide(b) @ z
+    resid = torch.linalg.matrix_norm(a @ z - bz * lam_t[None, :]) / torch.linalg.matrix_norm(a)
+    gram = z.mH @ bz
+    gram.diagonal().sub_(1.0)
+    return {"eigen_residual": float(resid), "orthogonality": float(torch.linalg.matrix_norm(gram))}
+
+
+def check(am: Matrix, bm, res) -> None:
+    """The eigenpair residual and orthogonality below ``200 n eps`` each;
+    prints the check line, exits 1 when it fails."""
+    n = am.size.row
+    vals = eigen_residuals(am.to_global(), None if bm is None else bm.to_global(),
+                           res.eigenvalues, res.eigenvectors.to_global())
+    eps, label = effective_eps(am.dtype)
+    tol = {k: c * n * eps for k, c in EIGEN_BUDGETS.items()}
+    passed = all(vals[k] == vals[k] and vals[k] < tol[k] for k in vals)
+    print(f"check: {'PASSED' if passed else 'FAILED'} residual={vals['eigen_residual']:.3e} "
+          f"orthogonality={vals['orthogonality']:.3e} tol={tol['eigen_residual']:.3e}{label}",
+          flush=True)
+    if not passed:
+        sys.exit(1)
+
+
+def main(argv=None) -> int:
+    run(argv)
+    return 0
+
+
+if __name__ == "__main__":
+    main()

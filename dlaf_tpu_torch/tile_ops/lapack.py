@@ -1,7 +1,7 @@
 """LAPACK tile operations on torch: ``potrf``, ``potrf_info`` and
-``larft``.
+``larft``, and the host leaf solve ``stedc``.
 
-Counterpart of ``dlaf_tpu/tile_ops/lapack.py:71-99, 148-174``, the
+Counterpart of ``dlaf_tpu/tile_ops/lapack.py:71-99, 148-192``, the
 reference's XLA route, so library calls are right here:
 ``torch.linalg.cholesky_ex`` and ``torch.linalg.solve_triangular``. The
 factor lands in the ``uplo`` triangle and the opposite triangle of the
@@ -16,6 +16,7 @@ leave it, and :mod:`..health.info` reads the column back.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .blas import hermitian_from, tri_mask
@@ -74,3 +75,17 @@ def t_from_gram(gram: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
     t = torch.linalg.solve_triangular(tinv, eye.expand(tinv.shape), upper=True)
     nz = tau != 0
     return torch.where(nz[..., :, None] & nz[..., None, :], t, 0.0)
+
+
+def stedc(d: np.ndarray, e: np.ndarray):
+    """Eigenvalues (ascending) and eigenvectors of the real symmetric
+    tridiagonal ``(d, e)`` on the host in float64: the D&C tree's leaf
+    solve (reference ``lapack.py:181-192``, ``scipy.linalg.eigh_tridiagonal``;
+    DLA-Future's CPU leaves call LAPACK too)."""
+    import scipy.linalg as sla
+
+    d = np.asarray(d, dtype=np.float64)
+    e = np.asarray(e, dtype=np.float64)
+    if d.size == 1:
+        return d.copy(), np.ones((1, 1))
+    return sla.eigh_tridiagonal(d, e)
