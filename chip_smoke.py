@@ -156,6 +156,30 @@ random, the eigenpair residual and the orthogonality below 200 n eps):
     blocked form (the path's) and the reference's sweeps form on evp-d's
     reflectors (512 columns);
 
+the rest of the algorithms layer and the serving entry point, each path
+with its launch counts (none, but the one #6 product under ``mxu``):
+
+29. algos: ``max_norm`` ('G' and 'L') and the grid ``permute`` (a row and
+    a column range of 4 tiles) at BASELINE config #4's shape (float64,
+    N=16384, nb=512, 4x4, source rank (1, 2)), bitwise against
+    ``abs().max()`` and ``index_select`` on the gathered matrix;
+    ``general_sub_multiply`` (float64, N=8192, nb=256, 2x2) against
+    ``torch.matmul`` at ``60 k eps``, natively over 16 tiles and under
+    ``f64_gemm=mxu`` over 4 (one #6 launch); ``miniapp_gen_eigensolver``
+    at N=4096, nb=256 with its check line;
+30. serve: the batched entry points' lane parity (lane i of B = 4 and 16
+    against B = 1, bitwise, in float32, float64 and complex128 at n = 20,
+    48 and 200; the bare library call's parity printed beside it), pad
+    lanes, info vector and donation; a warm stream of 2048 float64
+    requests through ``serve.Queue`` (buckets 32/64/128/256, 16 lanes; n
+    uniform over 17-256: 50% cholesky, 30% solve with 1-16 right-hand
+    sides, 20% eigh) with every residual checked and its requests/s,
+    p50/p99 latency, dispatches and lane fill; its Cholesky problems
+    through the queue, ``cholesky_batched`` and a loop of singleton
+    ``cholesky()`` calls; an overload pass (max_depth 16, shed, a 2x
+    burst) that fails if depth passes the bound or a ticket is stranded;
+    ``robust_cholesky_batched`` with two indefinite lanes;
+
 On one card the collectives are device-local copies and every rank
 repeats the diagonal tile's factor, so these walls do not measure
 communication.
@@ -687,12 +711,16 @@ def hegst_paths(torch, dev, card, drive, ok) -> None:
     counts; the route phase in four cells; one pair product of the Ozaki
     route bit for bit against its plain version; one blocked call under the
     profiler."""
+    import importlib
+
     import numpy as np
 
     from dlaf_tpu_torch import config
-    from dlaf_tpu_torch.algorithms import gen_to_std as gs
     from dlaf_tpu_torch.miniapp import miniapp_gen_to_std as mgs
     from dlaf_tpu_torch.types import total_ops
+
+    # the module (the package exports the function of the same name)
+    gs = importlib.import_module("dlaf_tpu_torch.algorithms.gen_to_std")
 
     runs = ["--nruns", "2", "--nwarmups", "1", "--check-result", "last"]
     share = ["--share-device", *runs]
@@ -1647,6 +1675,516 @@ def profile_red2band(torch, dev, n: int = 16384, nb: int = 512, band: int = 128)
                 host_ops=False)
 
 
+# ---------------------------------------------------------------------------
+# The rest of the algorithms layer and the serving entry point
+# ---------------------------------------------------------------------------
+
+#: Seed of the serve phase's request stream and the algos phase's matrices.
+SERVE_SEED = 20261017
+
+
+def _sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def counted(kmods, launches, expect, fn, what: str):
+    """``fn()`` with every kernel's count set to 0 just before it and read
+    just after: fails unless the counts equal ``expect`` (a name missing
+    from it: 0), adds them to ``launches`` and returns ``fn``'s result."""
+    for m in kmods:
+        m.reset_launches()
+    out = fn()
+    counts = {k: v for m in kmods for k, v in m.LAUNCHES.items()}
+    want = {k: expect.get(k, 0) for k in counts}
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want}")
+    for k, v in counts.items():
+        launches[k] += v
+    return out
+
+
+def algos_phase(torch, dev, card, kmods, launches, drive, n: int = 16384, nb: int = 512,
+                grid=(4, 4), gn: int = 8192, gnb: int = 256, gen_n: int = 4096,
+                gen_nb: int = 256) -> None:
+    """``max_norm`` and the grid ``permute`` at BASELINE config #4's shape
+    (float64, N=16384, nb=512, 4x4 on this card, source rank (1, 2); a row
+    range and a column range of 4 tiles), bitwise against ``abs().max()``
+    and ``index_select`` on the gathered matrix; ``max_norm`` of a
+    unit-modulus complex128 matrix of that shape bitwise against numpy's
+    absolute value; ``general_sub_multiply``
+    (float64, N=8192, nb=256, 2x2) against ``torch.matmul`` at ``60 k
+    eps``, natively over 16 tiles and under ``f64_gemm=mxu`` over 4 (one
+    #6 launch); ``miniapp_gen_eigensolver`` with its check line."""
+    import numpy as np
+
+    from dlaf_tpu_torch import config
+    from dlaf_tpu_torch.algorithms import general_sub_multiply, max_norm, permute
+    from dlaf_tpu_torch.comm.grid import shared_grid
+    from dlaf_tpu_torch.common.index2d import RankIndex2D, TileElementSize
+    from dlaf_tpu_torch.matrix.matrix import Matrix
+    from dlaf_tpu_torch.miniapp import miniapp_gen_eigensolver as mge
+
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
+    f64 = torch.float64
+    a = torch.randn(n, n, generator=gen, device=dev, dtype=f64)
+    mat = Matrix.from_global(a, TileElementSize(nb, nb), shared_grid(*grid, dev),
+                             source_rank=RankIndex2D(1, 2))
+    for uplo in ("G", "L"):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        got = counted(kmods, launches, {}, lambda: max_norm(mat, uplo), f"max_norm {uplo}")
+        t = time.perf_counter() - t0
+        want = float((a.tril() if uplo == "L" else a).abs().max())
+        print(f"[algos] max_norm {uplo} d N={n} nb={nb} {grid[0]}x{grid[1]}: {got!r} against "
+              f"abs().max() {want!r} ({'bitwise' if got == want else 'DIFFER'}) {t:.6f} s "
+              f"[{card}]", flush=True)
+        if got != want:
+            raise AssertionError(f"max_norm {uplo}: {got!r} != {want!r}")
+    prng = np.random.default_rng(SERVE_SEED)
+    for coord, t_begin in (("Row", 3), ("Col", min(9, n // nb - 4))):
+        a0, a1 = t_begin * nb, (t_begin + 4) * nb
+        perm = prng.permutation(a1 - a0)
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        out = counted(kmods, launches, {}, lambda: permute(coord, perm, mat, t_begin,
+                                                           t_begin + 4), f"permute {coord}")
+        _sync(torch, dev)
+        t = time.perf_counter() - t0
+        idx = torch.as_tensor(perm, device=dev) + a0
+        want = a.clone()
+        if coord == "Row":
+            want[a0:a1] = a.index_select(0, idx)
+        else:
+            want[:, a0:a1] = a.index_select(1, idx)
+        same = torch.equal(out.to_global(), want)
+        print(f"[algos] permute {coord} tiles [{t_begin}, {t_begin + 4}) d N={n} nb={nb} "
+              f"{grid[0]}x{grid[1]}: {'bitwise' if same else 'DIFFER'} against index_select, "
+              f"{t:.6f} s [{card}]", flush=True)
+        if not same:
+            raise AssertionError(f"permute {coord} disagrees with index_select")
+        del out, want
+    del mat, a
+    # complex128: unit-modulus entries, every one a candidate for the
+    # maximum to its last bit, held bitwise against numpy's absolute value
+    # of the host copy (the reference's); and the device's elementwise
+    # complex absolute value against numpy's on a million entries
+    from dlaf_tpu_torch.algorithms.norm import _cabs
+
+    theta = torch.rand(n, n, generator=gen, device=dev, dtype=f64) * (2 * np.pi)
+    z = torch.polar(torch.ones_like(theta), theta)
+    del theta
+    zmat = Matrix.from_global(z, TileElementSize(nb, nb), shared_grid(*grid, dev),
+                              source_rank=RankIndex2D(1, 2))
+    zabs = np.abs(z.cpu().numpy())
+    del z
+    for uplo in ("G", "L"):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        got = counted(kmods, launches, {}, lambda: max_norm(zmat, uplo), f"max_norm z {uplo}")
+        t = time.perf_counter() - t0
+        want = float((np.tril(zabs) if uplo == "L" else zabs).max())
+        print(f"[algos] max_norm {uplo} z (unit modulus) N={n} nb={nb} {grid[0]}x{grid[1]}: "
+              f"{got!r} against numpy {want!r} ({'bitwise' if got == want else 'DIFFER'}) "
+              f"{t:.6f} s [{card}]", flush=True)
+        if got != want:
+            raise AssertionError(f"max_norm z {uplo}: {got!r} != {want!r}")
+    del zmat, zabs
+    for cdt in (torch.complex128, torch.complex64):
+        g = torch.randn(1 << 20, generator=gen, device=dev, dtype=cdt)
+        for label, zz in (("gaussian", g), ("unit", g / g.abs())):
+            same = np.array_equal(_cabs(zz).cpu().numpy(), np.abs(zz.cpu().numpy()))
+            print(f"[algos] complex abs {str(cdt)[6:]} {label} (2^20 entries) on {dev.type}: "
+                  f"{'bitwise' if same else 'DIFFERS from'} numpy's", flush=True)
+            if not same:
+                raise AssertionError(f"complex abs {cdt} {label} differs from numpy's")
+    mats = [torch.randn(gn, gn, generator=gen, device=dev, dtype=f64) for _ in range(3)]
+    pm = [Matrix.from_global(x, TileElementSize(gnb, gnb), shared_grid(2, 2, dev)) for x in mats]
+    alpha, beta = 0.75, -1.5
+    eps = float(torch.finfo(f64).eps)
+    for label, argv, t_rng, expect in (
+            ("native", [], (4, 20), {}),
+            # one #6 launch on the card (a CPU rehearsal runs its plain version)
+            ("mxu", ["--dlaf:f64-gemm=mxu"], (4, 8), {"ozaki_product": int(dev.type == "cuda")})):
+        config.initialize(argv=argv)
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        out = counted(kmods, launches, expect, lambda: general_sub_multiply(
+            alpha, pm[0], pm[1], beta, pm[2], *t_rng), f"general_sub_multiply {label}")
+        _sync(torch, dev)
+        t = time.perf_counter() - t0
+        config.initialize()
+        r = slice(t_rng[0] * gnb, min(t_rng[1] * gnb, gn))
+        k = r.stop - r.start
+        got = out.to_global()
+        ref = alpha * (mats[0][r, r] @ mats[1][r, r]) + beta * mats[2][r, r]
+        err = float((got[r, r] - ref).abs().max())
+        scale = (abs(alpha) * float(mats[0][r, r].abs().max() * mats[1][r, r].abs().max()) * k
+                 + abs(beta) * float(mats[2][r, r].abs().max()))
+        tol = 60 * k * eps * scale
+        outside = got.clone()
+        outside[r, r] = mats[2][r, r]
+        print(f"[algos] general_sub_multiply {label} d N={gn} nb={gnb} 2x2 tiles "
+              f"[{t_rng[0]}, {t_rng[1]}) k={k}: max_abs_err={err:.3e} tol={tol:.3e} "
+              f"{t:.6f} s [{card}]", flush=True)
+        if not (err <= tol and torch.equal(outside, mats[2])):
+            raise AssertionError(f"general_sub_multiply {label} disagrees with torch.matmul")
+        del out, got, outside
+    del pm, mats
+    t = drive(["-m", str(gen_n), "-b", str(gen_nb), "--nruns", "1", "--nwarmups", "0",
+               "--check-result", "last"], gen_n, gen_nb, 1, {}, app=mge)
+    print(f"[algos] miniapp_gen_eigensolver N={gen_n} nb={gen_nb} d local: {t:.6f} s "
+          f"{10 * gen_n ** 3 / 3 / t / 1e9:.2f} GFlop/s [{card}]", flush=True)
+
+
+def _serve_inputs(torch, dev, op, dt, b, n, gen):
+    """A (b, n, n) batch of well-conditioned problems of ``op`` (and the
+    solve's (b, n, 4) right-hand sides)."""
+    x = torch.randn(b, n, n, generator=gen, device=dev, dtype=dt)
+    eye = torch.eye(n, device=dev, dtype=dt)
+    if op == "cholesky":
+        return x @ x.mH / n + eye, None
+    if op == "solve":
+        return eye + torch.tril(x, -1) / n, torch.randn(b, n, 4, generator=gen, device=dev,
+                                                          dtype=dt)
+    return (x + x.mH) / 2, None
+
+
+def serve_contracts(torch, dev, card, kmods, launches, svc) -> None:
+    """The serving contracts on the card for float32, float64 and
+    complex128: lane i of a B-lane dispatch equals the B=1 dispatch,
+    bitwise, at B = 4, 16 and 64 and n = 20, 48 and 200 (lanes 16-63 of
+    B=64 against B=16 dispatches of the same lanes; and whether the bare
+    library call would have: informational); pad lanes inert; one
+    indefinite lane flagged, the clean lanes 0 and bitwise unchanged;
+    ``donate=False`` leaves the input bitwise as it was, ``donate=True``
+    factors in place."""
+    from dlaf_tpu_torch.algorithms import batched as bt
+    from dlaf_tpu_torch.serve import cholesky_batched, eigh_batched, solve_batched
+
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
+
+    def run(op, x, rhs):
+        if op == "cholesky":
+            return cholesky_batched("L", x, with_info=True, service=svc)
+        if op == "solve":
+            return solve_batched("L", "L", "N", "N", 1.0, x, rhs, with_info=True, service=svc)
+        return eigh_batched("L", x, with_info=True, service=svc)
+
+    def bare(op, x, rhs):
+        if op == "cholesky":
+            return (torch.linalg.cholesky_ex(x)[0],)
+        if op == "solve":
+            return (torch.linalg.solve_triangular(torch.tril(x), rhs, upper=False),)
+        return torch.linalg.eigh(x)
+
+    def same(u, v, i, j):
+        return all(torch.equal(torch.nan_to_num(p[i]), torch.nan_to_num(q[j]))
+                   for p, q in zip(u, v))
+
+    for dt in (torch.float32, torch.float64, torch.complex128):
+        for n in (20, 48, 200):
+            for op in ("cholesky", "solve", "eigh"):
+                x, rhs = _serve_inputs(torch, dev, op, dt, 64, n, gen)
+
+                def sub(i, j):
+                    return x[i:j], None if rhs is None else rhs[i:j]
+
+                def lanes():
+                    ones = [run(op, *sub(i, i + 1)) for i in range(16)]
+                    sixteens = [run(op, *sub(i, i + 16)) for i in (16, 32, 48)]
+                    return ones, sixteens, {b: run(op, *sub(0, b)) for b in (4, 16, 64)}
+
+                ones, sixteens, outs = counted(kmods, launches, {}, lanes,
+                                               f"serve lanes {op}")
+                # lanes below 16 against B=1; lanes 16-63 of B=64 against
+                # the B=16 dispatches of the same lanes
+                ok_ = (all(same(outs[b], ones[i], i, 0) for b in (4, 16, 64) for i in range(16)
+                           if i < b)
+                       and all(same(outs[64], sixteens[i // 16 - 1], i, i % 16)
+                               for i in range(16, 64)))
+                lib = bare(op, *sub(0, 16))
+                lib1 = [bare(op, *sub(i, i + 1)) for i in range(16)]
+                lib_ok = all(same(lib, lib1[i], i, 0) for i in range(16))
+                form = (f"calls of exactly {bt.MIN_LANES['cuda']} lanes" if op == "solve"
+                        else f"one call of at least {bt.MIN_LANES['cuda']} lanes")
+                print(f"[serve] lane-parity {op:8s} {str(dt)[6:]:10s} n={n:3d}: lane i of B=4, "
+                      f"16 and 64 vs B=1 (and B=16) {'bitwise' if ok_ else 'DIFFER'} (call form: "
+                      f"{form}); bare library B=16 vs B=1 "
+                      f"{'bitwise' if lib_ok else 'differs'}", flush=True)
+                if not ok_:
+                    raise AssertionError(f"lane parity fails: {op} {dt} n={n}")
+        n = 48
+        full, _ = _serve_inputs(torch, dev, "cholesky", dt, 16, n, gen)
+        padded = full.clone()
+        padded[4:] = torch.eye(n, device=dev, dtype=dt)
+        mixed = full.clone()
+        mixed[5] -= 3 * torch.eye(n, device=dev, dtype=dt)
+        keep = mixed.clone()
+
+        def contracts():
+            return (cholesky_batched("L", full, with_info=True, service=svc),
+                    cholesky_batched("L", padded, with_info=True, service=svc),
+                    cholesky_batched("L", mixed, with_info=True, service=svc))
+
+        (of, inf_f), (op_, inf_p), (om, inf_m) = counted(kmods, launches, {}, contracts,
+                                                         "serve contracts")
+        eye = torch.eye(n, device=dev, dtype=dt)
+        pad_ok = (torch.equal(of[:4], op_[:4]) and all(torch.equal(op_[i], eye)
+                                                       for i in range(4, 16))
+                  and not inf_p.any() and not inf_f.any())
+        clean = [i for i in range(16) if i != 5]
+        info_ok = (int(inf_m[5]) >= 1 and not inf_m[clean].any()
+                   and torch.equal(om[clean], of[clean]))
+        donate_ok = torch.equal(mixed, keep)
+        own = full.clone()
+        fac = cholesky_batched("L", own, donate=True, service=svc)
+        donate_ok = donate_ok and fac.data_ptr() == own.data_ptr() and torch.equal(fac, of)
+        print(f"[serve] contracts {str(dt)[6:]:10s} n={n}: pad lanes "
+              f"{'inert' if pad_ok else 'NOT INERT'}; info {inf_m.tolist()} "
+              f"({'failing lane flagged, clean lanes 0 and bitwise' if info_ok else 'WRONG'}); "
+              f"donate=False input {'unchanged' if torch.equal(mixed, keep) else 'CHANGED'}, "
+              f"donate=True {'in place' if donate_ok else 'NOT IN PLACE'}", flush=True)
+        if not (pad_ok and info_ok and donate_ok):
+            raise AssertionError(f"serve contracts fail for {dt}")
+
+
+def _stream_requests(np, Request, count, seed, lo=17, hi=256):
+    """``count`` float64 requests, n uniform over [lo, hi]: 50% cholesky,
+    30% solve (nrhs uniform over 1..16), 20% eigh, from ``seed``."""
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for _ in range(count):
+        u, n = rng.random(), int(rng.integers(lo, hi + 1))
+        x = rng.standard_normal((n, n))
+        if u < 0.5:
+            reqs.append(Request(op="cholesky", a=x @ x.T / n + np.eye(n)))
+        elif u < 0.8:
+            b = rng.standard_normal((n, int(rng.integers(1, 17))))
+            reqs.append(Request(op="solve", a=np.eye(n) + np.tril(x, -1) / n, b=b,
+                                alpha=float(rng.choice([1.0, -0.5]))))
+        else:
+            reqs.append(Request(op="eigh", a=(x + x.T) / 2))
+    return reqs
+
+
+def _residual_ok(np, t) -> tuple[bool, float, float]:
+    """(within budget, residual, budget) of one served request: the
+    factor's ``|L L^T - A| / |A|`` and the solve's ``|T X - alpha B| /
+    (|T| |X|)`` below ``60 n eps``, the eigenpairs' ``|A V - V W| / |A|``
+    and ``|V^T V - I|`` below ``200 n eps`` (Frobenius norms)."""
+    req, eps = t.request, np.finfo(np.float64).eps
+    a = np.asarray(req.a)
+    n = a.shape[0]
+    if req.op == "cholesky":
+        l = np.tril(t.result())
+        r, c = np.linalg.norm(l @ l.T - a) / np.linalg.norm(a), 60
+    elif req.op == "solve":
+        x, tri = t.result(), np.tril(a)
+        r = np.linalg.norm(tri @ x - req.alpha * req.b) / (np.linalg.norm(tri)
+                                                           * np.linalg.norm(x))
+        c = 60
+    else:
+        w, v = t.result()
+        r = max(np.linalg.norm(a @ v - v * w[None, :]) / np.linalg.norm(a),
+                np.linalg.norm(v.T @ v - np.eye(n)))
+        c = 200
+    return bool(r <= c * n * eps and t.info == 0), float(r), c * n * eps
+
+
+def serve_phase(torch, dev, card, kmods, launches, count: int = 2048,
+                buckets=(32, 64, 128, 256), batch: int = 16, rounds: int = 12) -> None:
+    """The serving entry point on the card: the contracts
+    (:func:`serve_contracts`); a warm stream of ``count`` float64 requests
+    through ``Queue`` (buckets 32/64/128/256, 16 lanes, the default 50 ms
+    deadline on the host clock), every answer checked by its residual,
+    with requests/s, p50/p99 latency, dispatches and mean lane fill; the
+    stream's Cholesky problems through the queue alone, through
+    ``cholesky_batched`` over padded batches and through a loop of
+    singleton ``cholesky()`` calls (the reference's serve arm), the three
+    alternating over ``rounds`` rounds, each round's ratio per form; an
+    overload pass (max_depth 16, shed, a 2x burst into one bucket) that
+    fails if depth passes the bound or an accepted ticket is stranded; and
+    ``robust_cholesky_batched`` with two indefinite lanes."""
+    import numpy as np
+
+    from dlaf_tpu_torch import config, health
+    from dlaf_tpu_torch.algorithms.cholesky import cholesky
+    from dlaf_tpu_torch.common.index2d import TileElementSize
+    from dlaf_tpu_torch.health.errors import OverloadError
+    from dlaf_tpu_torch.matrix.matrix import Matrix
+    from dlaf_tpu_torch.serve import (ProgramService, Queue, Request, bucket_ceiling,
+                                      cholesky_batched)
+
+    svc = ProgramService(device=dev)
+    t_phase = time.perf_counter()
+    serve_contracts(torch, dev, card, kmods, launches, svc)
+    print(f"[serve] contracts {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    reqs = _stream_requests(np, Request, count, SERVE_SEED)
+    q = Queue(ProgramService(device=dev), batch=batch, buckets=buckets)
+    t0 = time.perf_counter()
+    walls = q.warmup(reqs)
+    print(f"[serve] warmup: {len(walls)} bucket programs in {time.perf_counter() - t0:.2f} s "
+          f"(first warm calls {sum(walls.values()):.2f} s)", flush=True)
+
+    def stream():
+        t0 = time.perf_counter()
+        tickets = [q.submit(r) for r in reqs]
+        q.flush()
+        return tickets, time.perf_counter() - t0
+
+    tickets, wall = counted(kmods, launches, {}, stream, "serve stream")
+    checks = [_residual_ok(np, t) for t in tickets]
+    worst = {op: max((r / tol for (ok_, r, tol), t in zip(checks, tickets)
+                      if t.request.op == op), default=0.0) for op in ("cholesky", "solve", "eigh")}
+    lat = np.array([t.total_s for t in tickets])
+    st, sst = q.stats(), q.service.stats()
+    fill = count / (st["dispatches"] * batch)
+    print(f"[serve] stream: {count} f64 requests (n 17-256: "
+          f"{sum(t.request.op == 'cholesky' for t in tickets)} cholesky, "
+          f"{sum(t.request.op == 'solve' for t in tickets)} solve, "
+          f"{sum(t.request.op == 'eigh' for t in tickets)} eigh) in {wall:.4f} s: "
+          f"{count / wall:.1f} requests/s, latency p50 {np.percentile(lat, 50) * 1e3:.3f} ms "
+          f"p99 {np.percentile(lat, 99) * 1e3:.3f} ms, {st['dispatches']} dispatches, mean "
+          f"lane fill {fill:.3f}, cache hit rate {sst['hit_rate']:.3f} [{card}]", flush=True)
+    print(f"[serve] stream residuals: worst residual/budget cholesky {worst['cholesky']:.3e} "
+          f"solve {worst['solve']:.3e} eigh {worst['eigh']:.3e}; "
+          f"{sum(c[0] for c in checks)} of {count} within budget", flush=True)
+    if not (all(c[0] for c in checks) and all(t.done for t in tickets)):
+        raise AssertionError("serve stream: a request missed its residual budget")
+    if sst["misses"]:
+        raise AssertionError(f"serve stream after warmup missed the cache: {sst}")
+
+    # the Cholesky problems alone: the queue, the batched entry over
+    # padded batches and a loop of singleton cholesky() calls
+    chol = [r.a for r in reqs if r.op == "cholesky"]
+    qc = Queue(ProgramService(device=dev), batch=batch, buckets=buckets)
+    qc.warmup([Request(op="cholesky", a=a) for a in chol])
+    by_bucket = {}
+    for a in chol:
+        by_bucket.setdefault(bucket_ceiling(len(a), buckets), []).append(a)
+    padded = []
+    for bn, group in by_bucket.items():
+        for i in range(0, len(group), batch):
+            pb = np.broadcast_to(np.eye(bn), (batch, bn, bn)).copy()
+            for j, a in enumerate(group[i:i + batch]):
+                pb[j, :len(a), :len(a)] = a
+            padded.append(pb)
+    csvc = ProgramService(device=dev)
+    mats = [Matrix.from_global(a, TileElementSize(len(a), len(a)), device=dev) for a in chol]
+
+    def queue_pass():
+        ts = [qc.submit(Request(op="cholesky", a=a)) for a in chol]
+        qc.flush()
+        return ts
+
+    def batched_pass():
+        for pb in padded:
+            out, info = cholesky_batched("L", pb, with_info=True, service=csvc)
+        _sync(torch, dev)
+
+    def singles_pass():
+        outs = [cholesky("L", m.clone(), donate=True) for m in mats]
+        _sync(torch, dev)
+        return outs
+
+    # float64 takes the composed panel route at any block size; naming it
+    # spares one announcement per distinct order
+    config.initialize(argv=["--dlaf:panel-impl=xla", "--dlaf:step-impl=xla"])
+
+    # the three forms alternate, round after round, so a slow stretch of
+    # the shared host falls on all of them: medians and spreads of the
+    # rounds
+    forms = (("queue", queue_pass), ("batched entry", batched_pass), ("singles", singles_pass))
+    for _, fn in forms:
+        fn()                                  # warm
+    times = {name: [] for name, _ in forms}
+    for _ in range(rounds):
+        for name, fn in forms:
+            t0 = time.perf_counter()
+            counted(kmods, launches, {}, fn, f"serve cholesky {name}")
+            times[name].append(time.perf_counter() - t0)
+    config.initialize()
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    rps = {k: len(chol) / v for k, v in med.items()}
+    spread = {k: f"{len(chol) / max(v):.1f}-{len(chol) / min(v):.1f}" for k, v in times.items()}
+    ratio = {k: sorted(a / b for a, b in zip(times["singles"], times[k]))
+             for k in ("batched entry", "queue")}
+    print(f"[serve] cholesky only ({len(chol)} problems, n 17-256, f64; medians of {rounds} "
+          f"alternating rounds, range in brackets): queue {rps['queue']:.1f} "
+          f"[{spread['queue']}] req/s, batched entry {rps['batched entry']:.1f} "
+          f"[{spread['batched entry']}] req/s, singleton cholesky() loop {rps['singles']:.1f} "
+          f"[{spread['singles']}] req/s; batched/singles {med['singles'] / med['batched entry']:.2f}x "
+          f"[{ratio['batched entry'][0]:.2f}-{ratio['batched entry'][-1]:.2f}], queue/singles "
+          f"{med['singles'] / med['queue']:.2f}x [{ratio['queue'][0]:.2f}-{ratio['queue'][-1]:.2f}]"
+          f" [{card}]", flush=True)
+    print("[serve] cholesky rounds (s): " + "; ".join(
+        f"{k} {[round(t, 4) for t in v]}" for k, v in times.items()), flush=True)
+
+    # overload: a 2x burst into one bucket whose batch cannot fill first
+    rng = np.random.default_rng(SERVE_SEED + 1)
+    burst = []
+    for _ in range(32):
+        n = int(rng.integers(17, 33))
+        x = rng.standard_normal((n, n))
+        burst.append(x @ x.T / n + np.eye(n))
+    qo = Queue(ProgramService(device=dev), batch=32, deadline_s=1e9, buckets=(32,), max_depth=16,
+               shed=True)
+    qo.warmup([Request(op="cholesky", a=burst[0])])
+    for i in range(2):
+        tickets, shed, depth = [], 0, 0
+        t0 = time.perf_counter()
+        for a in burst:
+            try:
+                tickets.append(qo.submit(Request(op="cholesky", a=a)))
+            except OverloadError:
+                shed += 1
+            depth = max(depth, qo.pending())
+        qo.flush()
+        t = time.perf_counter() - t0
+        stranded = [tk for tk in tickets if not tk.done]
+        lat = [tk.total_s for tk in tickets]
+        print(f"[serve] overload pass {i}: 32-request burst, max_depth 16: accepted "
+              f"{len(tickets)}, shed {shed}, max depth {depth}, stranded {len(stranded)}, "
+              f"accepted {len(tickets) / t:.1f} req/s p99 {np.percentile(lat, 99) * 1e3:.3f} ms "
+              f"[{card}]", flush=True)
+        if depth > 16 or stranded or shed != 16:
+            raise AssertionError("overload: the depth bound or the accepted tickets failed")
+
+    # recovery: two indefinite lanes re-shifted through the one program
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED + 2)
+    x = torch.randn(16, 64, 64, generator=gen, device=dev, dtype=torch.float64)
+    eye = torch.eye(64, device=dev, dtype=torch.float64)
+    a = x @ x.mT / 64 + eye
+    for i in (3, 9):
+        # barely indefinite: the third shift (about 4e-4) recovers the lane
+        a[i] -= (float(torch.linalg.eigvalsh(a[i])[0]) + 1e-4) * eye
+    rsvc = ProgramService(device=dev)
+    plain, _ = cholesky_batched("L", a.clone(), with_info=True, service=ProgramService(device=dev))
+    res = counted(kmods, launches, {}, lambda: health.robust_cholesky_batched("L", a,
+                                                                              service=rsvc),
+                  "robust_cholesky_batched")
+    clean = [i for i in range(16) if i not in (3, 9)]
+    fixed = []
+    for i in (3, 9):
+        l = res.out[i].tril()
+        shift = res.shifts[res.lane_attempts[i] - 1]
+        fixed.append(float(torch.linalg.matrix_norm(l @ l.mT - a[i] - shift * eye)
+                           / torch.linalg.matrix_norm(a[i] + shift * eye)))
+    ok_ = (res.lane_attempts[3] >= 2 and res.lane_attempts[9] >= 2
+           and all(res.lane_attempts[i] == 1 for i in clean)
+           and torch.equal(res.out[clean], plain[clean])
+           and max(fixed) <= 60 * 64 * float(torch.finfo(torch.float64).eps)
+           and rsvc.stats()["compiles"] == 1)
+    print(f"[serve] robust_cholesky_batched: attempts {res.attempts}, lane attempts "
+          f"{res.lane_attempts}, shifts {res.shifts}, recovered lanes' residual "
+          f"{max(fixed):.3e}, clean lanes bitwise the plain dispatch, one bucket program: "
+          f"{'ok' if ok_ else 'FAIL'}", flush=True)
+    if not ok_:
+        raise AssertionError("robust_cholesky_batched on the card")
+
+
 def main() -> int:
     import torch
 
@@ -2074,6 +2612,17 @@ def main() -> int:
     b2t_forms(torch, dev, card, evp_keep)
     print(f"[phase] eigensolver miniapp and bt_b2t forms {time.perf_counter() - t_phase:.1f} s",
           flush=True)
+
+    # ---- phase 2g: the rest of the algorithms layer (max_norm and permute
+    # at config #4's shape, general_sub_multiply, the generalized miniapp)
+    # and the serving entry point --------------------------------------
+    kmods = (pk, ok, uk, gk)
+    t_phase = time.perf_counter()
+    algos_phase(torch, dev, card, kmods, launches, drive)
+    print(f"[phase] algos {time.perf_counter() - t_phase:.1f} s", flush=True)
+    t_phase = time.perf_counter()
+    serve_phase(torch, dev, card, kmods, launches)
+    print(f"[phase] serve {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # ---- phase 3: the float64 / complex128 routes "auto" picks from ------
     # the default (no knob) beside each route it could resolve to, uplo L,

@@ -117,14 +117,20 @@ def _loop_upper(a, panel, k1, j_from, nt, nb, n):
                                     beta=1.0, op_a="C")
 
 
-def _whole_matrix(a: torch.Tensor, uplo: str) -> torch.Tensor:
+def _whole_matrix(a: torch.Tensor, uplo: str, *, out=None,
+                  factor=tl._chol_lower_nan) -> torch.Tensor:
     """The "xla" route: one library factor of the whole matrix (NaN from
-    the first failing column on), the other triangle passed through."""
+    the first failing column on), the other triangle passed through.
+    ``a`` may carry leading batch axes (the batched serving programs);
+    ``out`` (it may be ``a``) receives the result in place; ``factor`` is
+    the lower factor of the Hermitian expansion."""
+    n = a.shape[-1]
+    keep = torch.ones((n, n), dtype=torch.bool, device=a.device)
     if uplo == "L":
-        l = tl._chol_lower_nan(torch.tril(a) + torch.tril(a, -1).mH)
-        return torch.tril(l) + torch.triu(a, 1)
-    l = tl._chol_lower_nan(torch.triu(a) + torch.triu(a, 1).mH)
-    return torch.triu(l.mH) + torch.tril(a, -1)
+        l, keep = factor(torch.tril(a) + torch.tril(a, -1).mH), keep.tril()
+    else:
+        l, keep = factor(torch.triu(a) + torch.triu(a, 1).mH).mH, keep.triu()
+    return torch.where(keep, l, a) if out is None else torch.where(keep, l, a, out=out)
 
 
 def _cholesky_local(a: torch.Tensor, *, uplo: str, nb: int, trailing: str = "loop",

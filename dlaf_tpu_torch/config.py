@@ -5,7 +5,10 @@ distributed Cholesky, the triangular solve and multiply
 (``dist_step_mode``, ``trsm_rhs_chunk``), HEGST (``hegst_impl``), the
 band-to-tridiagonal chase (``chase_threads``), the divide-and-conquer
 tridiagonal solver (``secular_device_min_k``) and their f64/complex128
-routes.
+routes; and the serving layer's (``serve_*``, the finite guard ``check``)
+and the circuit breakers' (``circuit_*``), with the reference's
+environment names, defaults and validation (``config.py:504-568,
+617-624, 776-793, 827-866``).
 Same layering (highest wins):
 ``--dlaf:<knob>=<value>`` arguments > ``DLAF_<KNOB>`` environment
 variables > a user ``Configuration`` > the defaults.
@@ -130,6 +133,43 @@ class Configuration:
     #: bisection halvings over a k x k array) instead of the host's native
     #: solver and numpy; 0 = auto (:func:`resolve_secular_device_min_k`).
     secular_device_min_k: int = 0
+    #: Opt-in finite guard (``DLAF_CHECK``): the recovery drivers check
+    #: their inputs and outputs for non-finite values and raise
+    #: ``health.CheckError``. Off by default; the guard syncs with the host.
+    check: bool = False
+    #: Bucket ceilings of the serving layer (``DLAF_SERVE_BUCKETS``): a
+    #: comma-separated ascending list of matrix orders that
+    #: :class:`..serve.Queue` rounds request shapes up to, one bucket
+    #: program per ceiling. Empty = the next power of two >= max(n, 8); a
+    #: request above the largest ceiling falls back to that too.
+    serve_buckets: str = ""
+    #: Lanes per batched serve dispatch (``DLAF_SERVE_BATCH``); a dispatch
+    #: that leaves on its deadline pads the missing lanes with identities.
+    serve_batch: int = 16
+    #: Queue deadline, milliseconds (``DLAF_SERVE_DEADLINE_MS``): a bucket
+    #: whose oldest request is older dispatches at the next submit or poll
+    #: even if not full. No background thread: the injected clock is read
+    #: at those calls.
+    serve_deadline_ms: float = 50.0
+    #: Admission bound (``DLAF_SERVE_MAX_DEPTH``): the most pending
+    #: requests across every bucket; at the bound a submit sheds or
+    #: dispatches the fullest bucket (``serve_shed``). 0 = unbounded.
+    serve_max_depth: int = 0
+    #: At the bound: True sheds the submit with ``health.OverloadError``,
+    #: False dispatches the fullest bucket inline (backpressure).
+    serve_shed: bool = True
+    #: Total attempts of one batch dispatch under ``health.RetryPolicy``
+    #: (``DLAF_SERVE_RETRY_ATTEMPTS``); 1 = no retry.
+    serve_retry_attempts: int = 3
+    #: Base backoff between dispatch attempts, milliseconds
+    #: (``DLAF_SERVE_RETRY_BACKOFF_MS``; exponential, seeded jitter).
+    serve_retry_backoff_ms: float = 0.0
+    #: Consecutive failures at one site before its circuit breaker opens
+    #: (``DLAF_CIRCUIT_THRESHOLD``).
+    circuit_threshold: int = 3
+    #: Seconds an open breaker rejects calls before it admits one
+    #: half-open probe (``DLAF_CIRCUIT_COOLDOWN_S``).
+    circuit_cooldown_s: float = 30.0
 
 
 _VALID_CHOICES = {
@@ -197,6 +237,53 @@ def _validate(cfg: Configuration) -> None:
                          "or a positive width")
     if cfg.mixed_seed_base < 1:
         raise ValueError(f"mixed_seed_base={cfg.mixed_seed_base}: must be >= 1")
+    if cfg.serve_batch < 1:
+        raise ValueError(f"serve_batch={cfg.serve_batch}: must be >= 1 "
+                         "(lanes per batched serve dispatch)")
+    if not cfg.serve_deadline_ms >= 0:
+        raise ValueError(f"serve_deadline_ms={cfg.serve_deadline_ms}: must "
+                         "be >= 0 (0 = dispatch at the first poll)")
+    if cfg.serve_max_depth < 0:
+        raise ValueError(f"serve_max_depth={cfg.serve_max_depth}: must be "
+                         ">= 0 (0 = unbounded pending depth)")
+    if cfg.serve_retry_attempts < 1:
+        raise ValueError(f"serve_retry_attempts={cfg.serve_retry_attempts}: "
+                         "must be >= 1 (1 = no dispatch retry)")
+    if not cfg.serve_retry_backoff_ms >= 0:
+        raise ValueError(f"serve_retry_backoff_ms="
+                         f"{cfg.serve_retry_backoff_ms}: must be >= 0")
+    if cfg.circuit_threshold < 1:
+        raise ValueError(f"circuit_threshold={cfg.circuit_threshold}: must "
+                         "be >= 1 (consecutive failures before opening)")
+    if not cfg.circuit_cooldown_s >= 0:
+        raise ValueError(f"circuit_cooldown_s={cfg.circuit_cooldown_s}: "
+                         "must be >= 0 (open -> half-open probe delay)")
+    parse_serve_buckets(cfg.serve_buckets)   # raises on a malformed list
+
+
+def parse_serve_buckets(value: str) -> tuple:
+    """``serve_buckets`` parsed to an ascending tuple of positive ints
+    (empty tuple = the power-of-two policy). A malformed list fails at
+    initialize(), not by misrouting every request."""
+    if not str(value).strip():
+        return ()
+    try:
+        buckets = tuple(int(tok) for tok in str(value).split(","))
+    except ValueError:
+        raise ValueError(f"serve_buckets={value!r}: must be a "
+                         "comma-separated list of positive ints")
+    if any(b < 1 for b in buckets) or list(buckets) != sorted(set(buckets)):
+        raise ValueError(f"serve_buckets={value!r}: ceilings must be "
+                         "positive, strictly ascending, and unique")
+    return buckets
+
+
+def _parse(value: str, typ):
+    """An environment or argument value as the field's type; a bool is
+    true for 1/true/yes/on, as the reference reads it."""
+    if typ is bool:
+        return value.strip().lower() in ("1", "true", "yes", "on")
+    return typ(value.strip())
 
 
 def update_configuration(user: Optional[Configuration] = None,
@@ -208,7 +295,7 @@ def update_configuration(user: Optional[Configuration] = None,
              for f in dataclasses.fields(cfg)}
 
     def put(name, raw):
-        setattr(cfg, name, kinds[name](raw.strip()))
+        setattr(cfg, name, _parse(raw, kinds[name]))
 
     for name in kinds:
         env = os.environ.get("DLAF_" + name.upper())

@@ -1,0 +1,277 @@
+"""Structured error types of the health layer.
+
+Port of ``dlaf_tpu/health/errors.py:14-279``: the same classes, fields and
+messages. The reference surfaces factorization failure as data (an info
+value); these are its host-side face once a caller decides a run cannot
+proceed. Every one carries its diagnostic payload as attributes, so
+callers branch on fields, not on message text.
+"""
+
+from __future__ import annotations
+
+
+class HealthError(RuntimeError):
+    """Base of every error the health subsystem raises."""
+
+
+class FactorizationError(HealthError):
+    """A factorization stayed indefinite after every recovery attempt
+    (:func:`.recovery.robust_cholesky`).
+
+    Attributes:
+        failing_column: 1-based first failing global column reported by the
+            LAST attempt (backend NaN semantics bound its precision — see
+            ``tile_ops/lapack.py:potrf_info``).
+        attempts: number of factorization attempts performed.
+        shifts: the diagonal shift ``alpha`` of each attempt (first is 0.0).
+        infos: the info value of each attempt (all nonzero, or this would
+            not have been raised).
+    """
+
+    def __init__(self, failing_column: int, attempts: int,
+                 shifts: tuple, infos: tuple = ()):
+        self.failing_column = int(failing_column)
+        self.attempts = int(attempts)
+        self.shifts = tuple(float(s) for s in shifts)
+        self.infos = tuple(int(i) for i in infos)
+        super().__init__(
+            f"factorization failed at global column {self.failing_column} "
+            f"after {self.attempts} attempt(s) with diagonal shifts "
+            f"{self.shifts}")
+
+
+class DegradationError(HealthError):
+    """Strict mode (``DLAF_STRICT=1``) forbids a registered degradation
+    (the health registry's ``report_fallback``): the preferred
+    implementation is unavailable and falling back silently is not allowed.
+
+    Attributes:
+        site: the degradation site (the ``site`` label of
+            ``dlaf_fallback_total``).
+        reason: why the preferred route was unavailable.
+    """
+
+    def __init__(self, site: str, reason: str, detail: str = ""):
+        self.site = site
+        self.reason = reason
+        suffix = f": {detail}" if detail else ""
+        super().__init__(
+            f"strict mode: degradation at site {site!r} ({reason}){suffix} "
+            "— unset DLAF_STRICT to allow the fallback")
+
+
+class DeadlineExceededError(HealthError):
+    """An attempt ran past its :class:`~.policy.RetryPolicy`
+    per-attempt deadline, or a queued serving request expired before its
+    batch dispatched (``Request.deadline_s``; docs/robustness.md §2).
+
+    Attributes:
+        site: the policy/queue site that enforced the deadline.
+        elapsed_s: how long the attempt/wait actually took (including any
+            clock-aware injected stall).
+        deadline_s: the budget that was exceeded.
+        attempt: 0-based attempt index (0 for queue-expiry).
+    """
+
+    def __init__(self, site: str, elapsed_s: float, deadline_s: float,
+                 attempt: int = 0):
+        self.site = str(site)
+        self.elapsed_s = float(elapsed_s)
+        self.deadline_s = float(deadline_s)
+        self.attempt = int(attempt)
+        super().__init__(
+            f"deadline exceeded at {self.site!r}: attempt {self.attempt} "
+            f"took {self.elapsed_s:.3f}s against a {self.deadline_s:.3f}s "
+            "budget")
+
+
+class CircuitOpenError(HealthError):
+    """A circuit breaker (:mod:`.circuit`) is open: the
+    site failed ``threshold`` consecutive times and calls fail fast until
+    the cooldown lets a half-open probe through.
+
+    Attributes:
+        site: the breaker's site label (``dlaf_circuit_state{site}``).
+        retry_in_s: seconds until the next half-open probe is admitted
+            (0.0 when a probe is already in flight).
+    """
+
+    def __init__(self, site: str, retry_in_s: float = 0.0):
+        self.site = str(site)
+        self.retry_in_s = float(max(retry_in_s, 0.0))
+        super().__init__(
+            f"circuit open at {self.site!r}: failing fast (next probe in "
+            f"{self.retry_in_s:.3f}s) — see dlaf_circuit_state{{site}}")
+
+
+class OverloadError(HealthError):
+    """The serving queue is at its ``DLAF_SERVE_MAX_DEPTH`` admission
+    bound and sheds the submit instead of growing unboundedly
+    (docs/serving.md overload protection).
+
+    Attributes:
+        depth: pending depth at the rejection.
+        max_depth: the configured bound.
+        op / bucket_n: the bucket the shed was counted against.
+    """
+
+    def __init__(self, depth: int, max_depth: int, op: str = "",
+                 bucket_n: int = 0):
+        self.depth = int(depth)
+        self.max_depth = int(max_depth)
+        self.op = str(op)
+        self.bucket_n = int(bucket_n)
+        super().__init__(
+            f"serve queue overloaded: {self.depth} pending >= "
+            f"DLAF_SERVE_MAX_DEPTH={self.max_depth}; shedding "
+            f"{self.op or '?'}(n<={self.bucket_n}) — submit again after "
+            "draining, or raise the bound")
+
+
+class PreemptionError(HealthError):
+    """The pipeline was preempted at a stage boundary
+    (the health-inject preemption in drills; the real signal in
+    production). With ``DLAF_RESUME_DIR`` set, every completed stage's
+    checkpoint is already on disk — rerun with ``resume=True``.
+
+    Attributes:
+        stage: the stage boundary where the preemption fired.
+    """
+
+    def __init__(self, stage: str):
+        self.stage = str(stage)
+        super().__init__(
+            f"preempted at stage boundary {self.stage!r} — completed "
+            "stages are checkpointed under DLAF_RESUME_DIR; rerun with "
+            "resume=True to continue from here")
+
+
+class ResumeError(HealthError):
+    """``resume=True`` could not use the checkpoints under
+    ``DLAF_RESUME_DIR``: no directory configured, an incompatible
+    manifest version, or a fingerprint mismatch (the checkpoints belong
+    to a different config/grid/dtype run).
+
+    Attributes:
+        stage: the stage whose manifest failed (empty for setup errors).
+        detail: what specifically mismatched.
+    """
+
+    def __init__(self, stage: str, detail: str):
+        self.stage = str(stage)
+        self.detail = str(detail)
+        where = f" at stage {self.stage!r}" if self.stage else ""
+        super().__init__(f"cannot resume{where}: {self.detail}")
+
+
+class AutotuneExhaustedError(HealthError):
+    """An accuracy probe breached its analytic budget at the TOP rung of
+    an autotune precision ladder (the autotune layer,
+    docs/autotune.md): every safer route has already been tried and the
+    numbers are still out of budget. Raised under ``DLAF_STRICT``
+    (non-strict deployments hold at the top rung, count
+    ``dlaf_autotune_exhausted_total``, and dump the flight recorder —
+    the validator's ``--require-autotune`` rejects the open state).
+
+    Attributes:
+        site: the route-table key label (op.nN.nbN.dtype.platform).
+        rung: the (top) rung the ladder is pinned at.
+        ladder: the ladder's name (e.g. "f64").
+        bound_ratio: the breaching probe's normalized ratio (inf for a
+            non-finite estimate).
+    """
+
+    def __init__(self, site: str, *, rung: int, ladder: str,
+                 bound_ratio: float):
+        self.site = str(site)
+        self.rung = int(rung)
+        self.ladder = str(ladder)
+        self.bound_ratio = float(bound_ratio)
+        super().__init__(
+            f"autotune ladder exhausted at {self.site!r}: probe "
+            f"bound_ratio {self.bound_ratio!r} breached the budget at "
+            f"the top rung ({self.rung}) of the {self.ladder!r} ladder "
+            "— no safer precision route exists (DLAF_STRICT=1 raises; "
+            "see docs/autotune.md)")
+
+
+class DrainedError(HealthError):
+    """A queued request was drained undispatched (:meth:`..serve.queue.Queue.drain` — graceful worker shutdown, docs/fleet.md). The
+    request was never started, so resubmitting it elsewhere is always
+    safe; the fleet router does exactly that with handed-back tickets.
+
+    Attributes:
+        site: the draining queue's site label.
+        rid: the drained request's id.
+        op / bucket_n: the bucket the request was pending in.
+    """
+
+    def __init__(self, site: str, rid: int, op: str = "",
+                 bucket_n: int = 0):
+        self.site = str(site)
+        self.rid = int(rid)
+        self.op = str(op)
+        self.bucket_n = int(bucket_n)
+        super().__init__(
+            f"request {self.rid} drained undispatched from {self.site!r} "
+            f"({self.op or '?'}(n<={self.bucket_n})) — never started; "
+            "safe to resubmit")
+
+
+class WorkerLostError(HealthError):
+    """A fleet worker died (socket EOF or heartbeat timeout) holding this
+    unacknowledged ticket, and failover is DISABLED
+    (``DLAF_FLEET_FAILOVER=0``) so the router cannot re-dispatch it to a
+    sibling (docs/fleet.md). With failover on this error never surfaces —
+    the ticket is re-dispatched instead.
+
+    Attributes:
+        worker: the dead worker's index.
+        seq: the router ticket sequence number.
+        reason: how the death was detected ("eof" | "heartbeat_timeout").
+    """
+
+    def __init__(self, worker: int, seq: int, reason: str):
+        self.worker = int(worker)
+        self.seq = int(seq)
+        self.reason = str(reason)
+        super().__init__(
+            f"fleet worker {self.worker} lost ticket {self.seq} "
+            f"({self.reason}) and DLAF_FLEET_FAILOVER=0 forbids "
+            "re-dispatch — the request did not complete")
+
+
+class FleetUnavailableError(HealthError):
+    """The fleet router has no routable worker: every member is dead,
+    draining, or behind an open breaker whose cooldown has not admitted
+    a half-open probe yet (docs/fleet.md). Fail-fast by design — queueing
+    against a fully-down fleet would hide the outage.
+
+    Attributes:
+        workers: total registered workers.
+        states: ``{worker: membership state}`` at the rejection.
+    """
+
+    def __init__(self, workers: int, states: dict):
+        self.workers = int(workers)
+        self.states = dict(states)
+        super().__init__(
+            f"fleet has no routable worker ({self.workers} registered: "
+            f"{self.states}) — every member is dead, draining, or "
+            "breaker-rejected")
+
+
+class CheckError(HealthError):
+    """The opt-in finite guard (``DLAF_CHECK=1``) found non-finite values.
+
+    Attributes:
+        what: which operand failed (e.g. ``"cholesky input"``).
+        count: number of non-finite elements.
+    """
+
+    def __init__(self, what: str, count: int):
+        self.what = what
+        self.count = int(count)
+        super().__init__(
+            f"finite guard: {self.count} non-finite element(s) in {what} "
+            "(DLAF_CHECK=1)")
