@@ -8,8 +8,8 @@ Run from the repository root with no arguments:
 It builds the hand-written kernels (``dlaf_tpu_torch/csrc/panel.cu``,
 ``csrc/ozaki.cu``, ``csrc/update.cu`` and ``csrc/givens.cu``, one nvcc
 each, started together) from the checkout, prints ptxas's registers,
-shared memory and spills of the potrf, inverse, slice, update and Givens
-kernels (and fails on a spill), and
+shared memory and spills of the potrf, inverse, strip and slab product,
+slice, update and Givens kernels (and fails on a spill), and
 holds each kernel against its plain PyTorch version on the card: the panel
 kernels (potrf, strip solve, factor+solve, fused step) in float32 and
 bfloat16, potrf alone and the triangular inverse (through the strip solve,
@@ -17,8 +17,15 @@ unit and non-unit diagonal, both triangles) at d = 256, 200, 129, 64, 9, 8
 and 1, indefinite tiles with the failing pivot at columns 1, 8, 9, 38 and
 d or exactly zero (equal info and NaN masks through potrf, factor+solve
 and step), and triangles with a NaN pivot at those columns (equal NaN
-columns of the solved strip); the Ozaki slice kernels (product, syrk) bit
-for bit at the main path's shapes, ragged shapes, K = 32, 224, 256 and
+columns of the solved strip); the strip and slab products alone through
+their C entries (transB 1 and 0, float32 and bfloat16 with the f32 copy,
+d = 256, 200, 129, 9, 8, 1, m = 16128, 16127, 4099, 1000; inf and NaN in
+``b`` at k the triangle's skip leaves out, with NaN masks equal to the
+dense product's; the slab at w = d and w < d with a NaN above the mask);
+the Givens undo bit for bit on rotation lists that stress its schedule
+(disjoint pairs, anchor chains, a moving anchor, repeated pairs, 24-row
+mixes; g = 3001, 2048, 17; w = 1000, 333, 129); the Ozaki slice kernels
+(product, syrk) bit for bit at the main path's shapes, ragged shapes, K = 32, 224, 256 and
 1024 and 1, 2, 8 and 9 slices; the distributed Cholesky's two kernels at
 the shapes of its first step on one rank of a 2x2 grid (N=16384, nb=256:
 32 x 32 tile pairs) and on ragged tiles: the predicated trailing update in
@@ -2185,6 +2192,119 @@ def serve_phase(torch, dev, card, kmods, launches, count: int = 2048,
         raise AssertionError("robust_cholesky_batched on the card")
 
 
+def panel_products(torch, dev, randn, hpd, check, pk, cb) -> None:
+    """The strip and slab products alone (``strip_kernel``, ``slab_kernel``
+    of ``csrc/panel.cu`` through its C entries) against the plain
+    product on the same inputs: ``b @ op(inv)`` with the inverse the card's
+    ``trinv_kernel`` made, at transB 1 (the Cholesky paths: rows of the
+    inverse) and 0 (``panel_solve`` op 'N': its columns), float32 and
+    bfloat16 with the f32 copy ``out32``, d = 256, 200, 129, 9, 8, 1 and
+    m = 16128 (the main path's first step), 16127, 4099 and 1000 (row
+    tiles of 64, 16 and 8 rows, ragged and not); inf and NaN in ``b`` at k
+    that the triangle's skip leaves out (and at k it runs), whose NaN
+    masks must equal the dense product's; the masked slab ``c - mask(p
+    p[:w]^T)`` at w = d and w < d, with a NaN in p whose products above
+    the mask must not reach the output."""
+    lib, s = pk.LIBRARY.load(), cb.stream(torch.empty(0, device=dev))
+    f32 = torch.float32
+    for dt in (f32, torch.bfloat16):
+        tname, code = str(dt).split(".")[1], 0 if dt == f32 else 1
+        for dd in (256, 200, 129, 9, 8, 1):
+            fac = pk.potrf_plain("L", hpd(dd)).float().contiguous()
+            inv = torch.empty((dd, dd), dtype=f32, device=dev)
+            cb.check(lib.dlaf_trinv(0, fac.data_ptr(), dd, 0, inv.data_ptr(), dd, s), "trinv")
+            for mm in ((16128, 16127, 4099, 1000) if dd in (256, 200) else (4099, 1000)):
+                b = randn(mm, dd)
+                if dd > 64:
+                    # rows 0-4: non-finite at k skipped by some column
+                    # groups of either orientation, and at k they run
+                    for row, k, v in ((0, dd - 1, float("inf")), (1, 0, float("nan")),
+                                      (2, dd // 2, -float("inf")), (3, 33, float("nan")),
+                                      (4, 7, float("inf")), (4, dd - 2, float("nan"))):
+                        b[row, k] = v
+                b = b.to(dt)
+                for trans in (1, 0):
+                    out = torch.empty((mm, dd), dtype=dt, device=dev)
+                    out32 = torch.empty((mm, dd), dtype=f32, device=dev) if dt != f32 else None
+                    cb.check(lib.dlaf_strip(code, b.data_ptr(), dd, inv.data_ptr(), trans,
+                                            out.data_ptr(), dd,
+                                            None if out32 is None else out32.data_ptr(), dd,
+                                            mm, dd, s), "strip")
+                    ref32 = b.float() @ (inv.T if trans else inv)
+                    pairs = [(out, ref32.to(dt))]
+                    case = f"{tname} d={dd} m={mm} transB={trans}"
+                    check("strip", case, pairs, dt, dd)
+                    if out32 is not None:
+                        check("strip out32", case, [(out32, ref32)], f32, dd)
+                    for got, ref in pairs + ([(out32, ref32)] if out32 is not None else []):
+                        if not torch.equal(torch.isnan(got.float()), torch.isnan(ref.float())):
+                            raise AssertionError(f"strip {case}: NaN masks differ")
+        for dd, mm, w in ((256, 16128, 256), (256, 16127, 131), (200, 4099, 200),
+                          (200, 1000, 64), (129, 1000, 129), (9, 1000, 9), (1, 1000, 1)):
+            p32 = randn(mm, dd)
+            p32[0, dd // 2] = float("nan")   # row 0 and column 0 of the product
+            c = randn(mm, w).to(dt)
+            out = torch.empty((mm, w), dtype=dt, device=dev)
+            cb.check(lib.dlaf_slab(code, p32.data_ptr(), dd, c.data_ptr(), w, out.data_ptr(), w,
+                                   mm, w, dd, s), "slab")
+            mask = (torch.arange(mm, device=dev)[:, None] >= torch.arange(w, device=dev)[None, :])
+            ref = (c.float() + torch.where(mask, -(p32 @ p32[:w].T), 0.0)).to(dt)
+            case = f"{tname} d={dd} m={mm} w={w}"
+            check("slab", case, [(out, ref)], dt, dd)
+            if not torch.equal(torch.isnan(out.float()), torch.isnan(ref.float())):
+                raise AssertionError(f"slab {case}: NaN masks differ")
+    torch.cuda.synchronize()
+
+
+def givens_lists(np, kind: str, g: int, n: int, seed: int):
+    """A seeded ``(g, 4)`` rotation list on ``n`` rows that stresses the
+    Givens undo's schedule: ``fresh`` disjoint pairs (the Toeplitz
+    merge's structure; a pair returns after n / 2 rotations), ``anchor``
+    chains through one row, ``moving`` (the anchor moves to the row just
+    written), ``repeat`` (three pairs again and again), ``mixed`` (24
+    rows: dependencies at every distance)."""
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(n)
+    if kind == "fresh":
+        rows = perm[np.arange(2 * g) % n].reshape(g, 2)
+    elif kind == "anchor":
+        rows, anchor, nxt = np.empty((g, 2), dtype=np.int64), perm[0], 1
+        for t in range(g):
+            if rng.random() < 0.1:
+                anchor, nxt = perm[nxt % n], nxt + 1
+            j, nxt = perm[nxt % n], nxt + 1
+            if j == anchor:
+                j, nxt = perm[nxt % n], nxt + 1
+            rows[t] = anchor, j
+    elif kind == "moving":
+        rows = np.stack([perm[np.arange(g) % n], perm[(np.arange(g) + 1) % n]], axis=1)
+    elif kind == "repeat":
+        rows = perm[:6].reshape(3, 2)[rng.integers(0, 3, g)]
+    else:
+        rows = np.stack([rng.choice(min(n, 24), 2, replace=False) for _ in range(g)])
+    th = rng.uniform(0, 2 * np.pi, g)
+    return np.column_stack([rows[:, 0], rows[:, 1], np.cos(th), np.sin(th)])
+
+
+def givens_checks(torch, dev, gk) -> None:
+    """The Givens undo bit for bit against its plain loop on lists that
+    stress its schedule (:func:`givens_lists`), with g not a multiple of
+    the staging chunk (256) and w not a multiple of the block (128)."""
+    import numpy as np
+
+    for kind in ("fresh", "anchor", "moving", "repeat", "mixed"):
+        for n, w, g in ((256, 1000, 3001), (4096, 333, 2048), (64, 129, 17)):
+            giv = givens_lists(np, kind, g, n, g + n)
+            u0 = torch.randn(n, w, dtype=torch.float64, device=dev)
+            got = gk.givens_undo(u0.clone(), giv)
+            ref = gk.givens_undo_plain(u0.clone(), giv)
+            same = torch.equal(got, ref)
+            print(f"[kernel] givens_undo  {kind:6s} u ({n}, {w}), {g} rotations: "
+                  f"{'bitwise equal' if same else 'DIFFERS'} to the plain loop", flush=True)
+            if not same:
+                raise AssertionError(f"givens_undo {kind} ({n}, {w}) g={g} differs")
+
+
 def main() -> int:
     import torch
 
@@ -2223,7 +2343,9 @@ def main() -> int:
                      ("potrf_kernelIf", "potrf_kernelI13__nv_bfloat16", "trinv_kernelIf",
                       "trinv_kernelI13__nv_bfloat16", "slice_fold_kernel",
                       "masked_update_kernelIf", "masked_update_kernelI13__nv_bfloat16",
-                      "plan_kernel", "givens_undo_kernel"))
+                      "plan_kernel", "givens_undo_kernel",
+                      *(f"{k}_kernelI{t}Li{tm}E" for k in ("strip", "slab")
+                        for t in ("f", "13__nv_bfloat16") for tm in (8, 4, 2, 1))))
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(20261016)
@@ -2377,6 +2499,8 @@ def main() -> int:
                     raise AssertionError(f"{name} d={dd} pivot {piv}: info kernel={info_k} "
                                          f"plain={info_p}, expected {want}")
     torch.cuda.synchronize()
+    panel_products(torch, dev, randn, hpd, check, pk, cb)
+    givens_checks(torch, dev, gk)
 
     # Ozaki slice kernels: bit for bit against the plain versions, on the
     # slices of random float64 operands

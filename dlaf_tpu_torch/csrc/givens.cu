@@ -8,19 +8,38 @@
 // The deflation scan chains rotations through a running anchor row, so the
 // sequence is sequential along it, while every column is independent.
 //
-// What bounds it: the bytes. Each rotation reads and writes two rows, 32 w
-// bytes; the work is 6 flops a column a rotation.
+// What bounds it: the bytes (each rotation reads and writes two rows, 6
+// flops a column), if enough loads are in flight. One thread a column gives
+// 16384 threads at the largest merge, about four warps an SM, so the card
+// reaches its bandwidth only with some 18 eight-byte loads in flight a
+// thread (Little's law at 3.35 TB/s and about 0.7 us of latency). A loop
+// that loads a rotation's rows when it applies it has one: every rotation
+// is a round trip to memory.
 //
-// Design: one thread per column, looping over the whole list in order, so
-// the sequence is one launch however long it is (a loop of tensor
-// operations costs several launches a rotation). Neighbouring threads read
-// neighbouring columns, so each row access is coalesced. The running anchor
-// row stays in a register while consecutive rotations share it (the
-// deflation scan's chains), and is written back when the anchor changes.
-// The rotations are staged through shared memory in chunks, read once by
-// the block. Products and sums round separately (__dmul_rn, __dsub_rn,
-// __dadd_rn: no fused multiply-add), which makes the result bitwise the
-// plain version's: c*ri - s*rj rounded at each of the three steps.
+// Design: one thread a column (coalesced rows), looping over the whole list
+// in one launch, with the rows of the next kDepth rotations in flight. They
+// go through a ring of kDepth slots in shared memory, one cp.async group a
+// rotation, each thread copying and reading only its own column's slots:
+// cp.async.wait_group waits for the oldest group alone, where loads into
+// registers share a few scoreboards and a wait for the oldest became a wait
+// for the newest (one round trip a rotation again). Rotations on disjoint
+// rows commute exactly, so a row may be loaded as soon as no earlier
+// rotation still to be applied writes it. The host works out, for each
+// rotation and each of its two rows, where the value comes from
+// (givens_kernels.schedule):
+//   PREFETCH  memory, copied kDepth rotations ahead, right after rotation
+//             t - kDepth is stored (no rotation in between writes the row);
+//   FROM_I/J  the previous rotation's new row i or j, kept in a register:
+//             the anchor chains of the deflation scan, and a row that
+//             returns right after it was written;
+//   RELOAD    memory, loaded when the rotation is applied (the row's last
+//             writer lies fewer than kDepth rotations back).
+// and whether each new row is stored (not when the next rotation takes it
+// from the register). Products and sums round separately (__dmul_rn,
+// __dsub_rn, __dadd_rn: no fused multiply-add), each element sees the same
+// rotations in the same order, so the result is bitwise the plain loop's.
+// The list (rows, flags, c, s) is staged through shared memory in chunks,
+// with the next kDepth rotations' rows for the copies ahead.
 //
 // The entry point launches on the given stream, allocates nothing, and
 // returns the launch's error code.
@@ -31,55 +50,101 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kChunk = 256;
+constexpr int kDepth = 16;             // givens_kernels.DEPTH
+constexpr int kChunk = 16 * kDepth;    // rotations staged at a time
+// flags: the sources of rows i (bits 0-1) and j (bits 2-3), and the stores
+constexpr int PREFETCH = 0, FROM_I = 1, FROM_J = 2, STORE_I = 16, STORE_J = 32;
 
-__global__ void givens_undo_kernel(double* __restrict__ u, long long ld, long long w,
-                                   const long long* __restrict__ ij,
-                                   const double* __restrict__ cs, long long g) {
-  __shared__ long long s_ij[2 * kChunk];
-  __shared__ double s_cs[2 * kChunk];
-  const long long col = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+__device__ __forceinline__ void cp8(double* dst, const double* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ double source(int f, double ahead, double a, double b,
+                                         const double* row) {
+  return f == PREFETCH ? ahead : f == FROM_I ? a : f == FROM_J ? b : *row;
+}
+
+// One rotation as the host's schedule lays it out: rows, flags; c, s.
+struct Rot {
+  int4 r;  // (i, j, flags, 0)
+  double2 cs;
+};
+
+__global__ void __launch_bounds__(kThreads)
+givens_undo_kernel(double* __restrict__ u, long long ld, long long w,
+                   const Rot* __restrict__ rot, int g) {
+  __shared__ int4 s_rot[kChunk + kDepth];
+  __shared__ double2 s_cs[kChunk];
+  __shared__ double ring[kDepth][2][kThreads];   // [slot][row i, j][thread]
+  const int tid = threadIdx.x;
+  const long long col = static_cast<long long>(blockIdx.x) * kThreads + tid;
   const bool active = col < w;
-  long long cur = -1;  // row held in `vi`
-  double vi = 0.0;
-  for (long long base = 0; base < g; base += kChunk) {
-    const int cnt = static_cast<int>(g - base < kChunk ? g - base : kChunk);
+  double* uc = u + (active ? col : 0);
+  double a = 0.0, b = 0.0;  // the previous rotation's new rows i and j
+  // rotation n's rows from memory into slot q, one group
+  auto ahead = [&](int4 n, int q) {
+    if ((n.z & 3) == PREFETCH) cp8(&ring[q][0][tid], uc + n.x * ld);
+    if ((n.z >> 2 & 3) == PREFETCH) cp8(&ring[q][1][tid], uc + n.y * ld);
+  };
+  for (int base = 0; base < g; base += kChunk) {
+    const int cnt = min(kChunk + kDepth, g - base);
     __syncthreads();
-    for (int t = threadIdx.x; t < 2 * cnt; t += kThreads) {
-      s_ij[t] = ij[2 * base + t];
-      s_cs[t] = cs[2 * base + t];
+    for (int t = tid; t < cnt; t += kThreads) {
+      s_rot[t] = rot[base + t].r;
+      if (t < kChunk) s_cs[t] = rot[base + t].cs;
     }
     __syncthreads();
     if (!active) continue;
-    for (int t = 0; t < cnt; ++t) {
-      const long long i = s_ij[2 * t], j = s_ij[2 * t + 1];
-      const double c = s_cs[2 * t], s = s_cs[2 * t + 1];
-      // after this, only row i is held in a register and j != i reads
-      // memory that is current
-      if (i != cur) {
-        if (cur >= 0) u[cur * ld + col] = vi;
-        cur = i;
-        vi = u[i * ld + col];
+    if (base == 0) {
+#pragma unroll
+      for (int q = 0; q < kDepth; ++q) {
+        if (q < g) ahead(s_rot[q], q);
+        cp_commit();
       }
-      double* pj = u + j * ld + col;
-      const double rj = *pj;
-      const double ri = vi;
-      vi = __dsub_rn(__dmul_rn(c, ri), __dmul_rn(s, rj));
-      *pj = __dadd_rn(__dmul_rn(s, ri), __dmul_rn(c, rj));
+    }
+    for (int t0 = 0; t0 < kChunk && base + t0 < g; t0 += kDepth) {
+#pragma unroll
+      for (int q = 0; q < kDepth; ++q) {
+        const int t = base + t0 + q;
+        if (t >= g) break;
+        const int4 r = s_rot[t0 + q];
+        const double2 c = s_cs[t0 + q];
+        double* pi = uc + r.x * ld;
+        double* pj = uc + r.y * ld;
+        cp_wait<kDepth - 1>();   // rotation t's group
+        const double ri = source(r.z & 3, ring[q][0][tid], a, b, pi);
+        const double rj = source(r.z >> 2 & 3, ring[q][1][tid], a, b, pj);
+        a = __dsub_rn(__dmul_rn(c.x, ri), __dmul_rn(c.y, rj));
+        b = __dadd_rn(__dmul_rn(c.y, ri), __dmul_rn(c.x, rj));
+        if (r.z & STORE_I) *pi = a;
+        if (r.z & STORE_J) *pj = b;
+        // rotation t + kDepth's rows, now that rotation t is stored
+        if (t + kDepth < g) ahead(s_rot[t0 + q + kDepth], q);
+        cp_commit();
+      }
     }
   }
-  if (active && cur >= 0) u[cur * ld + col] = vi;
+  cp_wait<0>();
 }
 
 }  // namespace
 
-extern "C" int dlaf_givens_undo(void* u, long long ld, long long w, const void* ij,
-                                const void* cs, long long g, void* stream) {
+// depth must be kDepth (the host's schedule is made for it).
+extern "C" int dlaf_givens_undo(void* u, long long ld, long long w, const void* rot, int g,
+                                int depth, void* stream) {
+  if (depth != kDepth) return static_cast<int>(cudaErrorInvalidValue);
   if (g <= 0 || w <= 0) return 0;
   const long long blocks = (w + kThreads - 1) / kThreads;
   givens_undo_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<double*>(u), ld, w, static_cast<const long long*>(ij),
-      static_cast<const double*>(cs), g);
+      static_cast<double*>(u), ld, w, static_cast<const Rot*>(rot), g);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,9 +3,10 @@
 // They replace the Pallas kernels of dlaf_tpu/tile_ops/pallas_panel.py:
 //   potrf_kernel  <- _fused_potrf (:187), the MICRO=8 right-looking ladder
 //   trinv_kernel  <- _tri_inv_lower (:229), run at grid step 0 there
-//   gemm_kernel   <- the strip product of _fused_solve_rows (:296),
+//   strip_kernel  <- the strip product of _fused_solve_rows (:296),
 //                    _fused_factor_solve_rows (:442) and _fused_step_lower
-//                    (:508), and the step's masked slab
+//                    (:508)
+//   slab_kernel   <- the step's masked slab update (_fused_step_lower)
 //
 // The TPU kernels keep the tile, its inverse and the solved leading strip
 // block in VMEM across a grid that runs in order. On this card a block has
@@ -30,8 +31,9 @@
 //     trinv_kernel). The substitution's chain of d/8 block rows that read
 //     the growing inverse from global memory is gone;
 //   * the strip product and the slab update are separate launches on the
-//     same stream, tiled over many blocks, reading what the one-block
-//     launches wrote;
+//     same stream over many blocks, reading what the one-block launches
+//     wrote: SIMT f32 products that run only the K chunks the inverse's
+//     triangle reaches (see strip_kernel);
 //   * nothing is padded in memory: every kernel takes its extents and
 //     leading dimensions and masks the ragged edge itself (the factor pads
 //     the tile to a multiple of 8 with the identity inside shared memory,
@@ -43,6 +45,7 @@
 // Every entry point launches on the given stream, allocates nothing, and
 // returns cudaGetLastError().
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -54,7 +57,6 @@ constexpr int MICRO = 8;
 constexpr int PANEL_MAX = 256;
 constexpr int POTRF_THREADS = 512;
 constexpr int TRINV_THREADS = 512, TRINV_WARPS = TRINV_THREADS / 32;
-constexpr int BM = 64, BN = 64, BK = 16, GEMM_THREADS = 256;
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
@@ -504,75 +506,420 @@ trinv_kernel(const T* __restrict__ t, int ldt, int unit, float* __restrict__ inv
   }
 }
 
-// Shared-memory tiled f32 product over (M, N) output tiles of BM x BN:
-//   acc(i, j) = sum_k A(i, k) B(k, j),  B(k, j) = transB ? B[j, k] : B[k, j]
-// SLAB=false: out(i, j) = acc (and out32(i, j) = acc when out32 is given).
-// SLAB=true:  out(i, j) = C(i, j) - (i >= j ? acc : 0), the step's masked
-//             trailing column update.
+// ---- the strip and slab products ----------------------------------------
+//
+// acc(r, c) = sum_k A(r, k) B(k, c) in f32 (fmaf on the SIMT units, as the
+// reference's f32 dot), over m rows, n <= 256 columns and K <= 256:
+//   strip_kernel: B(k, c) = transB ? inv[c][k] : inv[k][c], the triangular
+//                 inverse; out = acc (and out32 = acc, the f32 copy of a
+//                 bf16 step's panel);
+//   slab_kernel:  B(k, c) = p[c][k] over the first w rows of the f32 panel
+//                 p = A; out = C - (r >= c ? acc : 0), the step's masked
+//                 trailing slab (a product above the mask never reaches out).
+//
+// What bounds them at the main path's shapes (m = 16128, d = 256): the FMAs
+// and the shared-memory loads that feed them, not bytes (the strip's bytes
+// take a third of its FMAs' time on the triangle at 67 TFLOP/s). An 8 x 8
+// register tile reads one shared-memory byte a FMA, which at 128 bytes a
+// clock an SM is as many bytes as the SM's 128 FMA lanes use: both pipes
+// are full at once, so the work saved is the FMAs skipped. So:
+//   * the block holds BM = 8 TM rows of A for the whole K (<= 256) in shared
+//     memory (f32; bf16 converted on the way in). It arrives in 32-wide K
+//     chunks, each one TMA box behind its own mbarrier, so a warp starts on
+//     chunk 0 while the rest is in flight;
+//   * each of the block's 4 warps owns 32-column groups of the output, a
+//     64 x 32 (TM = 8) register tile, 8 x 8 accumulators a thread, and
+//     streams its own groups' B through a private ring of NS stages of 32 x
+//     32, one TMA box a stage: the warps share A but never wait for each
+//     other after the start. Operands sit in 128-byte rows with the TMA's
+//     128-byte swizzle, so the 8 rows (4 columns) a warp reads as float4
+//     along k fall in different banks. transB = 0 (the inverse's columns,
+//     which no map turns into rows) and unaligned rows take 4-byte
+//     cp.async into the same layout instead;
+//   * the inverse is zero above its 8 x 8 diagonal blocks (trinv_kernel),
+//     so column c of the strip needs k <= (c | 7) (transB) or k >= (c & ~7):
+//     a group runs only the K chunks that reach its columns, 9 of the dense
+//     16 chunk products. Warp p takes groups 7 - p and p, 9 chunks whatever
+//     p, so the four SM sub-partitions get equal work;
+//   * the plain version's product is dense: a non-finite b(r, k) at a
+//     skipped k makes every such column of row r NaN (0 * inf). The skip
+//     keeps that: the block sums b(r, k) * 0 over each chunk of each row once
+//     (0, or NaN exactly when the chunk holds a non-finite entry), and each
+//     group adds its skipped chunks' sums to its rows;
+//   * the epilogue goes 8 rows at a time through a per-warp scratch, so
+//     that a warp writes (and, for the slab, reads C in) whole 128-byte
+//     rows;
+//   * the row tile shrinks (TM = 8, 4, 2, 1) until there is a block for
+//     every SM, so a short strip still spreads over the card.
+
+constexpr int PW = 32;                    // column group width and K chunk (128 bytes of f32)
+constexpr int KCH = PANEL_MAX / PW;       // K chunks at most
+constexpr int PWARPS = 4, PTHREADS = 32 * PWARPS;
+constexpr int TILE = PW * PW;             // floats of one B stage (32 columns x 32 k)
+constexpr int SROW = PW + 4;              // epilogue scratch row stride (floats)
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 128-byte rows of 32 floats, 16-byte quad q of row r at quad q ^ (r & 7):
+// the layout the TMA's 128-byte swizzle writes, read by float4 without bank
+// conflicts from 8 rows (A) or 4 (B) at once
+__device__ __forceinline__ int swz(int r, int k) { return r * PW + ((((k >> 2) ^ r) & 7) << 2) + (k & 3); }
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Wait for the phase of `bar` with this parity. A lost copy (a fault in this
+// kernel) would spin forever and hold the card: after 2^24 polls, far beyond
+// any real wait, it traps and the launch fails with an error.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done;
+  int spins = 0;
+  do {
+    if (++spins > (1 << 24)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// One box (32 floats of k from k0, rows from row0) of a 2-D f32 map into
+// `dst` (1024-byte aligned), 128-byte swizzle, zero past the map's edges.
+__device__ __forceinline__ void tma_load(float* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int k0, int row0) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(k0), "r"(row0)
+      : "memory");
+}
+
+template <typename TA, typename TO>
+struct ProductArgs {
+  const TA* a;   // (m, K) rows, stride lda
+  int lda;
+  const float* b;  // the inverse (strip) or the f32 panel (slab), stride ldb
+  int ldb, transb;
+  const TO* c;   // the slab's input (slab only)
+  int ldc;
+  TO* out;
+  int ldo;
+  float* out32;  // the strip's f32 copy, or null
+  int ld32, m, n, k;
+  int tma_a;  // A through map_a (f32, 16-byte aligned rows), else through registers
+  int tma_b;  // B through map_b (rows of B, 16-byte aligned), else by cp.async
+  int vec_o;  // 16-byte rows of out (and out32, C): vector epilogue
+};
+
+__host__ __device__ constexpr int stages_of(int tm) { return tm >= 8 ? 2 : tm == 4 ? 3 : 4; }
+__host__ __device__ constexpr int product_smem(int tm) {
+  return 1024 +
+         (8 * tm * PANEL_MAX + PWARPS * stages_of(tm) * TILE + PWARPS * 8 * SROW + 8 * tm * KCH) * 4 +
+         (KCH + 1 + PWARPS * stages_of(tm)) * 8;
+}
+
+// The block's BM rows of A into As, f32, chunk t (BM swizzled rows of 32 k)
+// at As + t BM PW, behind abar[t]: by the TMA (zero past m and K), or
+// through registers (bf16 converted) and one block barrier, after which
+// thread 0 completes every chunk's phase.
+template <typename TA, typename TO, int BM>
+__device__ __forceinline__ void load_a(const ProductArgs<TA, TO>& p, const CUtensorMap* map,
+                                       float* As, uint64_t* abar, int row0, int nk) {
+  const int tid = threadIdx.x;
+  if (p.tma_a) {
+    if (tid == 0)
+      for (int t = 0; t < nk; ++t) {
+        mbar_expect_tx(abar + t, BM * PW * 4);
+        tma_load(As + t * BM * PW, map, abar + t, PW * t, row0);
+      }
+    return;
+  }
+  for (int idx = tid; idx < BM * nk * PW; idx += PTHREADS) {
+    const int t = idx / (BM * PW), r = idx / PW % BM, k = idx % PW, gr = row0 + r;
+    const bool in = gr < p.m && PW * t + k < p.k;
+    As[t * BM * PW + swz(r, k)] = in ? ld(p.a + (size_t)gr * p.lda + PW * t + k) : 0.f;
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int t = 0; t < nk; ++t) mbar_arrive(abar + t);
+}
+
+// One warp: its columns [PW g, PW g + PW) x K chunk ch of B into a stage as
+// swizzled [column][k]: lane 0 by the TMA (map_b over B's rows, completion
+// on bar), or every lane by 4-byte cp.async, one group (transB = 0 reads
+// the inverse's columns, which no map can turn into rows).
+template <typename TA, typename TO>
+__device__ __forceinline__ void load_b(const ProductArgs<TA, TO>& p, const CUtensorMap* map,
+                                       float* dst, uint64_t* bar, int g, int ch, int lane) {
+  if (p.tma_b) {
+    if (lane == 0) {
+      mbar_expect_tx(bar, TILE * 4);
+      tma_load(dst, map, bar, PW * ch, PW * g);
+    }
+    return;
+  }
+#pragma unroll 4
+  for (int e = 0; e < PW; ++e) {
+    // transB: lanes along k of one column; else along the columns of one k
+    const int c = p.transb ? e : lane, kk = p.transb ? lane : e;
+    const int gc = PW * g + c, k = PW * ch + kk;
+    const bool in = gc < p.n && k < p.k;
+    const float* src = p.transb ? p.b + (size_t)gc * p.ldb + k : p.b + (size_t)k * p.ldb + gc;
+    cp_async4(dst + swz(c, kk), in ? src : p.b, in ? 4 : 0);
+  }
+  cp_commit();
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ void st4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y), b = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&a);
+  u.y = *reinterpret_cast<const uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+// Rows r (block-relative r0 .. r0 + 8 of the warp's piece) and columns c0 ..
+// c0 + 3 of the output from the warp's scratch row: out = v (strip, and
+// out32) or out = C - (r >= c ? v : 0) (slab); 16-byte accesses where the
+// rows allow them.
 template <typename TA, typename TO, bool SLAB>
-__global__ void __launch_bounds__(GEMM_THREADS)
-gemm_kernel(const TA* __restrict__ A, int lda, const float* __restrict__ B, int ldb,
-            int transB, const TO* __restrict__ C, int ldc, TO* __restrict__ out, int ldo,
-            float* __restrict__ out32, int ld32, int M, int N, int K) {
-  __shared__ float As[BK][BM + 4];
-  __shared__ float Bs[BK][BN + 4];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int idx = tid; idx < BM * BK; idx += GEMM_THREADS) {
-      const int r = idx / BK, kk = idx % BK;
-      const int gr = row0 + r, gk = k0 + kk;
-      As[kk][r] = (gr < M && gk < K) ? ld(A + (size_t)gr * lda + gk) : 0.f;
+__device__ __forceinline__ void put4(const ProductArgs<TA, TO>& p, int r, int c0, float4 v) {
+  if (r >= p.m) return;
+  const float w[4] = {v.x, v.y, v.z, v.w};
+  if (p.vec_o && c0 + 3 < p.n) {
+    if constexpr (SLAB) {
+      const float4 c = ld4(p.c + (size_t)r * p.ldc + c0);
+      const float cv[4] = {c.x, c.y, c.z, c.w};
+      float o[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[e] = r >= c0 + e ? cv[e] - w[e] : cv[e];
+      st4(p.out + (size_t)r * p.ldo + c0, make_float4(o[0], o[1], o[2], o[3]));
+    } else {
+      st4(p.out + (size_t)r * p.ldo + c0, v);
+      if (p.out32 != nullptr) st4(p.out32 + (size_t)r * p.ld32 + c0, v);
     }
-    for (int idx = tid; idx < BK * BN; idx += GEMM_THREADS) {
-      int c, kk;
-      if (transB) {
-        c = idx / BK;
-        kk = idx % BK;
-      } else {
-        kk = idx / BN;
-        c = idx % BN;
-      }
-      const int gc = col0 + c, gk = k0 + kk;
-      float v = 0.f;
-      if (gc < N && gk < K) v = transB ? B[(size_t)gc * ldb + gk] : B[(size_t)gk * ldb + gc];
-      Bs[kk][c] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        av[i] = As[kk][ty * 4 + i];
-        bv[i] = Bs[kk][tx * 4 + i];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+    return;
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty * 4 + i;
-    if (r >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = col0 + tx * 4 + j;
-      if (c >= N) continue;
-      if constexpr (SLAB) {
-        float v = ld(C + (size_t)r * ldc + c);
-        if (r >= c) v -= acc[i][j];
-        st(out + (size_t)r * ldo + c, v);
-      } else {
-        st(out + (size_t)r * ldo + c, acc[i][j]);
-        if (out32 != nullptr) out32[(size_t)r * ld32 + c] = acc[i][j];
-      }
+  for (int e = 0; e < 4; ++e) {
+    const int c = c0 + e;
+    if (c >= p.n) break;
+    if constexpr (SLAB) {
+      const float cv = ld(p.c + (size_t)r * p.ldc + c);
+      st(p.out + (size_t)r * p.ldo + c, r >= c ? cv - w[e] : cv);
+    } else {
+      st(p.out + (size_t)r * p.ldo + c, w[e]);
+      if (p.out32 != nullptr) p.out32[(size_t)r * p.ld32 + c] = w[e];
     }
   }
+}
+
+template <typename TA, typename TO, bool SLAB, int TM>
+__device__ __forceinline__ void product(const CUtensorMap* map_a, const CUtensorMap* map_b,
+                                        const ProductArgs<TA, TO>& p) {
+  constexpr int BM = 8 * TM, NS = stages_of(TM);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* As = reinterpret_cast<float*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  float* Bs = As + KCH * BM * PW;                       // [warp][stage][PW columns][PW k]
+  float* Ss = Bs + PWARPS * NS * TILE;                  // [warp][8 rows][SROW]
+  float* Zs = Ss + PWARPS * 8 * SROW;                   // [BM rows][KCH]
+  uint64_t* abar = reinterpret_cast<uint64_t*>(Zs + BM * KCH);  // [KCH]
+  uint64_t* zbar = abar + KCH;
+  uint64_t* bbar = zbar + 1;                            // [warp][stage]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ty = lane >> 2, tx = lane & 3;              // rows ty + 8 i, columns tx + 4 j
+  const int row0 = blockIdx.x * BM, nk = (p.k + PW - 1) / PW, ng = (p.n + PW - 1) / PW;
+  if (tid == 0) {
+    for (int q = 0; q < KCH + 1 + PWARPS * NS; ++q) mbar_init(abar + q, q == KCH ? PTHREADS : 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  if (lane == 0 && p.tma_a)
+    asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(map_a)) : "memory");
+  if (lane == 0 && p.tma_b)
+    asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(map_b)) : "memory");
+  __syncthreads();
+  // the strip: Zs[r][t] = sum over chunk t of b(r, k) * 0 (0, or NaN where
+  // the chunk holds a non-finite entry), a share a thread, after a warp's
+  // third chunk (all of A is in by then) or before its first epilogue, for
+  // the skipped chunks of every group's epilogue
+  bool zdone = SLAB;
+  auto zshare = [&] {
+    for (int t = 0; t < nk; ++t) mbar_wait(abar + t, 0);
+    for (int idx = tid; idx < BM * nk; idx += PTHREADS) {
+      const int r = idx / nk, t = idx % nk;
+      float z = 0.f;
+#pragma unroll
+      for (int kq = 0; kq < PW / 4; ++kq) {
+        const float4 v = ld4(As + t * BM * PW + r * PW + ((kq ^ r) & 7) * 4);
+        z = fmaf(v.x, 0.f, fmaf(v.y, 0.f, fmaf(v.z, 0.f, fmaf(v.w, 0.f, z))));
+      }
+      Zs[r * KCH + t] = z;
+    }
+    mbar_arrive(zbar);
+    zdone = true;
+  };
+
+  // this warp's two groups, the long one first, and their K chunk ranges
+  // (a group past n, or one that needs no chunk, has an empty range)
+  int g_[2], lo_[2], hi_[2];
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int g = q == 0 ? KCH - 1 - warp : warp;
+    int lo, hi;
+    if constexpr (SLAB) {
+      lo = 0;
+      hi = PW * g > row0 + BM - 1 ? 0 : nk;   // wholly above the mask: C only
+    } else {
+      lo = p.transb ? 0 : min(g, nk);
+      hi = p.transb ? min(g + 1, nk) : nk;
+    }
+    g_[q] = g < ng ? g : -1;
+    lo_[q] = g < ng ? lo : 0;
+    hi_[q] = g < ng ? hi : 0;
+  }
+  const int g0 = g_[0], g1 = g_[1], lo0 = lo_[0], lo1 = lo_[1], hi0 = hi_[0], hi1 = hi_[1];
+  const int n0 = hi0 - lo0, items = n0 + hi1 - lo1;
+  float* Bw = Bs + warp * NS * TILE;
+  uint64_t* bw = bbar + warp * NS;
+  // the warp's ring of NS B stages (the cp.async form commits one group a
+  // stage, empty past the last item, so that wait_group counts stages)
+  auto issue = [&](int it) {
+    if (it < items) {
+      const bool first = it < n0;
+      load_b(p, map_b, Bw + (it % NS) * TILE, bw + it % NS, first ? g0 : g1,
+             first ? lo0 + it : lo1 + it - n0, lane);
+    } else if (!p.tma_b) {
+      cp_commit();
+    }
+  };
+#pragma unroll
+  for (int it = 0; it < NS; ++it) issue(it);
+  load_a<TA, TO, BM>(p, map_a, As, abar, row0, nk);
+
+  int it = 0;
+#pragma unroll 1
+  for (int q = 0; q < 2; ++q) {
+    const int g = q ? g1 : g0, lo = q ? lo1 : lo0, hi = q ? hi1 : hi0;
+    if (g < 0) continue;
+    float acc[TM][8];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+#pragma unroll 1
+    for (int ch = lo; ch < hi; ++ch, ++it) {
+      mbar_wait(abar + ch, 0);
+      if (p.tma_b) {
+        mbar_wait(bw + it % NS, (it / NS) & 1);
+      } else {
+        cp_wait<NS - 1>();
+        __syncwarp();
+      }
+      // row r = ty + 8 i of the chunk (swizzle r & 7 = ty), column c = tx +
+      // 4 j of the stage (swizzle tx + 4 (j & 1))
+      const float* ap = As + ch * BM * PW + ty * PW;
+      const float* bp = Bw + (it % NS) * TILE + tx * PW;
+#pragma unroll
+      for (int kq = 0; kq < PW / 4; ++kq) {
+        const int oa = (kq ^ ty) << 2, ob0 = (kq ^ tx) << 2, ob1 = (kq ^ (tx + 4)) << 2;
+        float4 bv[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          bv[j] = *reinterpret_cast<const float4*>(bp + 4 * j * PW + (j & 1 ? ob1 : ob0));
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float4 av = *reinterpret_cast<const float4*>(ap + 8 * i * PW + oa);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            acc[i][j] = fmaf(av.x, bv[j].x, acc[i][j]);
+            acc[i][j] = fmaf(av.y, bv[j].y, acc[i][j]);
+            acc[i][j] = fmaf(av.z, bv[j].z, acc[i][j]);
+            acc[i][j] = fmaf(av.w, bv[j].w, acc[i][j]);
+          }
+        }
+      }
+      __syncwarp();   // every lane is done with this stage before it refills
+      issue(it + NS);
+      if constexpr (!SLAB)
+        if (!zdone && it == 2) zshare();
+    }
+    // the dense product's NaN where b has a non-finite entry in a skipped
+    // chunk of the row
+    float z[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) z[i] = 0.f;
+    if constexpr (!SLAB) {
+      if (!zdone) zshare();
+      mbar_wait(zbar, 0);
+      const int s_lo = p.transb ? hi : 0, s_hi = p.transb ? nk : lo;
+      for (int t = s_lo; t < s_hi; ++t)
+#pragma unroll
+        for (int i = 0; i < TM; ++i) z[i] += Zs[(ty + 8 * i) * KCH + t];
+    }
+    // 8 rows at a time through the warp's scratch, so that each lane writes
+    // 16 bytes of a row: whole 128-byte rows a warp instruction
+    float* Sw = Ss + warp * 8 * SROW;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) Sw[ty * SROW + tx + 4 * j] = acc[i][j] + z[i];
+      __syncwarp();
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int rr = (lane >> 3) + 4 * e, cq = 4 * (lane & 7);
+        put4<TA, TO, SLAB>(p, row0 + 8 * i + rr, PW * g + cq, ld4(Sw + rr * SROW + cq));
+      }
+      __syncwarp();
+    }
+  }
+  if (!zdone) zshare();   // a warp without columns still owes its share
+  // no copy into this block's shared memory outlives it (a slab tile above
+  // the mask reads no chunk)
+  for (int t = 0; t < nk; ++t) mbar_wait(abar + t, 0);
+}
+
+template <typename T, int TM>
+__global__ void __launch_bounds__(PTHREADS)
+strip_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+             const __grid_constant__ ProductArgs<T, T> p) {
+  product<T, T, false, TM>(&map_a, &map_b, p);
+}
+
+template <typename T, int TM>
+__global__ void __launch_bounds__(PTHREADS)
+slab_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+            const __grid_constant__ ProductArgs<float, T> p) {
+  product<float, T, true, TM>(&map_a, &map_b, p);
 }
 
 // Opt in to a kernel's dynamic shared memory, once per device.
@@ -584,6 +931,93 @@ void opt_in(K kernel, int bytes, bool* done) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (dev >= 0 && dev < 64) done[dev] = true;
   }
+}
+
+int sm_count() {
+  static int sms[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int n = dev >= 0 && dev < 64 ? sms[dev] : 0;
+  if (n == 0) {
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    n = n > 0 ? n : 1;
+    if (dev >= 0 && dev < 64) sms[dev] = n;
+  }
+  return n;
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library needs no -lcuda.
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t rc = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                            cudaEnableDefault, &q);
+#else
+    const cudaError_t rc =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &q);
+#endif
+    if (rc == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// 2-D map over `rows` f32 rows of k (stride ld), boxes of 32 k x `box_rows`
+// rows, 128-byte swizzle, zero fill past the edges.
+bool make_map(CUtensorMap* map, const float* ptr, int k, int rows, int ld, int box_rows) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(k), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 4};
+  const cuuint32_t box[2] = {PW, static_cast<cuuint32_t>(box_rows)}, elem[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(ptr), dims, strides,
+             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+bool aligned16(const void* ptr, int ld) {
+  return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0 && (ld & 3) == 0;
+}
+
+template <typename TA, typename TO, bool SLAB, int TM>
+int launch_product(ProductArgs<TA, TO> p, cudaStream_t s) {
+  static bool done[64] = {};
+  constexpr int BM = 8 * TM;
+  CUtensorMap map_a{}, map_b{};
+  if (p.tma_a &&
+      !make_map(&map_a, reinterpret_cast<const float*>(p.a), p.k, p.m, p.lda, BM))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (p.tma_b && !make_map(&map_b, p.b, p.k, p.n, p.ldb, PW))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (p.m + BM - 1) / BM;
+  if constexpr (SLAB) {
+    opt_in(slab_kernel<TO, TM>, product_smem(TM), done);
+    slab_kernel<TO, TM><<<blocks, PTHREADS, product_smem(TM), s>>>(map_a, map_b, p);
+  } else {
+    opt_in(strip_kernel<TA, TM>, product_smem(TM), done);
+    strip_kernel<TA, TM><<<blocks, PTHREADS, product_smem(TM), s>>>(map_a, map_b, p);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The row tile: the largest whose blocks still cover every SM.
+template <typename TA, typename TO, bool SLAB>
+int product_t(const ProductArgs<TA, TO>& p, cudaStream_t s) {
+  const int sms = sm_count();
+  if (p.m >= 64 * sms) return launch_product<TA, TO, SLAB, 8>(p, s);
+  if (p.m >= 32 * sms) return launch_product<TA, TO, SLAB, 4>(p, s);
+  if (p.m >= 16 * sms) return launch_product<TA, TO, SLAB, 2>(p, s);
+  return launch_product<TA, TO, SLAB, 1>(p, s);
 }
 
 template <typename T>
@@ -608,22 +1042,23 @@ int trinv_t(const void* t, int ldt, int unit, void* inv, int d, cudaStream_t s) 
 template <typename T>
 int strip_t(const void* b, int ldb, const void* inv, int trans, void* out, int ldo,
             void* out32, int ld32, int m, int d, cudaStream_t s) {
-  const dim3 grid((d + BN - 1) / BN, (m + BM - 1) / BM);
-  gemm_kernel<T, T, false><<<grid, GEMM_THREADS, 0, s>>>(
-      static_cast<const T*>(b), ldb, static_cast<const float*>(inv), d, trans, nullptr, 0,
-      static_cast<T*>(out), ldo, static_cast<float*>(out32), ld32, m, d, d);
-  return static_cast<int>(cudaGetLastError());
+  const ProductArgs<T, T> p{static_cast<const T*>(b), ldb, static_cast<const float*>(inv), d,
+                            trans, nullptr, 0, static_cast<T*>(out), ldo,
+                            static_cast<float*>(out32), ld32, m, d, d,
+                            sizeof(T) == 4 && aligned16(b, ldb), trans && aligned16(inv, d),
+                            aligned16(out, ldo) && (out32 == nullptr || aligned16(out32, ld32))};
+  return product_t<T, T, false>(p, s);
 }
 
 template <typename T>
 int slab_t(const void* p32, int ldp, const void* c, int ldc, void* out, int ldo, int m,
            int w, int d, cudaStream_t s) {
-  const dim3 grid((w + BN - 1) / BN, (m + BM - 1) / BM);
-  const float* p = static_cast<const float*>(p32);
-  gemm_kernel<float, T, true><<<grid, GEMM_THREADS, 0, s>>>(
-      p, ldp, p, ldp, 1, static_cast<const T*>(c), ldc, static_cast<T*>(out), ldo, nullptr,
-      0, m, w, d);
-  return static_cast<int>(cudaGetLastError());
+  const float* pp = static_cast<const float*>(p32);
+  const bool vec = aligned16(p32, ldp);
+  const ProductArgs<float, T> p{pp, ldp, pp, ldp, 1, static_cast<const T*>(c), ldc,
+                                static_cast<T*>(out), ldo, nullptr, 0, m, w, d, vec, vec,
+                                aligned16(out, ldo) && aligned16(c, ldc)};
+  return product_t<float, T, true>(p, s);
 }
 
 }  // namespace

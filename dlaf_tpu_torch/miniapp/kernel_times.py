@@ -19,12 +19,20 @@ same split by CUDA kernel (the inverse apart from the strip product, say);
 ``batch_ms``, CUDA-event time over 50 back-to-back calls divided by 50 (the
 card's rate when the host keeps up); ``single_ms``, the median of 25 single
 calls timed with CUDA events, as ``chip_smoke.py`` times them (host work
-included). Shapes: f32 panels d=256, strip m=16128; Ozaki slices s=8 of
+included). Shapes: f32 panels d=256, strip m=16128 (also the strip and
+slab products alone, through the panel library's C entries, at m=16128
+beside the f32 ``torch.matmul`` of the same shapes, TF32 off, and at
+m=1000); Ozaki slices s=8 of
 (16128, 256) and (256, 256) float64 operands; the pair product and the
 trailing update at the distributed Cholesky's first step on rank (0, 0) of a
 2x2 grid (N=16384: 32 x 32 pairs of 256), the update in place on a strided
 view of a shard, with the uplo 'L' panels and with the uplo 'U' ones (the
-row panel a transposed view).
+row panel a transposed view); the Givens undo at 8192 rotations on 16384
+float64 columns, on a seeded list with the Toeplitz merge's structure
+(disjoint neighbouring row pairs, last pair first). Each line of a kernel
+with a single-call bound carries ``bound_ms`` (the larger of its bytes over
+3.35 TB/s and its operations over 67 TFLOP/s float32 or 34 TFLOP/s
+float64).
 
 After the kernels it times the f32 paths ``chip_smoke.py`` drives through
 ``miniapp_cholesky.run`` (main-L, panel-U, scan-f32, dist-L, dist-U, with
@@ -61,7 +69,10 @@ def main() -> int:
     from dlaf_tpu_torch.tile_ops import panel_kernels as pk
     from dlaf_tpu_torch.tile_ops import update_kernels as uk
 
-    cb.build_all([pk.LIBRARY, ok.LIBRARY, uk.LIBRARY])
+    from dlaf_tpu_torch.tile_ops import givens_kernels as gk
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cb.build_all([pk.LIBRARY, ok.LIBRARY, uk.LIBRARY, gk.LIBRARY])
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     dev = torch.device("cuda")
@@ -87,7 +98,31 @@ def main() -> int:
     vr_t = vr.mT.contiguous().mT      # as the uplo 'U' sweep passes its row panel
     pa = slices(randn(32 * d, d, dtype=torch.float64), -1).reshape(8, 32, d, d)
     pb = slices(randn(32 * d, d, dtype=torch.float64), -1).reshape(8, 32, d, d)
-    panel = ("potrf_kernel", "trinv_kernel", "gemm_kernel")
+    # the strip and slab products: gemm_kernel before their redesign
+    panel = ("potrf_kernel", "trinv_kernel", "gemm_kernel", "strip_kernel", "slab_kernel")
+    lib, st = pk.LIBRARY.load(), cb.stream(diag)
+    inv = torch.empty((d, d), dtype=torch.float32, device=dev)
+    cb.check(lib.dlaf_trinv(0, fac.data_ptr(), d, 0, inv.data_ptr(), d, st), "trinv")
+    prod, p32 = torch.empty((m, d), device=dev), randn(m, d)
+
+    def strip_product(rows=m):
+        cb.check(lib.dlaf_strip(0, strip.data_ptr(), d, inv.data_ptr(), 1, prod.data_ptr(), d,
+                                None, 0, rows, d, st), "strip")
+
+    def slab_product(rows=m):
+        cb.check(lib.dlaf_slab(0, p32.data_ptr(), d, slab.data_ptr(), d, prod.data_ptr(), d,
+                               rows, d, d, st), "slab")
+
+    # the Toeplitz merge's rotations: rows (2k, 2k + 1), the last pair first
+    n, nrot = 16384, 8192
+    rng = np.random.default_rng(20261016)
+    th = rng.uniform(0.0, 2.0 * np.pi, nrot)
+    giv = np.column_stack([np.arange(n - 2, -1, -2), np.arange(n - 1, 0, -2), np.cos(th),
+                           np.sin(th)])
+    u = torch.randn(n, n, generator=gen, device=dev, dtype=torch.float64)
+    bounds = {"strip_product": max((d * d + 2 * m * d) * 4 / 3.35e12, m * d * d / 67e12),
+              "slab_product": max((m * d + 2 * m * d) * 4 / 3.35e12, 2 * m * d * d / 67e12),
+              "givens_undo": max(2 * n * n * 8 / 3.35e12, 6 * nrot * n / 34e12)}
     # the copies the parent's update wrapper made of transposed panels count
     update = ("masked_update_kernel", "plan_kernel", "elementwise_kernel", "Memcpy")
     kernels = {
@@ -103,6 +138,15 @@ def main() -> int:
                                    update),
         "masked_trailing_update_U": (lambda: uk.masked_trailing_update(block, vr_t, vc, mode_u),
                                      update),
+        "strip_product": (strip_product, panel),
+        "slab_product": (slab_product, panel),
+        # a late step's strip, as the main path's m shrinks
+        "strip_product_m1000": (lambda: strip_product(1000), panel),
+        "slab_product_m1000": (lambda: slab_product(1000), panel),
+        # library yardsticks (every CUDA kernel of the call counts)
+        "matmul_f32_strip": (lambda: strip @ inv.T, None),
+        "matmul_f32_slab": (lambda: p32 @ p32[:d].T, None),
+        "givens_undo": (lambda: gk.givens_undo(u, giv), ("givens_undo_kernel",)),
     }
 
     def events(fn, calls):
@@ -126,12 +170,14 @@ def main() -> int:
             torch.cuda.synchronize()
         by = {}
         for e in prof.events():
-            hit = next((n for n in names if n in e.name), None)
+            hit = e.name[:48] if names is None else next((k for k in names if k in e.name), None)
             if e.device_type == torch.autograd.DeviceType.CUDA and hit:
                 by[hit] = by.get(hit, 0.0) + e.time_range.elapsed_us() / 10 / 1e3
-        print(json.dumps({"label": args.label, "kernel": name, "device_ms": sum(by.values()),
-                          "by_kernel": by, "batch_ms": batch, "single_ms": single,
-                          "card": card}), flush=True)
+        line = {"label": args.label, "kernel": name, "device_ms": sum(by.values()),
+                "by_kernel": by, "batch_ms": batch, "single_ms": single, "card": card}
+        if name in bounds:
+            line["bound_ms"] = bounds[name] * 1e3
+        print(json.dumps(line), flush=True)
     walls(args.label, card)
     return 0
 

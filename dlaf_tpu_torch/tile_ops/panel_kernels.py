@@ -29,10 +29,14 @@ first use into ``_build/``, bound with ``ctypes``; see
     resident in shared memory and inverted in place by recursive doubling
     (all 8 x 8 diagonal blocks at once, then ``X21 = -X22 (T21 X11)`` for
     b = 8 .. 128, every loop over the non-zero range only, so that a NaN
-    reaches the rows it reaches in the reference's substitution), then a
-    shared-memory tiled f32 product over many blocks forms
-    ``b @ op(inv)``. Left-side solves map onto the right-side kernel by the
-    transpose identity, as in the reference.
+    reaches the rows it reaches in the reference's substitution), then the
+    strip product ``b @ op(inv)`` over many blocks: f32 FMAs from 8 x 8
+    register tiles, A resident in shared memory and B streamed by the TMA,
+    each 32-column group running only the K chunks the triangular inverse
+    reaches (9 of 16), with the skipped chunks' ``b * 0`` added so that a
+    non-finite ``b`` gives the dense product's NaN. Left-side solves map
+    onto the right-side kernel by the transpose identity, as in the
+    reference.
 
 :func:`factor_solve`
     Replaces ``pallas_panel._fused_factor_solve_rows`` (:442) and
@@ -50,7 +54,9 @@ first use into ``_build/``, bound with ``ctypes``; see
     ``slab - mask(p @ p[:w]^T)``. Four launches on one stream: the factor
     (one block), its inverse (one block), the strip product (which also
     keeps the solved strip in f32 for the slab), then the masked slab
-    product, which reads ``p0 = p[:w]`` after the strip launch finished.
+    product (the strip product's kernel body, dense over K, a tile wholly
+    above the mask only copying ``slab``), which reads ``p0 = p[:w]`` after
+    the strip launch finished.
 
 Nothing is padded: the kernels take d, m, w and leading dimensions and
 mask ragged edges themselves. ``uplo='U'`` is mapped onto the lower kernels
@@ -284,9 +290,10 @@ def panel_solve(side: str, uplo: str, op: str, diag: str, a: torch.Tensor,
     """Panel TRSM against one triangular tile (see :func:`panel_solve_plain`).
 
     Replaces ``pallas_panel._fused_solve_rows``/``fused_panel_solve``. Bound
-    by the strip product's flops (m d^2) and bytes; the inverse the TPU
-    kept in VMEM across its in-order grid is a one-block launch here, then
-    a many-block tiled f32 product applies it."""
+    by the strip product's FMAs (m d^2 / 2 on the triangle) and the shared
+    memory that feeds them; the inverse the TPU kept in VMEM across its
+    in-order grid is a one-block launch here, then a many-block f32
+    product applies it over the triangle's K chunks only."""
     if a.device.type == "cpu":
         return panel_solve_plain(side, uplo, op, diag, a, b, alpha=alpha)
     out_dtype = b.dtype
