@@ -25,8 +25,9 @@ dense product's; the slab at w = d and w < d with a NaN above the mask);
 the Givens undo bit for bit on rotation lists that stress its schedule
 (disjoint pairs, anchor chains, a moving anchor, repeated pairs, 24-row
 mixes; g = 3001, 2048, 17; w = 1000, 333, 129); the Ozaki slice kernels
-(product, syrk) bit for bit at the main path's shapes, ragged shapes, K = 32, 224, 256 and
-1024 and 1, 2, 8 and 9 slices; the distributed Cholesky's two kernels at
+(product, syrk) bit for bit at the main path's shapes, ragged shapes,
+K = 32, 224, 256 and 1024 and 1, 2, 8 and 9 slices; the distributed
+Cholesky's two kernels at
 the shapes of its first step on one rank of a 2x2 grid (N=16384, nb=256:
 32 x 32 tile pairs) and on ragged tiles: the predicated trailing update in
 float32 and bfloat16, modes 0-3, in place on a strided view of a shard, at
