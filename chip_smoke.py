@@ -61,6 +61,22 @@ and the distributed Cholesky with every rank of the grid on the one card
    product for the panels and the look-ahead column;
 9. dist-z: N=4096, nb=256, complex128, uplo U, 2x2, native (no kernel);
 
+the multi-process form (``comm/multihost.py``: one process per rank):
+
+9b. mp: 4 processes spawned on this card (2x2, ``cuda:0`` each, gloo, a
+    ``file://`` rendezvous) factor dist-L (float32, defaults) and
+    dist-f64 (``f64_gemm=mxu``, ``f64_trsm=mixed``, ``ozaki_impl=
+    pallas``) and solve config #2's LLNN at N=4096, nb=256; each
+    process's shard must be bitwise the single controller's on the same
+    card, and the launches summed over the processes its counts; then
+    ``torchrun --standalone --nproc-per-node 4 -m
+    dlaf_tpu_torch.miniapp.miniapp_cholesky -m 16384 -b 256 --grid-rows 2
+    --grid-cols 2 --share-device`` in float32 and float64, each with one
+    ``check: PASSED``, its best wall printed beside the single
+    controller's on the same grid (dist-L's, and a float64 run of the
+    same call); with 4 or more visible cards the NCCL form (one card per
+    process) of the float32 run, else one line saying it was not run;
+
 the distributed scan Cholesky (``cholesky_trailing=scan``, 2x2):
 
 10. dist-scan-L: N=16384, float32, uplo L, the fused factor+solve at the
@@ -215,6 +231,7 @@ import contextlib
 import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2306,6 +2323,214 @@ def givens_checks(torch, dev, gk) -> None:
                 raise AssertionError(f"givens_undo {kind} ({n}, {w}) g={g} differs")
 
 
+# ---------------------------------------------------------------------------
+# The multi-process form: one process per rank
+# ---------------------------------------------------------------------------
+
+#: The spawned processes' cases at N=4096, nb=256 on 2x2, every rank on
+#: cuda:0 over gloo: (name, kind, dtype letter, knobs).
+MP_N, MP_NB = 4096, 256
+MP_CASES = (("dist-L", "cholesky", "s", ()),
+            ("dist-f64", "cholesky", "d", ("--dlaf:f64-gemm=mxu", "--dlaf:f64-trsm=mixed",
+                                           "--dlaf:ozaki-impl=pallas")),
+            ("trsm-d", "solve", "d", ()))
+
+
+def _mp_case(kind, letter, knobs, grid, n: int = MP_N, nb: int = MP_NB):
+    """One case of :data:`MP_CASES` on ``grid`` (single-controller or
+    multi-process): the result's shards this process holds, on the host,
+    and the kernels' launch counts of the call alone."""
+    import numpy as np
+    import torch
+
+    from dlaf_tpu_torch import config
+    from dlaf_tpu_torch.algorithms.cholesky import cholesky
+    from dlaf_tpu_torch.algorithms.triangular import triangular_solve
+    from dlaf_tpu_torch.comm.sync import barrier
+    from dlaf_tpu_torch.common.index2d import GlobalElementSize, TileElementSize
+    from dlaf_tpu_torch.matrix.matrix import Matrix
+    from dlaf_tpu_torch.miniapp.generators import hpd_element_fn
+    from dlaf_tpu_torch.tile_ops import givens_kernels as gk
+    from dlaf_tpu_torch.tile_ops import ozaki_kernels as ok
+    from dlaf_tpu_torch.tile_ops import panel_kernels as pk
+    from dlaf_tpu_torch.tile_ops import update_kernels as uk
+
+    config.initialize(argv=list(knobs))
+    dtype = {"s": np.float32, "d": np.float64}[letter]
+    size, tile = GlobalElementSize(n, n), TileElementSize(nb, nb)
+    if kind == "cholesky":
+        args = (Matrix.from_element_fn(hpd_element_fn(n, dtype), size, tile, grid,
+                                       dtype=dtype),)
+        call = lambda m: cholesky("L", m)   # noqa: E731
+    else:   # config #2's solve, LLNN, at N=4096
+        am = Matrix.from_element_fn(lambda i, j: 1.0 / (1.0 + (i - j).abs())
+                                    + 2.0 * n * (i == j), size, tile, grid, dtype=dtype)
+        bm = Matrix.from_element_fn(lambda i, j: torch.cos(0.001 * (i + 1))
+                                    + torch.sin(0.002 * (j + 1)), size, tile, grid, dtype=dtype)
+        args = (am, bm)
+        call = lambda a, b: triangular_solve("L", "L", "N", "N", 1.0, a, b)   # noqa: E731
+    barrier(*args)
+    kmods = (pk, ok, uk, gk)
+    for m in kmods:
+        m.reset_launches()
+    out = call(*args)
+    barrier(out)
+    counts = {k: v for m in kmods for k, v in m.LAUNCHES.items()}
+    return {i: s.cpu() for i, s in enumerate(out.storage) if s is not None}, counts
+
+
+def _mp_rank(rank: int, world: int, rdv: str, out_dir: str, device: str, n: int,
+             nb: int) -> None:
+    """A spawned process: rank ``rank`` of a 2x2 grid on ``device`` over
+    gloo; runs :data:`MP_CASES` and saves its shards and counts."""
+    import torch
+
+    from dlaf_tpu_torch.comm import multihost
+
+    multihost.initialize_multihost(f"file://{rdv}", world, rank, backend="gloo", timeout=600)
+    grid = multihost.multihost_grid(2, 2, device=device)
+    for name, kind, letter, knobs in MP_CASES:
+        shards, counts = _mp_case(kind, letter, knobs, grid, n, nb)
+        torch.save({"shards": shards, "counts": counts},
+                   os.path.join(out_dir, f"{name}.r{rank}.pt"))
+    multihost.finalize_multihost()
+
+
+def _run_group(cmd, timeout: float, env) -> str:
+    """Run ``cmd`` in a session of its own and return its standard output;
+    on a timeout kill the whole session (``torchrun`` and its workers) and
+    raise; on a nonzero exit raise with the output's tail."""
+    import signal
+
+    p = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                         env=env, start_new_session=True)
+    try:
+        out, err = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        p.communicate()
+        raise AssertionError(f"{' '.join(cmd[3:8])}: no end within {timeout} s")
+    if p.returncode:
+        ranks = "\n".join([ln for ln in err.splitlines() if ln.startswith("[rank")][-60:])
+        raise AssertionError(f"{' '.join(cmd)} exited {p.returncode}:\n{out[-3000:]}\n"
+                             f"{ranks}\n{err[-3000:]}")
+    return out
+
+
+def multiprocess_phase(torch, card, launches, sc_walls, device: str = "cuda:0",
+                       n: int = MP_N, nb: int = MP_NB, big=("-m", "16384", "-b", "256"),
+                       app_args=()) -> None:
+    """The multi-process form on this card (module docstring, the
+    multi-process phase); fails on any disagreement. ``device``, the
+    sizes and ``app_args`` (extra miniapp arguments) let a CPU rehearsal
+    run it small."""
+    import re
+    import tempfile
+
+    import numpy as np
+
+    from dlaf_tpu_torch.comm.grid import shared_grid
+
+    # the processes share the card with this one: hand back what its
+    # allocator caches from the earlier phases
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    # the single controller's factors, solve and launch counts on 2x2
+    grid = shared_grid(2, 2, torch.device(device))
+    ref = {name: _mp_case(kind, letter, knobs, grid, n, nb)
+           for name, kind, letter, knobs in MP_CASES}
+    tmp = tempfile.mkdtemp(prefix="dlaf_mp_")
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_mp_rank,
+                         args=(i, 4, os.path.join(tmp, "rdv"), tmp, device, n, nb))
+             for i in range(4)]
+    t = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + 300
+    for p in procs:
+        p.join(timeout=max(deadline - time.monotonic(), 1))
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join()
+    if hung or any(p.exitcode for p in procs):
+        raise AssertionError(f"multi-process: exit codes {[p.exitcode for p in procs]}"
+                             f"{' (killed at the 300 s timeout)' if hung else ''}")
+    print(f"[mp] 4 spawned processes (2x2, {device} each, gloo) ran {len(MP_CASES)} calls at "
+          f"N={n} nb={nb} in {time.perf_counter() - t:.1f} s", flush=True)
+    for name, _, letter, _ in MP_CASES:
+        want_shards, want_counts = ref[name]
+        counts = {k: 0 for k in want_counts}
+        same, worst = True, 0.0
+        for i in range(4):
+            got = torch.load(os.path.join(tmp, f"{name}.r{i}.pt"))
+            for k, v in got["counts"].items():
+                counts[k] += v
+            (idx, shard), = got["shards"].items()
+            want = want_shards[idx]
+            if idx != i or not torch.equal(shard, want):
+                same = False
+                worst = max(worst, float((shard.double() - want.double()).abs().max()
+                                         / want.double().abs().max()))
+        tol = 60 * n * float(np.finfo({"s": np.float32, "d": np.float64}[letter]).eps)
+        live = {k: v for k, v in counts.items() if v}
+        print(f"[mp] {name:8s} shards bitwise equal to the single controller's: {same}"
+              f"{'' if same else f' (max rel diff {worst:.3e}, 60 n eps {tol:.3e})'}; "
+              f"launches summed over the processes {live}, single controller "
+              f"{ {k: v for k, v in want_counts.items() if v} }", flush=True)
+        if not same:
+            raise AssertionError(f"multi-process {name}: shards differ from the single "
+                                 f"controller's (max rel diff {worst:.3e})")
+        if counts != want_counts:
+            raise AssertionError(f"multi-process {name}: launches {counts}, single "
+                                 f"controller {want_counts}")
+        for k, v in counts.items():
+            launches[k] += v
+    del ref, grid
+    shutil.rmtree(tmp, ignore_errors=True)
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+    # the user's launch: torchrun, one process per rank, sharing this card
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": root, "GLOO_SOCKET_IFNAME": "lo"}
+    for letter, nruns in (("s", "2"), ("d", "1")):
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", "4", "-m", "dlaf_tpu_torch.miniapp.miniapp_cholesky",
+               *big, "--grid-rows", "2", "--grid-cols", "2", "--share-device", "--type", letter,
+               "--nruns", nruns, "--check-result", "last", *app_args]
+        t = time.perf_counter()
+        out = _run_group(cmd, 600, env)
+        print(out, end="", flush=True)
+        walls = [float(m.group(1)) for m in re.finditer(r"^\[\d+\] ([0-9.]+)s ", out, re.M)]
+        if out.count("check: PASSED") != 1 or len(walls) != int(nruns):
+            raise AssertionError(f"torchrun miniapp_cholesky --type {letter}: expected one "
+                                 f"'check: PASSED' and {nruns} run lines")
+        sc = sc_walls.get(letter)
+        print(f"[mp] torchrun 4 processes {' '.join(big)} 2x2 --share-device (gloo) type {letter}:"
+              f" best wall {min(walls):.6f} s; single controller on the same grid "
+              f"{'%.6f s' % sc if sc else 'not measured'} ({time.perf_counter() - t:.1f} s with "
+              f"start-up and check) [{card}] (four processes on one card, host-staged gloo: "
+              "not a multi-card measurement)", flush=True)
+    visible = torch.cuda.device_count()
+    if visible < 4:
+        print(f"[mp] NCCL form not run: {visible} visible card(s); NCCL refuses two ranks on "
+              "one card, so the form needs one card per rank (4 for 2x2)", flush=True)
+        return
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           "4", "-m", "dlaf_tpu_torch.miniapp.miniapp_cholesky", "-m", "16384", "-b", "256",
+           "--grid-rows", "2", "--grid-cols", "2", "--type", "s", "--nruns", "2",
+           "--check-result", "last"]
+    out = _run_group(cmd, 600, env)
+    print(out, end="", flush=True)
+    walls = [float(m.group(1)) for m in re.finditer(r"^\[\d+\] ([0-9.]+)s ", out, re.M)]
+    if out.count("check: PASSED") != 1 or not walls:
+        raise AssertionError("torchrun NCCL miniapp_cholesky: no 'check: PASSED' line")
+    print(f"[mp] NCCL 4 processes on 4 cards N=16384 nb=256 2x2 type s: best wall "
+          f"{min(walls):.6f} s [{card}]", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2673,6 +2898,7 @@ def main() -> int:
     # every such step), the diagonal tile's factor on every rank.
     t_phase = time.perf_counter()
     share = ["--share-device", "--nruns", "2", "--nwarmups", "1", "--check-result", "last"]
+    dist_walls = {}
     for name, argv, n, ranks, letter, expect in (
             ("dist-L", ["--type", "s", "--uplo", "L", "--grid-rows", "2", "--grid-cols", "2",
                         "--dlaf:step-impl=fused"], 16384, 4, "s",
@@ -2692,12 +2918,21 @@ def main() -> int:
             ("dist-z", ["--type", "z", "--uplo", "U", "--grid-rows", "2", "--grid-cols", "2"],
              4096, 4, "z", {})):
         t = drive(["-m", str(n), "-b", "256", *argv, *share], n, 256, 3, expect)
+        dist_walls[name] = t
         flops = n ** 3 / 3 * (4 if letter == "z" else 1)
         print(f"[dist] {name:8s} N={n} nb=256 {ranks} ranks on one card: {t:.6f} s "
               f"{flops / t / 1e9:.2f} GFlop/s [{card}] (collectives are device-local copies "
               "and every rank repeats the diagonal factor: not a communication measurement)",
               flush=True)
     print(f"[phase] distributed {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # ---- phase 2b': the multi-process form, one process per rank ---------
+    # the single controller's float64 wall on the grid of the torchrun run
+    t_phase = time.perf_counter()
+    d_wall = drive(["-m", "16384", "-b", "256", "--type", "d", "--grid-rows", "2",
+                    "--grid-cols", "2", *share], 16384, 256, 3, {})
+    multiprocess_phase(torch, card, launches, {"s": dist_walls["dist-L"], "d": d_wall})
+    print(f"[phase] multi-process {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # ---- phase 2c: the distributed scan Cholesky and the triangular solve
     # and multiply (config #2: double, m = n = 8192, nb=256, 2x2) ----------

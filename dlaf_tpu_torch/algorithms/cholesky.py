@@ -432,8 +432,12 @@ def _cholesky_dist(lts, dist, *, uplo, use_pallas=False, use_mxu=False, use_mixe
 
     The reference's ``_build_dist_cholesky`` runs ``factorize`` once per
     mesh coordinate inside ``shard_map``; here one controller runs each of
-    its three phases for every rank in turn, and the collectives of
-    :mod:`..comm.collectives` exchange the per-rank values between phases:
+    its three phases for every rank in turn (in the multi-process form,
+    :mod:`..comm.multihost`, each process for its own rank: the loops run
+    over ``cc.local_ranks``, the owners' writes are guarded by
+    ``cc.is_local`` and every process issues the same collectives), and
+    the collectives of :mod:`..comm.collectives` exchange the per-rank
+    values between phases:
 
     * ``panel_chain`` (:797-916): the diagonal tile to every rank
       (``bcast2d``), its factor on EVERY rank (the reference's redundant
@@ -523,11 +527,10 @@ def _cholesky_dist(lts, dist, *, uplo, use_pallas=False, use_mxu=False, use_mixe
         else:
             pan = ranks(lambda r, c: solve("R" if lower else "L", uplo, lkk[r][c], src(r, c),
                                            inv[r][c] if inv is not None else None))
-        for r in range(P):
-            for c in range(Q):
-                a, b = ds.valid_range(g_own[r][c], k, nt)
-                pan[r][c][:a].zero_()
-                pan[r][c][b:].zero_()
+        for r, c in cc.local_ranks(P, Q):
+            a, b = ds.valid_range(g_own[r][c], k, nt)
+            pan[r][c][:a].zero_()
+            pan[r][c][b:].zero_()
         vb = cc.bcast(pan, COL_AXIS if lower else ROW_AXIS, owner_c if lower else owner_r)
         count_t = (ltc - lu_c) if lower else (ltr - lu_r)
         if count_t == 0:
@@ -536,24 +539,25 @@ def _cholesky_dist(lts, dist, *, uplo, use_pallas=False, use_mxu=False, use_mixe
                     else ctx.g_rows(r, lu_r, count_t))
         vt = (transpose_col_to_rows(ctx, vb, lu_r, g_t) if lower
               else transpose_row_to_cols(ctx, vb, lu_c, g_t))
-        for r in range(P):
-            for c in range(Q):
-                a, b = ds.valid_range(g_t[r][c], k, nt)
-                vt[r][c][:a].zero_()
-                vt[r][c][b:].zero_()
+        for r, c in cc.local_ranks(P, Q):
+            a, b = ds.valid_range(g_t[r][c], k, nt)
+            vt[r][c][:a].zero_()
+            vt[r][c][b:].zero_()
         return lkk, pan, vb, vt
 
     def step_pre(k, ch):
         lkk, pan, vb, vt = ch
         owner_r, owner_c, kr, kc, lu_r, lu_c = indices(k)
-        lts[owner_r][owner_c][kr, kc] = lkk[owner_r][owner_c]
+        if cc.is_local(owner_r, owner_c):
+            lts[owner_r][owner_c][kr, kc] = lkk[owner_r][owner_c]
         if pan is None:
             return None
         lower = uplo == "L"
         count = (ltr - lu_r) if lower else (ltc - lu_c)
         # the owner column (row) keeps its solved panel tiles
-        for r, c in ([(r, owner_c) for r in range(P)] if lower
-                     else [(owner_r, c) for c in range(Q)]):
+        for r, c in cc.local_ranks(P, Q):
+            if (c != owner_c) if lower else (r != owner_r):
+                continue
             g = ctx.g_rows(r, lu_r, count) if lower else ctx.g_cols(c, lu_c, count)
             a, b = ds.valid_range(g, k, nt)
             if lower:
@@ -597,33 +601,32 @@ def _cholesky_dist(lts, dist, *, uplo, use_pallas=False, use_mxu=False, use_mixe
             return
         *_, lu_r, lu_c = indices(k)
         nrows, ncols = ltr - lu_r, ltc - lu_c
-        for r in range(P):
-            for c in range(Q):
-                block = lts[r][c][lu_r:, lu_c:]
-                mode = to_device(ds.pair_modes(ctx.g_rows(r, lu_r, nrows),
-                                             ctx.g_cols(c, lu_c, ncols), k, nt, uplo, stripped),
-                                 block.device, torch.int32)
-                if uplo == "L":
-                    vr, vc = vb[r][c], vt[r][c]
-                else:
-                    vc, vr = vb[r][c], vt[r][c]
-                if use_pallas:
-                    # uplo 'U' passes transposed tiles: the kernel's
-                    # contraction stays vr @ vc^T (mode 3: tile upper)
-                    uk.masked_trailing_update(block, vr if uplo == "L" else vr.mT,
-                                              vc if uplo == "L" else vc.mT, mode)
-                    continue
-                if uplo == "L":
-                    afl, bfl = vr.reshape(nrows * mb, mb), vc.conj().reshape(ncols * mb, mb)
-                else:
-                    afl = vr.conj().mT.reshape(nrows * mb, mb)
-                    bfl = vc.mT.reshape(ncols * mb, mb)
-                if use_mxu and use_oz_pallas:
-                    upd = _masked_oz_update(afl, bfl, mode, nrows, ncols, mb)
-                else:
-                    full = ds.oz_product(afl, bfl.mT) if use_mxu else afl @ bfl.mT
-                    upd = full.reshape(nrows, mb, ncols, mb).permute(0, 2, 1, 3)
-                ds.sub_masked_pairs(block, upd, mode, uplo)
+        for r, c in cc.local_ranks(P, Q):
+            block = lts[r][c][lu_r:, lu_c:]
+            mode = to_device(ds.pair_modes(ctx.g_rows(r, lu_r, nrows),
+                                         ctx.g_cols(c, lu_c, ncols), k, nt, uplo, stripped),
+                             block.device, torch.int32)
+            if uplo == "L":
+                vr, vc = vb[r][c], vt[r][c]
+            else:
+                vc, vr = vb[r][c], vt[r][c]
+            if use_pallas:
+                # uplo 'U' passes transposed tiles: the kernel's
+                # contraction stays vr @ vc^T (mode 3: tile upper)
+                uk.masked_trailing_update(block, vr if uplo == "L" else vr.mT,
+                                          vc if uplo == "L" else vc.mT, mode)
+                continue
+            if uplo == "L":
+                afl, bfl = vr.reshape(nrows * mb, mb), vc.conj().reshape(ncols * mb, mb)
+            else:
+                afl = vr.conj().mT.reshape(nrows * mb, mb)
+                bfl = vc.mT.reshape(ncols * mb, mb)
+            if use_mxu and use_oz_pallas:
+                upd = _masked_oz_update(afl, bfl, mode, nrows, ncols, mb)
+            else:
+                full = ds.oz_product(afl, bfl.mT) if use_mxu else afl @ bfl.mT
+                upd = full.reshape(nrows, mb, ncols, mb).permute(0, 2, 1, 3)
+            ds.sub_masked_pairs(block, upd, mode, uplo)
 
     la = None
     ch_next = None
@@ -642,13 +645,13 @@ def _cholesky_dist(lts, dist, *, uplo, use_pallas=False, use_mxu=False, use_mixe
 def _dist_info(lts, ctx: DistContext, n: int):
     """Info of a distributed factor (reference ``_dist_factor_info``): each
     rank's owner-masked bad-column vector, merged by an all-reduce max
-    over both grid axes."""
+    over both grid axes; every rank then holds the same vector."""
     if n == 0:
-        return torch.zeros((), dtype=torch.int32, device=lts[0][0].device)
+        return torch.zeros((), dtype=torch.int32, device=cc.local_value(lts).device)
     vec = cc.per_rank(ctx.P, ctx.Q, lambda r, c: hinfo.dist_diag_bad(
         lts[r][c], ctx.rr(r), ctx.rc(c), Pr=ctx.P, Qc=ctx.Q, nt=ctx.nt.row, mb=ctx.mb, n=n))
     vec = cc.all_reduce(cc.all_reduce(vec, ROW_AXIS, "max"), COL_AXIS, "max")
-    return hinfo.first_bad_info(vec[0][0] > 0)
+    return hinfo.first_bad_info(cc.local_value(vec) > 0)
 
 
 def _cholesky_dist_scan(lts, dist, *, uplo, use_mxu=False, use_mixed=False,
@@ -727,9 +730,11 @@ def _cholesky_dist_scan(lts, dist, *, uplo, use_mxu=False, use_mixed=False,
         ts = min(mb, n - k * mb)
         diag = bcast_diag(ctx, subs, k, row_off=lu_r0, col_off=lu_c0)
         diag = ranks(lambda r, c: pad_diag_identity(diag[r][c], ts))
+        # the pivot's owner only writes its diagonal tile
+        mine = cc.is_local(owner_r, owner_c)
         own = subs[owner_r][owner_c]
         # the stored edge zeros of a short tile, kept by the write-back
-        cand = own[kr, kc].clone() if ts < mb else None
+        cand = own[kr, kc].clone() if ts < mb and mine else None
         inv = None
         if use_mixed:
             fi = ranks(lambda r, c: mx.potrf_inv_refined(uplo, diag[r][c]))
@@ -749,7 +754,7 @@ def _cholesky_dist_scan(lts, dist, *, uplo, use_mxu=False, use_mixed=False,
                 t = torch.where(pad[:, None] | pad[None, :], cand, t)
             own[kr, kc] = t
 
-        if lkk is not None:
+        if lkk is not None and mine:
             write_diag(lkk[owner_r][owner_c])
 
         def src(r, c):
@@ -765,39 +770,38 @@ def _cholesky_dist_scan(lts, dist, *, uplo, use_mxu=False, use_mixed=False,
         else:
             pan = ranks(lambda r, c: tb.trsm_panel(side, uplo, "C", "N", lkk[r][c], src(r, c),
                                                    inv_a=inv[r][c] if inv is not None else None))
-        for r in range(P):
-            for c in range(Q):
-                a, b = ds.valid_range(g_rows[r] if lower else g_cols[c], k, nt)
-                pan[r][c][:a].zero_()
-                pan[r][c][b:].zero_()
-                if (c == owner_c) if lower else (r == owner_r):
-                    src(r, c)[a:b] = pan[r][c][a:b]
-        if fuse_step:
+        for r, c in cc.local_ranks(P, Q):
+            a, b = ds.valid_range(g_rows[r] if lower else g_cols[c], k, nt)
+            pan[r][c][:a].zero_()
+            pan[r][c][b:].zero_()
+            if (c == owner_c) if lower else (r == owner_r):
+                src(r, c)[a:b] = pan[r][c][a:b]
+        if fuse_step and mine:
             write_diag(lkk[owner_r][owner_c])
         if lower:
             vr = cc.bcast(pan, COL_AXIS, owner_c)
             vc = transpose_col_to_rows(ctx, vr, lu_r0, ranks(lambda r, c: g_cols[c]))
-            for r in range(P):
-                for c in range(Q):
-                    a, b = ds.valid_range(g_cols[c], k, nt)
-                    vc[r][c][:a].zero_()
-                    vc[r][c][b:].zero_()
+            for r, c in cc.local_ranks(P, Q):
+                a, b = ds.valid_range(g_cols[c], k, nt)
+                vc[r][c][:a].zero_()
+                vc[r][c][b:].zero_()
             return vr, vc
         vc = cc.bcast(pan, ROW_AXIS, owner_r)
         vr = transpose_row_to_cols(ctx, vc, lu_c0, ranks(lambda r, c: g_rows[r]))
-        for r in range(P):
-            for c in range(Q):
-                a, b = ds.valid_range(g_rows[r], k, nt)
-                vr[r][c][:a].zero_()
-                vr[r][c][b:].zero_()
+        for r, c in cc.local_ranks(P, Q):
+            a, b = ds.valid_range(g_rows[r], k, nt)
+            vr[r][c][:a].zero_()
+            vr[r][c][b:].zero_()
         return vr, vc
 
     def strip(subs, k, lu_r0, lu_c0, g_rows, g_cols, vr, vc):
         """The next column (uplo 'L') or row ('U') updated eagerly from
         this step's panel, on the ranks that own it."""
         if lower:
-            kc1, c = ctx.kc(k + 1) - lu_c0, ctx.owner_c(k + 1)
-            for r in range(P):
+            kc1, c1 = ctx.kc(k + 1) - lu_c0, ctx.owner_c(k + 1)
+            for r, c in cc.local_ranks(P, Q):
+                if c != c1:
+                    continue
                 xr = vr[r][c]
                 flat = xr.reshape(-1, mb)
                 pk1 = vc[r][c][kc1].conj().mT
@@ -807,8 +811,10 @@ def _cholesky_dist_scan(lts, dist, *, uplo, use_mxu=False, use_mixed=False,
                 a, b = ds.valid_range(g_rows[r], k + 1, nt)
                 ds.sub_masked_rows(subs[r][c][:, kc1], upd, (a, b), diag_slot, True)
             return
-        kr1, r = ctx.kr(k + 1) - lu_r0, ctx.owner_r(k + 1)
-        for c in range(Q):
+        kr1, r1 = ctx.kr(k + 1) - lu_r0, ctx.owner_r(k + 1)
+        for r, c in cc.local_ranks(P, Q):
+            if r != r1:
+                continue
             xc = vc[r][c]
             flat = xc.mT.reshape(-1, mb)
             pk1 = vr[r][c][kr1].conj().mT
@@ -837,22 +843,20 @@ def _cholesky_dist_scan(lts, dist, *, uplo, use_mxu=False, use_mixed=False,
         for k in range(k0, k0 + seg_len):
             vr, vc = panel_site(subs, k, lu_r0, lu_c0, g_rows, g_cols)
             if not lookahead:
-                for r in range(P):
-                    for c in range(Q):
-                        sub_pairs(subs[r][c], vr[r][c], vc[r][c], pair_modes(
-                            valid(g_rows[r], k), valid(g_cols[c], k), g_rows[r], g_cols[c]))
+                for r, c in cc.local_ranks(P, Q):
+                    sub_pairs(subs[r][c], vr[r][c], vc[r][c], pair_modes(
+                        valid(g_rows[r], k), valid(g_cols[c], k), g_rows[r], g_cols[c]))
                 continue
             # the deferred bulk of step k-1, less the column (row) k its
             # strip updated
-            for r in range(P):
-                for c in range(Q):
-                    rv, cv = valid(g_rows[r], k - 1), valid(g_cols[c], k - 1)
-                    if lower:
-                        cv &= g_cols[c] != k
-                    else:
-                        rv &= g_rows[r] != k
-                    sub_pairs(subs[r][c], pend[0][r][c], pend[1][r][c],
-                              pair_modes(rv, cv, g_rows[r], g_cols[c]))
+            for r, c in cc.local_ranks(P, Q):
+                rv, cv = valid(g_rows[r], k - 1), valid(g_cols[c], k - 1)
+                if lower:
+                    cv &= g_cols[c] != k
+                else:
+                    rv &= g_rows[r] != k
+                sub_pairs(subs[r][c], pend[0][r][c], pend[1][r][c],
+                          pair_modes(rv, cv, g_rows[r], g_cols[c]))
             if k + 1 < nt:
                 strip(subs, k, lu_r0, lu_c0, g_rows, g_cols, vr, vc)
             pend = (vr, vc)
@@ -877,7 +881,7 @@ def _cholesky_distributed(uplo, mat, *, donate, with_info, trailing, lookahead, 
                              f"ozaki_impl=pallas does not apply to dtype={dtype} mb={nb} on a "
                              f"grid (needs float64, mb<={ok.MASKED_MB_MAX}); using the "
                              "whole-rectangle Ozaki products")
-    shards = mat.storage if donate else [s.clone() for s in mat.storage]
+    shards = mat.storage if donate else [s if s is None else s.clone() for s in mat.storage]
     if donate:
         mat.storage = None
     P, Q = mat.dist.grid_size.row, mat.dist.grid_size.col

@@ -54,7 +54,7 @@ import torch
 
 from .. import config
 from ..comm import collectives as cc
-from ..comm.grid import COL_AXIS, ROW_AXIS
+from ..comm.grid import COL_AXIS, ROW_AXIS, refuse_multi_process
 from ..common.asserts import dlaf_assert
 from ..health import info as hinfo
 from ..matrix import ops as mops
@@ -485,6 +485,7 @@ def gen_to_std(uplo: str, a: Matrix, b_factor: Matrix, *, donate: bool = False,
     when the factor's diagonal is finite and nonzero, else the 1-based
     first singular global column (the result is the same either way)."""
     dlaf_assert(uplo in ("L", "U"), f"gen_to_std: bad uplo {uplo!r}")
+    refuse_multi_process(a.grid, "gen_to_std", "the multi-process HEGST")
     info = hinfo.matrix_diag_info(b_factor, singular=True) if with_info else None
     dlaf_assert(a.size == b_factor.size, "gen_to_std: A/B size mismatch")
     dlaf_assert(a.block_size == b_factor.block_size, "gen_to_std: block mismatch")

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..comm.grid import refuse_multi_process
 from ..common.asserts import dlaf_assert
 from ..matrix.matrix import Matrix
 from ..matrix.tiling import global_to_tiles, split_shards
@@ -25,6 +26,8 @@ def general_sub_multiply(alpha, a: Matrix, b: Matrix, beta, c: Matrix,
     ``c`` is not changed."""
     dlaf_assert(a.block_size == b.block_size == c.block_size,
                 "general_sub_multiply: block sizes must agree")
+    refuse_multi_process(c.grid, "general_sub_multiply",
+                         "the multi-process general_sub_multiply")
     nb = a.block_size.row
     a0 = tile_begin * nb
     a1 = min(tile_end * nb, a.size.row)

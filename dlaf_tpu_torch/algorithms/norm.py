@@ -136,4 +136,4 @@ def max_norm(mat: Matrix, uplo: str = "G") -> float:
         shards[r * Q + c], _rank_mask(shards[r * Q + c], (r - sr) % P, (c - sc) % Q, dist, uplo)))
     parts = cc.all_reduce(parts, ROW_AXIS, "max")
     parts = cc.all_reduce(parts, COL_AXIS, "max")
-    return float(parts[0][0])
+    return float(cc.local_value(parts))

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..comm import collectives as cc
-from ..comm.grid import COL_AXIS, ROW_AXIS
+from ..comm.grid import COL_AXIS, ROW_AXIS, refuse_multi_process
 from ..common.asserts import dlaf_assert
 from ..matrix.matrix import Matrix
 from ..matrix.tiling import global_to_tiles, storage_tile_grid, tiles_to_global
@@ -85,6 +85,7 @@ def permute(coord: str, perm, mat: Matrix, tile_begin: int = 0,
     a1 = ext if tile_end is None else min(tile_end * nb, ext)
     if a1 <= a0:
         return mat
+    refuse_multi_process(mat.grid, "permute", "the multi-process permute")
     if not mat.distributed:
         g = tiles_to_global(mat.storage, mat.dist)
         idx = torch.as_tensor(perm, dtype=torch.int64).to(g.device) + a0

@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..comm import collectives as cc
-from ..comm.grid import COL_AXIS, ROW_AXIS
+from ..comm.grid import COL_AXIS, ROW_AXIS, refuse_multi_process
 from ..common.asserts import dlaf_assert
 from ..matrix.matrix import Matrix
 from ..matrix.tiling import tiles_to_global
@@ -50,6 +50,7 @@ def t_factor(v, taus) -> torch.Tensor:
         return tl.larft(v, torch.as_tensor(taus, device=v.device))
     dlaf_assert(v.dist.nr_tiles.col == 1,
                 "t_factor: the reflector panel must be one block column")
+    refuse_multi_process(v.grid, "qr.t_factor", "the multi-process qr.t_factor")
     if not v.distributed:
         return tl.larft(tiles_to_global(v.storage, v.dist), torch.as_tensor(taus, device=v.device))
     dist = v.dist

@@ -11,7 +11,8 @@ op combinations with ``diag``, ``alpha``, local and distributed.
   (``trsm_rhs_chunk``), and one masked product (``blas.trmm``).
 * Distributed: the blocked substitution (accumulation) over tile rows or
   columns, with one controller running every rank as in
-  :mod:`.cholesky`: the pivot diagonal tile to every rank
+  :mod:`.cholesky` (or, in the multi-process form, each process its own
+  rank): the pivot diagonal tile to every rank
   (:func:`..matrix.panel.bcast_diag`), the pivot panel solved on every
   rank (the strip-solve kernel with ``panel_impl=fused``, else
   ``blas.trsm_panel``, which honours ``f64_trsm="mixed"``), row and column
@@ -187,10 +188,9 @@ def _dist_solve(ltas, ltbs, dist_a, dist_b, *, side, uplo, op, diag, panel_fused
             bk, own, piv = col_panel(ctx_b, ltbs, k), ctx_b.owner_c(k), ctx_b.kc(k)
         xk = ranks(lambda r, c: _panel_solve(side, uplo, op, diag, akk[r][c], bk[r][c],
                                              panel_fused))
-        for r in range(P):
-            for c in range(Q):
-                if (r if left else c) == own:
-                    slot(ltbs[r][c], piv)[...] = xk[r][c]
+        for r, c in cc.local_ranks(P, Q):
+            if (r if left else c) == own:
+                slot(ltbs[r][c], piv)[...] = xk[r][c]
         if cnt <= 0:
             continue
         g = ranks(lambda r, c: ctx_b.g_rows(r, lu, cnt) if left else ctx_b.g_cols(c, lu, cnt))
@@ -200,33 +200,31 @@ def _dist_solve(ltas, ltbs, dist_a, dist_b, *, side, uplo, op, diag, panel_fused
         subs = ranks(lambda r, c: ltbs[r][c][lu:lu + cnt] if left
                      else ltbs[r][c][:, lu:lu + cnt])
         if not lookahead:
-            for r in range(P):
-                for c in range(Q):
-                    subs[r][c].sub_(bulk(e[r][c], xk[r][c]))
+            for r, c in cc.local_ranks(P, Q):
+                subs[r][c].sub_(bulk(e[r][c], xk[r][c]))
             continue
         if pe is None:
             # the pending pair of the step before the first: zero
             pe = ranks(lambda r, c: ltbs[r][c].new_zeros((cnt, mb, mb)))
             pxk = ranks(lambda r, c: torch.zeros_like(xk[r][c]))
-        elif lu != prev_lu or cnt != pe[0][0].shape[0]:
+        elif lu != prev_lu or cnt != cc.local_value(pe).shape[0]:
             # the window moved: the slots it drops are zero in pe
             d = lu - prev_lu
             pe = ranks(lambda r, c: pe[r][c][d:d + cnt])
         prev_lu = lu
         knext = k + 1 if forward else k - 1
-        for r in range(P):
-            for c in range(Q):
-                # the deferred bulk of the previous step, then the next
-                # pivot's strip from this one
-                subs[r][c].sub_(bulk(pe[r][c], pxk[r][c]))
-                nxt = (ctx_b.kr(knext) if left else ctx_b.kc(knext)) - lu
-                if 0 <= knext < nt and 0 <= nxt < cnt and g[r][c][nxt] == knext:
-                    er = e[r][c][nxt]
-                    upd = (tb.contract("ab,cbd->cad", er, xk[r][c]) if left
-                           else tb.contract("bd,rab->rad", er, xk[r][c]))
-                    slot(subs[r][c], nxt).sub_(upd)
-                # the pending panel: this one less the strip's slot
-                _keep_slots(e[r][c], rem[r][c] & (g[r][c] != knext))
+        for r, c in cc.local_ranks(P, Q):
+            # the deferred bulk of the previous step, then the next
+            # pivot's strip from this one
+            subs[r][c].sub_(bulk(pe[r][c], pxk[r][c]))
+            nxt = (ctx_b.kr(knext) if left else ctx_b.kc(knext)) - lu
+            if 0 <= knext < nt and 0 <= nxt < cnt and g[r][c][nxt] == knext:
+                er = e[r][c][nxt]
+                upd = (tb.contract("ab,cbd->cad", er, xk[r][c]) if left
+                       else tb.contract("bd,rab->rad", er, xk[r][c]))
+                slot(subs[r][c], nxt).sub_(upd)
+            # the pending panel: this one less the strip's slot
+            _keep_slots(e[r][c], rem[r][c] & (g[r][c] != knext))
         pe, pxk = e, xk
 
 
@@ -312,13 +310,11 @@ def _dist_mult(ltas, ltbs, dist_a, dist_b, *, side, uplo, op, diag, scan):
             continue
         bk, e = _mult_panels(ctx_a, ctx_b, ltas, ltbs, k, side=side, uplo=uplo, op=op,
                              diag=diag, lu=lu, cnt=cnt, lq=lq, cnt_q=cnt_q, nt=nt)
-        for r in range(P):
-            for c in range(Q):
-                if left:
-                    out[r][c][lu:lu + cnt].add_(tb.contract("rab,cbd->rcad", e[r][c], bk[r][c]))
-                else:
-                    out[r][c][:, lu:lu + cnt].add_(
-                        tb.contract("rab,cbd->rcad", bk[r][c], e[r][c]))
+        for r, c in cc.local_ranks(P, Q):
+            if left:
+                out[r][c][lu:lu + cnt].add_(tb.contract("rab,cbd->rcad", e[r][c], bk[r][c]))
+            else:
+                out[r][c][:, lu:lu + cnt].add_(tb.contract("rab,cbd->rcad", bk[r][c], e[r][c]))
     return out
 
 
@@ -342,7 +338,8 @@ def _grid_shards(mat: Matrix, copy: bool):
     """The per-rank shards of ``mat`` as a nested list (copies with
     ``copy``)."""
     Q = mat.dist.grid_size.col
-    shards = [s.clone() for s in mat.storage] if copy else list(mat.storage)
+    shards = ([s if s is None else s.clone() for s in mat.storage] if copy
+              else list(mat.storage))
     return cc.per_rank(mat.dist.grid_size.row, Q, lambda r, c: shards[r * Q + c]), shards
 
 
@@ -380,7 +377,8 @@ def triangular_solve(side: str, uplo: str, op: str, diag: str, alpha, a: Matrix,
     if donate_b:
         b.storage = None
         for s in shards:
-            s.mul_(alpha)
+            if s is not None:
+                s.mul_(alpha)
     else:
         ltbs = cc.per_rank(len(ltbs), len(ltbs[0]), lambda r, c: alpha * ltbs[r][c])
         shards = [x for row in ltbs for x in row]
@@ -413,4 +411,5 @@ def triangular_multiply(side: str, uplo: str, op: str, diag: str, alpha, a: Matr
     ltbs, _ = _grid_shards(b, copy=False)
     out = _dist_mult(ltas, ltbs, a.dist, b.dist, side=side, uplo=uplo, op=op, diag=diag,
                      scan=config.resolve_step_mode(a.dist.nr_tiles.row, dev) == "scan")
-    return Matrix(b.dist, [x.mul_(alpha) for row in out for x in row], b.grid)
+    return Matrix(b.dist, [x if x is None else x.mul_(alpha) for row in out for x in row],
+                  b.grid)

@@ -40,13 +40,52 @@ is for receivers that only read the result: the ranks of one line that
 share a device then get one tensor, formed once (:func:`per_rank_once`),
 instead of a copy each. The values are the same either way; with one
 device per rank nothing is shared.
+
+**The multi-process form.** :func:`.multihost.multihost_grid` installs its
+grid as this process's world (:func:`install_world`). From then on
+:func:`per_rank` evaluates ``fn`` only for the rank this process drives
+and leaves ``None`` at every other rank, and each verb reads this rank's
+value, runs one ``torch.distributed`` collective on the line's process
+group (a grid row's or column's; the world for :func:`bcast2d`) and
+returns this rank's result in the same nested form. The values are
+bitwise the single controller's: a broadcast is ``broadcast`` from the
+source's process and the receivers (the source included) add 0.0; a
+``"sum"`` all-reduce is an all-gather and then the same fold in rank
+order (a ring sum would add in another order); :func:`all_reduce`'s
+other ops, :func:`reduce`, :func:`send_recv` (a broadcast along the line,
+kept on ``dst``) and :func:`all_to_all` (chunks of an all-gather) are
+formed the same way. Every process of a line must call the verb with a
+value of one shape and dtype, as the uniform slots of the distributed
+builders give; :func:`_transport` checks that before it moves data, so
+a mismatch raises on every process instead of hanging. With no world
+installed every function is the single controller's.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
+from ..common.asserts import dlaf_assert
 from .grid import COL_AXIS, ROW_AXIS
+
+#: The multi-process grid this process drives one rank of (None: the
+#: single controller). Process-wide, as the ``torch.distributed`` world it
+#: stands for is.
+_WORLD = None
+
+
+def install_world(grid) -> None:
+    """Make ``grid`` (a multi-process :class:`.grid.Grid`, or None) the
+    world the verbs run on."""
+    global _WORLD
+    dlaf_assert(grid is None or grid.multi_process, "install_world: not a multi-process grid")
+    _WORLD = grid
+
+
+def world():
+    """The installed multi-process grid, or None."""
+    return _WORLD
 
 
 def grid_shape(xs) -> tuple[int, int]:
@@ -54,9 +93,49 @@ def grid_shape(xs) -> tuple[int, int]:
     return len(xs), len(xs[0])
 
 
+def local_ranks(P: int, Q: int) -> list:
+    """The ranks ``(r, c)`` of a P x Q grid this process drives, row-major:
+    every rank under the single controller, one in the multi-process
+    form."""
+    if _WORLD is None:
+        return [(r, c) for r in range(P) for c in range(Q)]
+    dlaf_assert((P, Q) == (_WORLD.size.row, _WORLD.size.col),
+                f"a {P}x{Q} per-rank value in a {_WORLD.size.row}x{_WORLD.size.col} "
+                "multi-process world")
+    return _WORLD.local_ranks
+
+
+def is_local(r: int, c: int) -> bool:
+    """Does this process drive rank ``(r, c)``?"""
+    return _WORLD is None or _WORLD.is_local(r, c)
+
+
+def local_value(xs):
+    """The value of the first rank this process drives (rank (0, 0)'s under
+    the single controller): where every rank holds the same value, as after
+    an all-reduce, the one to read."""
+    r, c = local_ranks(*grid_shape(xs))[0]
+    return xs[r][c]
+
+
+def gather_grid(xs) -> list:
+    """Every rank's value of a nested per-rank list on this process: ``xs``
+    itself under the single controller; in the multi-process form the
+    values (of one shape on every rank) all-gathered along both grid
+    axes."""
+    if _WORLD is None:
+        return xs
+    full = local_value(all_gather(all_gather(xs, COL_AXIS), ROW_AXIS))
+    return [[full[r, c] for c in range(full.shape[1])] for r in range(full.shape[0])]
+
+
 def per_rank(P: int, Q: int, fn) -> list:
-    """``[[fn(r, c) for c] for r]``: one value per rank."""
-    return [[fn(r, c) for c in range(Q)] for r in range(P)]
+    """``[[fn(r, c) for c] for r]``: one value per rank, evaluated only for
+    the ranks this process drives (None elsewhere)."""
+    out = [[None] * Q for _ in range(P)]
+    for r, c in local_ranks(P, Q):
+        out[r][c] = fn(r, c)
+    return out
 
 
 def _line(xs, axis: str, r: int, c: int) -> list:
@@ -99,12 +178,123 @@ def _received(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """The broadcast's received value on ``like``'s device: a new tensor,
     ``x + 0.0`` for floating types."""
     y = x.to(like.device, copy=True)
+    return _plus_zero(y)
+
+
+def _plus_zero(y: torch.Tensor) -> torch.Tensor:
     return y.add_(0.0) if (y.is_floating_point() or y.is_complex()) else y
 
+
+# ---------------------------------------------------------------------------
+# The multi-process transport
+# ---------------------------------------------------------------------------
+
+_MAX_DIMS = 8
+_DTYPES = (torch.float32, torch.float64, torch.complex64, torch.complex128, torch.bfloat16,
+           torch.float16, torch.int8, torch.uint8, torch.int16, torch.int32, torch.int64,
+           torch.bool)
+
+
+def _header(x: torch.Tensor, device) -> torch.Tensor:
+    """dtype, rank and extents of ``x`` as a small int64 tensor."""
+    dlaf_assert(x.dim() <= _MAX_DIMS, f"a {x.dim()}-d value: at most {_MAX_DIMS} dims")
+    dlaf_assert(x.dtype in _DTYPES, f"no transport for dtype {x.dtype}")
+    h = [_DTYPES.index(x.dtype), x.dim(), *x.shape] + [-1] * (_MAX_DIMS - x.dim())
+    return torch.tensor(h, dtype=torch.int64, device=device)
+
+
+def _wire(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the collective sends it: complex as its real view, bool as
+    bytes (both bitwise)."""
+    if x.is_complex():
+        return torch.view_as_real(x)
+    return x.view(torch.uint8) if x.dtype == torch.bool else x
+
+
+def _unwire(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    if like.is_complex():
+        return torch.view_as_complex(t)
+    return t.view(torch.bool) if like.dtype == torch.bool else t
+
+
+def _transport(kind: str, x: torch.Tensor, group, src: int = -1):
+    """The one place a value crosses processes: ``kind`` "broadcast" (from
+    the global process rank ``src``) returns the source's value as a new
+    tensor on ``x``'s device; "all_gather" returns every group member's
+    value, in group rank order (ascending global rank), each a new tensor
+    on ``x``'s device.
+
+    Every member first all-gathers the values' dtypes and shapes and
+    raises when they differ, so a mismatch fails on every process instead
+    of hanging in the data collective. On a gloo group a CUDA tensor is
+    staged through host memory: copied to the host, the collective runs
+    there, the result is copied back to the device (gloo's own CUDA
+    support covers some collectives only, and is not relied on). NCCL
+    groups move CUDA tensors directly."""
+    staged = x.is_cuda and dist.get_backend(group) == "gloo"
+    wdev = torch.device("cpu") if staged else x.device
+    n = dist.get_world_size(group)
+    head = _header(x, wdev)
+    heads = [torch.empty_like(head) for _ in range(n)]
+    dist.all_gather(heads, head, group=group)
+    if any(not torch.equal(h, heads[0]) for h in heads):
+        shapes = [tuple(int(v) for v in h[2:2 + int(h[1])]) for h in heads]
+        raise ValueError(f"{kind}: the processes of the group hold values of different "
+                         f"shapes or dtypes {shapes} (this process: {tuple(x.shape)} "
+                         f"{x.dtype}); every process must pass the source's shape and dtype")
+    w = _wire(x.detach())
+    if kind == "broadcast":
+        buf = (w.to(wdev, memory_format=torch.contiguous_format, copy=True)
+               if dist.get_rank() == src else torch.empty(w.shape, dtype=w.dtype, device=wdev))
+        dist.broadcast(buf, src=src, group=group)
+        return _unwire(buf.to(x.device), x) if staged else _unwire(buf, x)
+    dlaf_assert(kind == "all_gather", f"unknown transport {kind!r}")
+    send = w.to(wdev).contiguous()
+    bufs = [torch.empty(w.shape, dtype=w.dtype, device=wdev) for _ in range(n)]
+    dist.all_gather(bufs, send, group=group)
+    return [_unwire(b.to(x.device), x) for b in bufs]
+
+
+def _world_line(axis: str):
+    """This process's rank, its line's group along ``axis`` and the global
+    process ranks of the line in rank order along the axis."""
+    r, c = _WORLD.local_ranks[0]
+    P, Q = _WORLD.size.row, _WORLD.size.col
+    if axis == ROW_AXIS:
+        return (r, c), _WORLD.col_group(c), [_WORLD.process_rank(i, c) for i in range(P)]
+    if axis == COL_AXIS:
+        return (r, c), _WORLD.row_group(r), [_WORLD.process_rank(r, j) for j in range(Q)]
+    raise ValueError(f"unknown axis {axis!r}")
+
+
+def _gather_line(xs, axis: str) -> list:
+    """Every value of this process's line along ``axis``, in rank order
+    along it (multi-process form)."""
+    (r, c), group, line = _world_line(axis)
+    got = _transport("all_gather", xs[r][c], group)
+    order = sorted(line)
+    return [got[order.index(g)] for g in line]
+
+
+def _only_local(xs, value) -> list:
+    """A nested per-rank list holding ``value`` at this process's rank."""
+    r, c = _WORLD.local_ranks[0]
+    out = [[None] * len(xs[0]) for _ in range(len(xs))]
+    out[r][c] = value
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The verbs
+# ---------------------------------------------------------------------------
 
 def bcast(xs, axis: str, src: int, *, shared: bool = False):
     """Broadcast the value of rank ``src`` along ``axis`` (reference
     ``kernels/broadcast.h``)."""
+    if _WORLD is not None:
+        (r, c), group, line = _world_line(axis)
+        return _only_local(xs, _plus_zero(_transport("broadcast", xs[r][c], group,
+                                                     src=line[src])))
     return _per_receiver(xs, axis, shared,
                          lambda r, c: _received(_line(xs, axis, r, c)[src], xs[r][c]))
 
@@ -113,26 +303,33 @@ def bcast2d(xs, owner_r: int, owner_c: int):
     """Broadcast rank ``(owner_r, owner_c)``'s value to the whole grid in
     one step: the diagonal-tile broadcast of every blocked step."""
     P, Q = grid_shape(xs)
+    if _WORLD is not None:
+        r, c = _WORLD.local_ranks[0]
+        return _only_local(xs, _plus_zero(_transport(
+            "broadcast", xs[r][c], dist.group.WORLD, src=_WORLD.process_rank(owner_r, owner_c))))
     return per_rank(P, Q, lambda r, c: _received(xs[owner_r][owner_c], xs[r][c]))
 
 
 _FOLD = {"sum": torch.add, "max": torch.maximum, "min": torch.minimum}
 
 
+def _fold(vals: list, op: str, dev) -> torch.Tensor:
+    acc = vals[0].to(dev, copy=True)
+    for v in vals[1:]:
+        acc = _FOLD[op](acc, v.to(dev))
+    return acc
+
+
 def all_reduce(xs, axis: str, op: str = "sum", *, shared: bool = False):
-    """All-reduce along ``axis`` (reference ``kernels/all_reduce.h``)."""
+    """All-reduce along ``axis`` (reference ``kernels/all_reduce.h``): the
+    fold of the values in rank order along the axis."""
     if op not in _FOLD:
         raise ValueError(f"unsupported reduce op {op!r}")
-
-    def one(r, c):
-        dev = xs[r][c].device
-        vals = _line(xs, axis, r, c)
-        acc = vals[0].to(dev, copy=True)
-        for v in vals[1:]:
-            acc = _FOLD[op](acc, v.to(dev))
-        return acc
-
-    return _per_receiver(xs, axis, shared, one)
+    if _WORLD is not None:
+        r, c = _WORLD.local_ranks[0]
+        return _only_local(xs, _fold(_gather_line(xs, axis), op, xs[r][c].device))
+    return _per_receiver(xs, axis, shared,
+                         lambda r, c: _fold(_line(xs, axis, r, c), op, xs[r][c].device))
 
 
 def reduce(xs, axis: str, root: int, op: str = "sum"):
@@ -148,6 +345,10 @@ def send_recv(xs, axis: str, src: int, dst: int):
     """Move the value of ``src`` to ``dst`` along ``axis`` (reference
     ``kernels/p2p.h``); every other rank gets zeros."""
     P, Q = grid_shape(xs)
+    if _WORLD is not None:
+        (r, c), group, line = _world_line(axis)
+        got = _transport("broadcast", xs[r][c], group, src=line[src])
+        return _only_local(xs, got if _pos(axis, r, c) == dst else torch.zeros_like(xs[r][c]))
     return per_rank(P, Q, lambda r, c: _line(xs, axis, r, c)[src].to(xs[r][c].device, copy=True)
                     if _pos(axis, r, c) == dst else torch.zeros_like(xs[r][c]))
 
@@ -158,6 +359,8 @@ def all_gather(xs, axis: str, *, tiled: bool = False, concat_axis: int = 0,
     axis ``concat_axis`` (of the axis' size), or concatenated along it
     when ``tiled``."""
     join = torch.cat if tiled else torch.stack
+    if _WORLD is not None:
+        return _only_local(xs, join(_gather_line(xs, axis), dim=concat_axis))
 
     def one(r, c):
         dev = xs[r][c].device
@@ -170,24 +373,35 @@ def all_to_all(xs, axis: str, *, split_axis: int, concat_axis: int):
     """Tiled all-to-all along ``axis`` (reference ``collectives.py:231``,
     the layout transpose of the distributed chase back-transform). Every
     value's ``split_axis`` must divide by the axis' rank count."""
+    P, Q = grid_shape(xs)
+    size = P if axis == ROW_AXIS else Q
+    for r, c in local_ranks(P, Q):
+        v = xs[r][c]
+        if v.shape[split_axis] % size:
+            raise ValueError(f"all_to_all: axis {split_axis} of {tuple(v.shape)} does not "
+                             f"divide by the {size} ranks along {axis!r}")
+    if _WORLD is not None:
+        (r, c), _, _ = _world_line(axis)
+        me = _pos(axis, r, c)
+        return _only_local(xs, torch.cat([v.chunk(size, dim=split_axis)[me]
+                                          for v in _gather_line(xs, axis)], dim=concat_axis))
+
     def one(r, c):
         dev = xs[r][c].device
-        line = _line(xs, axis, r, c)
         me = _pos(axis, r, c)
-        parts = [v.chunk(len(line), dim=split_axis)[me].to(dev) for v in line]
+        parts = [v.chunk(size, dim=split_axis)[me].to(dev) for v in _line(xs, axis, r, c)]
         return torch.cat(parts, dim=concat_axis)
 
-    for v in (x for row in xs for x in row):
-        if v.shape[split_axis] % len(_line(xs, axis, 0, 0)):
-            raise ValueError(f"all_to_all: axis {split_axis} of {tuple(v.shape)} does not "
-                             f"divide by the {len(_line(xs, axis, 0, 0))} ranks along {axis!r}")
-    P, Q = grid_shape(xs)
     return per_rank(P, Q, one)
 
 
 def barrier_value(xs, axis: str):
     """``x`` plus a zero reduced along ``axis``: the reference's
-    order-enforcing no-op (a fence between programs there)."""
+    order-enforcing no-op (a fence between programs there). In the
+    multi-process form the zero is all-reduced along the line."""
     P, Q = grid_shape(xs)
-    return per_rank(P, Q, lambda r, c: xs[r][c] + torch.zeros((), dtype=xs[r][c].dtype,
-                                                               device=xs[r][c].device))
+    zero = per_rank(P, Q, lambda r, c: torch.zeros((), dtype=xs[r][c].dtype,
+                                                   device=xs[r][c].device))
+    if _WORLD is not None:
+        zero = all_reduce(zero, axis)
+    return per_rank(P, Q, lambda r, c: xs[r][c] + zero[r][c])

@@ -41,7 +41,7 @@ import torch
 
 from .. import config
 from ..comm import collectives as cc
-from ..comm.grid import ROW_AXIS
+from ..comm.grid import ROW_AXIS, refuse_multi_process
 from ..common.asserts import dlaf_assert
 from ..matrix.matrix import Matrix
 from ..matrix.panel import (DistContext, element_valid, gather_sub_panel, gather_sub_panel_dyn,
@@ -218,6 +218,7 @@ def bt_band_to_tridiag(tri: TridiagResult, evecs):
     Matrix in its layout; reference ``bt_band_to_tridiag/api.h:21-22``)."""
     if not isinstance(evecs, Matrix):
         return _bt_b2t_local(tri, torch.as_tensor(evecs))
+    refuse_multi_process(evecs.grid, "bt_band_to_tridiag", "the multi-process back-transforms")
     if not evecs.distributed:
         out = _bt_b2t_local(tri, tiles_to_global(evecs.storage, evecs.dist))
         return Matrix(evecs.dist, global_to_tiles(out, evecs.dist), evecs.grid)
@@ -416,6 +417,7 @@ def bt_reduction_to_band(red: BandReduction, evecs):
     the step form ``dist_step_mode`` picks for ``ceil(n/band) - 1``
     panels. ``evecs`` is not modified."""
     a = red.matrix
+    refuse_multi_process(a.grid, "bt_reduction_to_band", "the multi-process back-transforms")
     dev = a.device.type
     if isinstance(evecs, Matrix) and a.distributed:
         dlaf_assert(evecs.grid is not None and evecs.grid.size == a.grid.size,

@@ -31,6 +31,7 @@ import numpy as np
 from ..algorithms.cholesky import cholesky
 from ..algorithms.gen_to_std import gen_to_std
 from ..algorithms.triangular import triangular_solve
+from ..comm.grid import refuse_multi_process
 from ..common.asserts import dlaf_assert
 from ..common.sync import hard_fence
 from ..common.timer import PhaseTimer
@@ -73,6 +74,7 @@ def eigensolver(uplo: str, a: Matrix, phases: Optional[PhaseTimer] = None,
     stages' intermediate results: ``"reduction"`` (the band reduction),
     ``"tridiag"`` (the chase's result) and ``"dc_stats"`` (the D&C's
     per-merge statistics)."""
+    refuse_multi_process(a.grid, "eigensolver", "the multi-process eigensolver stages")
     dlaf_assert(not resume, "eigensolver: resume=True needs the stage checkpoints, which "
                             "are not ported yet")
     dlaf_assert(a.size.row == a.size.col, "eigensolver: square only")
@@ -122,6 +124,7 @@ def gen_eigensolver(uplo: str, a: Matrix, b: Matrix, phases: Optional[PhaseTimer
     ``eigensolver::genEigensolver``). ``donate=True`` releases ``a``'s
     storage; ``b`` is never consumed. ``phases`` and ``keep`` as in
     :func:`eigensolver`."""
+    refuse_multi_process(a.grid, "gen_eigensolver", "the multi-process eigensolver stages")
     dlaf_assert(a.size == b.size, "gen_eigensolver: A/B size mismatch")
     pt = phases if phases is not None else PhaseTimer()
     fence, _ = _fences(phases)

@@ -52,7 +52,7 @@ import torch
 
 from .. import config
 from ..comm import collectives as cc
-from ..comm.grid import COL_AXIS, ROW_AXIS
+from ..comm.grid import COL_AXIS, ROW_AXIS, refuse_multi_process
 from ..common.asserts import dlaf_assert
 from ..common.index2d import GlobalElementIndex
 from ..matrix.matrix import Matrix
@@ -489,6 +489,7 @@ def reduction_to_band(a: Matrix, band_size: int | None = None, *,
     ``a``'s storage to the reduction (the reference's in-place semantics):
     ``a`` must not be used afterwards; with ``donate=False`` its storage is
     left as it was."""
+    refuse_multi_process(a.grid, "reduction_to_band", "the multi-process reduction to band")
     dlaf_assert(a.size.row == a.size.col, "reduction_to_band: square only")
     dlaf_assert(a.block_size.row == a.block_size.col, "square blocks only")
     nb = a.block_size.row

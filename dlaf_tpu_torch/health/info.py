@@ -9,12 +9,16 @@ grid each rank reads only the diagonal tiles it owns
 (:func:`dist_diag_bad`), and the distributed Cholesky merges the per-rank
 vectors with an all-reduce max over both grid axes. The triangular solve
 reads its info from the stored diagonal of ``A``
-(:func:`matrix_diag_info`).
+(:func:`matrix_diag_info`; on a multi-process grid by the same owner-masked
+merge).
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..comm import collectives as cc
+from ..comm.grid import COL_AXIS, ROW_AXIS
 
 
 def bad_diag_mask(d: torch.Tensor, *, singular: bool = False) -> torch.Tensor:
@@ -93,6 +97,16 @@ def matrix_diag_info(mat, *, singular: bool = False) -> torch.Tensor:
     if not coords:
         return torch.zeros((), dtype=torch.int32, device=mat.device)
     Q = mat.dist.grid_size.col
+    if mat.distributed and mat.grid.multi_process:
+        # each process reads the diagonal tiles its rank owns; the owner-
+        # masked vectors merge by an all-reduce max over both grid axes
+        d = mat.dist
+        P, nt, mb, n = d.grid_size.row, d.nr_tiles.row, d.block_size.row, d.size.row
+        vec = cc.per_rank(P, Q, lambda r, c: dist_diag_bad(
+            mat.storage[r * Q + c], (r - d.source_rank.row) % P, (c - d.source_rank.col) % Q,
+            Pr=P, Qc=Q, nt=nt, mb=mb, n=n, singular=singular))
+        vec = cc.all_reduce(cc.all_reduce(vec, ROW_AXIS, "max"), COL_AXIS, "max")
+        return first_bad_info(cc.local_value(vec) > 0)
     shards = mat.shards()
     d = torch.cat([torch.diagonal(shards[r * Q + c][lr, lc])[:ts].to(mat.device)
                    for r, c, lr, lc, ts in coords])

@@ -8,6 +8,15 @@ mb, nb)`` per rank, in row-major rank order, each on its rank's device
 Unlike the JAX reference the storage is mutable: an algorithm that is given
 ``donate=True`` may overwrite it, and the caller must not use the matrix
 afterwards.
+
+On a multi-process grid (:func:`..comm.multihost.multihost_grid`) a
+matrix holds only the shard of the rank its process drives: the other
+entries of ``storage`` are None, and :meth:`Matrix.shards`,
+:attr:`Matrix.device` and :meth:`Matrix.clone` see the local shard only.
+:meth:`Matrix.from_element_fn` evaluates the element function on the
+local tiles only, :meth:`Matrix.from_global` takes the local shard of a
+global matrix every process holds, and :meth:`Matrix.to_global`
+all-gathers the shards, so every process gets the global matrix.
 """
 
 from __future__ import annotations
@@ -17,6 +26,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..comm import collectives as cc
 from ..common.asserts import dlaf_assert
 from ..common.index2d import GlobalElementSize, GridSize2D, RankIndex2D, TileElementSize
 from ..types import torch_dtype
@@ -42,8 +52,13 @@ class Matrix:
             P, Q = dist.grid_size.row, dist.grid_size.col
             dlaf_assert(len(storage) == P * Q, f"{len(storage)} shards for a {P}x{Q} grid")
             for i, s in enumerate(storage):
-                dlaf_assert(tuple(s.shape) == (ltr, ltc, mb, nb),
-                            f"shard {i} shape {tuple(s.shape)} != {(ltr, ltc, mb, nb)}")
+                local = grid.is_local(i // Q, i % Q)
+                dlaf_assert((s is not None) == local,
+                            f"shard {i}: {'missing' if local else 'held'} on a rank this "
+                            f"process {'drives' if local else 'does not drive'}")
+                if s is not None:
+                    dlaf_assert(tuple(s.shape) == (ltr, ltc, mb, nb),
+                                f"shard {i} shape {tuple(s.shape)} != {(ltr, ltc, mb, nb)}")
             storage = list(storage)
         else:
             dlaf_assert(tuple(storage.shape) == (Sr, Sc, mb, nb),
@@ -54,9 +69,10 @@ class Matrix:
     def from_global(cls, a, block_size: TileElementSize, grid=None, *,
                     source_rank: RankIndex2D = RankIndex2D(0, 0), device="cuda") -> "Matrix":
         """Tile a global matrix (numpy array or tensor): onto ``device``
-        without a grid, else block-cyclically onto the grid's ranks."""
+        without a grid, else block-cyclically onto the grid's ranks (on a
+        multi-process grid: the local rank's shard only)."""
         if grid is not None:
-            device = grid.device(0, 0)
+            device = grid.device(*grid.local_ranks[0])
         t = torch.as_tensor(a, device=device if grid is None or grid.num_devices == 1
                             else None)
         dist = _make_dist(GlobalElementSize(t.shape[0], t.shape[1]), block_size, grid,
@@ -73,7 +89,8 @@ class Matrix:
                         device="cuda") -> "Matrix":
         """Build from an element function ``fn(i, j)`` that broadcasts over
         float64 index tensors, evaluated in ``dtype`` on the device of
-        each rank, for that rank's local tiles only."""
+        each rank, for that rank's local tiles only (on a multi-process
+        grid: for the local rank only)."""
         tdt = torch_dtype(dtype)
         dist = _make_dist(size, block_size, grid, source_rank)
         if grid is None or grid.num_devices == 1:
@@ -84,14 +101,14 @@ class Matrix:
                        grid)
         _, _, ltr, ltc = tiling.storage_tile_grid(dist)
         mb, nb = block_size.row, block_size.col
-        shards = []
-        for r in range(grid.size.row):
-            for c in range(grid.size.col):
-                i, j, mi, mj = tiling.shard_element_indices(dist, r, c, grid.device(r, c))
-                vals = fn(i[:, None], j[None, :]).to(tdt)
-                vals = torch.where(mi[:, None] & mj[None, :], vals, torch.zeros((), dtype=tdt,
-                                                                                device=i.device))
-                shards.append(vals.reshape(ltr, mb, ltc, nb).permute(0, 2, 1, 3).contiguous())
+        shards = [None] * (grid.size.row * grid.size.col)
+        for r, c in grid.local_ranks:
+            i, j, mi, mj = tiling.shard_element_indices(dist, r, c, grid.device(r, c))
+            vals = fn(i[:, None], j[None, :]).to(tdt)
+            vals = torch.where(mi[:, None] & mj[None, :], vals, torch.zeros((), dtype=tdt,
+                                                                            device=i.device))
+            shards[r * grid.size.col + c] = (vals.reshape(ltr, mb, ltc, nb).permute(0, 2, 1, 3)
+                                             .contiguous())
         return cls(dist, shards, grid)
 
     @property
@@ -100,9 +117,17 @@ class Matrix:
         return self.grid is not None and self.grid.num_devices > 1
 
     def shards(self) -> list:
-        """Per-rank tile storage, row-major rank order (one entry on one
-        rank)."""
-        return self.storage if self.distributed else [self.storage]
+        """Per-rank tile storage of the ranks this process drives, row-major
+        rank order (one entry on one rank, or on a multi-process grid)."""
+        if not self.distributed:
+            return [self.storage]
+        return [s for s in self.storage if s is not None]
+
+    def nested(self) -> list:
+        """The storage of a distributed matrix as a nested per-rank list
+        ``[r][c]`` (None at the ranks other processes drive)."""
+        Q = self.dist.grid_size.col
+        return [self.storage[r * Q:(r + 1) * Q] for r in range(self.dist.grid_size.row)]
 
     @property
     def size(self) -> GlobalElementSize:
@@ -122,14 +147,19 @@ class Matrix:
 
     @property
     def device(self) -> torch.device:
-        """The device of rank (0, 0)."""
+        """The device of rank (0, 0) (on a multi-process grid: of the local
+        rank)."""
         return self.shards()[0].device
 
     def to_global(self) -> torch.Tensor:
-        """The global matrix as a new tensor on the device of rank (0, 0)."""
-        tiles = tiling.join_shards(self.storage, self.dist, self.device) \
-            if self.distributed else self.storage
-        return tiling.tiles_to_global(tiles, self.dist)
+        """The global matrix as a new tensor on :attr:`device`. On a
+        multi-process grid every process calls it and gets the global
+        matrix: the shards are all-gathered along both grid axes."""
+        if not self.distributed:
+            return tiling.tiles_to_global(self.storage, self.dist)
+        shards = [s for row in cc.gather_grid(self.nested()) for s in row]
+        return tiling.tiles_to_global(tiling.join_shards(shards, self.dist, self.device),
+                                      self.dist)
 
     def to_numpy(self) -> np.ndarray:
         return self.to_global().cpu().numpy()
@@ -141,7 +171,7 @@ class Matrix:
     def clone(self) -> "Matrix":
         """A Matrix over copies of this one's tensors."""
         if self.distributed:
-            return self.with_storage([s.clone() for s in self.storage])
+            return self.with_storage([s if s is None else s.clone() for s in self.storage])
         return self.with_storage(self.storage.clone())
 
     def __str__(self) -> str:

@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..comm.grid import refuse_multi_process
 from ..common.asserts import dlaf_assert
 from . import util_distribution as ud
 from .matrix import Matrix
@@ -26,13 +27,20 @@ from .tiling import shard_element_indices, storage_tile_grid
 
 
 def _rank_shards(mat: Matrix):
-    """``[(r, c, shard)]`` in row-major rank order."""
+    """``[(r, c, shard)]`` of the ranks this process drives, in row-major
+    rank order."""
     Q = mat.dist.grid_size.col
-    return [(i // Q, i % Q, s) for i, s in enumerate(mat.shards())]
+    storage = mat.storage if mat.distributed else [mat.storage]
+    return [(i // Q, i % Q, s) for i, s in enumerate(storage) if s is not None]
 
 
 def _from_shards(mat: Matrix, shards: list) -> Matrix:
-    return mat.with_storage(shards if mat.distributed else shards[0])
+    """``mat``'s layout over new local shards (those of :func:`_rank_shards`,
+    in its order)."""
+    if not mat.distributed:
+        return mat.with_storage(shards[0])
+    it = iter(shards)
+    return mat.with_storage([None if s is None else next(it) for s in mat.storage])
 
 
 def _element_index(mat: Matrix, r: int, c: int, device):
@@ -49,6 +57,8 @@ def _transposed_shards(mat: Matrix, conj: bool) -> list:
     ``A``'s distribution: each tile ``(I, J)`` is tile ``(J, I)``
     transposed, fetched from the rank that owns it, one gather per pair
     of ranks."""
+    refuse_multi_process(mat.grid, "the transposed-tile exchange (transpose, hermitianize)",
+                         "the multi-process HEGST")
     dist = mat.dist
     P, Q = dist.grid_size.row, dist.grid_size.col
     sr, sc = dist.source_rank.row, dist.source_rank.col

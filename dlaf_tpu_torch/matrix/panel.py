@@ -22,6 +22,13 @@ back to tile rows. Their element masks are numpy arrays per grid row or
 column (:func:`element_valid`). The gathered panel is the same on every
 rank and only read, so it is formed once per device
 (``shared=True`` receivers, ``cc.per_rank_once``).
+
+Every function here builds its per-rank values with ``cc.per_rank``, so
+in the multi-process form (:mod:`..comm.multihost`) it computes the local
+rank's only and its collectives run across the processes. The sub-panel
+helpers of reduction to band are used only by the single controller:
+:func:`_owner_masked`'s empty placeholder on non-owners could not receive
+a real broadcast.
 """
 
 from __future__ import annotations
@@ -212,7 +219,7 @@ def gather_col_panel_ordered(ctx: DistContext, col_tiles, k1: int, lu: int):
     ``(nt - k1, mb, ...)``, the same on every rank: formed once per device
     and only read."""
     nt = ctx.nt.row
-    nrows = col_tiles[0][0].shape[0]
+    nrows = cc.local_value(col_tiles).shape[0]
     order = np.array([((ctx.sr + g) % ctx.P) * nrows + (g // ctx.P - lu)
                       for g in range(k1, nt)], dtype=np.int64)
     full = cc.all_gather(col_tiles, ROW_AXIS, shared=True)   # (P, nrows, mb, ...)

@@ -94,10 +94,12 @@ def tiles_to_global(t: torch.Tensor, dist: Distribution) -> torch.Tensor:
 
 def split_shards(t: torch.Tensor, dist: Distribution, devices) -> list:
     """Tile storage -> the P*Q per-rank shards ``(ltr, ltc, mb, nb)``, in
-    row-major rank order, each a new tensor on ``devices[r*Q + c]``."""
+    row-major rank order, each a new tensor on ``devices[r*Q + c]``; None
+    where that entry is None (a rank another process drives)."""
     P, Q = dist.grid_size.row, dist.grid_size.col
     _, _, ltr, ltc = storage_tile_grid(dist)
-    return [t[r * ltr:(r + 1) * ltr, c * ltc:(c + 1) * ltc].to(devices[r * Q + c], copy=True)
+    return [None if devices[r * Q + c] is None
+            else t[r * ltr:(r + 1) * ltr, c * ltc:(c + 1) * ltc].to(devices[r * Q + c], copy=True)
             .contiguous() for r in range(P) for c in range(Q)]
 
 

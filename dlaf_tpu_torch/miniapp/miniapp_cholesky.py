@@ -13,12 +13,17 @@ exactly on the device.
 
 On a grid (``--grid-rows``, ``--grid-cols``; ``--share-device`` to put
 every rank on one device) the matrix is distributed block-cyclically and
-factored by the distributed builder.
+factored by the distributed builder; under ``torchrun`` one process per
+rank (:mod:`.options`), process 0 printing, every process exiting 1 when
+the check fails.
 
 Run:  python -m dlaf_tpu_torch.miniapp.miniapp_cholesky -m 16384 -b 256 --type s \\
           --dlaf:step-impl=fused --check-result last
       python -m dlaf_tpu_torch.miniapp.miniapp_cholesky -m 16384 -b 256 --type s \\
           --grid-rows 2 --grid-cols 2 --share-device --dlaf:step-impl=fused \\
+          --check-result last
+      torchrun --standalone --nproc-per-node 4 -m dlaf_tpu_torch.miniapp.miniapp_cholesky \\
+          -m 16384 -b 256 --type s --grid-rows 2 --grid-cols 2 --share-device \\
           --check-result last
 """
 
@@ -34,15 +39,15 @@ import torch
 
 from .. import config
 from ..algorithms.cholesky import cholesky
-from ..comm.grid import Grid
+from ..comm import multihost
 from ..comm.sync import barrier
 from ..common.index2d import GlobalElementSize, TileElementSize
 from ..matrix.matrix import Matrix
 from ..tile_ops.blas import hermitian_from, tri_mask
 from ..types import total_ops, type_letter
 from .generators import hpd_element_fn
-from .options import (CheckIterFreq, add_miniapp_arguments, parse_miniapp_options,
-                      select_devices)
+from .options import (CheckIterFreq, add_miniapp_arguments, is_printer, parse_miniapp_options,
+                      select_grid)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -60,10 +65,7 @@ def run(argv=None) -> list[dict]:
     args, extra = build_parser().parse_known_args(argv)
     config.initialize(argv=extra)
     opts = parse_miniapp_options(args)
-    devices = select_devices(opts)
-    grid = Grid(opts.grid_rows, opts.grid_cols, devices=devices,
-                ordering=config.get_configuration().grid_ordering)
-    device = devices[0]
+    grid, device = select_grid(opts, config.get_configuration().grid_ordering)
     n, nb = args.matrix_size, args.block_size
     ref = Matrix.from_element_fn(hpd_element_fn(n, opts.dtype), GlobalElementSize(n, n),
                                  TileElementSize(nb, nb), grid if grid.num_devices > 1 else None,
@@ -81,9 +83,10 @@ def run(argv=None) -> list[dict]:
         if run_i < 0:
             continue
         gflops = flops / t / 1e9
-        print(f"[{run_i}] {t:.6f}s {gflops:.2f}GFlop/s {type_letter(opts.dtype)}{args.uplo} "
-              f"({n}, {n}) ({nb}, {nb}) ({opts.grid_rows}, {opts.grid_cols}) {threads} "
-              f"{device.type}", flush=True)
+        if is_printer():
+            print(f"[{run_i}] {t:.6f}s {gflops:.2f}GFlop/s {type_letter(opts.dtype)}{args.uplo} "
+                  f"({n}, {n}) ({nb}, {nb}) ({opts.grid_rows}, {opts.grid_cols}) {threads} "
+                  f"{device.type}", flush=True)
         results.append({"run": run_i, "time_s": t, "gflops": gflops})
         if opts.check is CheckIterFreq.ALL or (
                 opts.check is CheckIterFreq.LAST and run_i == opts.nruns - 1):
@@ -91,11 +94,12 @@ def run(argv=None) -> list[dict]:
     return results
 
 
-def cholesky_residual(uplo: str, ref: Matrix, out: Matrix) -> float:
-    """Exact ``|A - L L^H|_F / |A|_F`` (or the ``U^H U`` form), computed on
-    the matrices' device in their dtype, norms accumulated in float64."""
-    a = hermitian_from(ref.to_global(), uplo)
-    f = tri_mask(out.to_global(), uplo)
+def cholesky_residual(uplo: str, ref: torch.Tensor, out: torch.Tensor) -> float:
+    """Exact ``|A - L L^H|_F / |A|_F`` (or the ``U^H U`` form) of the
+    global matrix ``ref`` and factor ``out``, computed on their device in
+    their dtype, norms accumulated in float64."""
+    a = hermitian_from(ref, uplo)
+    f = tri_mask(out, uplo)
     r = a - (f @ f.mH if uplo == "L" else f.mH @ f)
     wide = torch.complex128 if a.is_complex() else torch.float64
     num = torch.linalg.vector_norm(r, dtype=wide)
@@ -104,19 +108,29 @@ def cholesky_residual(uplo: str, ref: Matrix, out: Matrix) -> float:
 
 
 def check_cholesky(uplo: str, ref: Matrix, out: Matrix) -> None:
-    """Print the ``check:`` line; exit 1 when it fails."""
+    """Print the ``check:`` line; exit 1 when it fails. In the
+    multi-process form every process gathers the matrices, process 0
+    computes the residual and prints, and every process exits 1 on a
+    failure."""
     n = ref.size.row
-    resid = cholesky_residual(uplo, ref, out)
-    tol = 60.0 * max(n, 1) * torch.finfo(ref.dtype.to_real()).eps
-    passed = np.isfinite(resid) and resid < tol
-    print(f"check: {'PASSED' if passed else 'FAILED'} residual={resid:.3e} tol={tol:.3e}",
-          flush=True)
-    if not passed:
+    a, f = ref.to_global(), out.to_global()
+    verdict = None
+    if is_printer():
+        resid = cholesky_residual(uplo, a, f)
+        tol = 60.0 * max(n, 1) * torch.finfo(ref.dtype.to_real()).eps
+        verdict = bool(np.isfinite(resid) and resid < tol)
+        print(f"check: {'PASSED' if verdict else 'FAILED'} residual={resid:.3e} tol={tol:.3e}",
+              flush=True)
+    del a, f
+    if not multihost.broadcast_object(verdict):
         sys.exit(1)
 
 
 def main(argv=None) -> int:
-    run(argv)
+    try:
+        run(argv)
+    finally:
+        multihost.finalize_multihost()
     return 0
 
 

@@ -14,6 +14,10 @@ then ``check: PASSED|FAILED residual=... tol=...``: the residual
 reference estimates it with a Hutchinson probe), ``tol = 60 max(m, n)
 eps``; a failed check exits 1.
 
+Under ``torchrun`` one process drives each rank of the grid
+(:mod:`.options`): process 0 prints, and every process exits 1 when the
+check fails.
+
 Run:  python -m dlaf_tpu_torch.miniapp.miniapp_triangular_solver -m 8192 -n 8192 -b 256 \\
           --type d --grid-rows 2 --grid-cols 2 --share-device --check-result last
 """
@@ -30,14 +34,14 @@ import torch
 
 from .. import config
 from ..algorithms.triangular import triangular_solve
-from ..comm.grid import Grid
+from ..comm import multihost
 from ..comm.sync import barrier
 from ..common.index2d import GlobalElementSize, TileElementSize
 from ..matrix.matrix import Matrix
 from ..tile_ops.blas import _op, _tri
 from ..types import total_ops, type_letter
-from .options import (CheckIterFreq, add_miniapp_arguments, parse_miniapp_options,
-                      select_devices)
+from .options import (CheckIterFreq, add_miniapp_arguments, is_printer, parse_miniapp_options,
+                      select_grid)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -66,11 +70,8 @@ def run(argv=None) -> list[dict]:
     args, extra = build_parser().parse_known_args(argv)
     config.initialize(argv=extra)
     opts = parse_miniapp_options(args)
-    devices = select_devices(opts)
-    grid = Grid(opts.grid_rows, opts.grid_cols, devices=devices,
-                ordering=config.get_configuration().grid_ordering)
+    grid, device = select_grid(opts, config.get_configuration().grid_ordering)
     use_grid = grid if grid.num_devices > 1 else None
-    device = devices[0]
     m, n, nb = args.m, args.n, args.block_size
     adim = m if args.side == "L" else n
 
@@ -98,9 +99,10 @@ def run(argv=None) -> list[dict]:
         if run_i < 0:
             continue
         gflops = flops / t / 1e9
-        print(f"[{run_i}] {t:.6f}s {gflops:.2f}GFlop/s {type_letter(opts.dtype)}{combo} "
-              f"({m}, {n}) ({nb}, {nb}) ({opts.grid_rows}, {opts.grid_cols}) {os.cpu_count()} "
-              f"{device.type}", flush=True)
+        if is_printer():
+            print(f"[{run_i}] {t:.6f}s {gflops:.2f}GFlop/s {type_letter(opts.dtype)}{combo} "
+                  f"({m}, {n}) ({nb}, {nb}) ({opts.grid_rows}, {opts.grid_cols}) "
+                  f"{os.cpu_count()} {device.type}", flush=True)
         results.append({"run": run_i, "time_s": t, "gflops": gflops})
         if opts.check is CheckIterFreq.ALL or (
                 opts.check is CheckIterFreq.LAST and run_i == opts.nruns - 1):
@@ -108,31 +110,39 @@ def run(argv=None) -> list[dict]:
     return results
 
 
-def trsm_residual(side, uplo, op, diag, a: Matrix, b: Matrix, x: Matrix) -> float:
-    """Exact ``|op(T) X - B|_F / |B|_F`` on the matrices' device, norms
-    accumulated in float64 (complex128)."""
-    t = _op(_tri(a.to_global(), uplo, diag), op)
-    xg, bg = x.to_global(), b.to_global()
-    r = (t @ xg if side == "L" else xg @ t) - bg
-    wide = torch.complex128 if bg.is_complex() else torch.float64
+def trsm_residual(side, uplo, op, diag, a: torch.Tensor, b: torch.Tensor,
+                  x: torch.Tensor) -> float:
+    """Exact ``|op(T) X - B|_F / |B|_F`` of the global matrices on their
+    device, norms accumulated in float64 (complex128)."""
+    t = _op(_tri(a, uplo, diag), op)
+    r = (t @ x if side == "L" else x @ t) - b
+    wide = torch.complex128 if b.is_complex() else torch.float64
     num = torch.linalg.vector_norm(r, dtype=wide)
-    den = torch.linalg.vector_norm(bg, dtype=wide)
+    den = torch.linalg.vector_norm(b, dtype=wide)
     return float(num / den) if float(den) else float(num)
 
 
 def check(args, am: Matrix, bm: Matrix, out: Matrix) -> None:
-    """Print the ``check:`` line; exit 1 when it fails."""
-    resid = trsm_residual(args.side, args.uplo, args.op, args.diag, am, bm, out)
-    tol = 60.0 * max(args.m, args.n, 1) * torch.finfo(bm.dtype.to_real()).eps
-    passed = np.isfinite(resid) and resid < tol
-    print(f"check: {'PASSED' if passed else 'FAILED'} residual={resid:.3e} tol={tol:.3e}",
-          flush=True)
-    if not passed:
+    """Print the ``check:`` line; exit 1 when it fails (every process, in
+    the multi-process form; process 0 computes and prints)."""
+    ag, bg, xg = am.to_global(), bm.to_global(), out.to_global()
+    verdict = None
+    if is_printer():
+        resid = trsm_residual(args.side, args.uplo, args.op, args.diag, ag, bg, xg)
+        tol = 60.0 * max(args.m, args.n, 1) * torch.finfo(bm.dtype.to_real()).eps
+        verdict = bool(np.isfinite(resid) and resid < tol)
+        print(f"check: {'PASSED' if verdict else 'FAILED'} residual={resid:.3e} tol={tol:.3e}",
+              flush=True)
+    del ag, bg, xg
+    if not multihost.broadcast_object(verdict):
         sys.exit(1)
 
 
 def main(argv=None) -> int:
-    run(argv)
+    try:
+        run(argv)
+    finally:
+        multihost.finalize_multihost()
     return 0
 
 

@@ -8,6 +8,13 @@ where there is no GPU raises. A ``--grid-rows`` x ``--grid-cols`` grid
 takes one visible device per rank and raises when there are fewer;
 ``--share-device`` puts every rank on the one device of ``--backend``
 (the counterpart of the reference's virtual CPU devices).
+
+Launched by ``torchrun`` (``WORLD_SIZE > 1`` in the environment), a
+miniapp runs the multi-process form (:mod:`..comm.multihost`): one process
+per rank of the ``--grid-rows`` x ``--grid-cols`` grid. Each process then
+drives ``cuda:LOCAL_RANK`` over NCCL, or with ``--share-device`` the one
+device of ``--backend`` over gloo (NCCL refuses two ranks on one card);
+with ``--backend cpu`` the world runs on gloo. Only process 0 prints.
 """
 
 from __future__ import annotations
@@ -15,10 +22,13 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import enum
+import os
 
 import numpy as np
 import torch
 
+from ..comm import multihost
+from ..comm.grid import Grid
 from ..types import ELEMENT_TYPES
 
 
@@ -88,3 +98,27 @@ def select_devices(opts: MiniappOptions) -> list:
             f"{len(visible)} {device.type} device(s) are visible; pass --share-device to put "
             "every rank on one device, or shrink the grid")
     return visible[:need]
+
+
+def select_grid(opts: MiniappOptions, ordering: str = "row-major"):
+    """The run's grid and this process's device: the single controller's
+    grid over :func:`select_devices`, or, when ``torchrun`` launched this
+    process as one of several (``WORLD_SIZE > 1``), the multi-process grid
+    (module docstring), one rank per process."""
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        devices = select_devices(opts)
+        return (Grid(opts.grid_rows, opts.grid_cols, devices=devices, ordering=ordering),
+                devices[0])
+    device = select_device(opts)
+    if device.type == "cuda" and not opts.share_device:
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+    backend = "gloo" if opts.share_device or device.type == "cpu" else "nccl"
+    multihost.initialize_multihost(backend=backend)
+    grid = multihost.multihost_grid(opts.grid_rows, opts.grid_cols, device=device)
+    return grid, device
+
+
+def is_printer() -> bool:
+    """Does this process print the run's lines (process 0 of the world, or
+    the only process)?"""
+    return multihost.process_info()[0] == 0

@@ -1,6 +1,6 @@
-"""The port stands alone: importing every module of ``dlaf_tpu_torch``,
-and ``chip_smoke``, loads no ``jax`` module and nothing of the JAX package
-``dlaf_tpu``. Checked in a fresh interpreter, since the test process
+"""The port stands alone: importing every module of ``dlaf_tpu_torch``
+(the multi-process ``comm/multihost.py`` among them), and ``chip_smoke``,
+loads no ``jax`` module and nothing of the JAX package ``dlaf_tpu``. Checked in a fresh interpreter, since the test process
 itself imports both packages."""
 
 import os
@@ -13,6 +13,7 @@ PROBE = r"""
 import importlib, pkgutil, sys
 import dlaf_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(dlaf_tpu_torch.__path__, "dlaf_tpu_torch.")]
+assert "dlaf_tpu_torch.comm.multihost" in names, "the multi-process module is not walked"
 for name in names:
     importlib.import_module(name)
 import chip_smoke
