@@ -2396,6 +2396,14 @@ def _mp_rank(rank: int, world: int, rdv: str, out_dir: str, device: str, n: int,
     multihost.finalize_multihost()
 
 
+def _bits(torch, t):
+    """``t``'s bit patterns as integers (``-0.0`` differs from ``+0.0``)."""
+    t = torch.view_as_real(t) if t.is_complex() else t
+    if t.is_floating_point():
+        t = t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+    return t
+
+
 def _run_group(cmd, timeout: float, env) -> str:
     """Run ``cmd`` in a session of its own and return its standard output;
     on a timeout kill the whole session (``torchrun`` and its workers) and
@@ -2469,7 +2477,7 @@ def multiprocess_phase(torch, card, launches, sc_walls, device: str = "cuda:0",
                 counts[k] += v
             (idx, shard), = got["shards"].items()
             want = want_shards[idx]
-            if idx != i or not torch.equal(shard, want):
+            if idx != i or not torch.equal(_bits(torch, shard), _bits(torch, want)):
                 same = False
                 worst = max(worst, float((shard.double() - want.double()).abs().max()
                                          / want.double().abs().max()))

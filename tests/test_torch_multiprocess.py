@@ -127,6 +127,17 @@ def single(monkeypatch):
     config.initialize()
 
 
+def bits(t):
+    """``t``'s bit patterns as integers: equal only where every bit is
+    (``-0.0`` is not ``+0.0``; NaNs compare by payload)."""
+    t = t.detach()
+    if t.is_complex():
+        t = torch.view_as_real(t)
+    if t.is_floating_point():
+        t = t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+    return t.numpy()
+
+
 def expected_shards(res):
     """The single controller's per-rank values, keyed as the processes'."""
     if "mat" in res:
@@ -150,12 +161,13 @@ def test_multiprocess_bitwise_single_controller(worlds, single, g, name):
         res = r["ok"]
         for key in ("info", "value"):
             if key in ref:
-                assert res[key] == ref[key], f"process {i}: {key} {res[key]} != {ref[key]}"
+                assert repr(res[key]) == repr(ref[key]), \
+                    f"process {i}: {key} {res[key]} != {ref[key]}"
         if "array" in ref:
-            np.testing.assert_array_equal(res["array"].numpy(), ref["array"].numpy())
+            np.testing.assert_array_equal(bits(res["array"]), bits(ref["array"]))
         for k, v in res.get("shards", {}).items():
             assert v.dtype == want[k].dtype and v.shape == want[k].shape
-            np.testing.assert_array_equal(v.numpy(), want[k].numpy(), err_msg=f"rank {k}")
+            np.testing.assert_array_equal(bits(v), bits(want[k]), err_msg=f"rank {k}")
             seen.add(k)
     # every rank's value came from exactly the process that drives it
     assert seen == set(want), (seen, set(want))
