@@ -66,16 +66,28 @@ the multi-process form (``comm/multihost.py``: one process per rank):
 9b. mp: 4 processes spawned on this card (2x2, ``cuda:0`` each, gloo, a
     ``file://`` rendezvous) factor dist-L (float32, defaults) and
     dist-f64 (``f64_gemm=mxu``, ``f64_trsm=mixed``, ``ozaki_impl=
-    pallas``) and solve config #2's LLNN at N=4096, nb=256; each
-    process's shard must be bitwise the single controller's on the same
-    card, and the launches summed over the processes its counts; then
-    ``torchrun --standalone --nproc-per-node 4 -m
-    dlaf_tpu_torch.miniapp.miniapp_cholesky -m 16384 -b 256 --grid-rows 2
-    --grid-cols 2 --share-device`` in float32 and float64, each with one
-    ``check: PASSED``, its best wall printed beside the single
-    controller's on the same grid (dist-L's, and a float64 run of the
-    same call); with 4 or more visible cards the NCCL form (one card per
-    process) of the float32 run, else one line saying it was not run;
+    pallas``), solve config #2's LLNN at N=4096, nb=256, and run the
+    eigensolver pipeline at N=4096: HEGST in complex128 (config #3's
+    type) by twosolve and blocked, reduction to band (float64, nb=512,
+    band 128; by default and under ``f64_gemm=mxu``), ``eigensolver``
+    (nb=512, band 128) and ``gen_eigensolver`` (nb=256, band 128); each
+    process's shard (and taus, eigenvalues) must be bitwise the single
+    controller's on the same card (the eigenvectors too, though the single
+    controller applies the chase's reflectors once to its four ranks'
+    columns side by side and a process to its own), and the launches summed over
+    the processes its counts, or, where a value a grid line holds alike is
+    formed once per device there (``cc.per_rank_once``), its counts with
+    that sharing off (red2band-d-mxu's #6 also against
+    ``red2band_mxu_launches``); then ``torchrun --standalone
+    --nproc-per-node 4 -m dlaf_tpu_torch.miniapp.miniapp_cholesky -m 8192
+    -b 256 --grid-rows 2 --grid-cols 2 --share-device`` in float32 and
+    float64, and ``torchrun`` of miniapp_gen_to_std (config #3),
+    miniapp_reduction_to_band (config #4's widths on 2x2) and
+    miniapp_gen_eigensolver (float64, N=8192, nb=256, 2x2), each with one
+    ``check: PASSED`` and its wall beside the single controller's run of
+    the same arguments in this process; with 4 or more visible cards the
+    NCCL form (one card per process) of the float32 Cholesky, else one
+    line saying it was not run;
 
 the distributed scan Cholesky (``cholesky_trailing=scan``, 2x2):
 
@@ -920,7 +932,7 @@ def _slot(k: int, p: int) -> int:
 
 
 def red2band_mxu_launches(P: int, Q: int, n: int, nb: int, b: int, k_max: int = 1024,
-                          min_dim: int = 128) -> int:
+                          min_dim: int = 128, shared: bool = True) -> int:
     """Launches of #6 in one distributed unrolled reduction to band under
     ``f64_gemm=mxu`` (float64, ``ozaki_impl=pallas``), every rank of the
     P x Q grid on one card: per panel with a trailing block, W's partial
@@ -931,7 +943,8 @@ def red2band_mxu_launches(P: int, Q: int, n: int, nb: int, b: int, k_max: int = 
     trailing rows are, and the bulk's two products on every rank
     (contraction ``b``); each only where every dimension is at least
     ``min_dim``. The eager strip under ``comm_lookahead`` reuses the
-    bulk's products."""
+    bulk's products. ``shared=False``: M's on every rank, as one process
+    per rank forms it (the multi-process form)."""
     nt = -(-n // nb)
     ltr, ltc = -(-nt // P), -(-nt // Q)
     total = 0
@@ -943,7 +956,7 @@ def red2band_mxu_launches(P: int, Q: int, n: int, nb: int, b: int, k_max: int = 
         w = cols <= k_max and min(rows, cols, b) >= min_dim
         m = rows <= k_max and min(rows, b) >= min_dim
         bulk = 2 * (min(rows, b, cols) >= min_dim)
-        total += P * Q * (w + bulk) + P * m
+        total += P * Q * (w + bulk) + (P if shared else P * Q) * m
     return total
 
 
@@ -2333,56 +2346,108 @@ MP_N, MP_NB = 4096, 256
 MP_CASES = (("dist-L", "cholesky", "s", ()),
             ("dist-f64", "cholesky", "d", ("--dlaf:f64-gemm=mxu", "--dlaf:f64-trsm=mixed",
                                            "--dlaf:ozaki-impl=pallas")),
-            ("trsm-d", "solve", "d", ()))
+            ("trsm-d", "solve", "d", ()),
+            # the eigensolver pipeline: config #3's type by both HEGST
+            # forms, reduction to band at config #4's widths (and under
+            # f64_gemm=mxu, where the per-rank forming shows in #6's
+            # count), the standard and the generalized eigensolver
+            ("g2s-z-twosolve", "gen_to_std", "z", ("--dlaf:hegst-impl=twosolve",)),
+            ("g2s-z-blocked", "gen_to_std", "z", ("--dlaf:hegst-impl=blocked",)),
+            ("red2band-d", "red2band", "d", ()),
+            ("red2band-d-mxu", "red2band", "d", ("--dlaf:f64-gemm=mxu",
+                                                 "--dlaf:ozaki-impl=pallas")),
+            ("evp-d", "eigensolver", "d", ()),
+            ("gen-evp-d", "gen_eigensolver", "d", ()))
+
+#: (block, band) of the eigensolver pipeline's cases as multiples of the
+#: phase's nb: at nb=256 config #4's widths (512, 128) for the reduction
+#: and the standard eigensolver, (256, 128) for the generalized one.
+MP_WIDTHS = {"red2band": (2, 0.5), "eigensolver": (2, 0.5), "gen_eigensolver": (1, 0.5)}
+
+
+def _mp_herm(torch):
+    """A seeded-free Hermitian element function with a full spectrum: a
+    hash of (i + j, i j), so every process evaluates the same matrix."""
+    def fn(i, j):
+        h = torch.sin((i * j) * 0.7071 + (i + j) * 1.3137) * 43758.5453
+        return h - torch.floor(h) - 0.5 + torch.cos(0.001 * (i + j))
+    return fn
 
 
 def _mp_case(kind, letter, knobs, grid, n: int = MP_N, nb: int = MP_NB):
     """One case of :data:`MP_CASES` on ``grid`` (single-controller or
     multi-process): the result's shards this process holds, on the host,
-    and the kernels' launch counts of the call alone."""
+    the kernels' launch counts of the call alone, and the arrays every
+    process holds (the taus, the eigenvalues)."""
     import numpy as np
     import torch
 
     from dlaf_tpu_torch import config
     from dlaf_tpu_torch.algorithms.cholesky import cholesky
+    from dlaf_tpu_torch.algorithms.gen_to_std import gen_to_std
     from dlaf_tpu_torch.algorithms.triangular import triangular_solve
     from dlaf_tpu_torch.comm.sync import barrier
     from dlaf_tpu_torch.common.index2d import GlobalElementSize, TileElementSize
+    from dlaf_tpu_torch.eigensolver import eigensolver, reduction_to_band
     from dlaf_tpu_torch.matrix.matrix import Matrix
-    from dlaf_tpu_torch.miniapp.generators import hpd_element_fn
+    from dlaf_tpu_torch.miniapp.generators import herm_element_fn, hpd_element_fn
     from dlaf_tpu_torch.tile_ops import givens_kernels as gk
     from dlaf_tpu_torch.tile_ops import ozaki_kernels as ok
     from dlaf_tpu_torch.tile_ops import panel_kernels as pk
     from dlaf_tpu_torch.tile_ops import update_kernels as uk
 
     config.initialize(argv=list(knobs))
-    dtype = {"s": np.float32, "d": np.float64}[letter]
+    dtype = {"s": np.float32, "d": np.float64, "z": np.complex128}[letter]
+    scale, frac = MP_WIDTHS.get(kind, (1, None))
+    band = None if frac is None else int(nb * frac)
+    nb = nb * scale
     size, tile = GlobalElementSize(n, n), TileElementSize(nb, nb)
+
+    def mat(fn):
+        return Matrix.from_element_fn(fn, size, tile, grid, dtype=dtype)
+
     if kind == "cholesky":
-        args = (Matrix.from_element_fn(hpd_element_fn(n, dtype), size, tile, grid,
-                                       dtype=dtype),)
+        args = (mat(hpd_element_fn(n, dtype)),)
         call = lambda m: cholesky("L", m)   # noqa: E731
-    else:   # config #2's solve, LLNN, at N=4096
-        am = Matrix.from_element_fn(lambda i, j: 1.0 / (1.0 + (i - j).abs())
-                                    + 2.0 * n * (i == j), size, tile, grid, dtype=dtype)
-        bm = Matrix.from_element_fn(lambda i, j: torch.cos(0.001 * (i + 1))
-                                    + torch.sin(0.002 * (j + 1)), size, tile, grid, dtype=dtype)
+    elif kind == "solve":   # config #2's solve, LLNN, at N=4096
+        am = mat(lambda i, j: 1.0 / (1.0 + (i - j).abs()) + 2.0 * n * (i == j))
+        bm = mat(lambda i, j: torch.cos(0.001 * (i + 1)) + torch.sin(0.002 * (j + 1)))
         args = (am, bm)
         call = lambda a, b: triangular_solve("L", "L", "N", "N", 1.0, a, b)   # noqa: E731
+    elif kind == "gen_to_std":
+        bf = cholesky("L", mat(hpd_element_fn(n, dtype)))
+        args = (mat(herm_element_fn(n, dtype)), bf)
+        call = lambda a, b: gen_to_std("L", a, b)   # noqa: E731
+    elif kind == "red2band":
+        args = (mat(_mp_herm(torch)),)
+        call = lambda a: reduction_to_band.reduction_to_band(a, band)   # noqa: E731
+    elif kind == "eigensolver":
+        args = (mat(_mp_herm(torch)),)
+        call = lambda a: eigensolver.eigensolver("L", a, band_size=band)   # noqa: E731
+    else:
+        args = (mat(_mp_herm(torch)), mat(hpd_element_fn(n, dtype)))
+        call = lambda a, b: eigensolver.gen_eigensolver("L", a, b,   # noqa: E731
+                                                        band_size=band)
     barrier(*args)
     kmods = (pk, ok, uk, gk)
     for m in kmods:
         m.reset_launches()
     out = call(*args)
+    arrays = {}
+    if kind == "red2band":
+        out, arrays = out.matrix, {"taus": out.taus.cpu()}
+    elif kind in ("eigensolver", "gen_eigensolver"):
+        arrays = {"eigenvalues": torch.as_tensor(out.eigenvalues)}
+        out = out.eigenvectors
     barrier(out)
     counts = {k: v for m in kmods for k, v in m.LAUNCHES.items()}
-    return {i: s.cpu() for i, s in enumerate(out.storage) if s is not None}, counts
+    return {i: s.cpu() for i, s in enumerate(out.storage) if s is not None}, counts, arrays
 
 
 def _mp_rank(rank: int, world: int, rdv: str, out_dir: str, device: str, n: int,
              nb: int) -> None:
     """A spawned process: rank ``rank`` of a 2x2 grid on ``device`` over
-    gloo; runs :data:`MP_CASES` and saves its shards and counts."""
+    gloo; runs :data:`MP_CASES` and saves its shards, counts and arrays."""
     import torch
 
     from dlaf_tpu_torch.comm import multihost
@@ -2390,10 +2455,47 @@ def _mp_rank(rank: int, world: int, rdv: str, out_dir: str, device: str, n: int,
     multihost.initialize_multihost(f"file://{rdv}", world, rank, backend="gloo", timeout=600)
     grid = multihost.multihost_grid(2, 2, device=device)
     for name, kind, letter, knobs in MP_CASES:
-        shards, counts = _mp_case(kind, letter, knobs, grid, n, nb)
-        torch.save({"shards": shards, "counts": counts},
+        t = time.perf_counter()
+        shards, counts, arrays = _mp_case(kind, letter, knobs, grid, n, nb)
+        torch.save({"shards": shards, "counts": counts, "arrays": arrays,
+                    "wall": time.perf_counter() - t},
                    os.path.join(out_dir, f"{name}.r{rank}.pt"))
     multihost.finalize_multihost()
+
+
+def _mp_compare(torch, got, want_shards, want_arrays):
+    """(bitwise equal, max relative difference) of the processes' results
+    ``got`` (one dict a process: its rank's shard, its arrays) against the
+    single controller's; every process's arrays are compared."""
+    same, worst = True, 0.0
+    for i, g in enumerate(got):
+        (idx, shard), = g["shards"].items()
+        pairs = [(shard, want_shards[idx])] + [(g["arrays"][k], want_arrays[k])
+                                               for k in want_arrays]
+        if idx != i:
+            same = False
+        for x, y in pairs:
+            if x.shape != y.shape or not torch.equal(_bits(torch, x), _bits(torch, y)):
+                same = False
+                if x.shape == y.shape:
+                    worst = max(worst, float((x - y).abs().max() / y.abs().max()))
+                else:
+                    worst = float("inf")
+    return same, worst
+
+
+def _mp_unshared_counts(grid, kind, letter, knobs, n, nb) -> dict:
+    """The single controller's launch counts of a case with every value
+    formed per rank (``cc.per_rank_once`` made ``cc.per_rank``), as one
+    process per rank forms them."""
+    from dlaf_tpu_torch.comm import collectives as cc
+
+    saved = cc.per_rank_once
+    cc.per_rank_once = lambda P, Q, key, make: cc.per_rank(P, Q, make)
+    try:
+        return _mp_case(kind, letter, knobs, grid, n, nb)[1]
+    finally:
+        cc.per_rank_once = saved
 
 
 def _bits(torch, t):
@@ -2425,17 +2527,56 @@ def _run_group(cmd, timeout: float, env) -> str:
     return out
 
 
-def multiprocess_phase(torch, card, launches, sc_walls, device: str = "cuda:0",
-                       n: int = MP_N, nb: int = MP_NB, big=("-m", "16384", "-b", "256"),
-                       app_args=()) -> None:
+#: The eigensolver pipeline's miniapps under ``torchrun`` on 2x2 (app,
+#: arguments, what the size is).
+MP_TORCHRUN = (
+    ("miniapp_gen_to_std", ("-m", "8192", "-b", "256", "--type", "z"), "BASELINE config #3"),
+    ("miniapp_reduction_to_band", ("-m", "16384", "-b", "512", "--band-size", "128", "--type",
+                                   "d"),
+     "config #4's widths on 2x2, not its 4x4 (sixteen gloo processes on one card are not a "
+     "grid worth timing)"),
+    ("miniapp_gen_eigensolver", ("-m", "8192", "-b", "256", "--type", "d"), "f64"))
+
+
+def torchrun_beside_single(card, app, args, what, env, app_args=()) -> None:
+    """``app`` under ``torchrun`` with 4 processes on 2x2 sharing this
+    card (gloo), one warm-up and one timed run, its one ``check:
+    PASSED`` required; then the single controller's run of the same
+    arguments on the same grid in this process, and both walls."""
+    import importlib
+    import re
+
+    grid = ("--grid-rows", "2", "--grid-cols", "2", "--share-device", "--nruns", "1",
+            "--nwarmups", "1", *app_args)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           "4", "-m", f"dlaf_tpu_torch.miniapp.{app}", *args, *grid, "--check-result", "last"]
+    t = time.perf_counter()
+    out = _run_group(cmd, 900, env)
+    print(out, end="", flush=True)
+    walls = [float(m.group(1)) for m in re.finditer(r"^\[\d+\] ([0-9.]+)s ", out, re.M)]
+    if out.count("check: PASSED") != 1 or len(walls) != 1:
+        raise AssertionError(f"torchrun {app}: expected one 'check: PASSED' and one run line")
+    took = time.perf_counter() - t
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        single = importlib.import_module(f"dlaf_tpu_torch.miniapp.{app}").run([*args, *grid])
+    sc = min(r["time_s"] for r in single)
+    print(f"[mp] torchrun 4 processes {app} {' '.join(args)} 2x2 --share-device (gloo; {what}): "
+          f"wall {walls[0]:.6f} s; single controller on the same grid in this call "
+          f"{sc:.6f} s, ratio {walls[0] / sc:.2f} ({took:.1f} s with start-up and check) "
+          f"[{card}] (four processes on one card, host-staged gloo: not a multi-card "
+          "measurement)", flush=True)
+
+
+def multiprocess_phase(torch, card, launches, device: str = "cuda:0", n: int = MP_N,
+                       nb: int = MP_NB, big=("-m", "8192", "-b", "256"), app_args=(),
+                       eig_apps=MP_TORCHRUN) -> None:
     """The multi-process form on this card (module docstring, the
     multi-process phase); fails on any disagreement. ``device``, the
     sizes and ``app_args`` (extra miniapp arguments) let a CPU rehearsal
     run it small."""
     import re
     import tempfile
-
-    import numpy as np
 
     from dlaf_tpu_torch.comm.grid import shared_grid
 
@@ -2455,7 +2596,7 @@ def multiprocess_phase(torch, card, launches, sc_walls, device: str = "cuda:0",
     t = time.perf_counter()
     for p in procs:
         p.start()
-    deadline = time.monotonic() + 300
+    deadline = time.monotonic() + 600
     for p in procs:
         p.join(timeout=max(deadline - time.monotonic(), 1))
     hung = [p for p in procs if p.is_alive()]
@@ -2464,35 +2605,44 @@ def multiprocess_phase(torch, card, launches, sc_walls, device: str = "cuda:0",
         p.join()
     if hung or any(p.exitcode for p in procs):
         raise AssertionError(f"multi-process: exit codes {[p.exitcode for p in procs]}"
-                             f"{' (killed at the 300 s timeout)' if hung else ''}")
+                             f"{' (killed at the 600 s timeout)' if hung else ''}")
     print(f"[mp] 4 spawned processes (2x2, {device} each, gloo) ran {len(MP_CASES)} calls at "
           f"N={n} nb={nb} in {time.perf_counter() - t:.1f} s", flush=True)
-    for name, _, letter, _ in MP_CASES:
-        want_shards, want_counts = ref[name]
-        counts = {k: 0 for k in want_counts}
-        same, worst = True, 0.0
-        for i in range(4):
-            got = torch.load(os.path.join(tmp, f"{name}.r{i}.pt"))
-            for k, v in got["counts"].items():
-                counts[k] += v
-            (idx, shard), = got["shards"].items()
-            want = want_shards[idx]
-            if idx != i or not torch.equal(_bits(torch, shard), _bits(torch, want)):
-                same = False
-                worst = max(worst, float((shard.double() - want.double()).abs().max()
-                                         / want.double().abs().max()))
-        tol = 60 * n * float(np.finfo({"s": np.float32, "d": np.float64}[letter]).eps)
+    for name, kind, letter, knobs in MP_CASES:
+        want_shards, want_counts, want_arrays = ref[name]
+        got = [torch.load(os.path.join(tmp, f"{name}.r{i}.pt")) for i in range(4)]
+        counts = {k: sum(g["counts"].get(k, 0) for g in got) for k in want_counts}
+        same, worst = _mp_compare(torch, got, want_shards, want_arrays)
         live = {k: v for k, v in counts.items() if v}
-        print(f"[mp] {name:8s} shards bitwise equal to the single controller's: {same}"
-              f"{'' if same else f' (max rel diff {worst:.3e}, 60 n eps {tol:.3e})'}; "
-              f"launches summed over the processes {live}, single controller "
-              f"{ {k: v for k, v in want_counts.items() if v} }", flush=True)
+        sc = {k: v for k, v in want_counts.items() if v}
+        note = ""
+        if name == "red2band-d-mxu" and device != "cpu":
+            # #6 exactly: M's partial product once per grid row on the
+            # shared card, once per rank in the processes
+            for shared, have in ((True, want_counts), (False, counts)):
+                f = red2band_mxu_launches(2, 2, n, 2 * nb, nb // 2, shared=shared)
+                if have["ozaki_product"] != f:
+                    raise AssertionError(f"red2band-d-mxu: #6 {have['ozaki_product']}, "
+                                         f"formula {f} (shared={shared})")
+        per_rank = counts
+        if counts != want_counts and kind in ("red2band", "eigensolver", "gen_eigensolver"):
+            # a value every rank of a grid line holds alike is formed once
+            # per device by the single controller, once per rank (process)
+            # here: its launches with that sharing off must be the sum
+            per_rank = _mp_unshared_counts(grid, kind, letter, knobs, n, nb)
+            note += (f"; single controller with per-rank forming "
+                     f"{ {k: v for k, v in per_rank.items() if v} } (cc.per_rank_once "
+                     "shares a grid line's value among the ranks on one device)")
+        print(f"[mp] {name:14s} shards{' and ' + '/'.join(want_arrays) if want_arrays else ''}"
+              f" bitwise equal to the single controller's: {same}"
+              f"{'' if same else f' (max rel diff {worst:.3e})'}{note}; launches summed over "
+              f"the processes {live}, single controller {sc}", flush=True)
         if not same:
             raise AssertionError(f"multi-process {name}: shards differ from the single "
                                  f"controller's (max rel diff {worst:.3e})")
-        if counts != want_counts:
+        if counts != per_rank:
             raise AssertionError(f"multi-process {name}: launches {counts}, single "
-                                 f"controller {want_counts}")
+                                 f"controller {want_counts}, with per-rank forming {per_rank}")
         for k, v in counts.items():
             launches[k] += v
     del ref, grid
@@ -2503,24 +2653,11 @@ def multiprocess_phase(torch, card, launches, sc_walls, device: str = "cuda:0",
     # the user's launch: torchrun, one process per rank, sharing this card
     root = os.path.dirname(os.path.abspath(__file__))
     env = {**os.environ, "PYTHONPATH": root, "GLOO_SOCKET_IFNAME": "lo"}
-    for letter, nruns in (("s", "2"), ("d", "1")):
-        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-               "--nproc-per-node", "4", "-m", "dlaf_tpu_torch.miniapp.miniapp_cholesky",
-               *big, "--grid-rows", "2", "--grid-cols", "2", "--share-device", "--type", letter,
-               "--nruns", nruns, "--check-result", "last", *app_args]
-        t = time.perf_counter()
-        out = _run_group(cmd, 600, env)
-        print(out, end="", flush=True)
-        walls = [float(m.group(1)) for m in re.finditer(r"^\[\d+\] ([0-9.]+)s ", out, re.M)]
-        if out.count("check: PASSED") != 1 or len(walls) != int(nruns):
-            raise AssertionError(f"torchrun miniapp_cholesky --type {letter}: expected one "
-                                 f"'check: PASSED' and {nruns} run lines")
-        sc = sc_walls.get(letter)
-        print(f"[mp] torchrun 4 processes {' '.join(big)} 2x2 --share-device (gloo) type {letter}:"
-              f" best wall {min(walls):.6f} s; single controller on the same grid "
-              f"{'%.6f s' % sc if sc else 'not measured'} ({time.perf_counter() - t:.1f} s with "
-              f"start-up and check) [{card}] (four processes on one card, host-staged gloo: "
-              "not a multi-card measurement)", flush=True)
+    for letter in ("s", "d"):
+        torchrun_beside_single(card, "miniapp_cholesky", (*big, "--type", letter),
+                               "the Cholesky", env, app_args)
+    for app, args, what in eig_apps:
+        torchrun_beside_single(card, app, args, what, env, app_args)
     visible = torch.cuda.device_count()
     if visible < 4:
         print(f"[mp] NCCL form not run: {visible} visible card(s); NCCL refuses two ranks on "
@@ -2935,11 +3072,8 @@ def main() -> int:
     print(f"[phase] distributed {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # ---- phase 2b': the multi-process form, one process per rank ---------
-    # the single controller's float64 wall on the grid of the torchrun run
     t_phase = time.perf_counter()
-    d_wall = drive(["-m", "16384", "-b", "256", "--type", "d", "--grid-rows", "2",
-                    "--grid-cols", "2", *share], 16384, 256, 3, {})
-    multiprocess_phase(torch, card, launches, {"s": dist_walls["dist-L"], "d": d_wall})
+    multiprocess_phase(torch, card, launches)
     print(f"[phase] multi-process {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # ---- phase 2c: the distributed scan Cholesky and the triangular solve

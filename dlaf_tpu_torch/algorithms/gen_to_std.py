@@ -17,7 +17,8 @@ Two formulations (knob ``hegst_impl``):
   half-weight hemms around the her2k trailing update. Local
   (:func:`_hegst_local`, in place on one global tensor, as
   ``_cholesky_local``) and distributed (:func:`_hegst_dist`, one
-  controller running every rank, as ``_cholesky_dist``).
+  controller running every rank, or one process per rank, as
+  ``_cholesky_dist``).
 * ``"twosolve"``: hermitianize A, then two whole triangular solves
   (:func:`..algorithms.triangular.triangular_solve`): about twice the
   operations, no per-step panel chain. The scan step mode
@@ -54,7 +55,7 @@ import torch
 
 from .. import config
 from ..comm import collectives as cc
-from ..comm.grid import COL_AXIS, ROW_AXIS, refuse_multi_process
+from ..comm.grid import COL_AXIS, ROW_AXIS
 from ..common.asserts import dlaf_assert
 from ..health import info as hinfo
 from ..matrix import ops as mops
@@ -65,6 +66,7 @@ from ..matrix.panel import (DistContext, bcast_diag, col_panel, pad_diag_identit
                             uniform_slot_start)
 from ..matrix.tiling import global_to_tiles, tiles_to_global
 from ..tile_ops import blas as tb
+from ..tile_ops import lapack as tl
 from ..tile_ops import mixed as mx
 from ..tile_ops import panel_kernels as pk
 from ..types import ceil_div
@@ -101,14 +103,10 @@ def _solve(side: str, uplo: str, op: str, lkk, b, inv, fused: bool):
 def _hegst_diag(uplo: str, akk, lkk, inv, fused: bool):
     """The transformed diagonal tile in full Hermitian form:
     ``inv(L) herm(Akk) inv(L)^H`` (uplo 'L') or ``inv(U^H) herm(Akk)
-    inv(U)`` ('U')."""
-    ah = tb.hermitian_from(akk, uplo)
-    if uplo == "L":
-        w = _solve("L", "L", "N", lkk, ah, inv, fused)
-        w = _solve("R", "L", "C", lkk, w, inv, fused)
-    else:
-        w = _solve("L", "U", "C", lkk, ah, inv, fused)
-        w = _solve("R", "U", "N", lkk, w, inv, fused)
+    inv(U)`` ('U'): the tile HEGST (:func:`..tile_ops.lapack.hegst`) with
+    the step's panel solves."""
+    w = tl.hegst(1, uplo, akk, lkk,
+                 solve=lambda side, up, op, t, x: _solve(side, up, op, t, x, inv, fused))
     return tb.hermitian_from(w, uplo)
 
 
@@ -236,8 +234,10 @@ def _hegst_dist(lts, lls, dist, *, uplo: str, use_mxu: bool = False, lookahead: 
 
     The reference's ``_build_dist_hegst`` runs ``transform`` once per mesh
     coordinate inside ``shard_map``; here one controller runs each of its
-    three phases for every rank, and :mod:`..comm.collectives` exchange
-    the per-rank values between them:
+    three phases for every rank (in the multi-process form each process
+    for its own rank: loops over ``cc.local_ranks``, the owners' writes
+    guarded), and :mod:`..comm.collectives` exchange the per-rank values
+    between them:
 
     * ``chain`` (uplo 'L' :358, 'U' :513): the factor's and A's diagonal
       tiles to every rank, the diagonal transform on EVERY rank, the factor
@@ -297,9 +297,8 @@ def _hegst_dist(lts, lls, dist, *, uplo: str, use_mxu: bool = False, lookahead: 
         else:
             fac = row_panel(ctx, lls, k, lu=lu_c)
             span = ranks(lambda r, c: valid_cols(c, lu_c, count, k))
-        for r in range(P):
-            for c in range(Q):
-                _zero_outside(fac[r][c], span[r][c])
+        for r, c in cc.local_ranks(P, Q):
+            _zero_outside(fac[r][c], span[r][c])
         ch["fac"] = fac
         if k == nt - 1:
             return ch
@@ -329,11 +328,10 @@ def _hegst_dist(lts, lls, dist, *, uplo: str, use_mxu: bool = False, lookahead: 
             g_t = ranks(lambda r, c: ctx.g_rows(r, lu_r, count_t))
             vt_a = transpose_row_to_cols(ctx, vb, lu_c, g_t)
             vt_f = transpose_row_to_cols(ctx, fac, lu_c, g_t)
-        for r in range(P):
-            for c in range(Q):
-                span_t = ds.valid_range(g_t[r][c], k, nt)
-                _zero_outside(vt_a[r][c], span_t)
-                _zero_outside(vt_f[r][c], span_t)
+        for r, c in cc.local_ranks(P, Q):
+            span_t = ds.valid_range(g_t[r][c], k, nt)
+            _zero_outside(vt_a[r][c], span_t)
+            _zero_outside(vt_f[r][c], span_t)
         ch.update(vb=vb, vt_a=vt_a, vt_f=vt_f)
         return ch
 
@@ -367,30 +365,28 @@ def _hegst_dist(lts, lls, dist, *, uplo: str, use_mxu: bool = False, lookahead: 
             return
         got = cc.bcast(solved, ROW_AXIS, owner_r) if lower else cc.bcast(solved, COL_AXIS,
                                                                           owner_c)
-        for r in range(P):
-            for c in range(Q):
-                if lower:
-                    # A_ij -= L_ik A_kj over my rows i > k and columns j < k
-                    upd = _pair_product(fac[r][c], got[r][c].conj().mT, use_mxu)
-                    a, b = valid_rows(r, lu_r, ltr - lu_r, k)
-                    lts[r][c][lu_r + a:lu_r + b, :prev[r][c]] -= upd[a:b, :prev[r][c]]
-                else:
-                    # A_ji -= A_jk U_ki over my rows j < k and columns i > k
-                    upd = _pair_product(got[r][c], fac[r][c].conj().mT, use_mxu)
-                    a, b = valid_cols(c, lu_c, ltc - lu_c, k)
-                    lts[r][c][:prev[r][c], lu_c + a:lu_c + b] -= upd[:prev[r][c], a:b]
+        for r, c in cc.local_ranks(P, Q):
+            if lower:
+                # A_ij -= L_ik A_kj over my rows i > k and columns j < k
+                upd = _pair_product(fac[r][c], got[r][c].conj().mT, use_mxu)
+                a, b = valid_rows(r, lu_r, ltr - lu_r, k)
+                lts[r][c][lu_r + a:lu_r + b, :prev[r][c]] -= upd[a:b, :prev[r][c]]
+            else:
+                # A_ji -= A_jk U_ki over my rows j < k and columns i > k
+                upd = _pair_product(got[r][c], fac[r][c].conj().mT, use_mxu)
+                a, b = valid_cols(c, lu_c, ltc - lu_c, k)
+                lts[r][c][:prev[r][c], lu_c + a:lu_c + b] -= upd[:prev[r][c], a:b]
 
     def write_panel(k, values):
         """The owner column's (row's) valid panel slots of step k."""
         owner_r, owner_c, kr, kc, lu_r, lu_c = indices(k)
-        if lower:
-            for r in range(P):
+        for r, c in cc.local_ranks(P, Q):
+            if lower and c == owner_c:
                 a, b = valid_rows(r, lu_r, ltr - lu_r, k)
-                lts[r][owner_c][lu_r + a:lu_r + b, kc] = values[r][owner_c][a:b]
-        else:
-            for c in range(Q):
+                lts[r][c][lu_r + a:lu_r + b, kc] = values[r][c][a:b]
+            elif not lower and r == owner_r:
                 a, b = valid_cols(c, lu_c, ltc - lu_c, k)
-                lts[owner_r][c][kr, lu_c + a:lu_c + b] = values[owner_r][c][a:b]
+                lts[r][c][kr, lu_c + a:lu_c + b] = values[r][c][a:b]
 
     def second_half(ch):
         """The panel after its second half-hemm, per rank."""
@@ -402,9 +398,10 @@ def _hegst_dist(lts, lls, dist, *, uplo: str, use_mxu: bool = False, lookahead: 
         """Returns whether the next column (row) was updated here."""
         owner_r, owner_c, kr, kc, lu_r, lu_c = indices(k)
         deferred_solve(k, ch)
-        w, akk = ch["w"][owner_r][owner_c], ch["akk"][owner_r][owner_c]
-        other = "U" if lower else "L"
-        lts[owner_r][owner_c][kr, kc] = tb.tri_mask(w, uplo) + tb.tri_mask(akk, other, k=-1)
+        if cc.is_local(owner_r, owner_c):
+            w, akk = ch["w"][owner_r][owner_c], ch["akk"][owner_r][owner_c]
+            other = "U" if lower else "L"
+            lts[owner_r][owner_c][kr, kc] = tb.tri_mask(w, uplo) + tb.tri_mask(akk, other, k=-1)
         if ch["pan"] is None:
             return False
         write_panel(k, ch["pan"])
@@ -415,8 +412,10 @@ def _hegst_dist(lts, lls, dist, *, uplo: str, use_mxu: bool = False, lookahead: 
             return False
         vb, vt_a, vt_f = ch["vb"], ch["vt_a"], ch["vt_f"]
         if lower:
-            c, kc1 = ctx.owner_c(k + 1), ctx.kc(k + 1)
-            for r in range(P):
+            c1, kc1 = ctx.owner_c(k + 1), ctx.kc(k + 1)
+            for r, c in cc.local_ranks(P, Q):
+                if c != c1:
+                    continue
                 j = kc1 - lu_c
                 upd = (_col_strip_product(vb[r][c], vt_f[r][c][j], use_mxu)
                        + _col_strip_product(ch["fac"][r][c], vt_a[r][c][j], use_mxu))
@@ -425,8 +424,10 @@ def _hegst_dist(lts, lls, dist, *, uplo: str, use_mxu: bool = False, lookahead: 
                 ds.sub_masked_rows(lts[r][c][lu_r:, kc1], upd, ds.valid_range(g, k + 1, nt),
                                  int(on[0]) if on.size else None, True)
         else:
-            r, kr1 = ctx.owner_r(k + 1), ctx.kr(k + 1)
-            for c in range(Q):
+            r1, kr1 = ctx.owner_r(k + 1), ctx.kr(k + 1)
+            for r, c in cc.local_ranks(P, Q):
+                if r != r1:
+                    continue
                 i = kr1 - lu_r
                 upd = (_row_strip_product(vt_a[r][c][i].conj().mT, ch["fac"][r][c].conj().mT,
                                           use_mxu)
@@ -444,22 +445,21 @@ def _hegst_dist(lts, lls, dist, *, uplo: str, use_mxu: bool = False, lookahead: 
         *_, lu_r, lu_c = indices(k)
         nrows, ncols = ltr - lu_r, ltc - lu_c
         vb, vt_a, vt_f, fac = ch["vb"], ch["vt_a"], ch["vt_f"], ch["fac"]
-        for r in range(P):
-            for c in range(Q):
-                block = lts[r][c][lu_r:, lu_c:]
-                mode = to_device(ds.pair_modes(ctx.g_rows(r, lu_r, nrows),
-                                             ctx.g_cols(c, lu_c, ncols), k, nt, uplo, stripped),
-                                 block.device, torch.int32)
-                if lower:
-                    # A_ij -= P_i L_jk^H + L_ik P_j^H
-                    upd = (_pair_product(vb[r][c], vt_f[r][c], use_mxu)
-                           + _pair_product(fac[r][c], vt_a[r][c], use_mxu))
-                else:
-                    # A_ij -= P_ki^H U_kj + U_ki^H P_kj
-                    upd = (_pair_product(vt_a[r][c].conj().mT, fac[r][c].conj().mT, use_mxu)
-                           + _pair_product(vt_f[r][c].conj().mT, vb[r][c].conj().mT, use_mxu))
-                ds.sub_masked_pairs(block, upd, mode, uplo)
-                del upd
+        for r, c in cc.local_ranks(P, Q):
+            block = lts[r][c][lu_r:, lu_c:]
+            mode = to_device(ds.pair_modes(ctx.g_rows(r, lu_r, nrows),
+                                         ctx.g_cols(c, lu_c, ncols), k, nt, uplo, stripped),
+                             block.device, torch.int32)
+            if lower:
+                # A_ij -= P_i L_jk^H + L_ik P_j^H
+                upd = (_pair_product(vb[r][c], vt_f[r][c], use_mxu)
+                       + _pair_product(fac[r][c], vt_a[r][c], use_mxu))
+            else:
+                # A_ij -= P_ki^H U_kj + U_ki^H P_kj
+                upd = (_pair_product(vt_a[r][c].conj().mT, fac[r][c].conj().mT, use_mxu)
+                       + _pair_product(vt_f[r][c].conj().mT, vb[r][c].conj().mT, use_mxu))
+            ds.sub_masked_pairs(block, upd, mode, uplo)
+            del upd
         write_panel(k, second_half(ch))
 
     ch_next = None
@@ -485,7 +485,6 @@ def gen_to_std(uplo: str, a: Matrix, b_factor: Matrix, *, donate: bool = False,
     when the factor's diagonal is finite and nonzero, else the 1-based
     first singular global column (the result is the same either way)."""
     dlaf_assert(uplo in ("L", "U"), f"gen_to_std: bad uplo {uplo!r}")
-    refuse_multi_process(a.grid, "gen_to_std", "the multi-process HEGST")
     info = hinfo.matrix_diag_info(b_factor, singular=True) if with_info else None
     dlaf_assert(a.size == b_factor.size, "gen_to_std: A/B size mismatch")
     dlaf_assert(a.block_size == b_factor.block_size, "gen_to_std: block mismatch")
@@ -514,7 +513,7 @@ def gen_to_std(uplo: str, a: Matrix, b_factor: Matrix, *, donate: bool = False,
                         what="gen_to_std(A, B_factor)")
     P, Q = a.dist.grid_size.row, a.dist.grid_size.col
     use_mxu = tb.f64_gemm_uses_mxu(a.dtype, nb, dev)
-    shards = a.storage if donate else [s.clone() for s in a.storage]
+    shards = a.storage if donate else [s if s is None else s.clone() for s in a.storage]
     if donate:
         a.storage = None
     _hegst_dist(cc.per_rank(P, Q, lambda r, c: shards[r * Q + c]),

@@ -8,8 +8,10 @@ merge's assembly. :func:`permute` permutes the element range of a tile
 range of a :class:`..matrix.matrix.Matrix`: locally one gather of the
 range, on a grid the reference's slot-window scheme (``:49-149``): an
 all-gather along the permuted grid axis of the window of local slots that
-covers the range, then a per-rank gather from it by host tables. It is
-pure data movement, so the grid form equals the local one bitwise.
+covers the range, then a per-rank gather from it by host tables (in the
+multi-process form each process for its own rank, the all-gather across
+the line's processes). It is pure data movement, so the grid form equals
+the local one bitwise.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import numpy as np
 import torch
 
 from ..comm import collectives as cc
-from ..comm.grid import COL_AXIS, ROW_AXIS, refuse_multi_process
+from ..comm.grid import COL_AXIS, ROW_AXIS
 from ..common.asserts import dlaf_assert
 from ..matrix.matrix import Matrix
 from ..matrix.tiling import global_to_tiles, storage_tile_grid, tiles_to_global
@@ -85,7 +87,6 @@ def permute(coord: str, perm, mat: Matrix, tile_begin: int = 0,
     a1 = ext if tile_end is None else min(tile_end * nb, ext)
     if a1 <= a0:
         return mat
-    refuse_multi_process(mat.grid, "permute", "the multi-process permute")
     if not mat.distributed:
         g = tiles_to_global(mat.storage, mat.dist)
         idx = torch.as_tensor(perm, dtype=torch.int64).to(g.device) + a0
@@ -118,4 +119,5 @@ def permute(coord: str, perm, mat: Matrix, tile_begin: int = 0,
         return _rank_permute(t, gathered[r][c], torch.from_numpy(table[i]).to(t.device),
                              torch.from_numpy(mask[i]).to(t.device), coord)
 
-    return mat.with_storage([one(r, c) for r in range(P) for c in range(Q)])
+    new = cc.per_rank(P, Q, one)
+    return mat.with_storage([new[r][c] for r in range(P) for c in range(Q)])

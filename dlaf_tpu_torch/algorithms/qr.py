@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..comm import collectives as cc
-from ..comm.grid import COL_AXIS, ROW_AXIS, refuse_multi_process
+from ..comm.grid import COL_AXIS, ROW_AXIS
 from ..common.asserts import dlaf_assert
 from ..matrix.matrix import Matrix
 from ..matrix.tiling import tiles_to_global
@@ -44,13 +44,14 @@ def t_factor(v, taus) -> torch.Tensor:
     ``computeTFactor``, local and distributed): a plain (m, k) tensor, or
     a Matrix of one block column (on one rank or a grid), unit lower
     trapezoidal with the ones implicit (its upper triangle is not read);
-    ``taus`` (k,). Returns the (k, k) T, on the device of rank (0, 0)."""
+    ``taus`` (k,). Returns the (k, k) T, on the device of rank (0, 0) (on
+    a multi-process grid: of this process's rank; every process gets the
+    same T)."""
     if not isinstance(v, Matrix):
         v = torch.as_tensor(v)
         return tl.larft(v, torch.as_tensor(taus, device=v.device))
     dlaf_assert(v.dist.nr_tiles.col == 1,
                 "t_factor: the reflector panel must be one block column")
-    refuse_multi_process(v.grid, "qr.t_factor", "the multi-process qr.t_factor")
     if not v.distributed:
         return tl.larft(tiles_to_global(v.storage, v.dist), torch.as_tensor(taus, device=v.device))
     dist = v.dist
@@ -63,4 +64,4 @@ def t_factor(v, taus) -> torch.Tensor:
     gram = cc.bcast(cc.all_reduce(part, ROW_AXIS), COL_AXIS, dist.source_rank.col)
     t = cc.per_rank(P, Q, lambda r, c: tl.t_from_gram(
         gram[r][c], torch.as_tensor(taus, device=gram[r][c].device)))
-    return t[0][0]
+    return cc.local_value(t)

@@ -30,6 +30,20 @@ Semantics follow the reference (``collectives.py:69-255``):
   into as many chunks along ``split_axis`` as the axis has ranks, sends
   chunk ``j`` to rank ``j`` and joins what it receives along
   ``concat_axis`` in rank order.
+* :func:`scatter` sends each rank its own piece of one rank's per-rank
+  values, :func:`gather` brings every rank's value (of any leading
+  extent) to one rank, and :func:`exchange` moves values between named
+  pairs of ranks only: the verbs by which a matrix that one rank holds
+  is distributed (``Matrix.from_global(root=)``), the band's tiles reach
+  rank (0, 0), and a mirror tile is fetched from its owner.
+
+A received value has, in both forms, the layout the single controller's
+copy gives it: a broadcast's or an all-gather's that of its sender where
+the sender's value is dense (``x.to(copy=True)``; the transport carries
+the sender's memory order in its header), a scatter's, gather's or
+exchange's contiguous. A library product may sum in another order for
+another layout of its operands, so the layouts must agree for the bits
+to.
 
 ``axis`` ``"row"`` runs along grid rows, among the ranks of one grid
 column (the reference's column communicator), ``"col"`` among the ranks
@@ -54,11 +68,15 @@ source's process and the receivers (the source included) add 0.0; a
 order (a ring sum would add in another order); :func:`all_reduce`'s
 other ops, :func:`reduce`, :func:`send_recv` (a broadcast along the line,
 kept on ``dst``) and :func:`all_to_all` (chunks of an all-gather) are
-formed the same way. Every process of a line must call the verb with a
-value of one shape and dtype, as the uniform slots of the distributed
-builders give; :func:`_transport` checks that before it moves data, so
-a mismatch raises on every process instead of hanging. With no world
-installed every function is the single controller's.
+formed the same way; :func:`scatter` is ``scatter`` from the owner's
+process, :func:`gather` point-to-point sends to it and :func:`exchange`
+one batch of point-to-point sends and receives. Every process of a line
+must call the verb with a value of one shape and dtype, as the uniform
+slots of the distributed builders give (a gather's leading extents may
+differ; an exchange's pairs agree on what crosses); :func:`_transport`
+checks that before it moves data, so a mismatch raises on every process
+instead of hanging. With no world installed every function is the single
+controller's.
 """
 
 from __future__ import annotations
@@ -174,11 +192,17 @@ def _per_receiver(xs, axis: str, shared: bool, fn):
     return per_rank_once(P, Q, lambda r, c: (c if axis == ROW_AXIS else r, xs[r][c].device), fn)
 
 
+def _copy(x: torch.Tensor, device) -> torch.Tensor:
+    """A new contiguous copy of ``x`` on ``device``: what :func:`scatter`,
+    :func:`gather` and :func:`exchange` hand a receiver in both forms."""
+    return x.to(device, memory_format=torch.contiguous_format, copy=True)
+
+
 def _received(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """The broadcast's received value on ``like``'s device: a new tensor,
-    ``x + 0.0`` for floating types."""
-    y = x.to(like.device, copy=True)
-    return _plus_zero(y)
+    """The broadcast's received value on ``like``'s device: a new tensor
+    in ``x``'s layout where ``x`` is dense, ``x + 0.0`` for floating
+    types."""
+    return _plus_zero(x.to(like.device, copy=True))
 
 
 def _plus_zero(y: torch.Tensor) -> torch.Tensor:
@@ -193,14 +217,48 @@ _MAX_DIMS = 8
 _DTYPES = (torch.float32, torch.float64, torch.complex64, torch.complex128, torch.bfloat16,
            torch.float16, torch.int8, torch.uint8, torch.int16, torch.int32, torch.int64,
            torch.bool)
+_KEY = 2 + _MAX_DIMS      # the header's dtype, rank and extents; then the layout
+
+
+def _order(x: torch.Tensor) -> list:
+    """``x``'s dims from the outermost in memory to the innermost where
+    ``x`` is dense (``x.permute(order)`` is contiguous), else the identity:
+    the layout a copy keeps (``x.to(copy=True)`` keeps a dense tensor's
+    strides and makes any other contiguous)."""
+    order = sorted(range(x.dim()), key=lambda d: -x.stride(d))
+    return order if x.permute(order).is_contiguous() else list(range(x.dim()))
 
 
 def _header(x: torch.Tensor, device) -> torch.Tensor:
-    """dtype, rank and extents of ``x`` as a small int64 tensor."""
+    """dtype, rank and extents of ``x``, then its layout (:func:`_order`),
+    as a small int64 tensor."""
     dlaf_assert(x.dim() <= _MAX_DIMS, f"a {x.dim()}-d value: at most {_MAX_DIMS} dims")
     dlaf_assert(x.dtype in _DTYPES, f"no transport for dtype {x.dtype}")
-    h = [_DTYPES.index(x.dtype), x.dim(), *x.shape] + [-1] * (_MAX_DIMS - x.dim())
+    pad = [-1] * (_MAX_DIMS - x.dim())
+    h = [_DTYPES.index(x.dtype), x.dim(), *x.shape] + pad + _order(x) + pad
     return torch.tensor(h, dtype=torch.int64, device=device)
+
+
+def _in_order(x: torch.Tensor) -> torch.Tensor:
+    """``x``'s elements in its memory order (:func:`_order`), flat, as the
+    wire carries them."""
+    return _wire(x.detach().permute(_order(x))).reshape(-1)
+
+
+def _from_wire(flat: torch.Tensor, head: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The sender's value from its flat elements and its header: its
+    extents and its layout, on ``like``'s device."""
+    nd = int(head[1])
+    shape = [int(v) for v in head[2:2 + nd]]
+    order = [int(v) for v in head[_KEY:_KEY + nd]]
+    t = flat.to(like.device)
+    stored = tuple(shape[d] for d in order)
+    if like.is_complex():
+        t = torch.view_as_complex(t.view(stored + (2,)))
+    else:
+        t = _unwire(t, like).view(stored)
+    inv = sorted(range(nd), key=lambda d: order[d])
+    return t.permute(inv)
 
 
 def _wire(x: torch.Tensor) -> torch.Tensor:
@@ -217,42 +275,131 @@ def _unwire(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return t.view(torch.bool) if like.dtype == torch.bool else t
 
 
-def _transport(kind: str, x: torch.Tensor, group, src: int = -1):
-    """The one place a value crosses processes: ``kind`` "broadcast" (from
-    the global process rank ``src``) returns the source's value as a new
-    tensor on ``x``'s device; "all_gather" returns every group member's
-    value, in group rank order (ascending global rank), each a new tensor
-    on ``x``'s device.
+def _check_heads(kind: str, heads: list, x: torch.Tensor, *, rows_may_differ: bool = False):
+    """Raise on every process when the group's headers disagree (the
+    leading extent may differ with ``rows_may_differ``)."""
+    def key(h):
+        return torch.cat([h[:2], h[3:_KEY]]) if rows_may_differ else h[:_KEY]
 
-    Every member first all-gathers the values' dtypes and shapes and
-    raises when they differ, so a mismatch fails on every process instead
-    of hanging in the data collective. On a gloo group a CUDA tensor is
-    staged through host memory: copied to the host, the collective runs
-    there, the result is copied back to the device (gloo's own CUDA
-    support covers some collectives only, and is not relied on). NCCL
-    groups move CUDA tensors directly."""
-    staged = x.is_cuda and dist.get_backend(group) == "gloo"
-    wdev = torch.device("cpu") if staged else x.device
-    n = dist.get_world_size(group)
-    head = _header(x, wdev)
-    heads = [torch.empty_like(head) for _ in range(n)]
-    dist.all_gather(heads, head, group=group)
-    if any(not torch.equal(h, heads[0]) for h in heads):
-        shapes = [tuple(int(v) for v in h[2:2 + int(h[1])]) for h in heads]
+    if any(not torch.equal(key(h), key(heads[0])) for h in heads):
+        shapes = [tuple(int(v) for v in h[2:2 + int(h[1])]) if int(h[0]) >= 0 else "bad pieces"
+                  for h in heads]
         raise ValueError(f"{kind}: the processes of the group hold values of different "
                          f"shapes or dtypes {shapes} (this process: {tuple(x.shape)} "
                          f"{x.dtype}); every process must pass the source's shape and dtype")
-    w = _wire(x.detach())
-    if kind == "broadcast":
-        buf = (w.to(wdev, memory_format=torch.contiguous_format, copy=True)
-               if dist.get_rank() == src else torch.empty(w.shape, dtype=w.dtype, device=wdev))
-        dist.broadcast(buf, src=src, group=group)
+
+
+def _p2p(sends: dict, recvs: dict) -> None:
+    """Post every send (``{global rank: tensor}``) and receive (``{global
+    rank: buffer}``) of this process at once and wait for them (one batch:
+    NCCL pairs them in one group, so two processes that send each other
+    first cannot deadlock)."""
+    ops = [dist.P2POp(dist.isend, t, peer) for peer, t in sorted(sends.items())]
+    ops += [dist.P2POp(dist.irecv, t, peer) for peer, t in sorted(recvs.items())]
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+
+
+def _transport(kind: str, x: torch.Tensor, group, src: int = -1, *, pieces=None, expect=None):
+    """The one place a value crosses processes. ``src`` is a global
+    process rank; every result is a new tensor on ``x``'s device.
+
+    * "broadcast": the source's value;
+    * "all_gather": every group member's value, in group rank order
+      (ascending global rank);
+    * "scatter": ``pieces[i]`` of the source (a list in group rank order,
+      each of ``x``'s shape and dtype; None elsewhere) to member ``i``;
+    * "gather": every member's value on the source, a list in group rank
+      order (None elsewhere); the values may differ in their leading
+      extent, as a rank's count of tiles does;
+    * "exchange": pairwise, ``pieces`` ``{global rank: tensor}`` sent to
+      each peer and ``expect`` ``{global rank: tensor}`` of the shapes and
+      dtypes each peer sends here; returns ``{global rank: tensor}``
+      (``x`` gives the device). A process passes neither to itself.
+
+    Every member first all-gathers the values' dtypes and shapes (for an
+    exchange: of every piece it sends and expects) and raises when they
+    disagree, so a mismatch fails on every process instead of hanging in
+    the data collective. On a gloo group a CUDA tensor is staged through
+    host memory: copied to the host, the collective runs there, the
+    result is copied back to the device (gloo's own CUDA support covers
+    some collectives only, and is not relied on). NCCL groups move CUDA
+    tensors directly."""
+    staged = x.is_cuda and dist.get_backend(group) == "gloo"
+    wdev = torch.device("cpu") if staged else x.device
+    n = dist.get_world_size(group)
+    if kind == "exchange":
+        return _exchange(x, group, pieces, expect, wdev)
+    head = _header(x, wdev)
+    if kind == "scatter" and dist.get_rank() == src:
+        if len(pieces) != n or any(p.dtype != x.dtype or p.shape != x.shape for p in pieces):
+            head[0] = -2     # the source's pieces disagree: every member raises
+    heads = [torch.empty_like(head) for _ in range(n)]
+    dist.all_gather(heads, head, group=group)
+    _check_heads(kind, heads, x, rows_may_differ=kind == "gather")
+
+    def back(buf):
         return _unwire(buf.to(x.device), x) if staged else _unwire(buf, x)
-    dlaf_assert(kind == "all_gather", f"unknown transport {kind!r}")
-    send = w.to(wdev).contiguous()
-    bufs = [torch.empty(w.shape, dtype=w.dtype, device=wdev) for _ in range(n)]
-    dist.all_gather(bufs, send, group=group)
-    return [_unwire(b.to(x.device), x) for b in bufs]
+
+    members = sorted(dist.get_process_group_ranks(group))
+    w = _wire(x.detach())
+    if kind in ("broadcast", "all_gather"):
+        # each value arrives in its sender's layout, as a copy keeps it
+        # under the single controller
+        flat = _in_order(x).to(wdev)
+        if kind == "broadcast":
+            buf = flat.clone() if dist.get_rank() == src else torch.empty_like(flat)
+            dist.broadcast(buf, src=src, group=group)
+            return _from_wire(buf, heads[members.index(src)], x)
+        bufs = [torch.empty_like(flat) for _ in range(n)]
+        dist.all_gather(bufs, flat.contiguous(), group=group)
+        return [_from_wire(b, h, x) for b, h in zip(bufs, heads)]
+    if kind == "scatter":
+        buf = torch.empty(w.shape, dtype=w.dtype, device=wdev)
+        parts = ([_wire(p.detach()).to(wdev).contiguous() for p in pieces]
+                 if dist.get_rank() == src else None)
+        dist.scatter(buf, parts, src=src, group=group)
+        return back(buf)
+    dlaf_assert(kind == "gather", f"unknown transport {kind!r}")
+    me = dist.get_rank()
+    if me != src:
+        _p2p({src: w.to(wdev).contiguous()} if w.numel() else {}, {})
+        return None
+    bufs = {g: torch.empty((int(h[2]), *w.shape[1:]), dtype=w.dtype, device=wdev)
+            for g, h in zip(members, heads) if g != me}
+    _p2p({}, {g: b for g, b in bufs.items() if b.numel()})
+    return [_copy(x.detach(), x.device) if g == me else back(bufs[g]) for g in members]
+
+
+def _exchange(x, group, pieces: dict, expect: dict, wdev):
+    """The pairwise exchange of :func:`_transport` (its "exchange")."""
+    n = dist.get_world_size(group)
+    members = sorted(dist.get_process_group_ranks(group))
+    me = dist.get_rank()
+    none = torch.full((_KEY + _MAX_DIMS,), -1, dtype=torch.int64, device=wdev)
+    # every member's manifest: the header of what it sends to and expects
+    # from each member, in group order
+    man = torch.stack([_header(pieces[g], wdev) if g in pieces else none for g in members]
+                      + [_header(expect[g], wdev) if g in expect else none for g in members])
+    mans = [torch.empty_like(man) for _ in range(n)]
+    dist.all_gather(mans, man, group=group)
+    def what(h):
+        return "nothing" if int(h[0]) < 0 else tuple(int(v) for v in h[2:2 + int(h[1])])
+
+    for i, gi in enumerate(members):
+        for j, gj in enumerate(members):
+            sent, wanted = mans[i][j][:_KEY], mans[j][n + i][:_KEY]
+            if not torch.equal(sent, wanted):
+                raise ValueError(f"exchange: process {gi} sends process {gj} {what(sent)} but "
+                                 f"it expects {what(wanted)}")
+    sends = {g: _wire(t.detach()).to(wdev).contiguous() for g, t in pieces.items()}
+    bufs = {g: torch.empty(_wire(t).shape, dtype=_wire(t).dtype, device=wdev)
+            for g, t in expect.items()}
+    dlaf_assert(me not in sends and me not in bufs, "exchange: a process sends to itself")
+    _p2p(sends, bufs)
+    return {g: (_unwire(b.to(x.device), expect[g]) if wdev != x.device
+                else _unwire(b, expect[g])) for g, b in bufs.items()}
 
 
 def _world_line(axis: str):
@@ -393,6 +540,79 @@ def all_to_all(xs, axis: str, *, split_axis: int, concat_axis: int):
         return torch.cat(parts, dim=concat_axis)
 
     return per_rank(P, Q, one)
+
+
+def scatter(parts, owner_r: int, owner_c: int, like):
+    """Rank ``(owner_r, owner_c)``'s per-rank values to their ranks: rank
+    ``(r, c)`` gets ``parts[r][c]`` as a new tensor on ``like[r][c]``'s
+    device. Only the owner's process reads ``parts`` (a full nested list
+    there; None elsewhere); ``like[r][c]`` gives every rank's shape and
+    dtype, the same on every rank. Nothing else crosses: each process
+    receives its rank's piece only."""
+    P, Q = grid_shape(like)
+    if _WORLD is not None:
+        r, c = _WORLD.local_ranks[0]
+        owner = _WORLD.process_rank(owner_r, owner_c)
+        pieces = None
+        if dist.get_rank() == owner:
+            order = sorted((_WORLD.process_rank(i, j), (i, j)) for i in range(P)
+                           for j in range(Q))
+            pieces = [parts[i][j] for _, (i, j) in order]
+        return _only_local(like, _transport("scatter", like[r][c], dist.group.WORLD,
+                                            src=owner, pieces=pieces))
+    return per_rank(P, Q, lambda r, c: _copy(parts[r][c], like[r][c].device))
+
+
+def gather(xs, owner_r: int, owner_c: int):
+    """Every rank's value on rank ``(owner_r, owner_c)``: a nested per-rank
+    list of new tensors on the owner's device, returned where the owner's
+    rank is driven (None on the other processes). The values may differ
+    in their leading extent (a count of tiles), not otherwise."""
+    P, Q = grid_shape(xs)
+    if _WORLD is not None:
+        r, c = _WORLD.local_ranks[0]
+        owner = _WORLD.process_rank(owner_r, owner_c)
+        got = _transport("gather", xs[r][c], dist.group.WORLD, src=owner)
+        if got is None:
+            return None
+        order = sorted(range(P * Q), key=lambda i: _WORLD.process_rank(i // Q, i % Q))
+        out = [[None] * Q for _ in range(P)]
+        for i, v in zip(order, got):
+            out[i // Q][i % Q] = v
+        return out
+    dev = xs[owner_r][owner_c].device
+    return [[_copy(xs[r][c], dev) for c in range(Q)] for r in range(P)]
+
+
+def exchange(sends, expect):
+    """Pairwise exchange between ranks: ``sends[r][c]`` maps a destination
+    rank ``(r2, c2)`` to the value rank ``(r, c)`` sends it, and
+    ``expect[r][c]`` maps a source rank to a tensor of the shape and dtype
+    rank ``(r, c)`` receives from it. Returns per rank ``{source rank:
+    value}``, each a new tensor on the device of the ``expect`` entry.
+    Only the named pairs move data: no rank receives what another rank
+    was sent. A rank's value to itself is a copy."""
+    P, Q = grid_shape(expect)
+
+    def take(r, c):
+        out = {}
+        for (r2, c2), like in expect[r][c].items():
+            if is_local(r2, c2):
+                out[(r2, c2)] = _copy(sends[r2][c2][(r, c)], like.device)
+        return out
+
+    local = per_rank(P, Q, take)
+    if _WORLD is None:
+        return local
+    r, c = _WORLD.local_ranks[0]
+    pr = _WORLD.process_rank
+    pieces = {pr(*k): v for k, v in sends[r][c].items() if not is_local(*k)}
+    wanted = {pr(*k): v for k, v in expect[r][c].items() if not is_local(*k)}
+    got = _transport("exchange", torch.empty(0, device=_WORLD.device(r, c)), dist.group.WORLD,
+                     pieces=pieces, expect=wanted)
+    where = {pr(i, j): (i, j) for i in range(P) for j in range(Q)}
+    local[r][c].update({where[g]: v for g, v in got.items()})
+    return local
 
 
 def barrier_value(xs, axis: str):

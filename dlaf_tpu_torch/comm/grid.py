@@ -171,17 +171,6 @@ class Grid:
                 f"{', shared devices' if shared else ''})")
 
 
-def refuse_multi_process(grid, what: str, item: str) -> None:
-    """Raise ``NotImplementedError`` when ``grid`` is a multi-process grid:
-    ``what`` has no multi-process form yet (``item`` names its entry in
-    ROADMAP.md's first queue). Without the guard such a builder would
-    index the shards of other processes' ranks, or compute with one
-    rank's view."""
-    if grid is not None and grid.multi_process:
-        raise NotImplementedError(f"{what} on a multi-process grid is not ported yet "
-                                  f"(ROADMAP.md, queue 1: {item})")
-
-
 def shared_grid(rows: int, cols: int, device) -> Grid:
     """A rows x cols grid with every rank on ``device``."""
     return Grid(rows, cols, devices=[device] * (rows * cols))

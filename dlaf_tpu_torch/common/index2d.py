@@ -3,15 +3,25 @@
 Counterpart of ``dlaf_tpu/common/index2d.py`` (reference
 ``common/index2d.h``): (row, col) value types whose distinct classes keep
 global-element, global-tile, local-tile, local-element, tile-element and
-process-grid coordinates apart.
+process-grid coordinates apart, with the linearization helpers
+(:class:`Ordering`, :func:`compute_linear_index`, :func:`compute_coords`)
+and the column-major range walk :func:`iterate_range2d`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Type
+import enum
+from typing import Iterator, Type
 
 from .asserts import dlaf_assert
+
+
+class Ordering(enum.Enum):
+    """Linearization order (reference ``common/index2d.h:24-30``)."""
+
+    RowMajor = "row-major"
+    ColMajor = "col-major"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,3 +75,35 @@ LocalTileIndex, LocalTileSize = _make_pair("LocalTileIndex", "LocalTileSize")
 LocalElementIndex, LocalElementSize = _make_pair("LocalElementIndex", "LocalElementSize")
 TileElementIndex, TileElementSize = _make_pair("TileElementIndex", "TileElementSize")
 RankIndex2D, GridSize2D = _make_pair("RankIndex2D", "GridSize2D")
+
+
+def compute_linear_index(ordering: Ordering, index, dims) -> int:
+    """``index`` linearized inside a box of extents ``dims`` (reference
+    ``index2d.h:288-330``)."""
+    dlaf_assert(index.is_in(dims) if hasattr(index, "is_in") else True,
+                f"linear index out of bounds: {index} in {dims}")
+    if ordering is Ordering.RowMajor:
+        return index.row * dims.col + index.col
+    return index.col * dims.row + index.row
+
+
+def compute_coords(ordering: Ordering, linear: int, dims, cls):
+    """Inverse of :func:`compute_linear_index`: the ``cls`` index of
+    ``linear`` (reference ``index2d.h:340-380``)."""
+    if ordering is Ordering.RowMajor:
+        return cls(linear // dims.col, linear % dims.col)
+    return cls(linear % dims.row, linear // dims.row)
+
+
+def iterate_range2d(begin_or_end, end=None, *, cls=LocalTileIndex) -> Iterator:
+    """The ``cls`` indices of a 2-D half-open range in column-major order
+    (reference ``common/range2d.h``): ``iterate_range2d(end)`` over
+    ``[(0, 0), end)``, ``iterate_range2d(begin, end)`` over ``[begin,
+    end)``."""
+    if end is None:
+        (b_row, b_col), (e_row, e_col) = (0, 0), tuple(begin_or_end)
+    else:
+        (b_row, b_col), (e_row, e_col) = tuple(begin_or_end), tuple(end)
+    for col in range(b_col, e_col):
+        for row in range(b_row, e_row):
+            yield cls(row, col)

@@ -41,7 +41,7 @@ import torch
 
 from .. import config
 from ..comm import collectives as cc
-from ..comm.grid import ROW_AXIS, refuse_multi_process
+from ..comm.grid import ROW_AXIS
 from ..common.asserts import dlaf_assert
 from ..matrix.matrix import Matrix
 from ..matrix.panel import (DistContext, element_valid, gather_sub_panel, gather_sub_panel_dyn,
@@ -156,7 +156,10 @@ def _dist_bt_b2t(tri: TridiagResult, mat: Matrix) -> list:
     """The distributed chase back-transform (reference
     ``_build_dist_bt_b2t``) of ``mat``'s shards; returns the new shards.
     Ranks that share a device apply the reflectors once, to the columns
-    they received side by side."""
+    they received side by side; in the multi-process form each process
+    applies them to its rank's. The two give the same bits on the CPU and
+    on the card (the multi-process tests and ``chip_smoke.py``): each
+    column's products sum in one order whatever the width."""
     dist = mat.dist
     n = dist.size.row
     nb = dist.block_size.row
@@ -188,9 +191,8 @@ def _dist_bt_b2t(tri: TridiagResult, mat: Matrix) -> list:
         .reshape(Sr * nb, chunk * nb)[:n])
     del x
     by_dev: dict = {}
-    for r in range(P):
-        for c in range(Q):
-            by_dev.setdefault(es[r][c].device, []).append((r, c))
+    for r, c in cc.local_ranks(P, Q):
+        by_dev.setdefault(es[r][c].device, []).append((r, c))
     for dev, ranks in by_dev.items():
         v, tau, phase = _reflectors(tri, dev)
         e = torch.cat([es[r][c] for r, c in ranks], dim=1)
@@ -205,7 +207,8 @@ def _dist_bt_b2t(tri: TridiagResult, mat: Matrix) -> list:
                     .index_select(0, to_device(inv_order, es[r][c].device)))
     del es
     y = cc.all_to_all(y, ROW_AXIS, split_axis=0, concat_axis=1)
-    return [y[r][c][:, :ltc].contiguous() for r in range(P) for c in range(Q)]
+    return [None if y[r][c] is None else y[r][c][:, :ltc].contiguous()
+            for r in range(P) for c in range(Q)]
 
 
 def bt_band_to_tridiag(tri: TridiagResult, evecs):
@@ -218,7 +221,6 @@ def bt_band_to_tridiag(tri: TridiagResult, evecs):
     Matrix in its layout; reference ``bt_band_to_tridiag/api.h:21-22``)."""
     if not isinstance(evecs, Matrix):
         return _bt_b2t_local(tri, torch.as_tensor(evecs))
-    refuse_multi_process(evecs.grid, "bt_band_to_tridiag", "the multi-process back-transforms")
     if not evecs.distributed:
         out = _bt_b2t_local(tri, tiles_to_global(evecs.storage, evecs.dist))
         return Matrix(evecs.dist, global_to_tiles(out, evecs.dist), evecs.grid)
@@ -292,9 +294,8 @@ def _r2b_update(v_my, t, lts_c, lu: int) -> None:
     del part
     w2 = cc.per_rank_once(P, Q, lambda r, c: (c, lts_c[r][c].device),
                           lambda r, c: tb.contract("xb,cbd->cxd", t[r][c], w2[r][c]))
-    for r in range(P):
-        for c in range(Q):
-            lts_c[r][c][lu:] -= tb.contract("rab,cbd->rcad", v_my[r][c], w2[r][c])
+    for r, c in cc.local_ranks(P, Q):
+        lts_c[r][c][lu:] -= tb.contract("rab,cbd->rcad", v_my[r][c], w2[r][c])
 
 
 def _taus_on(taus: torch.Tensor, lts):
@@ -417,7 +418,6 @@ def bt_reduction_to_band(red: BandReduction, evecs):
     the step form ``dist_step_mode`` picks for ``ceil(n/band) - 1``
     panels. ``evecs`` is not modified."""
     a = red.matrix
-    refuse_multi_process(a.grid, "bt_reduction_to_band", "the multi-process back-transforms")
     dev = a.device.type
     if isinstance(evecs, Matrix) and a.distributed:
         dlaf_assert(evecs.grid is not None and evecs.grid.size == a.grid.size,
@@ -428,7 +428,7 @@ def bt_reduction_to_band(red: BandReduction, evecs):
         dlaf_assert(a.block_size.row % red.band == 0,
                     "bt_reduction_to_band: band must divide the block size")
         P, Q = a.dist.grid_size.row, a.dist.grid_size.col
-        shards = [s.to(a.dtype, copy=True) for s in evecs.storage]
+        shards = [s if s is None else s.to(a.dtype, copy=True) for s in evecs.storage]
         lts_a = cc.per_rank(P, Q, lambda r, c: a.storage[r * Q + c])
         lts_c = cc.per_rank(P, Q, lambda r, c: shards[r * Q + c])
         scan = config.resolve_step_mode(max(ceil_div(a.size.row, red.band) - 1, 1),

@@ -14,7 +14,15 @@ the triangular back-substitution of the eigenvectors.
 On a grid the reduction and both back-transforms run distributed; the
 band crosses to the host for the chase, and the D&C's Q, formed on rank
 (0, 0)'s device, is re-tiled onto the grid with ``Matrix.from_global``, as
-the reference does.
+the reference does. In the multi-process form (one process per rank,
+:mod:`..comm.multihost`) the band's tiles are gathered on the process of
+rank (0, 0), which alone runs the chase and the D&C, as the single
+controller runs them once on rank (0, 0)'s device; the chase's reflectors
+and the eigenvalues reach the other processes by one broadcast, and Q by
+one scatter of shards (``from_global(root=)``). The other processes wait
+in that broadcast: they hold no ``n x n`` tensor from the band's gather
+to Q's scatter. Every process returns the same eigenvalues, and stage
+walls are this process's (the miniapps print process 0's).
 
 Not ported now: ``resume`` and the stage checkpoints (with the health and
 checkpoint port: ``resume=True`` raises rather than recompute silently),
@@ -27,12 +35,14 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
 
 from ..algorithms.cholesky import cholesky
 from ..algorithms.gen_to_std import gen_to_std
 from ..algorithms.triangular import triangular_solve
-from ..comm.grid import refuse_multi_process
+from ..comm import multihost
 from ..common.asserts import dlaf_assert
+from ..common.index2d import RankIndex2D
 from ..common.sync import hard_fence
 from ..common.timer import PhaseTimer
 from ..matrix import ops as mops
@@ -74,7 +84,6 @@ def eigensolver(uplo: str, a: Matrix, phases: Optional[PhaseTimer] = None,
     stages' intermediate results: ``"reduction"`` (the band reduction),
     ``"tridiag"`` (the chase's result) and ``"dc_stats"`` (the D&C's
     per-merge statistics)."""
-    refuse_multi_process(a.grid, "eigensolver", "the multi-process eigensolver stages")
     dlaf_assert(not resume, "eigensolver: resume=True needs the stage checkpoints, which "
                             "are not ported yet")
     dlaf_assert(a.size.row == a.size.col, "eigensolver: square only")
@@ -89,16 +98,33 @@ def eigensolver(uplo: str, a: Matrix, phases: Optional[PhaseTimer] = None,
         ah = mops.hermitianize(a, uplo, donate=donate)
         red = reduction_to_band(ah, band_size=band_size, donate=True)
         fence(red.matrix)
+    mp = a.distributed and a.grid.multi_process
     with pt.phase("stage.band_to_tridiag"):
-        tri = band_to_tridiag(extract_band(red), red.band)
+        # in the multi-process form the band reaches rank (0, 0)'s process
+        # only (None elsewhere), and only that process chases it
+        band = extract_band(red)
+        tri = None if band is None else band_to_tridiag(band, red.band)
+        del band
     with pt.phase("stage.tridiag_solver"):
-        lam, z = tridiag_solver(tri.d, tri.e, a.block_size.row, device=a.device,
-                                stats=dc_stats)
-        fence_t(z)
+        lam = z = None
+        if tri is not None:
+            lam, z = tridiag_solver(tri.d, tri.e, a.block_size.row, device=a.device,
+                                    stats=dc_stats)
+            fence_t(z)
+        if mp:
+            # the other processes wait here: the chase's result (its
+            # reflectors are O(n^2 / 2)), the eigenvalues and the merge
+            # statistics cross by one broadcast
+            tri, lam, got = multihost.broadcast_object(
+                None if tri is None else (tri, lam, dc_stats), src=a.grid.process_rank(0, 0))
+            if dc_stats is not None and z is None:
+                dc_stats.extend(got)
     with pt.phase("stage.bt_band_to_tridiag"):
         if a.distributed:
-            zb = bt_band_to_tridiag(tri, Matrix.from_global(z, a.block_size, grid=a.grid,
-                                                            source_rank=a.dist.source_rank))
+            # Q crosses from rank (0, 0)'s process by one scatter of shards
+            zb = bt_band_to_tridiag(tri, Matrix.from_global(
+                z, a.block_size, grid=a.grid, source_rank=a.dist.source_rank,
+                root=RankIndex2D(0, 0), size=a.size, dtype=torch.float64))
             del z
             fence(zb)
         else:
@@ -124,7 +150,6 @@ def gen_eigensolver(uplo: str, a: Matrix, b: Matrix, phases: Optional[PhaseTimer
     ``eigensolver::genEigensolver``). ``donate=True`` releases ``a``'s
     storage; ``b`` is never consumed. ``phases`` and ``keep`` as in
     :func:`eigensolver`."""
-    refuse_multi_process(a.grid, "gen_eigensolver", "the multi-process eigensolver stages")
     dlaf_assert(a.size == b.size, "gen_eigensolver: A/B size mismatch")
     pt = phases if phases is not None else PhaseTimer()
     fence, _ = _fences(phases)

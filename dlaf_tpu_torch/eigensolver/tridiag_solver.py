@@ -523,7 +523,8 @@ def tridiag_solver(d: np.ndarray, e: np.ndarray, nb: int, use_device: bool = Tru
     ``nb`` (reference ``eigensolver::tridiagSolver``).
 
     With ``use_device=True`` the eigenvector matrix is a float64 tensor on
-    ``device`` (default ``cuda``; with ``grid``, rank (0, 0)'s device),
+    ``device`` (default ``cuda``; with ``grid``, rank (0, 0)'s device, or
+    on a multi-process grid the device of this process's rank),
     which holds Q for the whole merge tree. ``use_device=False`` returns
     numpy arrays (the reference's numpy twin).
 
@@ -532,7 +533,7 @@ def tridiag_solver(d: np.ndarray, e: np.ndarray, nb: int, use_device: bool = Tru
     merge."""
     if grid is not None:
         dlaf_assert(use_device, "tridiag_solver: grid requires use_device=True")
-        device = grid.device(0, 0)
+        device = grid.device(*grid.local_ranks[0])
     device = torch.device("cuda" if device is None else device)
     d = np.asarray(d, dtype=np.float64)
     e = np.asarray(e, dtype=np.float64)

@@ -15,8 +15,11 @@ entries of ``storage`` are None, and :meth:`Matrix.shards`,
 :attr:`Matrix.device` and :meth:`Matrix.clone` see the local shard only.
 :meth:`Matrix.from_element_fn` evaluates the element function on the
 local tiles only, :meth:`Matrix.from_global` takes the local shard of a
-global matrix every process holds, and :meth:`Matrix.to_global`
-all-gathers the shards, so every process gets the global matrix.
+global matrix every process holds (with ``root``: of one that only the
+process of rank ``root`` holds, which sends each rank its shard),
+:meth:`Matrix.to_global` all-gathers the shards, so every process gets
+the global matrix, and :meth:`Matrix.gather_global` gathers them on one
+process only.
 """
 
 from __future__ import annotations
@@ -67,12 +70,41 @@ class Matrix:
 
     @classmethod
     def from_global(cls, a, block_size: TileElementSize, grid=None, *,
-                    source_rank: RankIndex2D = RankIndex2D(0, 0), device="cuda") -> "Matrix":
+                    source_rank: RankIndex2D = RankIndex2D(0, 0), device="cuda",
+                    root: Optional[RankIndex2D] = None, size: Optional[GlobalElementSize] = None,
+                    dtype=None) -> "Matrix":
         """Tile a global matrix (numpy array or tensor): onto ``device``
         without a grid, else block-cyclically onto the grid's ranks (on a
-        multi-process grid: the local rank's shard only)."""
+        multi-process grid: the local rank's shard only).
+
+        ``root``: the global matrix exists on the process that drives rank
+        ``root`` only (the other processes pass ``a=None``, and every
+        process passes ``size`` and ``dtype``); that process cuts the
+        shards and sends each rank its own (:func:`..comm.collectives.
+        scatter`), so no other process holds the whole matrix. Under the
+        single controller it is the plain form."""
         if grid is not None:
             device = grid.device(*grid.local_ranks[0])
+        if root is not None and grid is not None and grid.multi_process:
+            dlaf_assert(size is not None and dtype is not None,
+                        "from_global(root=...): every process passes size and dtype")
+            dtype = torch_dtype(dtype)
+            dist = _make_dist(size, block_size, grid, source_rank)
+            P, Q = grid.size.row, grid.size.col
+            parts = None
+            if grid.is_local(root.row, root.col):
+                t = torch.as_tensor(a, device=device)
+                dlaf_assert(tuple(t.shape) == (size.row, size.col) and t.dtype == dtype,
+                            f"from_global(root=...): a {tuple(t.shape)} {t.dtype} for "
+                            f"{size} {dtype}")
+                flat = tiling.split_shards(tiling.global_to_tiles(t, dist), dist,
+                                           [device] * (P * Q))
+                parts = [flat[r * Q:(r + 1) * Q] for r in range(P)]
+            _, _, ltr, ltc = tiling.storage_tile_grid(dist)
+            shape = (ltr, ltc, block_size.row, block_size.col)
+            like = cc.per_rank(P, Q, lambda r, c: torch.empty(shape, dtype=dtype, device=device))
+            got = cc.scatter(parts, root.row, root.col, like)
+            return cls(dist, [v for row in got for v in row], grid)
         t = torch.as_tensor(a, device=device if grid is None or grid.num_devices == 1
                             else None)
         dist = _make_dist(GlobalElementSize(t.shape[0], t.shape[1]), block_size, grid,
@@ -160,6 +192,20 @@ class Matrix:
         shards = [s for row in cc.gather_grid(self.nested()) for s in row]
         return tiling.tiles_to_global(tiling.join_shards(shards, self.dist, self.device),
                                       self.dist)
+
+    def gather_global(self, root: RankIndex2D = RankIndex2D(0, 0)):
+        """The global matrix as a new tensor on the process that drives
+        rank ``root`` (on its device), None on the other processes: the
+        shards are gathered there only. Under the single controller (and
+        without a grid) it is :meth:`to_global`, on :attr:`device`."""
+        if not (self.distributed and self.grid.multi_process):
+            return self.to_global()
+        got = cc.gather(self.nested(), root.row, root.col)
+        if got is None:
+            return None
+        dev = self.grid.device(root.row, root.col)
+        return tiling.tiles_to_global(tiling.join_shards([s for row in got for s in row],
+                                                         self.dist, dev), self.dist)
 
     def to_numpy(self) -> np.ndarray:
         return self.to_global().cpu().numpy()

@@ -6,7 +6,9 @@ Counterpart of ``dlaf_tpu/matrix/ops.py`` (reference ``matrix/copy.h``,
 one jit and lets GSPMD move the tiles. Here each op runs per rank on the
 rank's shard (one shard without a grid): the element-wise ops with the
 global element indices of the shard, and the (conjugate) transpose by
-copying every tile from the rank that owns its mirror.
+copying every tile from the rank that owns its mirror: one pairwise
+exchange, which in the multi-process form moves between two processes
+only the tiles one holds the mirrors of.
 
 A result never shares storage with an input the caller keeps: only
 ``hermitianize(..., donate=True)`` and ``merge_triangle(...,
@@ -19,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..comm.grid import refuse_multi_process
+from ..comm import collectives as cc
 from ..common.asserts import dlaf_assert
 from . import util_distribution as ud
 from .matrix import Matrix
@@ -52,40 +54,68 @@ def _element_index(mat: Matrix, r: int, c: int, device):
     return i.reshape(ltr, 1, mb, 1), j.reshape(1, ltc, 1, nb)
 
 
-def _transposed_shards(mat: Matrix, conj: bool) -> list:
-    """The shards of ``op(A)`` (``A^H`` with ``conj``, else ``A^T``) in
-    ``A``'s distribution: each tile ``(I, J)`` is tile ``(J, I)``
-    transposed, fetched from the rank that owns it, one gather per pair
-    of ranks."""
-    refuse_multi_process(mat.grid, "the transposed-tile exchange (transpose, hermitianize)",
-                         "the multi-process HEGST")
-    dist = mat.dist
+def _mirror_plan(dist, r: int, c: int) -> dict:
+    """Where rank ``(r, c)``'s tiles' mirrors live: ``{(r2, c2): (li, lj,
+    si, sj)}``, the local slots ``(li, lj)`` of the tiles ``(I, J)`` whose
+    mirror ``(J, I)`` rank ``(r2, c2)`` holds at its slots ``(si, sj)``
+    (host arrays, row-major over the local tiles)."""
     P, Q = dist.grid_size.row, dist.grid_size.col
     sr, sc = dist.source_rank.row, dist.source_rank.col
     nt = dist.nr_tiles.row
     _, _, ltr, ltc = storage_tile_grid(dist)
-    src = mat.shards()
-    out = []
-    for r, c, shard in _rank_shards(mat):
+    gi = np.arange(ltr) * P + (r - sr) % P
+    gj = np.arange(ltc) * Q + (c - sc) % Q
+    li, lj = np.meshgrid(np.flatnonzero(gi < nt), np.flatnonzero(gj < nt), indexing="ij")
+    li, lj = li.ravel(), lj.ravel()
+    big_i, big_j = gi[li], gj[lj]
+    owner_r = np.array([ud.rank_global_tile(int(J), P, sr) for J in big_j], dtype=np.int64)
+    owner_c = np.array([ud.rank_global_tile(int(I), Q, sc) for I in big_i], dtype=np.int64)
+    plan = {}
+    for r2 in range(P):
+        for c2 in range(Q):
+            sel = (owner_r == r2) & (owner_c == c2)
+            if sel.any():
+                plan[(r2, c2)] = (li[sel], lj[sel], big_j[sel] // P, big_i[sel] // Q)
+    return plan
+
+
+def _transposed_shards(mat: Matrix, conj: bool) -> list:
+    """The shards of ``op(A)`` (``A^H`` with ``conj``, else ``A^T``) in
+    ``A``'s distribution: each tile ``(I, J)`` is tile ``(J, I)``
+    transposed, fetched from the rank that owns it by one pairwise
+    exchange (:func:`..comm.collectives.exchange`): each rank sends each
+    other rank only the tiles whose mirrors that rank holds. The tables of
+    owners and slots are host arrays every process computes alike."""
+    dist = mat.dist
+    P, Q = dist.grid_size.row, dist.grid_size.col
+    own = _rank_shards(mat)
+    if not mat.distributed:
+        (_, _, shard), = own
+        plan = _mirror_plan(dist, 0, 0)
         dst = torch.zeros_like(shard)
-        gi = np.arange(ltr) * P + (r - sr) % P
-        gj = np.arange(ltc) * Q + (c - sc) % Q
-        li, lj = np.meshgrid(np.flatnonzero(gi < nt), np.flatnonzero(gj < nt), indexing="ij")
-        li, lj = li.ravel(), lj.ravel()
-        big_i, big_j = gi[li], gj[lj]
-        # the mirror tile (J, I): owner and local slot
-        owner = (np.array([ud.rank_global_tile(int(J), P, sr) for J in big_j], dtype=np.int64),
-                 np.array([ud.rank_global_tile(int(I), Q, sc) for I in big_i], dtype=np.int64))
-        for r2 in range(P):
-            for c2 in range(Q):
-                sel = (owner[0] == r2) & (owner[1] == c2)
-                if not sel.any():
-                    continue
-                tiles = src[r2 * Q + c2][torch.as_tensor(big_j[sel] // P),
-                                         torch.as_tensor(big_i[sel] // Q)]
-                tiles = tiles.transpose(-1, -2)
-                dst[torch.as_tensor(li[sel]), torch.as_tensor(lj[sel])] = (
-                    tiles.conj() if conj else tiles).to(dst.device)
+        for li, lj, si, sj in plan.values():
+            tiles = shard[torch.as_tensor(si), torch.as_tensor(sj)].transpose(-1, -2)
+            dst[torch.as_tensor(li), torch.as_tensor(lj)] = tiles.conj() if conj else tiles
+        return [dst]
+    shards = {(r, c): s for r, c, s in own}
+    plans = {(r, c): _mirror_plan(dist, r, c) for r in range(P) for c in range(Q)}
+
+    def sends(r2, c2):
+        src = shards[(r2, c2)]
+        return {dst: src[torch.as_tensor(p[(r2, c2)][2]), torch.as_tensor(p[(r2, c2)][3])]
+                for dst, p in plans.items() if (r2, c2) in p}
+
+    def expect(r, c):
+        s = shards[(r, c)]
+        return {k: s.new_empty((len(v[0]), *s.shape[2:])) for k, v in plans[(r, c)].items()}
+
+    got = cc.exchange(cc.per_rank(P, Q, sends), cc.per_rank(P, Q, expect))
+    out = []
+    for r, c, shard in own:
+        dst = torch.zeros_like(shard)
+        for k, (li, lj, _, _) in plans[(r, c)].items():
+            tiles = got[r][c][k].transpose(-1, -2)
+            dst[torch.as_tensor(li), torch.as_tensor(lj)] = tiles.conj() if conj else tiles
         out.append(dst)
     return out
 

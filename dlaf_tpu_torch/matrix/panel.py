@@ -25,10 +25,10 @@ rank and only read, so it is formed once per device
 
 Every function here builds its per-rank values with ``cc.per_rank``, so
 in the multi-process form (:mod:`..comm.multihost`) it computes the local
-rank's only and its collectives run across the processes. The sub-panel
-helpers of reduction to band are used only by the single controller:
-:func:`_owner_masked`'s empty placeholder on non-owners could not receive
-a real broadcast.
+rank's only and its collectives run across the processes; that holds for
+the sub-panel helpers of reduction to band too, whose non-owners pass a
+placeholder of the owner's shape and dtype to the broadcast
+(:func:`_owner_masked`).
 """
 
 from __future__ import annotations
@@ -234,13 +234,18 @@ def gather_col_panel_ordered(ctx: DistContext, col_tiles, k1: int, lu: int):
 
 def _owner_masked(ctx, lts, owner_c: int, piece, mask):
     """Per rank: ``where(mask, piece(r, c), 0)`` on the ranks of grid
-    column ``owner_c`` (the only values a broadcast from it reads), an
-    empty placeholder on the rank's device elsewhere."""
+    column ``owner_c`` (the only values a broadcast from it reads), and
+    elsewhere a placeholder on the rank's device: empty under the single
+    controller; in the multi-process form, where every process of a line
+    passes the source's shape and dtype, an uninitialized tensor of that
+    shape and dtype, which the broadcast overwrites."""
     P, Q = cc.grid_shape(lts)
 
     def one(r, c):
         if c != owner_c:
-            return lts[r][c].new_empty(0)
+            if cc.world() is None:   # the single controller's broadcast reads the owner's only
+                return lts[r][c].new_empty(0)
+            return torch.empty_like(piece(r, c), memory_format=torch.contiguous_format)
         x = piece(r, c)
         return torch.where(mask(r, x.device)[..., None], x, 0.0)
 

@@ -1,12 +1,15 @@
 """Analytic matrix generators for the miniapps and tests.
 
-A copy of ``dlaf_tpu/miniapp/generators.py:hpd_element_fn``, and a
-Hermitian companion for HEGST's A: closed-form, deterministic element
-functions, so inputs at N=16384 need no O(n^3) host set-up. They work on
-numpy arrays and on torch tensors alike.
+A copy of ``dlaf_tpu/miniapp/generators.py`` (``hpd_element_fn`` and the
+dense host ``random_hermitian``), and a Hermitian companion for HEGST's
+A: closed-form, deterministic element functions, so inputs at N=16384
+need no O(n^3) host set-up. They work on numpy arrays and on torch
+tensors alike.
 """
 
 from __future__ import annotations
+
+import numpy as np
 
 from ..types import is_complex
 
@@ -40,3 +43,16 @@ def herm_element_fn(n: int, dtype):
             return base + 1j * (sign / (1.0 + d) / 2.0)
         return base
     return fn
+
+
+def random_hermitian(n: int, dtype, seed: int = 0, diag_boost: float | None = None):
+    """A dense random Hermitian host matrix (numpy), shifted by
+    ``diag_boost`` times the identity when given; O(n^2)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, n))
+    if is_complex(dtype):
+        x = x + 1j * rng.standard_normal((n, n))
+    a = (x + x.conj().T) / 2
+    if diag_boost:
+        a = a + diag_boost * np.eye(n)
+    return a.astype(dtype)

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import sys
 import time
 
 import numpy as np
@@ -90,7 +91,8 @@ def tridiag_drift(w_ref: torch.Tensor, res) -> float:
 
 def check(band: np.ndarray, res, device, dtype) -> None:
     w_ref = torch.linalg.eigvalsh(wide(band_matrix(band, device)))
-    print_check(tridiag_drift(w_ref, res), band.shape[1], dtype)
+    if not print_check(tridiag_drift(w_ref, res), band.shape[1], dtype):
+        sys.exit(1)
 
 
 def main(argv=None) -> int:

@@ -21,14 +21,13 @@ from __future__ import annotations
 
 import argparse
 import os
-import sys
 import time
 
 import numpy as np
 import torch
 
 from .. import config
-from ..comm.grid import Grid
+from ..comm import multihost
 from ..comm.sync import barrier
 from ..common.index2d import TileElementSize
 from ..eigensolver.back_transform import bt_band_to_tridiag
@@ -37,7 +36,8 @@ from ..matrix.matrix import Matrix
 from ..types import total_ops, type_letter
 from .checks import effective_eps
 from .miniapp_band_to_tridiag import make_band
-from .options import CheckIterFreq, add_miniapp_arguments, parse_miniapp_options, select_devices
+from .options import (CheckIterFreq, add_miniapp_arguments, is_printer, parse_miniapp_options,
+                      root_verdict, select_grid)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -55,14 +55,13 @@ def run(argv=None) -> list[dict]:
     args, extra = build_parser().parse_known_args(argv)
     config.initialize(argv=extra)
     opts = parse_miniapp_options(args)
-    devices = select_devices(opts)
-    grid = Grid(opts.grid_rows, opts.grid_cols, devices=devices,
-                ordering=config.get_configuration().grid_ordering)
+    grid, device = select_grid(opts, config.get_configuration().grid_ordering)
     use_grid = grid if grid.num_devices > 1 else None
-    device = devices[0]
     n, b = args.matrix_size, args.band_size
     m = args.evec_cols or n
-    tri = band_to_tridiag(make_band(n, b, opts.dtype), b)     # untimed set-up
+    # untimed set-up; under torchrun one process chases, every one gets it
+    tri = multihost.broadcast_object(
+        band_to_tridiag(make_band(n, b, opts.dtype), b) if is_printer() else None)
     e0 = np.random.default_rng(1).standard_normal((n, m)).astype(opts.dtype)
     em = Matrix.from_global(e0, TileElementSize(b, b), use_grid, device=device)
     flops = total_ops(opts.dtype, 2.0 * n * n * m, 2.0 * n * n * m)
@@ -77,37 +76,43 @@ def run(argv=None) -> list[dict]:
         if run_i < 0:
             continue
         gflops = flops / t / 1e9
-        print(f"[{run_i}] {t:.6f}s {gflops:.2f}GFlop/s {type_letter(opts.dtype)} ({n}, {m}) "
-              f"band={b} ({opts.grid_rows}, {opts.grid_cols}) {os.cpu_count()} {device.type}",
-              flush=True)
+        if is_printer():
+            print(f"[{run_i}] {t:.6f}s {gflops:.2f}GFlop/s {type_letter(opts.dtype)} ({n}, {m}) "
+                  f"band={b} ({opts.grid_rows}, {opts.grid_cols}) {os.cpu_count()} "
+                  f"{device.type}", flush=True)
         results.append({"run": run_i, "time_s": t, "gflops": gflops})
         if opts.check is CheckIterFreq.ALL or (
                 opts.check is CheckIterFreq.LAST and run_i == opts.nruns - 1):
-            check(tri, em, out)
+            check(tri, em, out, grid)
     return results
 
 
-def check(tri, em: Matrix, out: Matrix) -> None:
+def check(tri, em: Matrix, out: Matrix, grid=None) -> None:
     """``|Q E - out| / |Q E|`` below ``100 n eps``, Q formed on the device
-    by applying the reflectors to the identity."""
+    by applying the reflectors to the identity (in the multi-process form
+    on rank (0, 0)'s process, where E and the result are gathered); exits
+    1 (every process) when it fails."""
     n = tri.d.shape[0]
-    dev = em.device
-    e = em.to_global()
-    q = bt_band_to_tridiag(tri, torch.eye(n, dtype=torch.float64, device=dev))
-    qe = q @ e.to(q.dtype)
-    resid = float(torch.linalg.matrix_norm(out.to_global().to(q.dtype) - qe)
-                  / max(float(torch.linalg.matrix_norm(qe)), 1e-30))
-    eps, label = effective_eps(em.dtype)
-    tol = 100.0 * n * eps
-    passed = resid == resid and resid < tol
-    print(f"check: {'PASSED' if passed else 'FAILED'} residual={resid:.3e} tol={tol:.3e}{label}",
-          flush=True)
-    if not passed:
-        sys.exit(1)
+    e, got = em.gather_global(), out.gather_global()
+    verdict = None
+    if e is not None:
+        q = bt_band_to_tridiag(tri, torch.eye(n, dtype=torch.float64, device=e.device))
+        qe = q @ e.to(q.dtype)
+        resid = float(torch.linalg.matrix_norm(got.to(q.dtype) - qe)
+                      / max(float(torch.linalg.matrix_norm(qe)), 1e-30))
+        eps, label = effective_eps(em.dtype)
+        tol = 100.0 * n * eps
+        verdict = resid == resid and resid < tol
+        print(f"check: {'PASSED' if verdict else 'FAILED'} residual={resid:.3e} "
+              f"tol={tol:.3e}{label}", flush=True)
+    root_verdict(grid, verdict)
 
 
 def main(argv=None) -> int:
-    run(argv)
+    try:
+        run(argv)
+    finally:
+        multihost.finalize_multihost()
     return 0
 
 

@@ -20,8 +20,15 @@ on one device) runs the distributed pipeline.
 
 BASELINE config #5: gen_eigensolver, float64, N=32768, nb=512, 8x8.
 
+Under ``torchrun`` one process per rank (:mod:`.options`): process 0
+prints the run lines, rank (0, 0)'s process (which alone runs the chase
+and the D&C) the check.
+
 Run:  python -m dlaf_tpu_torch.miniapp.miniapp_eigensolver -m 4096 -b 256 --check-result last
       python -m dlaf_tpu_torch.miniapp.miniapp_eigensolver -m 4096 -b 256 --generalized \\
+          --grid-rows 2 --grid-cols 2 --share-device --check-result last
+      torchrun --standalone --nproc-per-node 4 \\
+          -m dlaf_tpu_torch.miniapp.miniapp_gen_eigensolver -m 8192 -b 256 \\
           --grid-rows 2 --grid-cols 2 --share-device --check-result last
 """
 
@@ -29,13 +36,12 @@ from __future__ import annotations
 
 import argparse
 import os
-import sys
 import time
 
 import torch
 
 from .. import config
-from ..comm.grid import Grid
+from ..comm import multihost
 from ..comm.sync import barrier
 from ..common.index2d import GlobalElementSize, TileElementSize
 from ..eigensolver.eigensolver import eigensolver, gen_eigensolver
@@ -44,7 +50,8 @@ from ..types import total_ops, type_letter
 from .checks import effective_eps
 from .generators import hpd_element_fn
 from .miniapp_reduction_to_band import herm_setter, wide
-from .options import CheckIterFreq, add_miniapp_arguments, parse_miniapp_options, select_devices
+from .options import (CheckIterFreq, add_miniapp_arguments, is_printer, parse_miniapp_options,
+                      root_verdict, select_grid)
 
 #: Tolerance factors ``c`` of ``c n eps`` (the reference's EIGEN_BUDGETS).
 EIGEN_BUDGETS = {"eigen_residual": 200.0, "orthogonality": 200.0}
@@ -69,11 +76,8 @@ def run(argv=None) -> list[dict]:
     args, extra = build_parser().parse_known_args(argv)
     config.initialize(argv=extra)
     opts = parse_miniapp_options(args)
-    devices = select_devices(opts)
-    grid = Grid(opts.grid_rows, opts.grid_cols, devices=devices,
-                ordering=config.get_configuration().grid_ordering)
+    grid, device = select_grid(opts, config.get_configuration().grid_ordering)
     use_grid = grid if grid.num_devices > 1 else None
-    device = devices[0]
     n, nb = args.matrix_size, args.block_size
     band = None if args.band_size < 0 else args.band_size
     size, block = GlobalElementSize(n, n), TileElementSize(nb, nb)
@@ -97,13 +101,14 @@ def run(argv=None) -> list[dict]:
         if run_i < 0:
             continue
         gflops = flops / t / 1e9
-        print(f"[{run_i}] {t:.6f}s {gflops:.2f}GFlop/s {type_letter(opts.dtype)}{args.uplo} "
-              f"{name} ({n}, {n}) ({nb}, {nb}) ({opts.grid_rows}, {opts.grid_cols}) "
-              f"{os.cpu_count()} {device.type}", flush=True)
+        if is_printer():
+            print(f"[{run_i}] {t:.6f}s {gflops:.2f}GFlop/s {type_letter(opts.dtype)}{args.uplo} "
+                  f"{name} ({n}, {n}) ({nb}, {nb}) ({opts.grid_rows}, {opts.grid_cols}) "
+                  f"{os.cpu_count()} {device.type}", flush=True)
         results.append({"run": run_i, "time_s": t, "gflops": gflops})
         if opts.check is CheckIterFreq.ALL or (
                 opts.check is CheckIterFreq.LAST and run_i == opts.nruns - 1):
-            check(am, bm, res)
+            check(am, bm, res, grid)
     return results
 
 
@@ -121,24 +126,32 @@ def eigen_residuals(a: torch.Tensor, b, lam, z: torch.Tensor) -> dict:
     return {"eigen_residual": float(resid), "orthogonality": float(torch.linalg.matrix_norm(gram))}
 
 
-def check(am: Matrix, bm, res) -> None:
+def check(am: Matrix, bm, res, grid=None) -> None:
     """The eigenpair residual and orthogonality below ``200 n eps`` each;
-    prints the check line, exits 1 when it fails."""
+    prints the check line, exits 1 when it fails. In the multi-process form
+    the matrices are gathered on rank (0, 0)'s process, which computes and
+    prints; every process exits 1 on a failure."""
     n = am.size.row
-    vals = eigen_residuals(am.to_global(), None if bm is None else bm.to_global(),
-                           res.eigenvalues, res.eigenvectors.to_global())
-    eps, label = effective_eps(am.dtype)
-    tol = {k: c * n * eps for k, c in EIGEN_BUDGETS.items()}
-    passed = all(vals[k] == vals[k] and vals[k] < tol[k] for k in vals)
-    print(f"check: {'PASSED' if passed else 'FAILED'} residual={vals['eigen_residual']:.3e} "
-          f"orthogonality={vals['orthogonality']:.3e} tol={tol['eigen_residual']:.3e}{label}",
-          flush=True)
-    if not passed:
-        sys.exit(1)
+    a, z = am.gather_global(), res.eigenvectors.gather_global()
+    b = None if bm is None else bm.gather_global()
+    verdict = None
+    if a is not None:
+        vals = eigen_residuals(a, b, res.eigenvalues, z)
+        eps, label = effective_eps(am.dtype)
+        tol = {k: c * n * eps for k, c in EIGEN_BUDGETS.items()}
+        verdict = all(vals[k] == vals[k] and vals[k] < tol[k] for k in vals)
+        print(f"check: {'PASSED' if verdict else 'FAILED'} "
+              f"residual={vals['eigen_residual']:.3e} orthogonality={vals['orthogonality']:.3e} "
+              f"tol={tol['eigen_residual']:.3e}{label}", flush=True)
+    del a, b, z
+    root_verdict(grid, verdict)
 
 
 def main(argv=None) -> int:
-    run(argv)
+    try:
+        run(argv)
+    finally:
+        multihost.finalize_multihost()
     return 0
 
 

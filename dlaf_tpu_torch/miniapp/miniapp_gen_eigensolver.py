@@ -24,7 +24,12 @@ def run(argv=None) -> list[dict]:
 
 
 def main(argv=None) -> int:
-    run(argv)
+    from ..comm import multihost
+
+    try:
+        run(argv)
+    finally:
+        multihost.finalize_multihost()
     return 0
 
 

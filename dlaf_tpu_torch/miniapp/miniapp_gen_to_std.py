@@ -19,15 +19,20 @@ A too, which makes the standard matrix the identity).
 
 BASELINE config #3: complex128, N=8192, nb=256, 2x2.
 
+Under ``torchrun`` one process per rank (:mod:`.options`), process 0
+printing the run lines and rank (0, 0)'s process the check.
+
 Run:  python -m dlaf_tpu_torch.miniapp.miniapp_gen_to_std -m 8192 -b 256 --type z \\
           --grid-rows 2 --grid-cols 2 --share-device --check-result last
+      torchrun --standalone --nproc-per-node 4 -m dlaf_tpu_torch.miniapp.miniapp_gen_to_std \\
+          -m 8192 -b 256 --type z --grid-rows 2 --grid-cols 2 --share-device \\
+          --check-result last
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-import sys
 import time
 
 import numpy as np
@@ -36,15 +41,15 @@ import torch
 from .. import config
 from ..algorithms.cholesky import cholesky
 from ..algorithms.gen_to_std import gen_to_std
-from ..comm.grid import Grid
+from ..comm import multihost
 from ..comm.sync import barrier
 from ..common.index2d import GlobalElementSize, TileElementSize
 from ..matrix.matrix import Matrix
 from ..tile_ops.blas import hermitian_from, tri_mask
 from ..types import total_ops, type_letter
 from .generators import herm_element_fn, hpd_element_fn
-from .options import (CheckIterFreq, add_miniapp_arguments, parse_miniapp_options,
-                      select_devices)
+from .options import (CheckIterFreq, add_miniapp_arguments, is_printer, parse_miniapp_options,
+                      root_verdict, select_grid)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -62,11 +67,8 @@ def run(argv=None) -> list[dict]:
     args, extra = build_parser().parse_known_args(argv)
     config.initialize(argv=extra)
     opts = parse_miniapp_options(args)
-    devices = select_devices(opts)
-    grid = Grid(opts.grid_rows, opts.grid_cols, devices=devices,
-                ordering=config.get_configuration().grid_ordering)
+    grid, device = select_grid(opts, config.get_configuration().grid_ordering)
     use_grid = grid if grid.num_devices > 1 else None
-    device = devices[0]
     n, nb = args.matrix_size, args.block_size
     size, block = GlobalElementSize(n, n), TileElementSize(nb, nb)
     am = Matrix.from_element_fn(herm_element_fn(n, opts.dtype), size, block, use_grid,
@@ -89,23 +91,24 @@ def run(argv=None) -> list[dict]:
         if run_i < 0:
             continue
         gflops = flops / t / 1e9
-        print(f"[{run_i}] {t:.6f}s {gflops:.2f}GFlop/s {type_letter(opts.dtype)}{args.uplo} "
-              f"({n}, {n}) ({nb}, {nb}) ({opts.grid_rows}, {opts.grid_cols}) {os.cpu_count()} "
-              f"{device.type}", flush=True)
+        if is_printer():
+            print(f"[{run_i}] {t:.6f}s {gflops:.2f}GFlop/s {type_letter(opts.dtype)}{args.uplo} "
+                  f"({n}, {n}) ({nb}, {nb}) ({opts.grid_rows}, {opts.grid_cols}) "
+                  f"{os.cpu_count()} {device.type}", flush=True)
         results.append({"run": run_i, "time_s": t, "gflops": gflops})
         if opts.check is CheckIterFreq.ALL or (
                 opts.check is CheckIterFreq.LAST and run_i == opts.nruns - 1):
-            check(args.uplo, am, bf, out)
+            check(args.uplo, am, bf, out, grid)
     return results
 
 
-def hegst_residual(uplo: str, a: Matrix, bf: Matrix, out: Matrix) -> float:
+def hegst_residual(uplo: str, a: torch.Tensor, bf: torch.Tensor, out: torch.Tensor) -> float:
     """Exact ``|L C L^H - A|_F / |A|_F`` (uplo U: ``|U^H C U - A|_F /
-    |A|_F``) on the matrices' device, norms accumulated in float64
-    (complex128)."""
-    ag = hermitian_from(a.to_global(), uplo)
-    c = hermitian_from(out.to_global(), uplo)
-    f = tri_mask(bf.to_global(), uplo)
+    |A|_F``) of the global matrices, on their device, norms accumulated in
+    float64 (complex128)."""
+    ag = hermitian_from(a, uplo)
+    c = hermitian_from(out, uplo)
+    f = tri_mask(bf, uplo)
     r = (f @ c @ f.mH if uplo == "L" else f.mH @ c @ f) - ag
     wide = torch.complex128 if ag.is_complex() else torch.float64
     num = torch.linalg.vector_norm(r, dtype=wide)
@@ -113,20 +116,29 @@ def hegst_residual(uplo: str, a: Matrix, bf: Matrix, out: Matrix) -> float:
     return float(num / den) if float(den) else float(num)
 
 
-def check(uplo: str, am: Matrix, bf: Matrix, out: Matrix) -> None:
-    """Print the ``check:`` line; exit 1 when it fails."""
+def check(uplo: str, am: Matrix, bf: Matrix, out: Matrix, grid=None) -> None:
+    """Print the ``check:`` line; exit 1 when it fails. In the
+    multi-process form the matrices are gathered on the process of rank
+    (0, 0), which computes the residual and prints; every process exits 1
+    on a failure."""
     n = am.size.row
-    resid = hegst_residual(uplo, am, bf, out)
-    tol = 100.0 * max(n, 1) * torch.finfo(am.dtype.to_real()).eps
-    passed = np.isfinite(resid) and resid < tol
-    print(f"check: {'PASSED' if passed else 'FAILED'} residual={resid:.3e} tol={tol:.3e}",
-          flush=True)
-    if not passed:
-        sys.exit(1)
+    mats = [m.gather_global() for m in (am, bf, out)]
+    verdict = None
+    if mats[0] is not None:
+        resid = hegst_residual(uplo, *mats)
+        tol = 100.0 * max(n, 1) * torch.finfo(am.dtype.to_real()).eps
+        verdict = bool(np.isfinite(resid) and resid < tol)
+        print(f"check: {'PASSED' if verdict else 'FAILED'} residual={resid:.3e} tol={tol:.3e}",
+              flush=True)
+    del mats
+    root_verdict(grid, verdict)
 
 
 def main(argv=None) -> int:
-    run(argv)
+    try:
+        run(argv)
+    finally:
+        multihost.finalize_multihost()
     return 0
 
 

@@ -19,8 +19,16 @@ divide the block size, on one rank and on a grid (``--grid-rows``,
 
 BASELINE config #4: float64, N=16384, nb=512, band 128, 4x4.
 
+Under ``torchrun`` one process per rank (:mod:`.options`), process 0
+printing the run lines and rank (0, 0)'s process, where the band is
+gathered, the check.
+
 Run:  python -m dlaf_tpu_torch.miniapp.miniapp_reduction_to_band -m 16384 -b 512 \\
           --band-size 128 --grid-rows 4 --grid-cols 4 --share-device --type d \\
+          --check-result last
+      torchrun --standalone --nproc-per-node 4 \\
+          -m dlaf_tpu_torch.miniapp.miniapp_reduction_to_band -m 16384 -b 512 \\
+          --band-size 128 --grid-rows 2 --grid-cols 2 --share-device --type d \\
           --check-result last
 """
 
@@ -29,21 +37,20 @@ from __future__ import annotations
 import argparse
 import functools
 import os
-import sys
 import time
 
 import numpy as np
 import torch
 
 from .. import config
-from ..comm.grid import Grid
+from ..comm import multihost
 from ..comm.sync import barrier
 from ..common.index2d import GlobalElementSize, TileElementSize
 from ..eigensolver.reduction_to_band import extract_band, reduction_to_band
 from ..matrix.matrix import Matrix
 from ..types import total_ops, type_letter
-from .options import (CheckIterFreq, add_miniapp_arguments, parse_miniapp_options,
-                      select_devices)
+from .options import (CheckIterFreq, add_miniapp_arguments, is_printer, parse_miniapp_options,
+                      root_verdict, select_grid)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -67,11 +74,8 @@ def run(argv=None) -> list[dict]:
     args, extra = build_parser().parse_known_args(argv)
     config.initialize(argv=extra)
     opts = parse_miniapp_options(args)
-    devices = select_devices(opts)
-    grid = Grid(opts.grid_rows, opts.grid_cols, devices=devices,
-                ordering=config.get_configuration().grid_ordering)
+    grid, device = select_grid(opts, config.get_configuration().grid_ordering)
     use_grid = grid if grid.num_devices > 1 else None
-    device = devices[0]
     n, nb = args.matrix_size, args.block_size
     band = nb if args.band_size < 0 else args.band_size
     ref = Matrix.from_element_fn(herm_setter, GlobalElementSize(n, n), TileElementSize(nb, nb),
@@ -88,13 +92,14 @@ def run(argv=None) -> list[dict]:
         if run_i < 0:
             continue
         gflops = flops / t / 1e9
-        print(f"[{run_i}] {t:.6f}s {gflops:.2f}GFlop/s {type_letter(opts.dtype)}L ({n}, {n}) "
-              f"({nb}, {nb}) ({opts.grid_rows}, {opts.grid_cols}) {os.cpu_count()} "
-              f"{device.type}", flush=True)
+        if is_printer():
+            print(f"[{run_i}] {t:.6f}s {gflops:.2f}GFlop/s {type_letter(opts.dtype)}L ({n}, {n}) "
+                  f"({nb}, {nb}) ({opts.grid_rows}, {opts.grid_cols}) {os.cpu_count()} "
+                  f"{device.type}", flush=True)
         results.append({"run": run_i, "time_s": t, "gflops": gflops})
         if opts.check is CheckIterFreq.ALL or (
                 opts.check is CheckIterFreq.LAST and run_i == opts.nruns - 1):
-            check(ref, red)
+            check(ref, red, grid)
     return results
 
 
@@ -123,15 +128,14 @@ def wide(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.complex128 if x.is_complex() else torch.float64)
 
 
-def print_check(resid: float, n: int, dtype) -> None:
-    """Print the ``check:`` line against ``100 n eps`` of ``dtype``; exit 1
-    when it fails."""
+def print_check(resid: float, n: int, dtype) -> bool:
+    """Print the ``check:`` line against ``100 n eps`` of ``dtype``; returns
+    whether it passed."""
     tol = 100.0 * max(n, 1) * float(np.finfo(np.dtype(dtype).type(0).real.dtype).eps)
-    passed = np.isfinite(resid) and resid < tol
+    passed = bool(np.isfinite(resid) and resid < tol)
     print(f"check: {'PASSED' if passed else 'FAILED'} residual={resid:.3e} tol={tol:.3e}",
           flush=True)
-    if not passed:
-        sys.exit(1)
+    return passed
 
 
 @functools.lru_cache(maxsize=4)
@@ -143,17 +147,25 @@ def setter_eigenvalues(n: int, dtype: torch.dtype, device: torch.device) -> torc
     return torch.linalg.eigvalsh(wide(herm_setter(i[:, None], i[None, :]).to(dtype)))
 
 
-def check(ref: Matrix, red) -> None:
-    """The eigenvalues of the band against A's, on A's device."""
-    dev = ref.device
-    bd = wide(band_matrix(extract_band(red), dev))
-    resid = eigenvalue_drift(setter_eigenvalues(ref.size.row, ref.dtype, dev),
-                             torch.linalg.eigvalsh(bd))
-    print_check(resid, ref.size.row, str(ref.dtype).removeprefix("torch."))
+def check(ref: Matrix, red, grid=None) -> None:
+    """The eigenvalues of the band against A's, on A's device (in the
+    multi-process form on rank (0, 0)'s process, where the band is
+    gathered); exits 1 (every process) when the check fails."""
+    band = extract_band(red)
+    verdict = None
+    if band is not None:
+        dev = ref.device
+        resid = eigenvalue_drift(setter_eigenvalues(ref.size.row, ref.dtype, dev),
+                                 torch.linalg.eigvalsh(wide(band_matrix(band, dev))))
+        verdict = print_check(resid, ref.size.row, str(ref.dtype).removeprefix("torch."))
+    root_verdict(grid, verdict)
 
 
 def main(argv=None) -> int:
-    run(argv)
+    try:
+        run(argv)
+    finally:
+        multihost.finalize_multihost()
     return 0
 
 

@@ -23,6 +23,7 @@ import argparse
 import dataclasses
 import enum
 import os
+import sys
 
 import numpy as np
 import torch
@@ -122,3 +123,12 @@ def is_printer() -> bool:
     """Does this process print the run's lines (process 0 of the world, or
     the only process)?"""
     return multihost.process_info()[0] == 0
+
+
+def root_verdict(grid, verdict) -> None:
+    """Share a check's verdict, computed on the process that drives rank
+    (0, 0) (the one that gathered the matrices; None elsewhere), with every
+    process; each exits 1 when it failed."""
+    src = grid.process_rank(0, 0) if grid is not None and grid.multi_process else 0
+    if not multihost.broadcast_object(verdict, src=src):
+        sys.exit(1)

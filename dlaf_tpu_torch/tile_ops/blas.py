@@ -318,3 +318,31 @@ def trsm_panel(side: str, uplo: str, op_a: str, diag: str, a, b, *, alpha=1.0, i
         prod = mm(ti, b) if side == "L" else mm(b, ti)
         return (alpha * prod).to(b.dtype)
     return trsm(side, uplo, op_a, diag, a, b, alpha=alpha)
+
+
+# ---------------------------------------------------------------------------
+# Level-1/2 helpers (reference tile_extensions.h, GPU-internal blas/tile.h)
+# ---------------------------------------------------------------------------
+
+def scal(a: torch.Tensor, *, alpha) -> torch.Tensor:
+    """``alpha a``."""
+    return alpha * a
+
+
+def axpy(x: torch.Tensor, y: torch.Tensor, *, alpha=1.0) -> torch.Tensor:
+    """``y + alpha x`` elementwise."""
+    return y + alpha * x
+
+
+def gemv(a: torch.Tensor, x: torch.Tensor, y=None, *, alpha=1.0, beta=1.0,
+         op_a: str = "N") -> torch.Tensor:
+    """``alpha op(A) x + beta y``; ``x``/``y`` vectors on the last axis,
+    leading axes batch."""
+    ax = torch.einsum("...ij,...j->...i", _op(a, op_a), x)
+    return alpha * ax if y is None else alpha * ax + beta * y
+
+
+def trmv(uplo: str, op_a: str, diag: str, a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``op(T) x`` with ``T`` the ``uplo`` triangle of ``a`` (unit
+    diagonal for ``diag="U"``)."""
+    return torch.einsum("...ij,...j->...i", _op(_tri(a, uplo, diag), op_a), x)

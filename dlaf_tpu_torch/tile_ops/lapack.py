@@ -1,7 +1,8 @@
-"""LAPACK tile operations on torch: ``potrf``, ``potrf_info`` and
-``larft``, and the host leaf solve ``stedc``.
+"""LAPACK tile operations on torch: ``laset``, ``lacpy``, ``lange``,
+``lantr``, ``potrf``, ``potrf_info``, ``hegst`` and ``larft``, and the host
+solves ``laed4`` and ``stedc``.
 
-Counterpart of ``dlaf_tpu/tile_ops/lapack.py:71-99, 148-192``, the
+Counterpart of ``dlaf_tpu/tile_ops/lapack.py``, the
 reference's XLA route, so library calls are right here:
 ``torch.linalg.cholesky_ex`` and ``torch.linalg.solve_triangular``. The
 factor lands in the ``uplo`` triangle and the opposite triangle of the
@@ -19,7 +20,82 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .blas import hermitian_from, tri_mask
+from ..types import torch_dtype
+
+from .blas import _merge_triangle, _tri, hermitian_from, tri_mask, trsm
+
+
+def laset(uplo: str, alpha, beta, shape, dtype, device="cpu") -> torch.Tensor:
+    """A new block: off-diagonal ``alpha``, diagonal ``beta``, over the
+    ``uplo`` region, zero elsewhere (reference ``tile::laset``)."""
+    m, n = shape[-2], shape[-1]
+    tdt = torch_dtype(dtype)
+    a = torch.full(tuple(shape), alpha, dtype=tdt, device=device)
+    a = a + (beta - alpha) * torch.eye(m, n, dtype=tdt, device=device)
+    return tri_mask(a, uplo)
+
+
+def lacpy(uplo: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``b`` with its ``uplo`` region (the whole block for "G") taken from
+    ``a`` (reference ``tile::lacpy``); a new tensor."""
+    if uplo == "G":
+        return a.clone()
+    return _merge_triangle(a, b, uplo)
+
+
+def lange(norm: str, a: torch.Tensor) -> torch.Tensor:
+    """Block norm (reference ``tile::lange``): "M" the largest modulus,
+    "1" the largest column sum of moduli, "I" the largest row sum, "F"
+    Frobenius; over the last two axes."""
+    aa = a.abs()
+    if norm == "M":
+        return aa.amax(dim=(-2, -1)) if a.numel() else aa.new_zeros(a.shape[:-2])
+    if norm == "1":
+        return aa.sum(dim=-2).amax(dim=-1)
+    if norm == "I":
+        return aa.sum(dim=-1).amax(dim=-1)
+    if norm == "F":
+        return (aa * aa).sum(dim=(-2, -1)).sqrt()
+    raise ValueError(f"bad norm {norm!r}")
+
+
+def lantr(norm: str, uplo: str, diag: str, a: torch.Tensor) -> torch.Tensor:
+    """Triangular-block norm (reference ``tile::lantr``): :func:`lange` of
+    the ``uplo`` triangle, its diagonal one for ``diag="U"``."""
+    return lange(norm, _tri(a, uplo, diag))
+
+
+def laed4(d, z, rho: float) -> np.ndarray:
+    """The roots of the secular equation of ``D + rho z z^T`` (reference
+    ``tile::laed4``, LAPACK ``dlaed4``), ascending, on the host: the D&C
+    merge's native solver (:func:`..native.bindings.secular_roots`) on
+    ascending ``d``."""
+    from ..native import bindings
+
+    d = np.asarray(d, dtype=np.float64)
+    anchor, offset = bindings.secular_roots(d, np.asarray(z, dtype=np.float64), float(rho))
+    return d[anchor] + offset
+
+
+def hegst(itype: int, uplo: str, a: torch.Tensor, b: torch.Tensor, *, solve=None):
+    """The tile generalized-to-standard transform (reference
+    ``tile::hegst``), ``itype=1``: ``inv(L) A inv(L)^H`` (uplo "L", ``b``
+    holding L) or ``inv(U^H) A inv(U)`` ("U"), A read from its ``uplo``
+    triangle; the result's ``uplo`` triangle is the transform and the
+    opposite strict triangle is ``a``'s. ``solve(side, uplo, op, t, x)``
+    does the two triangular solves (default :func:`.blas.trsm`; the
+    blocked HEGST passes its panel route)."""
+    if itype != 1:
+        raise ValueError(f"hegst: itype {itype} is not used by the pipeline; only 1")
+    if solve is None:
+        def solve(side, up, op, t, x):
+            return trsm(side, up, op, "N", t, x)
+    af = hermitian_from(a, uplo)
+    if uplo == "L":
+        w = solve("R", "L", "C", b, solve("L", "L", "N", b, af))
+    else:
+        w = solve("R", "U", "N", b, solve("L", "U", "C", b, af))
+    return _merge_triangle(w, a, uplo)
 
 
 def _chol_lower_nan(af: torch.Tensor) -> torch.Tensor:

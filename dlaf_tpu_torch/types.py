@@ -50,10 +50,32 @@ def is_complex(dtype) -> bool:
     return np.dtype(dtype).kind == "c"
 
 
+def base_float(dtype):
+    """The real scalar type under ``dtype`` (the reference's ``BaseType``),
+    in ``dtype``'s kind: a numpy type for a numpy dtype, a torch dtype for
+    a torch dtype."""
+    if isinstance(dtype, torch.dtype):
+        return dtype.to_real()
+    return np.dtype(dtype).type(0).real.dtype.type
+
+
+def complex_of(dtype):
+    """The complex scalar type of ``dtype``'s precision."""
+    if isinstance(dtype, torch.dtype):
+        return dtype.to_complex()
+    return {np.float32: np.complex64, np.float64: np.complex128}[base_float(dtype)]
+
+
+def ops_weights(dtype) -> tuple[int, int]:
+    """(add, mul) weights in real flops of one addition and one
+    multiplication of ``dtype`` (reference ``types.h:120-131``)."""
+    return (2, 6) if is_complex(dtype) else (1, 1)
+
+
 def total_ops(dtype, add: float, mul: float) -> float:
     """Total real-op count for ``add`` additions and ``mul``
-    multiplications (complex weights add=2, mul=6)."""
-    wa, wm = (2, 6) if is_complex(dtype) else (1, 1)
+    multiplications (:func:`ops_weights`)."""
+    wa, wm = ops_weights(dtype)
     return wa * add + wm * mul
 
 

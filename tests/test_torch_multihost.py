@@ -3,8 +3,10 @@ against the reference's multihost unit tests (``tests/test_comm.py``:
 the single-process no-op and the slice-aware layout; ``tests/test_health.py``:
 the actionable bring-up error and the retried connect), with
 ``torch.distributed.init_process_group`` monkeypatched; the refusal of an
-NCCL world with two ranks on one device; and one ``torchrun`` launch of
-``miniapp_cholesky`` on the CPU (2x2, one process per rank, gloo).
+NCCL world with two ranks on one device; and ``torchrun`` launches on
+the CPU (2x2, one process per rank, gloo) of ``miniapp_cholesky`` and of
+the eigensolver pipeline's miniapps (HEGST, reduction to band, the
+generalized eigensolver, the chase back-transform).
 
 The reference's retry test also reads a ``dlaf_retry_total`` counter of
 its observability layer; the port has no ``obs`` yet (ROADMAP.md, queue 3),
@@ -179,3 +181,30 @@ def test_torchrun_miniapp_cholesky_on_cpu(tmp_path):
     assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
     assert out.stdout.count("check: PASSED") == 1, out.stdout
     assert out.stdout.count("GFlop/s sL (72, 72) (16, 16) (2, 2)") == 1, out.stdout
+
+
+@pytest.mark.parametrize("app,args,line", [
+    ("miniapp_gen_to_std", ("-m", "48", "-b", "8", "--type", "z"), "zL (48, 48) (8, 8) (2, 2)"),
+    ("miniapp_reduction_to_band", ("-m", "72", "-b", "16", "--band-size", "4", "--type", "d"),
+     "dL (72, 72) (16, 16) (2, 2)"),
+    ("miniapp_gen_eigensolver", ("-m", "72", "-b", "16", "--type", "z", "--uplo", "U"),
+     "zU gen_evp (72, 72) (16, 16) (2, 2)"),
+    ("miniapp_bt_band_to_tridiag", ("-m", "80", "-b", "8", "--type", "d"),
+     "d (80, 80) band=8 (2, 2)"),
+])
+def test_torchrun_eigensolver_miniapps_on_cpu(tmp_path, app, args, line):
+    """``torchrun`` runs the eigensolver pipeline's miniapps with one
+    process per rank of a 2x2 grid on the CPU (gloo): one run line (process
+    0), one ``check: PASSED`` (rank (0, 0)'s process), every process exits
+    0."""
+    env = {**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "1",
+           "GLOO_SOCKET_IFNAME": "lo", "TMPDIR": str(tmp_path)}
+    env.pop("WORLD_SIZE", None)
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "4",
+         "-m", f"dlaf_tpu_torch.miniapp.{app}", "--backend", "cpu", "--grid-rows", "2",
+         "--grid-cols", "2", "--share-device", *args, "--check-result", "last"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    assert out.stdout.count("check: PASSED") == 1, out.stdout
+    assert out.stdout.count(line) == 1, out.stdout

@@ -13,11 +13,16 @@ it bitwise: the Cholesky factor and info on every route and knob, the
 triangular solve and multiply, max_norm, ``from_element_fn``,
 ``to_global`` and each verb (a ``"sum"`` all-reduce of values spanning
 16 decades, whose bits depend on the order of the sum; a complex128
-broadcast). Each builder without a multi-process form must raise
-``NotImplementedError`` there. The 2x2 factor is also held against
-``dlaf_tpu``'s distributed builder on the virtual CPU devices at
-``60 n eps``. A process that does not finish within its timeout fails
-the harness instead of hanging it.
+broadcast; the scatter from one process, the ragged gather to one and the
+pairwise exchange), ``from_global(root=)`` and ``gather_global``, the
+transposed-tile exchange (transpose, hermitianize), HEGST in both forms
+(blocked, with look-ahead, on the Ozaki route, with info; twosolve), the
+QR T factor, permute and general_sub_multiply. The 2x2 Cholesky factor
+is also held against ``dlaf_tpu``'s distributed builder on the virtual CPU
+devices at ``60 n eps``, and its HEGST at ``100 n eps``. A process that
+does not finish within its timeout fails the harness instead of hanging
+it. The eigensolver pipeline's worlds are
+``tests/test_torch_multiprocess_eigen.py``'s.
 """
 
 import importlib
@@ -42,6 +47,7 @@ from dlaf_tpu_torch.comm.grid import shared_grid
 from dlaf_tpu_torch.matrix.matrix import Matrix
 
 jchol = importlib.import_module("dlaf_tpu.algorithms.cholesky")
+jg2s = importlib.import_module("dlaf_tpu.algorithms.gen_to_std")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(ROOT, "tests", "torch_mp_worker.py")
@@ -138,6 +144,12 @@ def bits(t):
     return t.numpy()
 
 
+def layout(t):
+    """``t``'s strides where its extent is above 1 (the strides of unit
+    dimensions address nothing)."""
+    return tuple(st for st, n in zip(t.stride(), t.shape) if n > 1)
+
+
 def expected_shards(res):
     """The single controller's per-rank values, keyed as the processes'."""
     if "mat" in res:
@@ -146,17 +158,14 @@ def expected_shards(res):
     return {f"{r * Q + c}": v for r, row in enumerate(res["ranks"]) for c, v in enumerate(row)}
 
 
-COMPARED = [n for n, s in w.CASES.items() if s["kind"] != "unported"]
-UNPORTED = [n for n, s in w.CASES.items() if s["kind"] == "unported"]
-
-
-@pytest.mark.parametrize("name", COMPARED)
-@pytest.mark.parametrize("g", list(w.GRIDS))
-def test_multiprocess_bitwise_single_controller(worlds, single, g, name):
-    got = load(worlds, g, name)
-    ref = single(name, g)
+def compare(got, ref):
+    """Hold every process's result of one case (``got``, in process order)
+    bitwise to the single controller's ``ref``: info and values, arrays
+    every process holds, the one process's ``root_array``, and each
+    rank's shard or value from exactly the process that drives it."""
     want = expected_shards(ref) if ("mat" in ref or "ranks" in ref) else {}
     seen = set()
+    roots = []
     for i, r in enumerate(got):
         res = r["ok"]
         for key in ("info", "value"):
@@ -165,20 +174,26 @@ def test_multiprocess_bitwise_single_controller(worlds, single, g, name):
                     f"process {i}: {key} {res[key]} != {ref[key]}"
         if "array" in ref:
             np.testing.assert_array_equal(bits(res["array"]), bits(ref["array"]))
+        if res.get("root_array") is not None:
+            roots.append(res["root_array"])
         for k, v in res.get("shards", {}).items():
             assert v.dtype == want[k].dtype and v.shape == want[k].shape
+            if "ranks" in ref:   # a verb's result: the single controller's layout too
+                assert layout(v) == layout(want[k]), (k, v.stride(), want[k].stride())
             np.testing.assert_array_equal(bits(v), bits(want[k]), err_msg=f"rank {k}")
             seen.add(k)
+    if "root_array" in ref:
+        # the value reaches one process only
+        assert len(roots) == 1, len(roots)
+        np.testing.assert_array_equal(bits(roots[0]), bits(ref["root_array"]))
     # every rank's value came from exactly the process that drives it
     assert seen == set(want), (seen, set(want))
 
 
-@pytest.mark.parametrize("name", UNPORTED)
+@pytest.mark.parametrize("name", list(w.CASES))
 @pytest.mark.parametrize("g", list(w.GRIDS))
-def test_unported_builders_raise(worlds, g, name):
-    for r in load(worlds, g, name):
-        assert "raised" in r and r["raised"].startswith("NotImplementedError"), r
-        assert "ROADMAP.md" in r["raised"]
+def test_multiprocess_bitwise_single_controller(worlds, single, g, name):
+    compare(load(worlds, g, name), single(name, g))
 
 
 @pytest.mark.parametrize("g", list(w.GRIDS))
@@ -203,14 +218,47 @@ def test_multiprocess_factor_matches_reference(worlds, monkeypatch, devices8):
     # the processes' shards, joined by the port's single-controller layout
     base = w.run_case("chol-d-L", shared_grid(P, Q, "cpu"), monkeypatch.setenv,
                       lambda k: monkeypatch.delenv(k, raising=False))["mat"]
-    shards = [None] * (P * Q)
-    for r in load(worlds, "2x2", "chol-d-L"):
-        for k, v in r["ok"]["shards"].items():
-            shards[int(k)] = v
-    got = np.tril(Matrix(base.dist, shards, base.grid).to_numpy())
+    got = np.tril(joined(worlds, "2x2", "chol-d-L", base))
     err = np.abs(got - ref).max() / np.abs(a).max()
     assert err <= 60 * n * np.finfo(np.float64).eps, err
     config.initialize()
+
+
+@pytest.mark.parametrize("uplo,dtype", [("L", np.float64), ("U", np.complex128)])
+def test_multiprocess_gen_to_std_matches_reference(worlds, monkeypatch, devices8, uplo, dtype):
+    """The 2x2 processes' HEGST (blocked) against the reference's
+    distributed builder at ``100 n eps`` of the largest entry of A (the
+    reference's c = 100), B factored by each side's own Cholesky."""
+    P, Q, src, n, nb = w.GRIDS["2x2"]
+    name = f"g2s-blocked-{'d' if dtype == np.float64 else 'z'}-{uplo}"
+    for knob in w.KNOBS:
+        monkeypatch.delenv("DLAF_" + knob, raising=False)
+    jcfg.initialize()
+    jgrid = JGrid(P, Q, devices=devices8[:P * Q])
+    tile, jsrc = JTileElementSize(nb, nb), JRankIndex2D(*src)
+    a = w.stored(w.herm(n, dtype), uplo)
+    jb = jchol.cholesky(uplo, JMatrix.from_global(w.hpd(n, dtype, seed=11), tile, grid=jgrid,
+                                                  source_rank=jsrc))
+    ja = JMatrix.from_global(a, tile, grid=jgrid, source_rank=jsrc)
+    ref = np.asarray(jg2s.gen_to_std(uplo, ja, jb).to_numpy())
+    base = w.run_case(name, shared_grid(P, Q, "cpu"), monkeypatch.setenv,
+                      lambda k: monkeypatch.delenv(k, raising=False))["mat"]
+    got = joined(worlds, "2x2", name, base)
+    keep = np.tril if uplo == "L" else np.triu
+    err = np.abs(keep(got) - keep(ref)).max() / np.abs(a).max()
+    assert err <= 100 * n * np.finfo(np.float64).eps, err
+    config.initialize()
+
+
+def joined(worlds, g, name, base):
+    """The processes' shards of case ``name`` as one global array, joined
+    by the single controller's layout ``base`` (a Matrix of that case)."""
+    P, Q = w.GRIDS[g][:2]
+    shards = [None] * (P * Q)
+    for r in load(worlds, g, name):
+        for k, v in r["ok"]["shards"].items():
+            shards[int(k)] = v
+    return Matrix(base.dist, shards, base.grid).to_numpy()
 
 
 def test_a_hanging_process_fails_the_harness(tmp_path):

@@ -144,14 +144,21 @@ def test_extract_band_never_joins_the_matrix(monkeypatch):
 @pytest.mark.parametrize("shape", [(2, 2, 64, 16, 4, 32), (2, 2, 72, 16, 4, 32),
                                    (2, 4, 80, 16, 8, 40), (4, 2, 61, 8, 4, 16)])
 @pytest.mark.parametrize("la", ["0", "1"])
-def test_chip_smoke_mxu_launch_formula(shape, la, monkeypatch):
+@pytest.mark.parametrize("shared", [True, False])
+def test_chip_smoke_mxu_launch_formula(shape, la, shared, monkeypatch):
     """``chip_smoke.red2band_mxu_launches`` (red2band-mxu's exact count of
     #6) against the calls of the Ozaki product's plain version under
     ``f64_gemm=mxu``, ``ozaki_impl=pallas``, with ``K_MAX`` lowered so
-    that the composed route for deeper contractions is taken too."""
+    that the composed route for deeper contractions is taken too;
+    ``shared=False`` with every value formed per rank
+    (``cc.per_rank_once`` as ``cc.per_rank``), as one process per rank
+    forms them: the multi-process form's summed count."""
     import chip_smoke as cs
+    from dlaf_tpu_torch.comm import collectives as cc
     from dlaf_tpu_torch.tile_ops import ozaki_kernels as ok
 
+    if not shared:
+        monkeypatch.setattr(cc, "per_rank_once", lambda P, Q, key, make: cc.per_rank(P, Q, make))
     P, Q, n, nb, b, k_max = shape
     calls = []
     real = ok.ozaki_product_plain
@@ -163,7 +170,8 @@ def test_chip_smoke_mxu_launch_formula(shape, la, monkeypatch):
     rng = np.random.default_rng(1)
     x = rng.standard_normal((n, n))
     red = pr.reduction_to_band(port((x + x.T) / 2, nb, (P, Q)), band_size=b)
-    assert len(calls) == cs.red2band_mxu_launches(P, Q, n, nb, b, k_max=k_max, min_dim=4)
+    assert len(calls) == cs.red2band_mxu_launches(P, Q, n, nb, b, k_max=k_max, min_dim=4,
+                                                  shared=shared)
     check_eigenvalues((x + x.T) / 2, red.matrix.to_numpy(), b)
 
 

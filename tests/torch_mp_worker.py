@@ -3,13 +3,15 @@
 ``tests/test_torch_multiprocess.py`` starts one of these per rank of a
 P x Q grid, each with a gloo world over a ``file://`` rendezvous:
 
-    python tests/torch_mp_worker.py <init-url> <rank> <world> <P> <Q> <out-dir> [cases|hang]
+    python tests/torch_mp_worker.py <init-url> <rank> <world> <P> <Q> <out-dir> [cases|eigen|hang]
 
 In ``cases`` mode it builds the multi-process grid on the CPU
 (:func:`dlaf_tpu_torch.comm.multihost.multihost_grid`), runs every case of
 :data:`CASES` through the port's entry points and writes what its rank
 holds of each result to ``<out-dir>/<case>.r<rank>.pt``; the test
-computes the same cases on the single-controller grid and compares. In
+computes the same cases on the single-controller grid and compares. The
+``eigen`` mode does the same for :data:`EIGEN_CASES`
+(``tests/test_torch_multiprocess_eigen.py``), after :func:`span_probe`. In
 ``hang`` mode rank 0 waits in a broadcast that rank 1 never joins (the
 test of the harness's timeout). This module imports only the port: the
 test module imports it for :data:`CASES` and :func:`run_case`.
@@ -21,7 +23,6 @@ import os
 import sys
 import time
 import traceback
-import types
 
 import numpy as np
 import torch
@@ -36,7 +37,8 @@ from dlaf_tpu_torch.comm import collectives as cc
 from dlaf_tpu_torch.comm import multihost, sync
 from dlaf_tpu_torch.comm.grid import COL_AXIS, ROW_AXIS, Grid
 from dlaf_tpu_torch.common.index2d import GlobalElementSize, RankIndex2D, TileElementSize
-from dlaf_tpu_torch.eigensolver import back_transform, eigensolver, reduction_to_band
+from dlaf_tpu_torch.eigensolver import (back_transform, band_to_tridiag, eigensolver,
+                                        reduction_to_band)
 from dlaf_tpu_torch.matrix import ops as mops
 from dlaf_tpu_torch.matrix.matrix import Matrix
 
@@ -65,9 +67,15 @@ def _tri(kind, combo, mode, dtype=F64, knobs=None, zero_col=None):
                 knobs={"dist_step_mode": mode, **(knobs or {})}, zero_col=zero_col)
 
 
+def _g2s(dtype, uplo, impl, knobs=None, zero_col=None):
+    return dict(kind="gen_to_std", dtype=dtype, uplo=uplo,
+                knobs={"hegst_impl": impl, **(knobs or {})}, zero_col=zero_col)
+
+
 #: Every case, by name: the Cholesky on each route and knob, the triangular
-#: solve and multiply, max_norm, the matrix constructors, the verbs, and
-#: the builders that have no multi-process form yet.
+#: solve and multiply, max_norm, the matrix constructors, the verbs, the
+#: transposed tiles, HEGST (both forms, with info), the QR T factor,
+#: permute and general_sub_multiply.
 CASES = {
     "chol-s-L": _chol(F32, "L"),
     "chol-s-U": _chol(F32, "U"),
@@ -125,10 +133,64 @@ CASES = {
     "verb-send_recv-col": dict(kind="verb", verb="send_recv", axis=COL_AXIS),
     "verb-reduce-row": dict(kind="verb", verb="reduce", axis=ROW_AXIS),
     "verb-barrier-col": dict(kind="verb", verb="barrier_value", axis=COL_AXIS),
-    **{f"unported-{name}": dict(kind="unported", what=name)
-       for name in ("gen_to_std", "reduction_to_band", "bt_band_to_tridiag",
-                    "bt_reduction_to_band", "permute", "general_sub_multiply", "t_factor",
-                    "eigensolver", "gen_eigensolver", "transpose")},
+    "verb-bcast-transposed-row": dict(kind="verb", verb="bcast", axis=ROW_AXIS, transposed=True),
+    "verb-sum-transposed-col": dict(kind="verb", verb="all_reduce", axis=COL_AXIS, op="sum",
+                                    transposed=True),
+    "verb-scatter": dict(kind="verb", verb="scatter"),
+    "verb-gather-ragged": dict(kind="verb", verb="gather"),
+    "verb-exchange": dict(kind="verb", verb="exchange"),
+    "from_global-root": dict(kind="from_global_root"),
+    "gather_global": dict(kind="gather_global"),
+    "transpose-d": dict(kind="transpose", dtype=F64, conj=False),
+    "transpose-z-conj": dict(kind="transpose", dtype=C128, conj=True),
+    "hermitianize-d-L": dict(kind="hermitianize", dtype=F64, uplo="L"),
+    "hermitianize-z-U": dict(kind="hermitianize", dtype=C128, uplo="U"),
+    "g2s-blocked-d-L": _g2s(F64, "L", "blocked"),
+    "g2s-blocked-d-U": _g2s(F64, "U", "blocked"),
+    "g2s-blocked-z-L": _g2s(C128, "L", "blocked"),
+    "g2s-blocked-z-U": _g2s(C128, "U", "blocked"),
+    "g2s-blocked-s-L-fused": _g2s(F32, "L", "blocked", {"panel_impl": "fused"}),
+    "g2s-blocked-la-d-L": _g2s(F64, "L", "blocked", LA),
+    "g2s-blocked-la-z-U": _g2s(C128, "U", "blocked", LA),
+    "g2s-blocked-mxu-d-L": _g2s(F64, "L", "blocked", OZ7),
+    "g2s-twosolve-d-L": _g2s(F64, "L", "twosolve"),
+    "g2s-twosolve-d-U": _g2s(F64, "U", "twosolve"),
+    "g2s-twosolve-z-L": _g2s(C128, "L", "twosolve"),
+    "g2s-twosolve-z-U": _g2s(C128, "U", "twosolve"),
+    "g2s-info-d-L": _g2s(F64, "L", "blocked", zero_col=20),
+    "g2s-info-ok-z-U": _g2s(C128, "U", "twosolve", zero_col=-1),
+    "t_factor-d": dict(kind="t_factor", dtype=F64),
+    "t_factor-z": dict(kind="t_factor", dtype=C128),
+    "permute-Row": dict(kind="permute", coord="Row"),
+    "permute-Col": dict(kind="permute", coord="Col"),
+    "general_sub_multiply": dict(kind="gsm", knobs={}),
+    "general_sub_multiply-mxu": dict(kind="gsm", knobs=OZ7),
+}
+
+BAND = 4
+
+#: The eigensolver pipeline's cases (``tests/test_torch_multiprocess_eigen.py``
+#: runs them in worlds of their own): reduction to band, the band's
+#: gather, both back-transforms and the two drivers.
+EIGEN_CASES = {
+    "red2band-d": dict(kind="red2band", dtype=F64, knobs={"dist_step_mode": "unrolled"}),
+    "red2band-z": dict(kind="red2band", dtype=C128, knobs={"dist_step_mode": "unrolled"}),
+    "red2band-la-d": dict(kind="red2band", dtype=F64,
+                          knobs={"dist_step_mode": "unrolled", "comm_lookahead": 1}),
+    "red2band-scan-d": dict(kind="red2band", dtype=F64, knobs={"dist_step_mode": "scan"}),
+    "red2band-scan-z": dict(kind="red2band", dtype=C128, knobs={"dist_step_mode": "scan"}),
+    "red2band-mxu-d": dict(kind="red2band", dtype=F64,
+                           knobs={"dist_step_mode": "unrolled", **OZ7}),
+    "extract_band-d": dict(kind="extract_band", dtype=F64),
+    "bt_r2b-d": dict(kind="bt_r2b", dtype=F64, knobs={"dist_step_mode": "unrolled"}),
+    "bt_r2b-scan-z": dict(kind="bt_r2b", dtype=C128, knobs={"dist_step_mode": "scan"}),
+    "bt_b2t-d": dict(kind="bt_b2t", dtype=F64),
+    "bt_b2t-z": dict(kind="bt_b2t", dtype=C128),
+    "evp-d-L": dict(kind="evp", dtype=F64, uplo="L"),
+    "evp-z-U": dict(kind="evp", dtype=C128, uplo="U"),
+    "evp-scan-d-L": dict(kind="evp", dtype=F64, uplo="L", knobs={"dist_step_mode": "scan"}),
+    "gen_evp-d-L": dict(kind="gen_evp", dtype=F64, uplo="L"),
+    "gen_evp-z-U": dict(kind="gen_evp", dtype=C128, uplo="U"),
 }
 
 
@@ -157,6 +219,10 @@ def _verb(spec, P, Q):
     dtype = spec.get("dtype", F64)
     size = P if spec.get("axis") == ROW_AXIS else Q
     xs = cc.per_rank(P, Q, lambda r, c: _rank_value(r, c, Q, dtype, (2 * size, 3)))
+    if spec.get("transposed"):
+        # dense values in another layout (a solve's output is often one):
+        # every receiver must get the sender's layout, as a copy keeps it
+        xs = cc.per_rank(P, Q, lambda r, c: xs[r][c].reshape(3, 2, size).mT)
     verb, axis = spec["verb"], spec.get("axis")
     if verb == "all_reduce":
         return cc.all_reduce(xs, axis, spec["op"])
@@ -176,40 +242,12 @@ def _verb(spec, P, Q):
     return cc.barrier_value(xs, axis)
 
 
-def _unported(what, mat, grid, src, nb):
-    """Call ``what`` on a grid matrix (its arguments need not make sense:
-    the multi-process form must refuse before reading them)."""
-    sr = RankIndex2D(*src)
-    if what == "gen_to_std":
-        return gen_to_std("L", mat, mat)
-    if what == "reduction_to_band":
-        return reduction_to_band.reduction_to_band(mat)
-    if what == "bt_band_to_tridiag":
-        return back_transform.bt_band_to_tridiag(None, mat)
-    if what == "bt_reduction_to_band":
-        return back_transform.bt_reduction_to_band(types.SimpleNamespace(matrix=mat, band=nb),
-                                                   mat)
-    if what == "permute":
-        return permutations.permute("Row", np.arange(2 * nb)[::-1].copy(), mat, 0, 2)
-    if what == "general_sub_multiply":
-        return general.general_sub_multiply(1.0, mat, mat, 0.0, mat, 0, 2)
-    if what == "t_factor":
-        v = Matrix.from_global(np.eye(mat.size.row, nb), TileElementSize(nb, nb), grid,
-                               source_rank=sr)
-        return qr.t_factor(v, np.ones(nb))
-    if what == "eigensolver":
-        return eigensolver.eigensolver("L", mat)
-    if what == "gen_eigensolver":
-        return eigensolver.gen_eigensolver("L", mat, mat)
-    return mops.transpose(mat)
-
-
 def run_case(name, grid, setenv, delenv) -> dict:
     """Run case ``name`` on ``grid`` (a single-controller or a
     multi-process grid on the CPU); knobs go through ``setenv``/``delenv``
     (the caller restores them). Returns ``{"mat": Matrix}``, ``"info"``,
     ``"value"``, ``"array"`` or ``"ranks"`` (a nested per-rank list)."""
-    spec = CASES[name]
+    spec = {**CASES, **EIGEN_CASES}[name]
     P, Q, src, n, nb = GRIDS[f"{grid.size.row}x{grid.size.col}"]
     for knob in KNOBS:
         delenv("DLAF_" + knob)
@@ -252,6 +290,8 @@ def run_case(name, grid, setenv, delenv) -> dict:
     if kind == "to_global":
         a = np.random.default_rng(7).standard_normal((n, n + 3))
         return {"array": Matrix.from_global(a, tile, grid, source_rank=sr).to_global()}
+    if kind == "verb" and spec["verb"] in ("scatter", "gather", "exchange"):
+        return _verb_more(spec, P, Q)
     if kind == "verb":
         return {"ranks": _verb(spec, P, Q)}
     if kind == "sync":
@@ -264,13 +304,197 @@ def run_case(name, grid, setenv, delenv) -> dict:
         got = sync.gather_shards(x)
         # every rank's value, then their host fold
         return {"array": torch.as_tensor(np.stack(got + [sync.all_reduce(got, "sum")]))}
-    return _unported(spec["what"], Matrix.from_global(hpd(n, F64), tile, grid, source_rank=sr),
-                     grid, src, nb)
+    return _more(spec, grid, sr, tile, P, Q, n, nb)
+
+
+def herm(n, dtype, seed=4):
+    """A Hermitian matrix (both triangles), seeded."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, n))
+    if np.dtype(dtype).kind == "c":
+        x = x + 1j * rng.standard_normal((n, n))
+    return ((x + x.conj().T) / 2).astype(dtype)
+
+
+def stored(a, uplo):
+    """``a`` with junk in the triangle ``uplo`` does not store."""
+    keep = np.tril(np.ones(a.shape, bool)) if uplo == "L" else np.triu(np.ones(a.shape, bool))
+    return np.where(keep, a, 7.0).astype(a.dtype)
+
+
+def _root(P, Q):
+    """The rank a root-form case scatters from or gathers to: not (0, 0)."""
+    return RankIndex2D(P - 1, 0) if P > 1 else RankIndex2D(0, Q - 1)
+
+
+def _verb_more(spec, P, Q):
+    """The scatter from, the ragged gather to one rank (not (0, 0)), and a
+    pairwise exchange whose every pair moves a value of its own shape."""
+    verb = spec["verb"]
+    own = _root(P, Q)
+    if verb == "scatter":
+        like = cc.per_rank(P, Q, lambda r, c: torch.zeros((3, 2), dtype=torch.float64))
+        parts = ([[_rank_value(r, c, Q, F64, (3, 2)) for c in range(Q)] for r in range(P)]
+                 if cc.is_local(own.row, own.col) else None)
+        return {"ranks": cc.scatter(parts, own.row, own.col, like)}
+    if verb == "gather":
+        got = cc.gather(cc.per_rank(P, Q, lambda r, c: _rank_value(
+            r, c, Q, C128, (1 + (r * Q + c) % 3, 2))), own.row, own.col)
+        return {"root_array": None if got is None else torch.cat([v for row in got
+                                                                  for v in row])}
+
+    def shape(a, b):
+        return (1 + (a[0] + a[1] + 2 * b[0] + b[1]) % 3, 3)
+
+    every = [(r, c) for r in range(P) for c in range(Q)]
+    sends = cc.per_rank(P, Q, lambda r, c: {
+        d: _rank_value(r, c, Q, F64, shape((r, c), d)) * (1 + d[0] * Q + d[1])
+        for d in every if d != (r, c)})
+    expect = cc.per_rank(P, Q, lambda r, c: {
+        s_: torch.empty(shape(s_, (r, c)), dtype=torch.float64) for s_ in every if s_ != (r, c)})
+    got = cc.exchange(sends, expect)
+    return {"ranks": cc.per_rank(P, Q, lambda r, c: torch.cat(
+        [got[r][c][k] for k in sorted(got[r][c])]))}
+
+
+def _more(spec, grid, sr, tile, P, Q, n, nb) -> dict:
+    """The cases of the matrix ops, HEGST, the QR T factor, permute,
+    general_sub_multiply and (:data:`EIGEN_CASES`) the eigensolver
+    pipeline."""
+    kind = spec["kind"]
+    dtype = spec.get("dtype", F64)
+
+    def mat(a):
+        return Matrix.from_global(a, tile, grid, source_rank=sr)
+
+    if kind in ("from_global_root", "gather_global"):
+        a = np.random.default_rng(9).standard_normal((n, n + 3))
+        own = _root(P, Q)
+        if kind == "gather_global":
+            got = mat(a).gather_global(own)
+            return {"root_array": got}
+        mine = a if grid.is_local(own.row, own.col) else None
+        return {"mat": Matrix.from_global(mine, tile, grid, source_rank=sr, root=own,
+                                          size=GlobalElementSize(n, n + 3), dtype=F64)}
+    if kind == "transpose":
+        return {"mat": mops.transpose(mat(hpd(n, dtype) + np.triu(herm(n, dtype), 1)),
+                                      conj=spec["conj"])}
+    if kind == "hermitianize":
+        return {"mat": mops.hermitianize(mat(herm(n, dtype)), spec["uplo"])}
+    if kind == "gen_to_std":
+        uplo = spec["uplo"]
+        b = hpd(n, dtype, seed=11)
+        if spec["zero_col"] is not None and spec["zero_col"] >= 0:
+            b[spec["zero_col"], spec["zero_col"]] = -1000.0
+        bf = cholesky(uplo, mat(b))
+        out = gen_to_std(uplo, mat(stored(herm(n, dtype), uplo)), bf,
+                         with_info=spec["zero_col"] is not None)
+        if spec["zero_col"] is not None:
+            return {"mat": out[0], "info": int(out[1])}
+        return {"mat": out}
+    if kind == "t_factor":
+        rng = np.random.default_rng(12)
+        k = nb - 3
+        v = rng.standard_normal((n, k))
+        taus = 1.0 + rng.random(k)
+        if np.dtype(dtype).kind == "c":
+            v = v + 1j * rng.standard_normal((n, k))
+            taus = taus + 0.5j * rng.random(k)
+        vm = Matrix.from_global(v.astype(dtype), tile, grid, source_rank=sr)
+        return {"array": qr.t_factor(vm, taus.astype(dtype))}
+    if kind == "permute":
+        perm = np.random.default_rng(13).permutation(3 * nb)
+        a = np.random.default_rng(14).standard_normal((n, n + 3))
+        return {"mat": permutations.permute(spec["coord"], perm, mat(a), 1, 4)}
+    if kind == "gsm":
+        rng = np.random.default_rng(15)
+        a, b, c = (rng.standard_normal((n, n)) for _ in range(3))
+        return {"mat": general.general_sub_multiply(0.5, mat(a), mat(b), -1.5, mat(c), 1, 4)}
+    return _eigen(spec, mat, n)
+
+
+def _band_input(n, dtype):
+    """A seeded ``(BAND + 1, n)`` lower band for the chase."""
+    rng = np.random.default_rng(16)
+    band = rng.standard_normal((BAND + 1, n))
+    if np.dtype(dtype).kind == "c":
+        band = band + 1j * rng.standard_normal((BAND + 1, n))
+        band[0] = band[0].real
+    return band.astype(dtype)
+
+
+def _eigen(spec, mat, n) -> dict:
+    """The cases of :data:`EIGEN_CASES`; ``mat`` tiles a host array onto
+    the grid."""
+    kind, dtype = spec["kind"], spec["dtype"]
+    uplo = spec.get("uplo", "L")
+    if kind in ("red2band", "extract_band", "bt_r2b"):
+        red = reduction_to_band.reduction_to_band(mat(herm(n, dtype)), band_size=BAND)
+        if kind == "red2band":
+            return {"mat": red.matrix, "array": red.taus}
+        if kind == "extract_band":
+            band = reduction_to_band.extract_band(red)
+            return {"root_array": None if band is None else torch.as_tensor(band)}
+        c = np.random.default_rng(17).standard_normal((n, n - 5)).astype(dtype)
+        return {"mat": back_transform.bt_reduction_to_band(red, mat(c))}
+    if kind == "bt_b2t":
+        tri = band_to_tridiag.band_to_tridiag(_band_input(n, dtype), BAND)
+        e = np.random.default_rng(18).standard_normal((n, n - 5))
+        return {"mat": back_transform.bt_band_to_tridiag(tri, mat(e))}
+    a = mat(stored(herm(n, dtype), uplo))
+    if kind == "evp":
+        res = eigensolver.eigensolver(uplo, a, band_size=BAND)
+    else:
+        res = eigensolver.gen_eigensolver(uplo, a, mat(stored(hpd(n, dtype, seed=19), uplo)),
+                                          band_size=BAND)
+    return {"mat": res.eigenvectors, "array": torch.as_tensor(res.eigenvalues)}
+
+
+def span_probe(grid, setenv, delenv) -> dict:
+    """Run case "evp-d-L" with the chase, the D&C and every tensor this
+    process creates watched: the calls of ``band_to_tridiag`` and
+    ``tridiag_solver``, and the largest floating-point tensor (in
+    elements) created from the band's gather to Q's scatter (the call of
+    ``extract_band`` to that of ``bt_band_to_tridiag``)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    state = {"on": False, "largest": 0, "chase": 0, "dc": 0}
+    mod = eigensolver
+    saved = {k: getattr(mod, k) for k in ("extract_band", "bt_band_to_tridiag",
+                                          "band_to_tridiag", "tridiag_solver")}
+
+    def watch(name, before):
+        def fn(*args, **kwargs):
+            before()
+            return saved[name](*args, **kwargs)
+        return fn
+
+    class Track(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if state["on"]:
+                for t in tree_leaves(out):
+                    if isinstance(t, torch.Tensor) and (t.is_floating_point() or t.is_complex()):
+                        state["largest"] = max(state["largest"], t.numel())
+            return out
+
+    mod.extract_band = watch("extract_band", lambda: state.update(on=True))
+    mod.bt_band_to_tridiag = watch("bt_band_to_tridiag", lambda: state.update(on=False))
+    mod.band_to_tridiag = watch("band_to_tridiag", lambda: state.update(chase=state["chase"] + 1))
+    mod.tridiag_solver = watch("tridiag_solver", lambda: state.update(dc=state["dc"] + 1))
+    try:
+        with Track():
+            res = run_case("evp-d-L", grid, setenv, delenv)
+    finally:
+        for k, v in saved.items():
+            setattr(mod, k, v)
+    return {**state, "eigenvalues": res["array"]}
 
 
 def _local_result(res: dict) -> dict:
     """What this process's rank holds of a case's result."""
-    out = {k: v for k, v in res.items() if k in ("info", "value", "array")}
+    out = {k: v for k, v in res.items() if k in ("info", "value", "array", "root_array")}
     if "mat" in res:
         out["shards"] = {f"{i}": s for i, s in enumerate(res["mat"].storage) if s is not None}
     if "ranks" in res:
@@ -295,12 +519,14 @@ def main(argv) -> int:
     def setenv(k, v):
         os.environ[k] = v
 
-    for name, spec in CASES.items():
+    cases = EIGEN_CASES if mode == "eigen" else CASES
+    if mode == "eigen":
+        torch.save(span_probe(grid, setenv, lambda k: os.environ.pop(k, None)),
+                   os.path.join(out_dir, f"span.r{rank}.pt"))
+    for name, spec in cases.items():
         try:
             res = {"ok": _local_result(run_case(name, grid, setenv,
                                                 lambda k: os.environ.pop(k, None)))}
-        except NotImplementedError as e:
-            res = {"raised": f"NotImplementedError: {e}"}
         except Exception:
             res = {"error": traceback.format_exc()}
         torch.save(res, os.path.join(out_dir, f"{name}.r{rank}.pt"))
