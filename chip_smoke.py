@@ -70,15 +70,16 @@ the multi-process form (``comm/multihost.py``: one process per rank):
     eigensolver pipeline at N=4096: HEGST in complex128 (config #3's
     type) by twosolve and blocked, reduction to band (float64, nb=512,
     band 128; by default and under ``f64_gemm=mxu``), ``eigensolver``
-    (nb=512, band 128) and ``gen_eigensolver`` (nb=256, band 128); each
-    process's shard (and taus, eigenvalues) must be bitwise the single
-    controller's on the same card (the eigenvectors too, though the single
-    controller applies the chase's reflectors once to its four ranks'
-    columns side by side and a process to its own), and the launches summed over
-    the processes its counts, or, where a value a grid line holds alike is
-    formed once per device there (``cc.per_rank_once``), its counts with
-    that sharing off (red2band-d-mxu's #6 also against
-    ``red2band_mxu_launches``); then ``torchrun --standalone
+    (nb=512, band 128, of the Toeplitz tridiagonal (2, 1), whose D&C on
+    rank (0, 0)'s process must launch the Givens undo) and
+    ``gen_eigensolver`` (nb=256, band 128); each process's shard (and
+    taus, eigenvalues) must be bitwise the single controller's on the
+    same card (the eigenvectors too, though the single controller applies
+    the chase's reflectors once to its four ranks' columns side by side
+    and a process to its own), and the launches summed over the processes
+    its counts, or, where a value a grid line holds alike is formed once
+    per device there (``cc.per_rank_once``), its counts with that sharing
+    off (red2band-d-mxu's #6 also against ``red2band_mxu_launches``); then ``torchrun --standalone
     --nproc-per-node 4 -m dlaf_tpu_torch.miniapp.miniapp_cholesky -m 8192
     -b 256 --grid-rows 2 --grid-cols 2 --share-device`` in float32 and
     float64, and ``torchrun`` of miniapp_gen_to_std (config #3),
@@ -2350,7 +2351,9 @@ MP_CASES = (("dist-L", "cholesky", "s", ()),
             # the eigensolver pipeline: config #3's type by both HEGST
             # forms, reduction to band at config #4's widths (and under
             # f64_gemm=mxu, where the per-rank forming shows in #6's
-            # count), the standard and the generalized eigensolver
+            # count), the standard eigensolver of a matrix whose D&C
+            # deflates by rotations (:func:`_mp_case`) and the generalized
+            # one
             ("g2s-z-twosolve", "gen_to_std", "z", ("--dlaf:hegst-impl=twosolve",)),
             ("g2s-z-blocked", "gen_to_std", "z", ("--dlaf:hegst-impl=blocked",)),
             ("red2band-d", "red2band", "d", ()),
@@ -2422,7 +2425,11 @@ def _mp_case(kind, letter, knobs, grid, n: int = MP_N, nb: int = MP_NB):
         args = (mat(_mp_herm(torch)),)
         call = lambda a: reduction_to_band.reduction_to_band(a, band)   # noqa: E731
     elif kind == "eigensolver":
-        args = (mat(_mp_herm(torch)),)
+        # the Toeplitz tridiagonal (2, 1): the reduction and the chase
+        # leave it as it is, and the D&C's merges of equal-sized halves
+        # meet pairs of equal poles, which it deflates by rotations, so
+        # the Givens undo runs on rank (0, 0)'s process
+        args = (mat(lambda i, j: 2.0 * (i == j) + 1.0 * ((i - j).abs() == 1)),)
         call = lambda a: eigensolver.eigensolver("L", a, band_size=band)   # noqa: E731
     else:
         args = (mat(_mp_herm(torch)), mat(hpd_element_fn(n, dtype)))
@@ -2455,10 +2462,8 @@ def _mp_rank(rank: int, world: int, rdv: str, out_dir: str, device: str, n: int,
     multihost.initialize_multihost(f"file://{rdv}", world, rank, backend="gloo", timeout=600)
     grid = multihost.multihost_grid(2, 2, device=device)
     for name, kind, letter, knobs in MP_CASES:
-        t = time.perf_counter()
         shards, counts, arrays = _mp_case(kind, letter, knobs, grid, n, nb)
-        torch.save({"shards": shards, "counts": counts, "arrays": arrays,
-                    "wall": time.perf_counter() - t},
+        torch.save({"shards": shards, "counts": counts, "arrays": arrays},
                    os.path.join(out_dir, f"{name}.r{rank}.pt"))
     multihost.finalize_multihost()
 
@@ -2569,12 +2574,12 @@ def torchrun_beside_single(card, app, args, what, env, app_args=()) -> None:
 
 
 def multiprocess_phase(torch, card, launches, device: str = "cuda:0", n: int = MP_N,
-                       nb: int = MP_NB, big=("-m", "8192", "-b", "256"), app_args=(),
-                       eig_apps=MP_TORCHRUN) -> None:
+                       nb: int = MP_NB, big=("-m", "8192", "-b", "256"),
+                       app_args=()) -> None:
     """The multi-process form on this card (module docstring, the
     multi-process phase); fails on any disagreement. ``device``, the
     sizes and ``app_args`` (extra miniapp arguments) let a CPU rehearsal
-    run it small."""
+    run it small (with :data:`MP_TORCHRUN` made small first)."""
     import re
     import tempfile
 
@@ -2643,6 +2648,9 @@ def multiprocess_phase(torch, card, launches, device: str = "cuda:0", n: int = M
         if counts != per_rank:
             raise AssertionError(f"multi-process {name}: launches {counts}, single "
                                  f"controller {want_counts}, with per-rank forming {per_rank}")
+        if kind == "eigensolver" and device != "cpu" and not counts.get("givens_undo"):
+            raise AssertionError(f"multi-process {name}: the D&C on rank (0, 0)'s process "
+                                 "launched no Givens undo")
         for k, v in counts.items():
             launches[k] += v
     del ref, grid
@@ -2656,7 +2664,7 @@ def multiprocess_phase(torch, card, launches, device: str = "cuda:0", n: int = M
     for letter in ("s", "d"):
         torchrun_beside_single(card, "miniapp_cholesky", (*big, "--type", letter),
                                "the Cholesky", env, app_args)
-    for app, args, what in eig_apps:
+    for app, args, what in MP_TORCHRUN:
         torchrun_beside_single(card, app, args, what, env, app_args)
     visible = torch.cuda.device_count()
     if visible < 4:

@@ -103,10 +103,10 @@ def _solve(side: str, uplo: str, op: str, lkk, b, inv, fused: bool):
 def _hegst_diag(uplo: str, akk, lkk, inv, fused: bool):
     """The transformed diagonal tile in full Hermitian form:
     ``inv(L) herm(Akk) inv(L)^H`` (uplo 'L') or ``inv(U^H) herm(Akk)
-    inv(U)`` ('U'): the tile HEGST (:func:`..tile_ops.lapack.hegst`) with
-    the step's panel solves."""
-    w = tl.hegst(1, uplo, akk, lkk,
-                 solve=lambda side, up, op, t, x: _solve(side, up, op, t, x, inv, fused))
+    inv(U)`` ('U'): the tile HEGST's solves
+    (:func:`..tile_ops.lapack.hegst_full`) with the step's panel solves."""
+    w = tl.hegst_full(uplo, akk, lkk,
+                      lambda side, up, op, t, x: _solve(side, up, op, t, x, inv, fused))
     return tb.hermitian_from(w, uplo)
 
 

@@ -36,6 +36,10 @@ Semantics follow the reference (``collectives.py:69-255``):
   pairs of ranks only: the verbs by which a matrix that one rank holds
   is distributed (``Matrix.from_global(root=)``), the band's tiles reach
   rank (0, 0), and a mirror tile is fetched from its owner.
+* :func:`bcast_arrays` gives every process, bit for bit and without a
+  ``+ 0.0``, host arrays that one rank's process formed alone (the
+  chase's result); under the single controller it returns them as they
+  are.
 
 A received value has, in both forms, the layout the single controller's
 copy gives it: a broadcast's or an all-gather's that of its sender where
@@ -81,6 +85,7 @@ controller's.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -344,16 +349,20 @@ def _transport(kind: str, x: torch.Tensor, group, src: int = -1, *, pieces=None,
 
     members = sorted(dist.get_process_group_ranks(group))
     w = _wire(x.detach())
-    if kind in ("broadcast", "all_gather"):
-        # each value arrives in its sender's layout, as a copy keeps it
-        # under the single controller
+    if kind == "broadcast":
+        # the value arrives in its sender's layout, as a copy keeps it
+        # under the single controller; a receiver's ``x`` gives only the
+        # extents the header checked (its elements are never read)
+        if dist.get_rank() == src:
+            buf = _in_order(x).to(wdev, copy=True)
+        else:
+            buf = torch.empty(w.numel(), dtype=w.dtype, device=wdev)
+        dist.broadcast(buf, src=src, group=group)
+        return _from_wire(buf, heads[members.index(src)], x)
+    if kind == "all_gather":
         flat = _in_order(x).to(wdev)
-        if kind == "broadcast":
-            buf = flat.clone() if dist.get_rank() == src else torch.empty_like(flat)
-            dist.broadcast(buf, src=src, group=group)
-            return _from_wire(buf, heads[members.index(src)], x)
         bufs = [torch.empty_like(flat) for _ in range(n)]
-        dist.all_gather(bufs, flat.contiguous(), group=group)
+        dist.all_gather(bufs, flat, group=group)
         return [_from_wire(b, h, x) for b, h in zip(bufs, heads)]
     if kind == "scatter":
         buf = torch.empty(w.shape, dtype=w.dtype, device=wdev)
@@ -582,6 +591,30 @@ def gather(xs, owner_r: int, owner_c: int):
         return out
     dev = xs[owner_r][owner_c].device
     return [[_copy(xs[r][c], dev) for c in range(Q)] for r in range(P)]
+
+
+def bcast_arrays(arrays, owner_r: int, owner_c: int, specs) -> list:
+    """Host arrays formed once, on the process that drives rank
+    ``(owner_r, owner_c)``, on every process, bit for bit: ``arrays`` (a
+    list of numpy arrays) there, None elsewhere; ``specs`` their ``(shape,
+    dtype)`` on every process. The owner keeps its own arrays; each crosses
+    to the others by one broadcast of the transport, through host memory
+    on gloo and through this process's device on NCCL. Without a world,
+    ``arrays``."""
+    if _WORLD is None:
+        return arrays
+    owner = _WORLD.process_rank(owner_r, owner_c)
+    mine = dist.get_rank() == owner
+    dev = (torch.device("cpu") if dist.get_backend() == "gloo"
+           else _WORLD.device(*_WORLD.local_ranks[0]))
+    out = []
+    for i, (shape, dtype) in enumerate(specs):
+        x = (torch.from_numpy(arrays[i]).to(dev) if mine else
+             torch.empty(tuple(shape), dtype=torch.from_numpy(np.empty(0, dtype)).dtype,
+                         device=dev))
+        got = _transport("broadcast", x, dist.group.WORLD, src=owner)
+        out.append(arrays[i] if mine else got.cpu().numpy())
+    return out
 
 
 def exchange(sends, expect):

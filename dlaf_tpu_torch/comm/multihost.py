@@ -264,8 +264,10 @@ def multihost_grid(rows: Optional[int] = None, cols: Optional[int] = None, *,
 
 
 def broadcast_object(obj, src: int = 0):
-    """``obj`` of process ``src`` on every process (itself without a world):
-    how the miniapps share a verdict that one process computed."""
+    """``obj`` of process ``src`` on every process (itself without a world),
+    pickled: how a verdict or another small value that one process
+    computed reaches the others (arrays cross by the transport:
+    ``cc.bcast_arrays``)."""
     if not (dist.is_available() and dist.is_initialized()):
         return obj
     box = [obj]

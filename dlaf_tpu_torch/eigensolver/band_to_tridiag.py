@@ -46,6 +46,29 @@ class TridiagResult:
     band: int
 
 
+_ARRAYS = ("d", "e", "v", "tau", "phase")
+
+
+def share_tridiag(tri, grid) -> TridiagResult:
+    """The chase's result, formed by the process of rank (0, 0) alone
+    (``tri`` there, None on the others), on every process of ``grid``'s
+    multi-process world, bit for bit: the arrays' shapes and dtypes cross
+    by ``multihost.broadcast_object``, the arrays themselves (the
+    reflectors are O(n^2 / 2)) by the transport's broadcast
+    (``cc.bcast_arrays``). ``tri`` itself without such a world."""
+    from ..comm import collectives as cc
+    from ..comm import multihost
+
+    if grid is None or not grid.multi_process:
+        return tri
+    specs = None if tri is None else (
+        [(getattr(tri, f).shape, getattr(tri, f).dtype) for f in _ARRAYS], tri.band)
+    specs, band = multihost.broadcast_object(specs, src=grid.process_rank(0, 0))
+    got = cc.bcast_arrays(None if tri is None else [getattr(tri, f) for f in _ARRAYS], 0, 0,
+                          specs)
+    return tri if tri is not None else TridiagResult(*got, band=band)
+
+
 def band_to_tridiag(band: np.ndarray, b: int) -> TridiagResult:
     """The chase of the ``(b+1, n)`` lower 'sb' band (``band[r, j] =
     A[j+r, j]``) by the native chase; raises when its library cannot be

@@ -17,11 +17,11 @@ band crosses to the host for the chase, and the D&C's Q, formed on rank
 the reference does. In the multi-process form (one process per rank,
 :mod:`..comm.multihost`) the band's tiles are gathered on the process of
 rank (0, 0), which alone runs the chase and the D&C, as the single
-controller runs them once on rank (0, 0)'s device; the chase's reflectors
-and the eigenvalues reach the other processes by one broadcast, and Q by
-one scatter of shards (``from_global(root=)``). The other processes wait
-in that broadcast: they hold no ``n x n`` tensor from the band's gather
-to Q's scatter. Every process returns the same eigenvalues, and stage
+controller runs them once on rank (0, 0)'s device; the chase's arrays
+reach the other processes by the transport's broadcast, the eigenvalues
+as a small object, and Q by one scatter of shards
+(``from_global(root=)``). The other processes wait in that broadcast:
+they hold no ``n x n`` tensor from the band's gather to Q's scatter. Every process returns the same eigenvalues, and stage
 walls are this process's (the miniapps print process 0's).
 
 Not ported now: ``resume`` and the stage checkpoints (with the health and
@@ -48,7 +48,7 @@ from ..common.timer import PhaseTimer
 from ..matrix import ops as mops
 from ..matrix.matrix import Matrix
 from .back_transform import bt_band_to_tridiag, bt_reduction_to_band
-from .band_to_tridiag import band_to_tridiag
+from .band_to_tridiag import band_to_tridiag, share_tridiag
 from .reduction_to_band import extract_band, reduction_to_band
 from .tridiag_solver import tridiag_solver
 
@@ -112,12 +112,14 @@ def eigensolver(uplo: str, a: Matrix, phases: Optional[PhaseTimer] = None,
                                     stats=dc_stats)
             fence_t(z)
         if mp:
-            # the other processes wait here: the chase's result (its
-            # reflectors are O(n^2 / 2)), the eigenvalues and the merge
-            # statistics cross by one broadcast
-            tri, lam, got = multihost.broadcast_object(
-                None if tri is None else (tri, lam, dc_stats), src=a.grid.process_rank(0, 0))
-            if dc_stats is not None and z is None:
+            # the other processes wait here: the chase's result crosses
+            # as arrays, the eigenvalues and the merge statistics (O(n))
+            # as one small object
+            owner = tri is not None
+            tri = share_tridiag(tri, a.grid)
+            lam, got = multihost.broadcast_object((lam, dc_stats) if owner else None,
+                                                  src=a.grid.process_rank(0, 0))
+            if dc_stats is not None and not owner:
                 dc_stats.extend(got)
     with pt.phase("stage.bt_band_to_tridiag"):
         if a.distributed:

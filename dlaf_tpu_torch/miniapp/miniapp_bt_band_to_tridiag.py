@@ -31,7 +31,7 @@ from ..comm import multihost
 from ..comm.sync import barrier
 from ..common.index2d import TileElementSize
 from ..eigensolver.back_transform import bt_band_to_tridiag
-from ..eigensolver.band_to_tridiag import band_to_tridiag
+from ..eigensolver.band_to_tridiag import band_to_tridiag, share_tridiag
 from ..matrix.matrix import Matrix
 from ..types import total_ops, type_letter
 from .checks import effective_eps
@@ -59,9 +59,10 @@ def run(argv=None) -> list[dict]:
     use_grid = grid if grid.num_devices > 1 else None
     n, b = args.matrix_size, args.band_size
     m = args.evec_cols or n
-    # untimed set-up; under torchrun one process chases, every one gets it
-    tri = multihost.broadcast_object(
-        band_to_tridiag(make_band(n, b, opts.dtype), b) if is_printer() else None)
+    # untimed set-up; under torchrun rank (0, 0)'s process chases and the
+    # others receive its result
+    tri = share_tridiag(band_to_tridiag(make_band(n, b, opts.dtype), b)
+                        if grid.is_local(0, 0) else None, grid)
     e0 = np.random.default_rng(1).standard_normal((n, m)).astype(opts.dtype)
     em = Matrix.from_global(e0, TileElementSize(b, b), use_grid, device=device)
     flops = total_ops(opts.dtype, 2.0 * n * n * m, 2.0 * n * n * m)

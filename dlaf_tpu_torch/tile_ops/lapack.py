@@ -90,12 +90,17 @@ def hegst(itype: int, uplo: str, a: torch.Tensor, b: torch.Tensor, *, solve=None
     if solve is None:
         def solve(side, up, op, t, x):
             return trsm(side, up, op, "N", t, x)
+    return _merge_triangle(hegst_full(uplo, a, b, solve), a, uplo)
+
+
+def hegst_full(uplo: str, a: torch.Tensor, b: torch.Tensor, solve) -> torch.Tensor:
+    """:func:`hegst`'s two solves on the Hermitian ``a`` (read from its
+    ``uplo`` triangle), unmerged: the whole tile, whose ``uplo`` triangle
+    is the transform (for callers that read only that triangle)."""
     af = hermitian_from(a, uplo)
     if uplo == "L":
-        w = solve("R", "L", "C", b, solve("L", "L", "N", b, af))
-    else:
-        w = solve("R", "U", "N", b, solve("L", "U", "C", b, af))
-    return _merge_triangle(w, a, uplo)
+        return solve("R", "L", "C", b, solve("L", "L", "N", b, af))
+    return solve("R", "U", "N", b, solve("L", "U", "C", b, af))
 
 
 def _chol_lower_nan(af: torch.Tensor) -> torch.Tensor:

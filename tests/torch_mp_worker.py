@@ -73,9 +73,9 @@ def _g2s(dtype, uplo, impl, knobs=None, zero_col=None):
 
 
 #: Every case, by name: the Cholesky on each route and knob, the triangular
-#: solve and multiply, max_norm, the matrix constructors, the verbs, the
-#: transposed tiles, HEGST (both forms, with info), the QR T factor,
-#: permute and general_sub_multiply.
+#: solve and multiply, max_norm, the matrix constructors, the verbs (and
+#: the host arrays' broadcast), the transposed tiles, HEGST (both forms,
+#: with info), the QR T factor, permute and general_sub_multiply.
 CASES = {
     "chol-s-L": _chol(F32, "L"),
     "chol-s-U": _chol(F32, "U"),
@@ -139,6 +139,9 @@ CASES = {
     "verb-scatter": dict(kind="verb", verb="scatter"),
     "verb-gather-ragged": dict(kind="verb", verb="gather"),
     "verb-exchange": dict(kind="verb", verb="exchange"),
+    "verb-bcast_arrays": dict(kind="verb", verb="bcast_arrays", dtype=F64),
+    "verb-bcast_arrays-z-transposed": dict(kind="verb", verb="bcast_arrays", dtype=C128,
+                                           transposed=True),
     "from_global-root": dict(kind="from_global_root"),
     "gather_global": dict(kind="gather_global"),
     "transpose-d": dict(kind="transpose", dtype=F64, conj=False),
@@ -290,7 +293,7 @@ def run_case(name, grid, setenv, delenv) -> dict:
     if kind == "to_global":
         a = np.random.default_rng(7).standard_normal((n, n + 3))
         return {"array": Matrix.from_global(a, tile, grid, source_rank=sr).to_global()}
-    if kind == "verb" and spec["verb"] in ("scatter", "gather", "exchange"):
+    if kind == "verb" and spec["verb"] in ("scatter", "gather", "exchange", "bcast_arrays"):
         return _verb_more(spec, P, Q)
     if kind == "verb":
         return {"ranks": _verb(spec, P, Q)}
@@ -328,10 +331,21 @@ def _root(P, Q):
 
 
 def _verb_more(spec, P, Q):
-    """The scatter from, the ragged gather to one rank (not (0, 0)), and a
-    pairwise exchange whose every pair moves a value of its own shape."""
+    """The scatter from, the ragged gather to one rank (not (0, 0)), a
+    pairwise exchange whose every pair moves a value of its own shape, and
+    host arrays of one rank's process on every process (its ``-0.0``
+    kept, in its layout)."""
     verb = spec["verb"]
     own = _root(P, Q)
+    if verb == "bcast_arrays":
+        first = _rank_value(own.row, own.col, Q, spec["dtype"], (4, 3)).numpy()
+        if spec.get("transposed"):
+            first = first.reshape(3, 4).T
+        mine = [first, np.arange(-3, 5, dtype=np.int64)]
+        got = cc.bcast_arrays(mine if cc.is_local(own.row, own.col) else None, own.row,
+                              own.col, [(x.shape, x.dtype) for x in mine])
+        return {"ranks": cc.per_rank(P, Q, lambda r, c: torch.from_numpy(got[0])),
+                "array": torch.from_numpy(got[1])}
     if verb == "scatter":
         like = cc.per_rank(P, Q, lambda r, c: torch.zeros((3, 2), dtype=torch.float64))
         parts = ([[_rank_value(r, c, Q, F64, (3, 2)) for c in range(Q)] for r in range(P)]
