@@ -216,6 +216,26 @@ with its launch counts (none, but the one #6 product under ``mxu``):
     ``cholesky()`` calls; an overload pass (max_depth 16, shed, a 2x
     burst) that fails if depth passes the bound or a ticket is stranded;
     ``robust_cholesky_batched`` with two indefinite lanes;
+31. obs (the telemetry core; artifacts under the git-ignored
+    ``smoke_artifacts/obs``): main-L (``miniapp_cholesky`` N=16384,
+    nb=256, f32, fused step) with the knobs off and with
+    ``DLAF_METRICS_PATH`` on, three timed calls each in-process: equal
+    launch counts of #1/#4, the factor bitwise the same, the fenced
+    ``miniapp_cholesky.run`` spans' GFlop/s within 2% of the printed ones,
+    and through the CLI an artifact that ``python -m
+    dlaf_tpu_torch.obs.validate --require-spans --require-gflops``
+    accepts; one dist-L call (N=2048, 2x2) with ``trace_dir`` set, whose
+    Chrome trace holds ``cholesky.step<k>.panel|strip|bulk`` once per step
+    and every #5 launch inside a ``.bulk`` range; evp-d N=4096 2x2 on the
+    Toeplitz tridiagonal (2, 1), whose artifact holds the pipeline's entry
+    spans and ``dlaf_dc_merges_total`` and whose Givens undo launches; a
+    warm 256-request stream of the serve mix with the records off, then
+    with the records and ``/metrics`` on (one injected transient dispatch
+    failure retried in each), two scrapes whose counters do not decrease,
+    ``/healthz`` carrying the queue's stats, an artifact passing
+    ``--require-serve --require-resilience``; ``torchrun``
+    ``miniapp_cholesky`` N=4096 2x2 with ``run.%r.jsonl``: four valid
+    artifacts, each of its own rank, with collective counters;
 
 On one card the collectives are device-local copies and every rank
 repeats the diagonal tile's factor, so these walls do not measure
@@ -2224,6 +2244,338 @@ def serve_phase(torch, dev, card, kmods, launches, count: int = 2048,
         raise AssertionError("robust_cholesky_batched on the card")
 
 
+# ---------------------------------------------------------------------------
+# The obs phase: the telemetry core on the card
+# ---------------------------------------------------------------------------
+
+#: main-L: the f32 local Cholesky through the fused step kernels.
+OBS_MAIN_L = ("--type", "s", "--uplo", "L", "--dlaf:step-impl=fused",
+              "--dlaf:cholesky-lookahead=1")
+
+#: The entry spans the eigensolver's artifact must hold.
+OBS_EVP_SPANS = ("eigensolver", "reduction_to_band", "tridiag_solver", "bt_band_to_tridiag",
+                 "bt_reduction_to_band")
+
+
+def _obs_env(path=None, **extra):
+    """``os.environ`` with ``DLAF_METRICS_PATH`` set to ``path`` (or
+    removed), for the next ``config.initialize()``."""
+    os.environ.pop("DLAF_METRICS_PATH", None)
+    if path is not None:
+        os.environ["DLAF_METRICS_PATH"] = path
+    for k, v in extra.items():
+        os.environ[k] = v
+
+
+def _obs_validate(root: str, path: str, *flags) -> str:
+    """``python -m dlaf_tpu_torch.obs.validate path flags``: fails unless
+    it exits 0; returns its VALID line."""
+    out = subprocess.run([sys.executable, "-m", "dlaf_tpu_torch.obs.validate", path, *flags],
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": root})
+    if out.returncode:
+        raise AssertionError(f"obs.validate {path} {flags}: exit {out.returncode}\n"
+                             f"{out.stdout[-2000:]}{out.stderr[-2000:]}")
+    return out.stdout.strip()
+
+
+def _run_spans(records, name: str) -> list:
+    return [r for r in records if r.get("type") == "span" and r.get("name") == name
+            and not r["attrs"].get("warmup")]
+
+
+def _last_metrics(records) -> dict:
+    snaps = [r for r in records if r.get("type") == "metrics"]
+    return {(m["name"], tuple(sorted(m["labels"].items()))): m.get("value")
+            for m in (snaps[-1]["metrics"] if snaps else [])}
+
+
+def _scrape(port: int, route: str) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}", timeout=30) as resp:
+        return resp.read().decode()
+
+
+def _scraped_counters(text: str) -> dict:
+    out = {}
+    for ln in text.splitlines():
+        if ln.startswith("#") or " " not in ln:
+            continue
+        name, val = ln.rsplit(" ", 1)
+        if "_total" in name or "_count" in name:
+            out[name] = float(val)
+    return out
+
+
+def obs_phase(torch, card, kmods, launches, out_dir, n: int = 16384, nb: int = 256,
+              dist_n: int = 2048, evp_n: int = 4096, stream: int = 256,
+              device: str = "cuda", mp_args=("-m", "4096", "-b", "256"), app_args=()) -> None:
+    """The telemetry core on the card (module docstring, the obs phase);
+    fails on any disagreement. Artifacts go under ``out_dir``. The sizes,
+    ``device`` and ``app_args`` let a CPU rehearsal run it small."""
+    import re
+    import socket
+
+    import numpy as np
+
+    from dlaf_tpu_torch import config, obs
+    from dlaf_tpu_torch.algorithms.cholesky import cholesky
+    from dlaf_tpu_torch.comm.grid import shared_grid
+    from dlaf_tpu_torch.common.index2d import GlobalElementSize, TileElementSize
+    from dlaf_tpu_torch.matrix.matrix import Matrix
+    from dlaf_tpu_torch.miniapp import miniapp_cholesky
+    from dlaf_tpu_torch.miniapp.generators import hpd_element_fn
+    from dlaf_tpu_torch.serve import ProgramService, Queue, Request
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    dev = torch.device(device)
+    main_args = ["-m", str(n), "-b", str(nb), *OBS_MAIN_L, *app_args]
+    nt = -(-n // nb)
+
+    # -- main-L with the knobs off and with metrics_path on, in-process ----
+    def main_l(path):
+        _obs_env(path)
+        for m in kmods:
+            m.reset_launches()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = miniapp_cholesky.run([*main_args, "--nruns", "3", "--nwarmups", "1",
+                                        "--check-result", "last"])
+        counts = {k: v for m in kmods for k, v in m.LAUNCHES.items()}
+        _obs_env(None)
+        config.initialize()
+        if "check: PASSED" not in buf.getvalue():
+            raise AssertionError(f"obs main-L: no 'check: PASSED' line\n{buf.getvalue()}")
+        for k, v in counts.items():
+            launches[k] += v
+        return res, counts
+
+    off, c_off = main_l(None)
+    art = os.path.join(out_dir, "mainL.jsonl")
+    on, c_on = main_l(art)
+    want = {k: 0 for k in c_off}
+    if dev.type == "cuda":      # one warm-up and three timed factorizations
+        want.update(step=4 * (nt - 1), potrf=4)
+    if not (c_off == c_on == want):
+        raise AssertionError(f"obs main-L: launches off {c_off}, on {c_on}, expected {want}")
+    records = obs.read_records(art)
+    errs = obs.validate_records(records, require_spans=True, require_gflops=True)
+    spans = _run_spans(records, "miniapp_cholesky.run")
+    if errs or len(spans) != 3:
+        raise AssertionError(f"obs main-L artifact: {errs}, {len(spans)} timed run spans")
+    worst = max(abs(sp["gflops"] / r["gflops"] - 1.0) for sp, r in zip(spans, on))
+    print(f"[obs] main-L N={n} nb={nb} f32 walls over 3 calls: records off "
+          f"{[round(r['time_s'], 6) for r in off]} s, metrics_path on "
+          f"{[round(r['time_s'], 6) for r in on]} s; launches {c_on} equal in both states; "
+          f"span GFlop/s within {worst * 100:.3f}% of the printed ones; artifact "
+          f"{os.path.getsize(art)} bytes, {len(records)} records [{card}]", flush=True)
+    if worst > 0.02:
+        raise AssertionError(f"obs main-L: span GFlop/s {worst * 100:.2f}% off the printed")
+
+    # the factor bitwise with the records off and on
+    def factor(path):
+        _obs_env(path)
+        config.initialize(argv=list(OBS_MAIN_L[4:]))
+        ref = Matrix.from_element_fn(hpd_element_fn(n, np.float32), GlobalElementSize(n, n),
+                                     TileElementSize(nb, nb), None, dtype=np.float32,
+                                     device=dev)
+        out = cholesky("L", ref, donate=True)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        _obs_env(None)
+        config.initialize()
+        return [s for s in out.storage if s is not None]
+
+    f_off, f_on = factor(None), factor(os.path.join(out_dir, "factor.jsonl"))
+    same = all(torch.equal(x, y) for x, y in zip(f_off, f_on))
+    print(f"[obs] main-L factor with records off and on: {'bitwise equal' if same else 'DIFFER'}",
+          flush=True)
+    if not same:
+        raise AssertionError("obs main-L: the factor differs with the records on")
+    del f_off, f_on
+
+    # through the CLI: its artifact passes the validator's CLI, and each
+    # span's GFlop/s is the printed one's
+    cli = os.path.join(out_dir, "mainL_cli.jsonl")
+    out = _run_group([sys.executable, "-m", "dlaf_tpu_torch.miniapp.miniapp_cholesky",
+                      *main_args, "--nruns", "3", "--nwarmups", "1", "--check-result", "last"],
+                     600, {**os.environ, "PYTHONPATH": root, "DLAF_METRICS_PATH": cli})
+    printed = [float(g) for g in re.findall(r"^\[\d+\] [0-9.]+s ([0-9.]+)GFlop/s", out, re.M)]
+    line = _obs_validate(root, cli, "--require-spans", "--require-gflops")
+    spans = _run_spans(obs.read_records(cli), "miniapp_cholesky.run")
+    # 2% of the printed value, or half a unit of its last printed digit
+    off = [abs(sp["gflops"] - g) - max(0.02 * g, 0.005) for sp, g in zip(spans, printed)]
+    print(f"[obs] main-L CLI: {line}; GFlop/s printed {printed}, spans "
+          f"{[round(sp['gflops'], 2) for sp in spans]}", flush=True)
+    if "check: PASSED" not in out or len(spans) != len(printed) or max(off) > 0:
+        raise AssertionError("obs main-L CLI: the spans' GFlop/s disagree with the printed")
+
+    # -- the profiler's names: one dist-L call on 2x2 -----------------------
+    tdir = os.path.join(out_dir, "trace")
+    config.initialize(argv=["--dlaf:step-impl=fused", f"--dlaf:trace-dir={tdir}"])
+    grid = shared_grid(2, 2, dev)
+    a = Matrix.from_element_fn(hpd_element_fn(dist_n, np.float32),
+                               GlobalElementSize(dist_n, dist_n), TileElementSize(nb, nb),
+                               grid, dtype=np.float32)
+    kmods[2].reset_launches()
+    cholesky("L", a, donate=True)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    n_update = kmods[2].LAUNCHES["masked_trailing_update"]
+    path = obs.stop_profiler()
+    config.initialize()
+    del a
+    events = json.load(open(path))["traceEvents"]
+    cpu = [e for e in events if e.get("cat") == "user_annotation"]
+    names = {}
+    for e in cpu:
+        names[e["name"]] = names.get(e["name"], 0) + 1
+    dnt = -(-dist_n // nb)
+    missing = [f"cholesky.step{k:03d}.{ph}" for k in range(dnt) for ph in ("panel", "strip", "bulk")
+               if names.get(f"cholesky.step{k:03d}.{ph}") != 1]
+    kern = [e for e in events if e.get("cat") == "kernel"
+            and "masked_update" in e.get("name", "")]
+    gpu_bulk = [e for e in events if e.get("cat") == "gpu_user_annotation"
+                and e.get("name", "").endswith(".bulk")]
+    cpu_bulk = [e for e in cpu if e["name"].endswith(".bulk")]
+    runtime = {e["args"]["correlation"]: e for e in events
+               if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in
+               e.get("args", {})}
+
+    def inside(ev, spans):
+        return any(s["ts"] <= ev["ts"] and ev["ts"] + ev.get("dur", 0) <= s["ts"] + s["dur"]
+                   for s in spans)
+
+    by_ann = sum(inside(k, gpu_bulk) for k in kern)
+    by_corr = sum(inside(runtime[k["args"]["correlation"]], cpu_bulk) for k in kern
+                  if k.get("args", {}).get("correlation") in runtime)
+    print(f"[obs] dist-L N={dist_n} nb={nb} 2x2 profiler trace {os.path.basename(path)} "
+          f"({os.path.getsize(path)} bytes): {len(cpu)} named ranges, "
+          f"cholesky.stepNNN.panel|strip|bulk once per step for {dnt} steps"
+          f"{' (missing ' + str(missing[:6]) + ')' if missing else ''}; #5 kernel: "
+          f"{n_update} wrapper launches, {len(kern)} kernel events, {by_ann} inside a "
+          f".bulk range on the device timeline, {by_corr} launched inside a .bulk range "
+          f"[{card}]", flush=True)
+    if missing or names.get("cholesky") != 1:
+        raise AssertionError(f"obs profiler: step names missing {missing[:6]}")
+    if dev.type == "cuda" and (not kern or max(by_ann, by_corr) != len(kern)):
+        raise AssertionError("obs profiler: the #5 kernel is not inside the .bulk ranges")
+
+    # -- the eigensolver: a case that deflates ------------------------------
+    evp = os.path.join(out_dir, "evp.jsonl")
+    _obs_env(evp)
+    _, counts, _ = _mp_case("eigensolver", "d", (), shared_grid(2, 2, dev), n=evp_n, nb=nb)
+    obs.flush()
+    _obs_env(None)
+    config.initialize()
+    for k, v in counts.items():
+        launches[k] += v
+    records = obs.read_records(evp)
+    entry = {r["name"] for r in records if r.get("type") == "span" and r.get("fenced") is False}
+    merges = _last_metrics(records).get(("dlaf_dc_merges_total", (("mode", "serialized"),)), 0)
+    print(f"[obs] evp-d N={evp_n} 2x2 Toeplitz (2, 1): entry spans {sorted(entry)}, "
+          f"dlaf_dc_merges_total {merges}, Givens undo launches {counts.get('givens_undo')}; "
+          f"{_obs_validate(root, evp, '--require-spans', '--require-collectives')}; artifact "
+          f"{os.path.getsize(evp)} bytes", flush=True)
+    if not (set(OBS_EVP_SPANS) <= entry and merges > 0
+            and (counts.get("givens_undo", 0) > 0 or dev.type != "cuda")):
+        raise AssertionError("obs evp: entry spans, merge counter or Givens undo missing")
+
+    # -- serving: the stream with the records off, then with the records
+    # and the exporter on -------------------------------------------------
+    reqs = _stream_requests(np, Request, stream, SERVE_SEED)
+    half = stream // 2
+
+    def serve_pass(port=None):
+        """One warmed stream in two halves (the exporter, if on, scraped
+        between and after); returns (wall, tickets, queue, scrapes)."""
+        q = Queue(ProgramService(device=dev), batch=16, buckets=(32, 64, 128, 256))
+        q.warmup(reqs)
+        run = q.service.run
+        failed = []
+
+        def flaky(spec, *args):
+            # one injected transient failure: the dispatch policy retries it
+            if not failed:
+                failed.append(spec.site)
+                raise RuntimeError("injected transient dispatch failure")
+            return run(spec, *args)
+
+        q.service.run = flaky
+        scrapes = []
+        t0 = time.perf_counter()
+        tickets = [q.submit(r) for r in reqs[:half]]
+        q.flush()
+        if port:
+            scrapes.append(_scrape(port, "/metrics"))
+        tickets += [q.submit(r) for r in reqs[half:]]
+        q.flush()
+        wall = time.perf_counter() - t0
+        if port:
+            scrapes += [_scrape(port, "/metrics"), _scrape(port, "/healthz")]
+        if len(failed) != 1 or not all(_residual_ok(np, t)[0] for t in tickets):
+            raise AssertionError("obs serve: a residual missed its budget, or no retry")
+        return wall, tickets, q, scrapes
+
+    wall_off, _, _, _ = serve_pass()
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    serve_art = os.path.join(out_dir, "serve.jsonl")
+    _obs_env(serve_art, DLAF_METRICS_PORT=str(port))
+    config.initialize()
+    wall, tickets, q, (scrape1, scrape2, healthz) = serve_pass(port)
+    c1, c2 = _scraped_counters(scrape1), _scraped_counters(scrape2)
+    shrank = [k for k, v in c1.items() if c2.get(k, -1.0) < v]
+    stats_ok = json.loads(json.dumps(q.stats())) in json.loads(healthz)["queues"]
+    obs.flush()
+    _obs_env(None)
+    os.environ.pop("DLAF_METRICS_PORT", None)
+    config.initialize()
+    line = _obs_validate(root, serve_art, "--require-serve", "--require-resilience")
+    lat = np.array([t.total_s for t in tickets])
+    print(f"[obs] serve: {stream} f64 requests, one injected dispatch failure retried each "
+          f"pass: records off {wall_off:.4f} s ({stream / wall_off:.1f} requests/s); records "
+          f"and /metrics on 127.0.0.1 {wall:.4f} s ({stream / wall:.1f} requests/s), p50 "
+          f"{np.percentile(lat, 50) * 1e3:.3f} ms p99 {np.percentile(lat, 99) * 1e3:.3f} ms; "
+          f"scrapes {len(scrape1)} and {len(scrape2)} bytes, {len(c2)} counter series, none "
+          f"decreased: {not shrank}; /healthz queue stats match: {stats_ok}; {line}; artifact "
+          f"{os.path.getsize(serve_art)} bytes [{card}]", flush=True)
+    if shrank or not stats_ok:
+        raise AssertionError(f"obs serve: counters shrank {shrank[:4]}, stats match {stats_ok}")
+
+    # -- four processes: one artifact per rank -------------------------------
+    tmpl = os.path.join(out_dir, "run.%r.jsonl")
+    env = {**os.environ, "PYTHONPATH": root, "GLOO_SOCKET_IFNAME": "lo",
+           "DLAF_METRICS_PATH": tmpl}
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           "4", "-m", "dlaf_tpu_torch.miniapp.miniapp_cholesky", *mp_args, "--type", "s",
+           "--grid-rows", "2", "--grid-cols", "2", "--share-device", "--nruns", "1",
+           "--check-result", "last", *app_args]
+    out = _run_group(cmd, 600, env)
+    if out.count("check: PASSED") != 1:
+        raise AssertionError("obs torchrun: no 'check: PASSED' line")
+    sizes = []
+    for r in range(4):
+        path = tmpl.replace("%r", str(r))
+        line = _obs_validate(root, path, "--require-spans", "--require-collectives")
+        ranks = {rec.get("rank") for rec in obs.read_records(path)}
+        if ranks != {r}:
+            raise AssertionError(f"obs torchrun: {path} carries ranks {ranks}")
+        sizes.append(os.path.getsize(path))
+    extra = sorted(f for f in os.listdir(out_dir) if f.startswith("run.")
+                   and f not in {f"run.{r}.jsonl" for r in range(4)})
+    print(f"[obs] torchrun 4 processes dist-L {' '.join(mp_args)} 2x2: run.%r.jsonl gave one "
+          f"valid artifact per rank with its own rank and collective counters, {sizes} bytes"
+          f"{'; other files ' + str(extra) if extra else ''} [{card}]", flush=True)
+    if extra:
+        raise AssertionError(f"obs torchrun: files other than one per rank: {extra}")
+
+
 def panel_products(torch, dev, randn, hpd, check, pk, cb) -> None:
     """The strip and slab products alone (``strip_kernel``, ``slab_kernel``
     of ``csrc/panel.cu`` through its C entries) against the plain
@@ -3133,6 +3485,14 @@ def main() -> int:
     t_phase = time.perf_counter()
     serve_phase(torch, dev, card, kmods, launches)
     print(f"[phase] serve {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # ---- phase 2h: the telemetry core (obs): records off and on, the
+    # profiler's names, the eigensolver's and the serve stream's artifacts
+    # with the live exporter, one artifact per process under torchrun ----
+    t_phase = time.perf_counter()
+    obs_phase(torch, card, kmods, launches,
+              os.path.join(os.path.dirname(os.path.abspath(__file__)), "smoke_artifacts", "obs"))
+    print(f"[phase] obs {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # ---- phase 3: the float64 / complex128 routes "auto" picks from ------
     # the default (no knob) beside each route it could resolve to, uplo L,

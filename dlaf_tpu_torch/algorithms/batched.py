@@ -38,6 +38,9 @@ recovery driver over it.
 
 Entry points take a tensor (its device is used) or a host array (moved to
 ``device``, by default the program service's, whose default is ``cuda``).
+Each writes the reference's unfenced entry span (``cholesky_batched``,
+``solve_batched``, ``eigh_batched``; ``batched.py:156, 198, 223``) with
+its flop model when :mod:`..obs` records.
 """
 
 from __future__ import annotations
@@ -45,10 +48,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import obs
 from ..common.asserts import dlaf_assert
 from ..health import info as hinfo
 from ..tile_ops import blas as tb
 from ..tile_ops import lapack as tl
+from ..types import dtype_name, total_ops
 from .cholesky import _whole_matrix
 
 #: Default block size of the batched bucket programs. The whole-matrix
@@ -198,7 +203,10 @@ def cholesky_batched(uplo: str, a, *, nb: int = None, with_info: bool = False,
     b_, n = _check_batch(a, "cholesky_batched")
     spec = cholesky_spec(batch=b_, n=n, nb=nb or default_nb(n), dtype=_dtype_name(a),
                          uplo=uplo, with_info=with_info, donate=donate)
-    return svc.run(spec, a)
+    with obs.entry_span("cholesky_batched", lambda: dict(
+            flops=b_ * total_ops(a.dtype, n ** 3 / 6, n ** 3 / 6), batch=b_, n=n, nb=spec.nb,
+            uplo=uplo, dtype=dtype_name(a.dtype))):
+        return svc.run(spec, a)
 
 
 def solve_batched(side: str, uplo: str, op: str, diag: str, alpha, a, b, *, nb: int = None,
@@ -231,7 +239,11 @@ def solve_batched(side: str, uplo: str, op: str, diag: str, alpha, a, b, *, nb: 
                       side=side, uplo=uplo, transa=op, diag=diag, with_info=with_info,
                       donate=donate_b)
     alpha_vec = torch.as_tensor(alpha, dtype=a.dtype).to(a.device).expand(b_)
-    return svc.run(spec, a, b, alpha_vec)
+    with obs.entry_span("solve_batched", lambda: dict(
+            flops=b_ * total_ops(a.dtype, n ** 2 * nrhs / 2, n ** 2 * nrhs / 2), batch=b_, n=n,
+            nrhs=nrhs, nb=spec.nb, side=side, uplo=uplo, op=op, diag=diag,
+            dtype=dtype_name(a.dtype))):
+        return svc.run(spec, a, b, alpha_vec)
 
 
 def eigh_batched(uplo: str, a, *, nb: int = None, with_info: bool = False,
@@ -249,4 +261,7 @@ def eigh_batched(uplo: str, a, *, nb: int = None, with_info: bool = False,
     b_, n = _check_batch(a, "eigh_batched")
     spec = eigh_spec(batch=b_, n=n, nb=nb or default_nb(n), dtype=_dtype_name(a), uplo=uplo,
                      with_info=with_info, donate=donate)
-    return svc.run(spec, a)
+    with obs.entry_span("eigh_batched", lambda: dict(
+            flops=b_ * total_ops(a.dtype, 5 * n ** 3 / 3, 5 * n ** 3 / 3), batch=b_, n=n,
+            nb=spec.nb, uplo=uplo, dtype=dtype_name(a.dtype))):
+        return svc.run(spec, a)

@@ -38,6 +38,16 @@ docstring); with trailing "scan", :func:`_cholesky_dist_scan`, the
 reference's distributed scan builder (``_build_dist_cholesky_scan``
 :1208-1686), as a Python loop at the reference's uniform shapes.
 
+Records (:mod:`..obs`), as the reference's: the ``cholesky`` entry span
+(unfenced, with the reference's flop model and attrs,
+``cholesky.py:1842-1850``); ``dlaf_algo_tile_ops_total{algo,op}`` and
+``dlaf_cholesky_steps_total{algo,mode}`` per step as it runs (the
+reference counts them once per traced program, :mod:`..obs` has the
+rule); and on a grid the per-step ``cholesky.step<k>`` phases
+``.panel``/``.strip``/``.bulk`` (profiler names with a trace directory)
+and ``dlaf_comm_overlapped_total`` for the panel chain hoisted by
+``comm_lookahead``.
+
 The trailing products outside the kernels are ``torch.matmul``, as the
 reference leaves them to XLA. On a CUDA device ``cholesky`` sets
 ``torch.backends.cuda.matmul.allow_tf32 = False`` before it runs: a
@@ -49,7 +59,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import config
+from .. import config, obs
 from ..comm import collectives as cc
 from ..comm.grid import COL_AXIS, ROW_AXIS
 from ..common.asserts import dlaf_assert
@@ -65,10 +75,31 @@ from ..tile_ops import ozaki as oz
 from ..tile_ops import ozaki_kernels as ok
 from ..tile_ops import panel_kernels as pk
 from ..tile_ops import update_kernels as uk
-from ..types import ceil_div, telescope_segments, telescope_windows
+from ..types import ceil_div, dtype_name, telescope_segments, telescope_windows, total_ops
 from . import dist_step as ds
 
 _F64 = (torch.float64, torch.complex128)
+
+
+def _count_step_modes(algo: str, overlapped: int, serialized: int) -> None:
+    """Steps run in the look-ahead order (the next panel column first) and
+    in the plain order: ``dlaf_cholesky_steps_total{algo,mode}``."""
+    if obs.metrics_active():
+        if overlapped:
+            obs.counter("dlaf_cholesky_steps_total", algo=algo, mode="overlapped").inc(overlapped)
+        if serialized:
+            obs.counter("dlaf_cholesky_steps_total", algo=algo, mode="serialized").inc(serialized)
+
+
+def _count_local_step(k: int, nt: int, lookahead: bool) -> None:
+    """Step k's tile ops on one rank: one potrf and (nt-k-1) panel-solve
+    tiles, and the trailing update's tile pairs under the loop schedule."""
+    if obs.metrics_active():
+        tail = nt - k - 1
+        for op, cnt in (("potrf", 1), ("trsm", tail), ("herk", tail),
+                        ("gemm", tail * (tail - 1) // 2)):
+            obs.counter("dlaf_algo_tile_ops_total", algo="cholesky", op=op).inc(cnt)
+        _count_step_modes("cholesky", *((1, 0) if lookahead and tail else (0, 1)))
 
 
 def _add_masked(x: torch.Tensor, upd: torch.Tensor, mask: torch.Tensor) -> None:
@@ -153,6 +184,7 @@ def _cholesky_local(a: torch.Tensor, *, uplo: str, nb: int, trailing: str = "loo
     other = "U" if uplo == "L" else "L"
     nt = ceil_div(n, nb) if n else 0
     for k in range(nt):
+        _count_local_step(k, nt, lookahead)
         k0, k1 = k * nb, min((k + 1) * nb, n)
         blk = a[k0:k1, k0:k1]
         if step_fused and k1 < n:
@@ -386,6 +418,7 @@ def _cholesky_local_scan(a: torch.Tensor, *, uplo: str, nb: int, use_mxu: bool =
         m = (nt - off) * nb
         sub = a[off * nb:, off * nb:]
         if lookahead:
+            _count_step_modes("cholesky_scan", seg_len, 0)
             # the pending panel crosses segments; the rows it drops are zero
             if pp is None:
                 shape = (m, nb) if uplo == "L" else (nb, m)
@@ -395,6 +428,7 @@ def _cholesky_local_scan(a: torch.Tensor, *, uplo: str, nb: int, use_mxu: bool =
             for k in range(seg_len):
                 pp = step_la(sub, pp, k, m)
         else:
+            _count_step_modes("cholesky_scan", 0, seg_len)
             for k in range(seg_len):
                 step(sub, k, m)
         off += seg_len
@@ -628,17 +662,58 @@ def _cholesky_dist(lts, dist, *, uplo, use_pallas=False, use_mxu=False, use_mixe
                 upd = full.reshape(nrows, mb, ncols, mb).permute(0, 2, 1, 3)
             ds.sub_masked_pairs(block, upd, mode, uplo)
 
+    def chain_comm_counts(k):
+        """Collectives ``panel_chain(k)`` runs per grid axis: the diagonal
+        bcast2d once on each; a full chain adds the panel broadcast on one
+        axis and the transposed panel's exchange on the other."""
+        *_, lu_r, lu_c = indices(k)
+        nrows, ncols = ltr - lu_r, ltc - lu_c
+        row = col = 1
+        if k < nt - 1:
+            if uplo == "L" and nrows > 0:
+                col += 1
+                if ncols > 0:
+                    row += 1
+            elif uplo == "U" and ncols > 0:
+                row += 1
+                if nrows > 0:
+                    col += 1
+        return row, col
+
     la = None
     ch_next = None
     for k in range(nt):
-        if comm_la:
-            ch = ch_next if ch_next is not None else panel_chain(k, la)
-            la = step_pre(k, ch)
-            ch_next = panel_chain(k + 1, la) if k + 1 < nt and la is not None else None
-        else:
-            ch = panel_chain(k, la)
-            la = step_pre(k, ch)
-        step_bulk(k, ch, la is not None)
+        if obs.metrics_active():
+            obs.counter("dlaf_algo_tile_ops_total", algo="cholesky_dist", op="potrf").inc()
+            obs.counter("dlaf_algo_tile_ops_total", algo="cholesky_dist",
+                        op="trailing_pairs").inc((ltr - max(0, -(-(k + 2 - P) // P)))
+                                                 * (ltc - max(0, -(-(k + 2 - Q) // Q))))
+            _count_step_modes("cholesky_dist", *((1, 0) if lookahead and k + 1 < nt
+                                                 else (0, 1)))
+        with obs.named_span(f"cholesky.step{k:03d}"):
+            if comm_la:
+                if ch_next is not None:
+                    ch = ch_next
+                else:
+                    with obs.named_span(f"cholesky.step{k:03d}.panel"):
+                        ch = panel_chain(k, la)
+                with obs.named_span(f"cholesky.step{k:03d}.strip"):
+                    la = step_pre(k, ch)
+                ch_next = None
+                if k + 1 < nt and la is not None:
+                    # step k+1's chain, hoisted ahead of step k's bulk
+                    with obs.named_span(f"cholesky.step{k + 1:03d}.panel"):
+                        ch_next = panel_chain(k + 1, la)
+                    n_row, n_col = chain_comm_counts(k + 1)
+                    cc.record_overlapped("cholesky_dist", ROW_AXIS, n_row)
+                    cc.record_overlapped("cholesky_dist", COL_AXIS, n_col)
+            else:
+                with obs.named_span(f"cholesky.step{k:03d}.panel"):
+                    ch = panel_chain(k, la)
+                with obs.named_span(f"cholesky.step{k:03d}.strip"):
+                    la = step_pre(k, ch)
+            with obs.named_span(f"cholesky.step{k:03d}.bulk"):
+                step_bulk(k, ch, la is not None)
     return _dist_info(lts, ctx, n) if with_info else None
 
 
@@ -825,6 +900,27 @@ def _cholesky_dist_scan(lts, dist, *, uplo, use_mxu=False, use_mixed=False,
             a, b = ds.valid_range(g_cols[c], k + 1, nt)
             ds.sub_masked_rows(subs[r][c][kr1, :], upd, (a, b), diag_slot, False)
 
+    def scan_step(subs, k, lu_r0, lu_c0, g_rows, g_cols, pend):
+        vr, vc = panel_site(subs, k, lu_r0, lu_c0, g_rows, g_cols)
+        if not lookahead:
+            for r, c in cc.local_ranks(P, Q):
+                sub_pairs(subs[r][c], vr[r][c], vc[r][c], pair_modes(
+                    valid(g_rows[r], k), valid(g_cols[c], k), g_rows[r], g_cols[c]))
+            return pend
+        # the deferred bulk of step k-1, less the column (row) k its strip
+        # updated
+        for r, c in cc.local_ranks(P, Q):
+            rv, cv = valid(g_rows[r], k - 1), valid(g_cols[c], k - 1)
+            if lower:
+                cv &= g_cols[c] != k
+            else:
+                rv &= g_rows[r] != k
+            sub_pairs(subs[r][c], pend[0][r][c], pend[1][r][c],
+                      pair_modes(rv, cv, g_rows[r], g_cols[c]))
+        if k + 1 < nt:
+            strip(subs, k, lu_r0, lu_c0, g_rows, g_cols, vr, vc)
+        return vr, vc
+
     pend = None
     windows = telescope_windows(nt, lambda k0, _len: (uniform_slot_start(k0, P),
                                                       uniform_slot_start(k0, Q)))
@@ -834,32 +930,24 @@ def _cholesky_dist_scan(lts, dist, *, uplo, use_mxu=False, use_mixed=False,
         g_rows = [ctx.g_rows(r, lu_r0, ltr_s) for r in range(P)]
         g_cols = [ctx.g_cols(c, lu_c0, ltc_s) for c in range(Q)]
         if lookahead:
+            _count_step_modes("cholesky_dist_scan", seg_len, 0)
+            # each step's diagonal bcast2d, panel broadcast and transposed
+            # panel run ahead of the deferred bulk of step k-1: two
+            # collectives per axis
+            cc.record_overlapped("cholesky_dist_scan", ROW_AXIS, 2 * seg_len)
+            cc.record_overlapped("cholesky_dist_scan", COL_AXIS, 2 * seg_len)
             if pend is None:
                 pend = tuple(ranks(lambda r, c: lts[r][c].new_zeros((cnt, mb, mb)))
                              for cnt in (ltr_s, ltc_s))
             else:
                 pend = (ranks(lambda r, c: pend[0][r][c][-ltr_s:]),
                         ranks(lambda r, c: pend[1][r][c][-ltc_s:]))
+        else:
+            _count_step_modes("cholesky_dist_scan", 0, seg_len)
         for k in range(k0, k0 + seg_len):
-            vr, vc = panel_site(subs, k, lu_r0, lu_c0, g_rows, g_cols)
-            if not lookahead:
-                for r, c in cc.local_ranks(P, Q):
-                    sub_pairs(subs[r][c], vr[r][c], vc[r][c], pair_modes(
-                        valid(g_rows[r], k), valid(g_cols[c], k), g_rows[r], g_cols[c]))
-                continue
-            # the deferred bulk of step k-1, less the column (row) k its
-            # strip updated
-            for r, c in cc.local_ranks(P, Q):
-                rv, cv = valid(g_rows[r], k - 1), valid(g_cols[c], k - 1)
-                if lower:
-                    cv &= g_cols[c] != k
-                else:
-                    rv &= g_rows[r] != k
-                sub_pairs(subs[r][c], pend[0][r][c], pend[1][r][c],
-                          pair_modes(rv, cv, g_rows[r], g_cols[c]))
-            if k + 1 < nt:
-                strip(subs, k, lu_r0, lu_c0, g_rows, g_cols, vr, vc)
-            pend = (vr, vc)
+            # the step's index-free name, as the reference's scan body
+            with obs.named_span("cholesky.scanstep"):
+                pend = scan_step(subs, k, lu_r0, lu_c0, g_rows, g_cols, pend)
     return _dist_info(lts, ctx, n) if with_info else None
 
 
@@ -928,10 +1016,32 @@ def cholesky(uplo: str, mat: Matrix, *, donate: bool = False, with_info: bool = 
     step_fused = trailing != "xla" and pk.step_uses_fused(dtype, nb, dev)
     if dev == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
+    n = mat.size.row
+    P, Q = mat.dist.grid_size.row, mat.dist.grid_size.col
+    # unfenced (the launches are asynchronous; the miniapp's fenced span
+    # carries the GFlop/s); attrs and the reference's flop model are built
+    # only when a record is written
+    entry = obs.entry_span("cholesky", lambda: dict(
+        flops=total_ops(dtype, n ** 3 / 6, n ** 3 / 6), n=n, nb=nb, uplo=uplo,
+        dtype=dtype_name(dtype), trailing=trailing, lookahead=int(lookahead),
+        comm_lookahead=int(lookahead and config.resolve("comm_lookahead", dev) == "1"),
+        panel_impl="fused" if panel_fused else "xla",
+        step_impl="fused" if step_fused else "xla", grid=f"{P}x{Q}"))
+    with entry:
+        return _cholesky_entry(uplo, mat, donate=donate, with_info=with_info, trailing=trailing,
+                               lookahead=lookahead, panel_fused=panel_fused,
+                               step_fused=step_fused)
+
+
+def _cholesky_entry(uplo, mat, *, donate, with_info, trailing, lookahead, panel_fused,
+                    step_fused):
     if mat.distributed:
         return _cholesky_distributed(uplo, mat, donate=donate, with_info=with_info,
                                      trailing=trailing, lookahead=lookahead,
                                      panel_fused=panel_fused, step_fused=step_fused)
+    dev = mat.device.type
+    nb = mat.block_size.row
+    dtype = mat.dtype
     dist = mat.dist
     a = tiles_to_global(mat.storage, dist)
     if donate:

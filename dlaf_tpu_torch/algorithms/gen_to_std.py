@@ -44,8 +44,14 @@ product as the whole product (the CPU's BLAS; the tests pin it); the
 local form's rest of the her2k is a row-trimmed product of its own, as
 in the reference, and agrees to rounding.
 
+Records (:mod:`..obs`): the ``gen_to_std`` entry span with the
+reference's flop model and attrs (``gen_to_std.py:831``); on a grid the
+blocked form's per-step ``hegst.step<k>.panel|strip|bulk`` phases and
+``dlaf_comm_overlapped_total`` of the chain hoisted by
+``comm_lookahead``.
+
 Not ported now: the reference's autotune steering of ``gen_to_std`` and
-its ``obs`` entry span and telemetry.
+its program telemetry.
 """
 
 from __future__ import annotations
@@ -53,7 +59,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import config
+from .. import config, obs
 from ..comm import collectives as cc
 from ..comm.grid import COL_AXIS, ROW_AXIS
 from ..common.asserts import dlaf_assert
@@ -69,7 +75,7 @@ from ..tile_ops import blas as tb
 from ..tile_ops import lapack as tl
 from ..tile_ops import mixed as mx
 from ..tile_ops import panel_kernels as pk
-from ..types import ceil_div
+from ..types import ceil_div, dtype_name, total_ops
 from . import dist_step as ds
 from .triangular import triangular_solve
 
@@ -462,14 +468,38 @@ def _hegst_dist(lts, lls, dist, *, uplo: str, use_mxu: bool = False, lookahead: 
             del upd
         write_panel(k, second_half(ch))
 
+    def chain_comm_counts(k):
+        """Collectives ``chain(k)`` runs per grid axis: the two diagonal
+        bcast2d on each, the factor panel's broadcast where trailing slots
+        exist, and on a full chain the A panel's broadcast and the two
+        transposed panels' exchanges."""
+        *_, lu_r, lu_c = indices(k)
+        nrows, ncols = ltr - lu_r, ltc - lu_c
+        full = k < nt - 1 and nrows > 0 and ncols > 0
+        if lower:
+            return 2 + (2 if full else 0), 2 + (1 if nrows > 0 else 0) + (1 if full else 0)
+        return 2 + (1 if ncols > 0 else 0) + (1 if full else 0), 2 + (2 if full else 0)
+
     ch_next = None
     for k in range(nt):
-        ch = ch_next if ch_next is not None else chain(k)
-        stripped = step_pre(k, ch)
+        if ch_next is not None:
+            ch = ch_next
+        else:
+            with obs.named_span(f"hegst.step{k:03d}.panel"):
+                ch = chain(k)
+        with obs.named_span(f"hegst.step{k:03d}.strip"):
+            stripped = step_pre(k, ch)
         # comm_la: step k+1's chain reads column (row) k+1, which the
         # stripped bulk of step k leaves alone
-        ch_next = chain(k + 1) if comm_la and stripped else None
-        step_bulk(k, ch, stripped)
+        ch_next = None
+        if comm_la and stripped:
+            with obs.named_span(f"hegst.step{k + 1:03d}.panel"):
+                ch_next = chain(k + 1)
+            n_row, n_col = chain_comm_counts(k + 1)
+            cc.record_overlapped("hegst_dist", ROW_AXIS, n_row)
+            cc.record_overlapped("hegst_dist", COL_AXIS, n_col)
+        with obs.named_span(f"hegst.step{k:03d}.bulk"):
+            step_bulk(k, ch, stripped)
 
 
 def gen_to_std(uplo: str, a: Matrix, b_factor: Matrix, *, donate: bool = False,
@@ -493,21 +523,35 @@ def gen_to_std(uplo: str, a: Matrix, b_factor: Matrix, *, donate: bool = False,
         # the reference's float32 products are full float32
         torch.backends.cuda.matmul.allow_tf32 = False
     nt = a.dist.nr_tiles.row
-    use_twosolve = (config.resolve("hegst_impl", dev) == "twosolve"
-                    or config.resolve_step_mode(nt, dev) == "scan")
-    if use_twosolve:
-        res = _gen_to_std_twosolve(uplo, a, b_factor, donate=donate)
-        return (res, info) if with_info else res
+    hegst_impl = config.resolve("hegst_impl", dev)
+    use_twosolve = hegst_impl == "twosolve" or config.resolve_step_mode(nt, dev) == "scan"
     nb = a.block_size.row
-    panel_fused = pk.panel_uses_fused(a.dtype, nb, dev)
+    # twosolve has no panel chain of its own: its pivot solves route inside
+    # triangular_solve
+    panel_fused = not use_twosolve and pk.panel_uses_fused(a.dtype, nb, dev)
+    n = a.size.row
+    span = obs.entry_span("gen_to_std", lambda: dict(
+        flops=total_ops(a.dtype, n ** 3 / 2, n ** 3 / 2), n=n, nb=nb, uplo=uplo,
+        dtype=dtype_name(a.dtype), impl="twosolve" if use_twosolve else hegst_impl,
+        panel_impl="fused" if panel_fused else "xla",
+        grid=f"{a.dist.grid_size.row}x{a.dist.grid_size.col}"))
+    with span:
+        res = _gen_to_std(uplo, a, b_factor, donate, use_twosolve, panel_fused)
+    return (res, info) if with_info else res
+
+
+def _gen_to_std(uplo, a, b_factor, donate, use_twosolve, panel_fused):
+    if use_twosolve:
+        return _gen_to_std_twosolve(uplo, a, b_factor, donate=donate)
+    dev = a.device.type
+    nb = a.block_size.row
     lookahead = config.resolve("cholesky_lookahead", dev) == "1"
     if not a.distributed:
         out = _hegst_local(tiles_to_global(a.storage, a.dist),
                            tiles_to_global(b_factor.storage, b_factor.dist), uplo=uplo, nb=nb,
                            lookahead=lookahead, panel_fused=panel_fused)
-        res = mops.merge_triangle(a.with_storage(global_to_tiles(out, a.dist)), a, uplo,
-                                  donate_new=True, donate_orig=donate)
-        return (res, info) if with_info else res
+        return mops.merge_triangle(a.with_storage(global_to_tiles(out, a.dist)), a, uplo,
+                                   donate_new=True, donate_orig=donate)
     # one set of slot indices serves A and the factor: both axes must align
     assert_slot_aligned(a.dist, b_factor.dist, rows=True, cols=True,
                         what="gen_to_std(A, B_factor)")
@@ -521,5 +565,4 @@ def gen_to_std(uplo: str, a: Matrix, b_factor: Matrix, *, donate: bool = False,
                 uplo=uplo, use_mxu=use_mxu, lookahead=lookahead,
                 comm_la=lookahead and config.resolve("comm_lookahead", dev) == "1",
                 panel_fused=panel_fused)
-    res = Matrix(a.dist, shards, a.grid)
-    return (res, info) if with_info else res
+    return Matrix(a.dist, shards, a.grid)

@@ -23,11 +23,19 @@ op combinations with ``diag``, ``alpha``, local and distributed.
   windows of the swept axis, as a Python loop, and with
   ``cholesky_lookahead`` its pipelined body (bitwise the same).
 
+Records (:mod:`..obs`), as the reference's: the ``triangular_solve`` and
+``triangular_multiply`` entry spans with its flop model and attrs
+(``triangular.py:836, 891``); on a grid the per-step phases
+``trsm.step<k>.panel|bulk`` and ``trmm.step<k>.panel|bulk``, the scan
+forms' index-free ``trsm.scanstep``/``trmm.scanstep``, and for the
+pipelined scan solve ``dlaf_comm_overlapped_total`` of the pivot chain's
+collectives that run ahead of the deferred bulk.
+
 Not ported now: the reference's autotune steering of ``triangular_solve``
-and its ``obs`` spans and telemetry (they come with the autotune and
-telemetry ports), and the ``comm_lookahead`` hoist of the scan solve's
-A-panel read, which reorders only the emission of identical values: the
-port's eager loop reads A once per step either way.
+and its program telemetry (they come with the autotune and telemetry
+ports), and the ``comm_lookahead`` hoist of the scan solve's A-panel
+read, which reorders only the emission of identical values: the port's
+eager loop reads A once per step either way.
 """
 
 from __future__ import annotations
@@ -35,8 +43,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import config
+from .. import config, obs
 from ..comm import collectives as cc
+from ..comm.grid import COL_AXIS, ROW_AXIS
 from ..common.asserts import dlaf_assert
 from ..health import info as hinfo
 from ..matrix.distribution import assert_slot_aligned
@@ -46,7 +55,7 @@ from ..matrix.panel import (DistContext, bcast_diag, col_panel, pad_diag_identit
 from ..matrix.tiling import global_to_tiles, tiles_to_global
 from ..tile_ops import blas as tb
 from ..tile_ops import panel_kernels as pk
-from ..types import telescope_windows
+from ..types import dtype_name, telescope_windows, total_ops
 
 
 def _tile_op(t: torch.Tensor, op: str) -> torch.Tensor:
@@ -177,9 +186,9 @@ def _dist_solve(ltas, ltbs, dist_a, dist_b, *, side, uplo, op, diag, panel_fused
                  in telescope_windows(nt, window) for i in range(i0, i0 + seg_len)]
     else:
         steps = [(*exact(k), k) for k in order]
-    pe = pxk = None
-    prev_lu = 0
-    for (lu, cnt), (lq, cnt_q), k in steps:
+
+    def pivot(k):
+        """Step k's pivot row (column) of B solved and written on its owners."""
         akk = bcast_diag(ctx_a, ltas, k)
         akk = ranks(lambda r, c: pad_diag_identity(akk[r][c], min(mb, n - k * mb)))
         if left:
@@ -191,8 +200,10 @@ def _dist_solve(ltas, ltbs, dist_a, dist_b, *, side, uplo, op, diag, panel_fused
         for r, c in cc.local_ranks(P, Q):
             if (r if left else c) == own:
                 slot(ltbs[r][c], piv)[...] = xk[r][c]
-        if cnt <= 0:
-            continue
+        return xk
+
+    def rest(k, xk, lu, cnt, lq, cnt_q, pe, pxk, prev_lu):
+        """The bulk of step k; returns the carried (pe, pxk, prev_lu)."""
         g = ranks(lambda r, c: ctx_b.g_rows(r, lu, cnt) if left else ctx_b.g_cols(c, lu, cnt))
         e = _a_panel(ctx_a, ltas, k, g, left=left, op=op, lu=lu, cnt=cnt, lq=lq, cnt_q=cnt_q)
         rem = ranks(lambda r, c: ((g[r][c] > k) if forward else (g[r][c] < k)) & (g[r][c] < nt))
@@ -202,7 +213,7 @@ def _dist_solve(ltas, ltbs, dist_a, dist_b, *, side, uplo, op, diag, panel_fused
         if not lookahead:
             for r, c in cc.local_ranks(P, Q):
                 subs[r][c].sub_(bulk(e[r][c], xk[r][c]))
-            continue
+            return pe, pxk, prev_lu
         if pe is None:
             # the pending pair of the step before the first: zero
             pe = ranks(lambda r, c: ltbs[r][c].new_zeros((cnt, mb, mb)))
@@ -225,7 +236,26 @@ def _dist_solve(ltas, ltbs, dist_a, dist_b, *, side, uplo, op, diag, panel_fused
                 slot(subs[r][c], nxt).sub_(upd)
             # the pending panel: this one less the strip's slot
             _keep_slots(e[r][c], rem[r][c] & (g[r][c] != knext))
-        pe, pxk = e, xk
+        return e, xk, prev_lu
+
+    pe = pxk = None
+    prev_lu = 0
+    for (lu, cnt), (lq, cnt_q), k in steps:
+        if lookahead:
+            # the bcast2d and the pivot panel's broadcast of each pipelined
+            # step run ahead of the previous step's deferred bulk
+            cc.record_overlapped("triangular_solve_scan", ROW_AXIS, 1 + left)
+            cc.record_overlapped("triangular_solve_scan", COL_AXIS, 1 + (not left))
+        name = "trsm.scanstep" if scan else f"trsm.step{k:03d}.panel"
+        with obs.named_span(name):
+            xk = pivot(k)
+            if cnt <= 0:
+                continue
+            if scan:
+                pe, pxk, prev_lu = rest(k, xk, lu, cnt, lq, cnt_q, pe, pxk, prev_lu)
+                continue
+        with obs.named_span(f"trsm.step{k:03d}.bulk"):
+            pe, pxk, prev_lu = rest(k, xk, lu, cnt, lq, cnt_q, pe, pxk, prev_lu)
 
 
 # ---------------------------------------------------------------------------
@@ -308,13 +338,17 @@ def _dist_mult(ltas, ltbs, dist_a, dist_b, *, side, uplo, op, diag, scan):
     for ((lu, cnt), (lq, cnt_q)), k in steps:
         if cnt <= 0:
             continue
-        bk, e = _mult_panels(ctx_a, ctx_b, ltas, ltbs, k, side=side, uplo=uplo, op=op,
-                             diag=diag, lu=lu, cnt=cnt, lq=lq, cnt_q=cnt_q, nt=nt)
-        for r, c in cc.local_ranks(P, Q):
-            if left:
-                out[r][c][lu:lu + cnt].add_(tb.contract("rab,cbd->rcad", e[r][c], bk[r][c]))
-            else:
-                out[r][c][:, lu:lu + cnt].add_(tb.contract("rab,cbd->rcad", bk[r][c], e[r][c]))
+        with obs.named_span("trmm.scanstep" if scan else f"trmm.step{k:03d}.panel"):
+            bk, e = _mult_panels(ctx_a, ctx_b, ltas, ltbs, k, side=side, uplo=uplo, op=op,
+                                 diag=diag, lu=lu, cnt=cnt, lq=lq, cnt_q=cnt_q, nt=nt)
+        with obs.NOOP_CTX if scan else obs.named_span(f"trmm.step{k:03d}.bulk"):
+            for r, c in cc.local_ranks(P, Q):
+                if left:
+                    out[r][c][lu:lu + cnt].add_(tb.contract("rab,cbd->rcad", e[r][c],
+                                                            bk[r][c]))
+                else:
+                    out[r][c][:, lu:lu + cnt].add_(tb.contract("rab,cbd->rcad", bk[r][c],
+                                                               e[r][c]))
     return out
 
 
@@ -355,6 +389,29 @@ def triangular_solve(side: str, uplo: str, op: str, diag: str, alpha, a: Matrix,
     when every diagonal entry of ``A`` is finite and nonzero, else the
     1-based first singular global column; 0 for ``diag='U'``."""
     _check_args(side, uplo, op, diag, a, b)
+    dev = a.device.type
+    panel_fused = a.distributed and pk.panel_uses_fused(a.dtype, a.block_size.row, dev)
+    with _entry_span("triangular_solve", side, uplo, op, diag, a, b,
+                     panel_impl="fused" if panel_fused else "xla"):
+        return _triangular_solve(side, uplo, op, diag, alpha, a, b, donate_b=donate_b,
+                                 with_info=with_info, panel_fused=panel_fused)
+
+
+def _entry_span(name, side, uplo, op, diag, a: Matrix, b: Matrix, **extra):
+    """The reference's entry span: its flop model (``m n^2 / 2``
+    multiplications and additions, n = A's order) and attrs."""
+    def attrs():
+        sdim = a.size.row
+        free = b.size.col if side == "L" else b.size.row
+        return dict(flops=total_ops(b.dtype, free * sdim ** 2 / 2, free * sdim ** 2 / 2),
+                    side=side, uplo=uplo, op=op, diag=diag, m=b.size.row, n=b.size.col,
+                    nb=b.block_size.row, dtype=dtype_name(b.dtype), **extra,
+                    grid=f"{b.dist.grid_size.row}x{b.dist.grid_size.col}")
+
+    return obs.entry_span(name, attrs)
+
+
+def _triangular_solve(side, uplo, op, diag, alpha, a, b, *, donate_b, with_info, panel_fused):
     info = None
     if with_info:
         info = (torch.zeros((), dtype=torch.int32, device=a.device) if diag == "U"
@@ -383,7 +440,6 @@ def triangular_solve(side: str, uplo: str, op: str, diag: str, alpha, a: Matrix,
         ltbs = cc.per_rank(len(ltbs), len(ltbs[0]), lambda r, c: alpha * ltbs[r][c])
         shards = [x for row in ltbs for x in row]
     ltas, _ = _grid_shards(a, copy=False)
-    panel_fused = pk.panel_uses_fused(a.dtype, a.block_size.row, dev)
     kw = dict(side=side, uplo=uplo, op=op, diag=diag, panel_fused=panel_fused)
     scan = config.resolve_step_mode(a.dist.nr_tiles.row, dev) == "scan"
     _dist_solve(ltas, ltbs, a.dist, b.dist, scan=scan,
@@ -398,6 +454,11 @@ def triangular_multiply(side: str, uplo: str, op: str, diag: str, alpha, a: Matr
     ``uplo`` triangle of ``a``, as a new Matrix in ``b``'s layout; ``a``
     and ``b`` are not written."""
     _check_args(side, uplo, op, diag, a, b)
+    with _entry_span("triangular_multiply", side, uplo, op, diag, a, b):
+        return _triangular_multiply(side, uplo, op, diag, alpha, a, b)
+
+
+def _triangular_multiply(side, uplo, op, diag, alpha, a, b):
     dev = a.device.type
     if dev == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False

@@ -70,17 +70,30 @@ bitwise the single controller's: a broadcast is ``broadcast`` from the
 source's process and the receivers (the source included) add 0.0; a
 ``"sum"`` all-reduce is an all-gather and then the same fold in rank
 order (a ring sum would add in another order); :func:`all_reduce`'s
-other ops, :func:`reduce`, :func:`send_recv` (a broadcast along the line,
-kept on ``dst``) and :func:`all_to_all` (chunks of an all-gather) are
-formed the same way; :func:`scatter` is ``scatter`` from the owner's
-process, :func:`gather` point-to-point sends to it and :func:`exchange`
-one batch of point-to-point sends and receives. Every process of a line
+other ops, :func:`reduce` and :func:`send_recv` (a broadcast along the
+line, kept on ``dst``) are formed the same way; :func:`scatter` is
+``scatter`` from the owner's process, :func:`gather` point-to-point sends
+to it, and :func:`exchange` and :func:`all_to_all` one batch of
+point-to-point sends and receives (each peer of the line receives only
+the chunk it keeps). Every process of a line
 must call the verb with a value of one shape and dtype, as the uniform
 slots of the distributed builders give (a gather's leading extents may
 differ; an exchange's pairs agree on what crosses); :func:`_transport`
 checks that before it moves data, so a mismatch raises on every process
 instead of hanging. With no world installed every function is the single
 controller's.
+
+**Accounting** (reference ``collectives.py:42-56, 158-167``). Each verb
+call adds one to ``dlaf_comm_collective_count_total{kind,axis}`` and one
+rank's payload (``numel * element_size`` of this process's first rank's
+value) to ``dlaf_comm_collective_bytes_total{kind,axis}``, under the
+reference's kinds and, for the port's own verbs, ``scatter``, ``gather``,
+``exchange`` (the bytes this process's first rank sends) and
+``bcast_arrays`` along axis ``"grid"``; :func:`bcast2d` counts along both
+axes, as the reference's. The reference counts when a program is traced;
+the port per call (:mod:`..obs`). :func:`record_overlapped` counts the
+collectives a builder hoists ahead of the previous step's bulk update
+(``comm_lookahead``). With metrics off each is one attribute read.
 """
 
 from __future__ import annotations
@@ -89,13 +102,47 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import obs
 from ..common.asserts import dlaf_assert
 from .grid import COL_AXIS, ROW_AXIS
+
+#: Axis label of the verbs that run over the whole grid at once.
+GRID_AXIS = "grid"
 
 #: The multi-process grid this process drives one rank of (None: the
 #: single controller). Process-wide, as the ``torch.distributed`` world it
 #: stands for is.
 _WORLD = None
+
+
+def _nbytes(x) -> int:
+    return x.numel() * x.element_size() if isinstance(x, torch.Tensor) else 0
+
+
+def _record(kind: str, axis: str, nbytes: int) -> None:
+    """Count one verb call of ``kind`` along ``axis`` moving ``nbytes`` of
+    one rank's payload (module docstring)."""
+    if not obs.metrics_active():
+        return
+    obs.counter("dlaf_comm_collective_count_total", kind=kind, axis=axis).inc()
+    obs.counter("dlaf_comm_collective_bytes_total", kind=kind, axis=axis).inc(nbytes)
+
+
+def _record_value(kind: str, axis: str, xs, src=None) -> None:
+    """:func:`_record` of this process's first rank's value, or under the
+    single controller of rank ``src`` (a broadcast's source, whose value is
+    the payload where the other ranks pass placeholders)."""
+    if obs.metrics_active():
+        x = xs[src[0]][src[1]] if src is not None and _WORLD is None else local_value(xs)
+        _record(kind, axis, _nbytes(x))
+
+
+def record_overlapped(algo: str, axis: str, n: int = 1) -> None:
+    """Count ``n`` collectives along ``axis`` that ``algo`` runs ahead of
+    the previous step's bulk update (``comm_lookahead``): transfers that
+    can overlap it. ``dlaf_comm_overlapped_total{algo,axis}``, per call."""
+    if obs.metrics_active() and n:
+        obs.counter("dlaf_comm_overlapped_total", algo=algo, axis=axis).inc(n)
 
 
 def install_world(grid) -> None:
@@ -148,7 +195,7 @@ def gather_grid(xs) -> list:
     axes."""
     if _WORLD is None:
         return xs
-    full = local_value(all_gather(all_gather(xs, COL_AXIS), ROW_AXIS))
+    full = local_value(_all_gather(_all_gather(xs, COL_AXIS), ROW_AXIS))
     return [[full[r, c] for c in range(full.shape[1])] for r in range(full.shape[0])]
 
 
@@ -447,6 +494,7 @@ def _only_local(xs, value) -> list:
 def bcast(xs, axis: str, src: int, *, shared: bool = False):
     """Broadcast the value of rank ``src`` along ``axis`` (reference
     ``kernels/broadcast.h``)."""
+    _record_value("bcast", axis, xs, (src, 0) if axis == ROW_AXIS else (0, src))
     if _WORLD is not None:
         (r, c), group, line = _world_line(axis)
         return _only_local(xs, _plus_zero(_transport("broadcast", xs[r][c], group,
@@ -459,6 +507,8 @@ def bcast2d(xs, owner_r: int, owner_c: int):
     """Broadcast rank ``(owner_r, owner_c)``'s value to the whole grid in
     one step: the diagonal-tile broadcast of every blocked step."""
     P, Q = grid_shape(xs)
+    _record_value("bcast2d", ROW_AXIS, xs, (owner_r, owner_c))
+    _record_value("bcast2d", COL_AXIS, xs, (owner_r, owner_c))
     if _WORLD is not None:
         r, c = _WORLD.local_ranks[0]
         return _only_local(xs, _plus_zero(_transport(
@@ -478,7 +528,13 @@ def _fold(vals: list, op: str, dev) -> torch.Tensor:
 
 def all_reduce(xs, axis: str, op: str = "sum", *, shared: bool = False):
     """All-reduce along ``axis`` (reference ``kernels/all_reduce.h``): the
-    fold of the values in rank order along the axis."""
+    fold of the values in rank order along the axis. :func:`reduce` runs
+    through here and counts under this kind, as the reference's."""
+    _record_value("all_reduce", axis, xs)
+    return _all_reduce(xs, axis, op, shared=shared)
+
+
+def _all_reduce(xs, axis: str, op: str = "sum", *, shared: bool = False):
     if op not in _FOLD:
         raise ValueError(f"unsupported reduce op {op!r}")
     if _WORLD is not None:
@@ -500,6 +556,7 @@ def reduce(xs, axis: str, root: int, op: str = "sum"):
 def send_recv(xs, axis: str, src: int, dst: int):
     """Move the value of ``src`` to ``dst`` along ``axis`` (reference
     ``kernels/p2p.h``); every other rank gets zeros."""
+    _record_value("send_recv", axis, xs)
     P, Q = grid_shape(xs)
     if _WORLD is not None:
         (r, c), group, line = _world_line(axis)
@@ -514,6 +571,12 @@ def all_gather(xs, axis: str, *, tiled: bool = False, concat_axis: int = 0,
     """Every rank's value along ``axis`` on every rank: stacked on a new
     axis ``concat_axis`` (of the axis' size), or concatenated along it
     when ``tiled``."""
+    _record_value("all_gather", axis, xs)
+    return _all_gather(xs, axis, tiled=tiled, concat_axis=concat_axis, shared=shared)
+
+
+def _all_gather(xs, axis: str, *, tiled: bool = False, concat_axis: int = 0,
+                shared: bool = False):
     join = torch.cat if tiled else torch.stack
     if _WORLD is not None:
         return _only_local(xs, join(_gather_line(xs, axis), dim=concat_axis))
@@ -529,6 +592,7 @@ def all_to_all(xs, axis: str, *, split_axis: int, concat_axis: int):
     """Tiled all-to-all along ``axis`` (reference ``collectives.py:231``,
     the layout transpose of the distributed chase back-transform). Every
     value's ``split_axis`` must divide by the axis' rank count."""
+    _record_value("all_to_all", axis, xs)
     P, Q = grid_shape(xs)
     size = P if axis == ROW_AXIS else Q
     for r, c in local_ranks(P, Q):
@@ -537,10 +601,16 @@ def all_to_all(xs, axis: str, *, split_axis: int, concat_axis: int):
             raise ValueError(f"all_to_all: axis {split_axis} of {tuple(v.shape)} does not "
                              f"divide by the {size} ranks along {axis!r}")
     if _WORLD is not None:
-        (r, c), _, _ = _world_line(axis)
+        # pairwise: each peer of the line receives its chunk only
+        (r, c), group, line = _world_line(axis)
         me = _pos(axis, r, c)
-        return _only_local(xs, torch.cat([v.chunk(size, dim=split_axis)[me]
-                                          for v in _gather_line(xs, axis)], dim=concat_axis))
+        chunks = xs[r][c].chunk(size, dim=split_axis)
+        peers = {g: j for j, g in enumerate(line) if j != me}
+        got = _transport("exchange", xs[r][c], group,
+                         pieces={g: chunks[j] for g, j in peers.items()},
+                         expect={g: chunks[me] for g in peers})
+        return _only_local(xs, torch.cat([chunks[me] if j == me else got[g]
+                                          for j, g in enumerate(line)], dim=concat_axis))
 
     def one(r, c):
         dev = xs[r][c].device
@@ -558,6 +628,7 @@ def scatter(parts, owner_r: int, owner_c: int, like):
     there; None elsewhere); ``like[r][c]`` gives every rank's shape and
     dtype, the same on every rank. Nothing else crosses: each process
     receives its rank's piece only."""
+    _record_value("scatter", GRID_AXIS, like)
     P, Q = grid_shape(like)
     if _WORLD is not None:
         r, c = _WORLD.local_ranks[0]
@@ -577,6 +648,7 @@ def gather(xs, owner_r: int, owner_c: int):
     list of new tensors on the owner's device, returned where the owner's
     rank is driven (None on the other processes). The values may differ
     in their leading extent (a count of tiles), not otherwise."""
+    _record_value("gather", GRID_AXIS, xs)
     P, Q = grid_shape(xs)
     if _WORLD is not None:
         r, c = _WORLD.local_ranks[0]
@@ -601,6 +673,9 @@ def bcast_arrays(arrays, owner_r: int, owner_c: int, specs) -> list:
     to the others by one broadcast of the transport, through host memory
     on gloo and through this process's device on NCCL. Without a world,
     ``arrays``."""
+    if obs.metrics_active():
+        _record("bcast_arrays", GRID_AXIS, sum(int(np.prod(shape)) * np.dtype(dtype).itemsize
+                                               for shape, dtype in specs))
     if _WORLD is None:
         return arrays
     owner = _WORLD.process_rank(owner_r, owner_c)
@@ -626,6 +701,9 @@ def exchange(sends, expect):
     Only the named pairs move data: no rank receives what another rank
     was sent. A rank's value to itself is a copy."""
     P, Q = grid_shape(expect)
+    if obs.metrics_active():
+        r0, c0 = local_ranks(P, Q)[0]
+        _record("exchange", GRID_AXIS, sum(_nbytes(v) for v in (sends[r0][c0] or {}).values()))
 
     def take(r, c):
         out = {}
@@ -655,6 +733,7 @@ def barrier_value(xs, axis: str):
     P, Q = grid_shape(xs)
     zero = per_rank(P, Q, lambda r, c: torch.zeros((), dtype=xs[r][c].dtype,
                                                    device=xs[r][c].device))
+    _record_value("barrier", axis, zero)
     if _WORLD is not None:
-        zero = all_reduce(zero, axis)
+        zero = _all_reduce(zero, axis)
     return per_rank(P, Q, lambda r, c: xs[r][c] + zero[r][c])

@@ -36,9 +36,11 @@ Data loading: each process builds only its own shard
 function on the local tiles), so no process materializes the global
 matrix: the reference's per-rank tile allocation.
 
-Not ported: the reference pins the rank onto its observability layer
-(``obs.set_rank``) and counts connect retries there; the port has no
-``obs`` yet (ROADMAP.md, queue 3).
+Once the world is up, :func:`initialize_multihost` pins the process rank
+onto :mod:`..obs` (``obs.set_rank``) and re-resolves a ``%r`` metrics
+path, so each process writes its own artifact; the connect's retries are
+counted there (``dlaf_retry_total{site="multihost.connect"}``, through
+:mod:`..health.policy`), as the reference's (``multihost.py:117-126``).
 """
 
 from __future__ import annotations
@@ -130,6 +132,20 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
             "coordinator address and world size, and (3) process ids are "
             "unique in [0, world). Under torchrun, omit all arguments: the "
             "world comes from the environment it sets.") from e
+    # pin the rank onto the observability layer and re-resolve the metrics
+    # path: a %r template expanded before the world came up would have
+    # sent every process to one file
+    from .. import obs
+    from ..config import get_configuration
+
+    rank = dist.get_rank() if dist.is_initialized() else process_id
+    if rank is not None:
+        obs.set_rank(rank)
+    cfg = get_configuration()
+    if "%r" in (cfg.metrics_path or ""):
+        obs.configure(log_level=cfg.log, metrics_path=cfg.metrics_path,
+                      trace_dir=cfg.trace_dir, metrics_port=cfg.metrics_port,
+                      flight_recorder=cfg.flight_recorder)
 
 
 def _is_bringup_failure(e: BaseException) -> bool:

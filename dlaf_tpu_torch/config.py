@@ -6,9 +6,12 @@ distributed Cholesky, the triangular solve and multiply
 band-to-tridiagonal chase (``chase_threads``), the divide-and-conquer
 tridiagonal solver (``secular_device_min_k``) and their f64/complex128
 routes; and the serving layer's (``serve_*``, the finite guard ``check``)
-and the circuit breakers' (``circuit_*``), with the reference's
-environment names, defaults and validation (``config.py:504-568,
-617-624, 776-793, 827-866``).
+the circuit breakers' (``circuit_*``), and the observability layer's
+(``log``, ``metrics_path``, ``trace_dir``, ``metrics_port``, ``slo_*``,
+``flight_recorder``; :mod:`.obs`), with the reference's environment
+names, defaults and validation (``config.py:400-417, 504-568, 617-624,
+635-670, 776-793, 812-866``). :func:`initialize` configures :mod:`.obs`
+from the resolved knobs, as the reference's does (``config.py:935-939``).
 Same layering (highest wins):
 ``--dlaf:<knob>=<value>`` arguments > ``DLAF_<KNOB>`` environment
 variables > a user ``Configuration`` > the defaults.
@@ -44,7 +47,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import sys
 from typing import Optional, Sequence
 
 #: Trailing-update formulations (the reference's ``VALID_TRAILING``).
@@ -170,6 +172,42 @@ class Configuration:
     #: Seconds an open breaker rejects calls before it admits one
     #: half-open probe (``DLAF_CIRCUIT_COOLDOWN_S``).
     circuit_cooldown_s: float = 30.0
+    #: Structured-log level of :mod:`.obs.logging` (``DLAF_LOG``): "debug",
+    #: "info", "warning", "error" or "off". The once-per-choice auto-knob
+    #: notices go through it, so ``DLAF_LOG=off`` silences them.
+    log: str = "info"
+    #: JSON-lines artifact of the observability layer
+    #: (``DLAF_METRICS_PATH``): span records, metrics snapshots
+    #: (collective counts and bytes, step and tile-op counts, span
+    #: durations), log events, resilience and serve records; checked by
+    #: ``python -m dlaf_tpu_torch.obs.validate``. ``%r`` becomes the
+    #: process rank. Empty (default) keeps every instrumented site a no-op.
+    metrics_path: str = ""
+    #: ``torch.profiler`` trace directory (``DLAF_TRACE_DIR``): spans and
+    #: per-step phases carry ``record_function`` names and one Chrome trace
+    #: per process is written there at exit. Empty (default): off.
+    trace_dir: str = ""
+    #: Live ``/metrics`` + ``/healthz`` endpoint on 127.0.0.1
+    #: (``DLAF_METRICS_PORT``); arming it also turns the metrics registry
+    #: on without a metrics path. 0 (default): no thread, no socket.
+    metrics_port: int = 0
+    #: Rolling latency objective, milliseconds (``DLAF_SLO_P99_MS``): each
+    #: latency recorded by ``obs.observe_latency`` (the serve queue per
+    #: request, ``health.policy.with_policy`` per successful call) above it
+    #: counts one ``dlaf_slo_breach_total{op}``. 0 (default): no objective.
+    slo_p99_ms: float = 0.0
+    #: Rolling SLO window length, seconds (``DLAF_SLO_WINDOW_S``), of the
+    #: ``dlaf_serve_latency_window`` quantile gauges.
+    slo_window_s: float = 60.0
+    #: Breaches of one op inside one SLO window that dump the flight
+    #: recorder with reason ``slo_breach_burst`` (``DLAF_SLO_BURST``); 0
+    #: disables the trigger.
+    slo_burst: int = 5
+    #: Flight-recorder ring depth (``DLAF_FLIGHT_RECORDER``): the last N
+    #: records, dumped atomically to ``<metrics_path>.flight.jsonl`` on an
+    #: incident (breaker open, overload shed, recovery exhausted, /healthz
+    #: failure, SLO breach burst). Needs ``metrics_path``. 0 (default): off.
+    flight_recorder: int = 0
 
 
 _VALID_CHOICES = {
@@ -185,6 +223,7 @@ _VALID_CHOICES = {
     "mixed_seed": ("xla", "recursive"),
     "dist_step_mode": ("unrolled", "scan", "auto"),
     "hegst_impl": ("blocked", "twosolve", "auto"),
+    "log": ("debug", "info", "warning", "error", "off"),
 }
 
 #: auto resolution per device type: (cuda choice, cpu choice).
@@ -258,6 +297,21 @@ def _validate(cfg: Configuration) -> None:
     if not cfg.circuit_cooldown_s >= 0:
         raise ValueError(f"circuit_cooldown_s={cfg.circuit_cooldown_s}: "
                          "must be >= 0 (open -> half-open probe delay)")
+    if not 0 <= cfg.metrics_port <= 65535:
+        raise ValueError(f"metrics_port={cfg.metrics_port}: must be in "
+                         "[0, 65535] (0 = live exporter off)")
+    if not cfg.slo_p99_ms >= 0:
+        raise ValueError(f"slo_p99_ms={cfg.slo_p99_ms}: must be >= 0 "
+                         "(0 = no latency objective)")
+    if not cfg.slo_window_s > 0:
+        raise ValueError(f"slo_window_s={cfg.slo_window_s}: must be > 0 "
+                         "(the rolling quantile window length)")
+    if cfg.slo_burst < 0:
+        raise ValueError(f"slo_burst={cfg.slo_burst}: must be >= 0 "
+                         "(0 = breach-burst flight trigger off)")
+    if cfg.flight_recorder < 0:
+        raise ValueError(f"flight_recorder={cfg.flight_recorder}: must be "
+                         ">= 0 (0 = flight recorder off; N = ring depth)")
     parse_serve_buckets(cfg.serve_buckets)   # raises on a malformed list
 
 
@@ -313,14 +367,20 @@ def update_configuration(user: Optional[Configuration] = None,
 
 
 _active: Optional[Configuration] = None
-_announced: set = set()
 
 
 def initialize(user: Optional[Configuration] = None,
                argv: Optional[Sequence[str]] = None) -> Configuration:
-    """Resolve and activate the configuration; safe to call again."""
+    """Resolve and activate the configuration, and bring the
+    observability layer in line with its knobs; safe to call again."""
     global _active
-    _active = update_configuration(user, argv)
+    cfg = update_configuration(user, argv)
+    from . import obs
+
+    obs.configure(log_level=cfg.log, metrics_path=cfg.metrics_path,
+                  trace_dir=cfg.trace_dir, metrics_port=cfg.metrics_port,
+                  flight_recorder=cfg.flight_recorder)
+    _active = cfg
     return _active
 
 
@@ -330,11 +390,12 @@ def get_configuration() -> Configuration:
 
 
 def announce_once(key, message: str) -> None:
-    """Print ``message`` on stderr the first time ``key`` is seen: route
-    choices are announced, never silent."""
-    if key not in _announced:
-        _announced.add(key)
-        print(f"[dlaf_tpu_torch] {message}", file=sys.stderr)
+    """Announce ``message`` once per ``key`` through the ``config`` logger
+    (:meth:`.obs.logging.Logger.warning_once`): route choices are
+    announced, never silent, unless ``DLAF_LOG`` silences warnings."""
+    from .obs import get_logger
+
+    get_logger("config").warning_once(key, message)
 
 
 def _announce(knob: str, device_type: str, choice) -> None:

@@ -29,9 +29,16 @@ leave:
   same operations, bitwise the same result; on one stream it only reorders
   launches, so no path turns it on.
 
+Records (:mod:`..obs`): the ``bt_band_to_tridiag`` and
+``bt_reduction_to_band`` entry spans with the reference's flop models and
+attrs (``back_transform.py:269, 577``: ``impl`` is "blocked", ``group``
+the resolved group, ``bt_lookahead`` 0); on a grid the reflector-block
+steps ``bt_r2b.step<p>.panel|bulk`` and the scan form's
+``bt_r2b.scanstep``.
+
 Not ported: the reference's ``matrix/memory.py`` placement (the port puts
-tensors on an explicit device with ``torch.as_tensor``), its ``obs``
-spans and telemetry, and its ``route=`` argument (autotune).
+tensors on an explicit device with ``torch.as_tensor``), its program
+telemetry, and its ``route=`` argument (autotune).
 """
 
 from __future__ import annotations
@@ -39,9 +46,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import config
+from .. import config, obs
 from ..comm import collectives as cc
-from ..comm.grid import ROW_AXIS
+from ..comm.grid import COL_AXIS, ROW_AXIS
 from ..common.asserts import dlaf_assert
 from ..matrix.matrix import Matrix
 from ..matrix.panel import (DistContext, element_valid, gather_sub_panel, gather_sub_panel_dyn,
@@ -50,7 +57,7 @@ from ..matrix.panel import (DistContext, element_valid, gather_sub_panel, gather
 from ..matrix.tiling import _axis_perm_inv, global_to_tiles, storage_tile_grid, tiles_to_global
 from ..tile_ops import blas as tb
 from ..tile_ops.lapack import larft
-from ..types import ceil_div, telescope_windows
+from ..types import ceil_div, dtype_name, telescope_windows, total_ops
 from .band_to_tridiag import TridiagResult
 from .reduction_to_band import BandReduction
 
@@ -219,6 +226,31 @@ def bt_band_to_tridiag(tri: TridiagResult, evecs):
     ``evecs`` a tensor (returns a new tensor on its device) or a
     :class:`~..matrix.matrix.Matrix`, on one rank or a grid (returns a new
     Matrix in its layout; reference ``bt_band_to_tridiag/api.h:21-22``)."""
+    with _bt_b2t_entry_span(tri, evecs):
+        return _bt_band_to_tridiag(tri, evecs)
+
+
+def _bt_b2t_entry_span(tri: TridiagResult, evecs):
+    """The reference's entry span: the chase back-transform's flop model,
+    ``n^2 m`` multiplications and additions (one rank-1 segment update
+    per reflector)."""
+    def attrs():
+        n = tri.d.shape[0]
+        if isinstance(evecs, Matrix):
+            m, dev = evecs.size.col, evecs.device.type
+            grid = f"{evecs.dist.grid_size.row}x{evecs.dist.grid_size.col}"
+        else:
+            e = torch.as_tensor(evecs)
+            m, dev, grid = (e.shape[1] if e.ndim > 1 else 1), e.device.type, "1x1"
+        group = _effective_group(tri.band, int(tri.v.shape[0]), 0, dev)
+        return dict(flops=total_ops(tri.v.dtype, n ** 2 * m, n ** 2 * m), n=n, m=m,
+                    band=tri.band, dtype=dtype_name(tri.v.dtype), impl="blocked", group=group,
+                    grid=grid)
+
+    return obs.entry_span("bt_band_to_tridiag", attrs)
+
+
+def _bt_band_to_tridiag(tri: TridiagResult, evecs):
     if not isinstance(evecs, Matrix):
         return _bt_b2t_local(tri, torch.as_tensor(evecs))
     if not evecs.distributed:
@@ -344,22 +376,29 @@ def _dist_bt_r2b(lts_a, taus, lts_c, dist_a, dist_c, band: int, la: bool = False
                        bdy, n, lts_c)
         return luc, cc.per_rank(P, Q, lambda r, c: fac[r][c][0]), v_my
 
-    pend = None
+    pend = pend_p = None
     for p in range(npan - 1, -1, -1):
-        ch = chain(p)
+        with obs.named_span(f"bt_r2b.step{p:03d}.panel"):
+            ch = chain(p)
         if ch is None:
             continue
         if not la:
             luc, t, v_my = ch
-            _r2b_update(v_my, t, lts_c, luc)
+            with obs.named_span(f"bt_r2b.step{p:03d}.bulk"):
+                _r2b_update(v_my, t, lts_c, luc)
             continue
         if pend is not None:
+            # this chain's collectives ran ahead of the pending bulk
+            cc.record_overlapped("bt_r2b_dist", ROW_AXIS, 1)
+            cc.record_overlapped("bt_r2b_dist", COL_AXIS, 1)
             luc, t, v_my = pend
-            _r2b_update(v_my, t, lts_c, luc)
-        pend = ch
+            with obs.named_span(f"bt_r2b.step{pend_p:03d}.bulk"):
+                _r2b_update(v_my, t, lts_c, luc)
+        pend, pend_p = ch, p
     if pend is not None:
         luc, t, v_my = pend
-        _r2b_update(v_my, t, lts_c, luc)
+        with obs.named_span(f"bt_r2b.step{pend_p:03d}.bulk"):
+            _r2b_update(v_my, t, lts_c, luc)
 
 
 def _dist_bt_r2b_scan(lts_a, taus, lts_c, dist_a, dist_c, band: int) -> None:
@@ -405,7 +444,8 @@ def _dist_bt_r2b_scan(lts_a, taus, lts_c, dist_a, dist_c, band: int) -> None:
         subs_a = cc.per_rank(P, Q, lambda r, c: lts_a[r][c][lu_off:, lc_off:])
         subs_c = cc.per_rank(P, Q, lambda r, c: lts_c[r][c][lu_off:])
         for i in range(i0, i0 + seg_len):
-            step(subs_a, subs_c, npan - 1 - i, lu_off, lc_off)
+            with obs.named_span("bt_r2b.scanstep"):
+                step(subs_a, subs_c, npan - 1 - i, lu_off, lc_off)
 
 
 def bt_reduction_to_band(red: BandReduction, evecs):
@@ -417,6 +457,26 @@ def bt_reduction_to_band(red: BandReduction, evecs):
     (Matrix -> Matrix; reference ``bt_reduction_to_band/api.h:18-23``), by
     the step form ``dist_step_mode`` picks for ``ceil(n/band) - 1``
     panels. ``evecs`` is not modified."""
+    a = red.matrix
+
+    def attrs():
+        # the reference's flop model: n^2 m multiplications and additions
+        n = a.size.row
+        if isinstance(evecs, Matrix):
+            m = evecs.size.col
+        else:
+            e = torch.as_tensor(evecs)
+            m = e.shape[1] if e.ndim > 1 else 1
+        grid = (f"{a.dist.grid_size.row}x{a.dist.grid_size.col}"
+                if isinstance(evecs, Matrix) and a.distributed else "1x1")
+        return dict(flops=total_ops(a.dtype, n ** 2 * m, n ** 2 * m), n=n, m=m, band=red.band,
+                    dtype=dtype_name(a.dtype), bt_lookahead=0, grid=grid)
+
+    with obs.entry_span("bt_reduction_to_band", attrs):
+        return _bt_reduction_to_band(red, evecs)
+
+
+def _bt_reduction_to_band(red: BandReduction, evecs):
     a = red.matrix
     dev = a.device.type
     if isinstance(evecs, Matrix) and a.distributed:

@@ -24,9 +24,14 @@ as a small object, and Q by one scatter of shards
 they hold no ``n x n`` tensor from the band's gather to Q's scatter. Every process returns the same eigenvalues, and stage
 walls are this process's (the miniapps print process 0's).
 
+Records (:mod:`..obs`): the ``eigensolver`` and ``gen_eigensolver`` entry
+spans with the reference's flop model and attrs (``eigensolver.py:112,
+301``; ``dc_level_batch`` and ``bt_lookahead`` are 0, the knobs the port
+dropped), around the ``stage.*`` phase spans of the PhaseTimer.
+
 Not ported now: ``resume`` and the stage checkpoints (with the health and
 checkpoint port: ``resume=True`` raises rather than recompute silently),
-the autotune steering and the ``obs`` spans (with the telemetry port).
+and the autotune steering.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import obs
 from ..algorithms.cholesky import cholesky
 from ..algorithms.gen_to_std import gen_to_std
 from ..algorithms.triangular import triangular_solve
@@ -47,6 +53,7 @@ from ..common.sync import hard_fence
 from ..common.timer import PhaseTimer
 from ..matrix import ops as mops
 from ..matrix.matrix import Matrix
+from ..types import dtype_name, total_ops
 from .back_transform import bt_band_to_tridiag, bt_reduction_to_band
 from .band_to_tridiag import band_to_tridiag, share_tridiag
 from .reduction_to_band import extract_band, reduction_to_band
@@ -90,6 +97,16 @@ def eigensolver(uplo: str, a: Matrix, phases: Optional[PhaseTimer] = None,
     n = a.size.row
     if n == 0:
         return EigensolverResult(np.zeros(0), a)
+    span = obs.entry_span("eigensolver", lambda: dict(
+        flops=total_ops(a.dtype, 5 * n ** 3 / 3, 5 * n ** 3 / 3), n=n, nb=a.block_size.row,
+        uplo=uplo, dtype=dtype_name(a.dtype), dc_level_batch=0, bt_lookahead=0,
+        grid=f"{a.dist.grid_size.row}x{a.dist.grid_size.col}"))
+    with span:
+        return _eigensolver(uplo, a, phases, band_size, donate, keep)
+
+
+def _eigensolver(uplo, a, phases, band_size, donate, keep):
+    n = a.size.row
     pt = phases if phases is not None else PhaseTimer()
     fence, fence_t = _fences(phases)
     dc_stats = [] if keep is not None else None
@@ -153,6 +170,14 @@ def gen_eigensolver(uplo: str, a: Matrix, b: Matrix, phases: Optional[PhaseTimer
     storage; ``b`` is never consumed. ``phases`` and ``keep`` as in
     :func:`eigensolver`."""
     dlaf_assert(a.size == b.size, "gen_eigensolver: A/B size mismatch")
+    span = obs.entry_span("gen_eigensolver", lambda: dict(
+        n=a.size.row, nb=a.block_size.row, uplo=uplo, dtype=dtype_name(a.dtype),
+        grid=f"{a.dist.grid_size.row}x{a.dist.grid_size.col}"))
+    with span:
+        return _gen_eigensolver(uplo, a, b, phases, band_size, donate, keep)
+
+
+def _gen_eigensolver(uplo, a, b, phases, band_size, donate, keep):
     pt = phases if phases is not None else PhaseTimer()
     fence, _ = _fences(phases)
     with pt.phase("stage.cholesky"):

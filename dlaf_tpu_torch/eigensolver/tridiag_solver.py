@@ -47,9 +47,15 @@ deflation are the reference's, line for line.
 Not ported now: the reference's sharded merges over a mesh (Q spread over
 distinct devices past ``_SHARD_MERGE_MIN_N``). With a ``grid`` the merge
 tree runs on rank (0, 0)'s device and Q is returned there; on a grid whose
-ranks share one card that loses nothing. The ``obs`` spans, the deflation
-sink and the merge counters wait for the telemetry port; ``stats`` takes
-their place for measurement.
+ranks share one card that loses nothing. The reference's per-level
+deflation records wait for the port of ``obs/accuracy.py``; ``stats``
+takes their place for measurement.
+
+Records (:mod:`..obs`): the ``tridiag_solver`` entry span with the
+reference's merge flop model and attrs (``tridiag_solver.py:1007``;
+``dc_level_batch`` and ``sharded`` are 0, the one schedule the port
+runs), and ``dlaf_dc_merges_total{mode="serialized"}`` once per merge as
+it runs.
 """
 
 from __future__ import annotations
@@ -60,12 +66,13 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .. import config
+from .. import config, obs
 from ..algorithms.permutations import permute_array
 from ..common.asserts import dlaf_assert
 from ..tile_ops import blas as tb
 from ..tile_ops import givens_kernels as gk
 from ..tile_ops.lapack import stedc
+from ..types import total_ops
 
 _EPS = np.finfo(np.float64).eps
 
@@ -445,6 +452,7 @@ def _merge(node, res, use_device: bool, device, dev_min_k: int, stats=None):
     products."""
     (lam1, q1), (lam2, q2) = res[node.left], res[node.right]
     ctl = _merge_ctl_pre(lam1, lam2, _edge_z(q1, q2), node.rho, use_device, dev_min_k)
+    obs.counter("dlaf_dc_merges_total", mode="serialized").inc()
     _stat(stats, node.height, ctl)
     vcols_dev = None
     if not ctl.decoupled:
@@ -542,4 +550,10 @@ def tridiag_solver(d: np.ndarray, e: np.ndarray, nb: int, use_device: bool = Tru
     if n == 0:
         return d, (torch.zeros((0, 0), dtype=torch.float64, device=device) if use_device
                    else np.zeros((0, 0)))
-    return _tridiag_dc(d, e, nb, use_device, device, stats)
+    # merge-product flop model: the sum over levels of 2^l (n/2^l)^3
+    # multiplications and additions, (4/3) n^3 (deflation only lowers it)
+    span = obs.entry_span("tridiag_solver", lambda: dict(
+        flops=total_ops(np.float64, 2 * n ** 3 / 3, 2 * n ** 3 / 3), n=n, nb=nb,
+        dc_level_batch=0, use_device=int(use_device), sharded=0))
+    with span:
+        return _tridiag_dc(d, e, nb, use_device, device, stats)

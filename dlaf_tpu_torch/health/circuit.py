@@ -18,8 +18,10 @@ one in-flight probe is admitted. Defaults come from the config knobs
 The process registry (:func:`breaker`) keys breakers by site; the serving
 queue uses one per bucket program.
 
-Not ported yet: the reference's state gauge, transition records and
-flight-recorder trigger (the telemetry port).
+Every transition sets the ``dlaf_circuit_state{site}`` gauge (0 closed, 1
+half_open, 2 open) and writes a ``resilience`` record (``circuit_open``,
+``circuit_half_open``, ``circuit_close``); an opening trips the flight
+recorder (``breaker_open``), as the reference's (``circuit.py:92-163``).
 """
 
 from __future__ import annotations
@@ -28,7 +30,17 @@ import threading
 import time
 from typing import Callable, Dict, Optional
 
+from .. import obs
 from .errors import CircuitOpenError
+
+#: Gauge of each breaker's state (labels: site).
+CIRCUIT_GAUGE = "dlaf_circuit_state"
+
+#: Gauge values (also the ``state()`` -> value mapping).
+STATE_VALUES = {"closed": 0, "half_open": 1, "open": 2}
+
+_EVENTS = {"closed": "circuit_close", "half_open": "circuit_half_open",
+           "open": "circuit_open"}
 
 class CircuitBreaker:
     """One site's breaker (module docstring)."""
@@ -57,6 +69,17 @@ class CircuitBreaker:
         with self._lock:
             return self._state
 
+    def _set(self, state: str) -> None:
+        """Transition (lock held): gauge and resilience record. The flight
+        dump an opening owes is the caller's, after the lock is released
+        (it is file I/O)."""
+        if state == self._state:
+            return
+        self._state = state
+        obs.gauge(CIRCUIT_GAUGE, site=self.site).set(float(STATE_VALUES[state]))
+        obs.emit_event("resilience", site=self.site, event=_EVENTS[state],
+                       attrs={"consecutive": self._consecutive})
+
     def allow(self) -> None:
         """Admit or reject one call: raises :class:`CircuitOpenError` when
         open (cooldown pending) or when a half-open probe is in flight;
@@ -69,7 +92,7 @@ class CircuitBreaker:
                 remaining = self.cooldown_s - (now - self._opened_at)
                 if remaining > 0:
                     raise CircuitOpenError(self.site, retry_in_s=remaining)
-                self._state = "half_open"
+                self._set("half_open")
                 self._probe_live = True
                 return          # this caller IS the probe
             if self._probe_live:
@@ -81,28 +104,38 @@ class CircuitBreaker:
         with self._lock:
             self._consecutive = 0
             self._probe_live = False
-            self._state = "closed"
+            self._set("closed")
 
     def record_failure(self) -> None:
         """A call failed: a half-open probe failure re-opens (cooldown
         restarts); the threshold-th consecutive closed-state failure
-        opens."""
+        opens. An opening trips the flight recorder (``breaker_open``)
+        after the lock is released, so the dump holds the opening's own
+        record."""
+        opened = False
         with self._lock:
             self._consecutive += 1
             if self._state == "half_open":
                 self._probe_live = False
                 self._opened_at = self.clock()
-                self._state = "open"
+                self._set("open")
+                opened = True
             elif self._state == "closed" and self._consecutive >= self.threshold:
                 self._opened_at = self.clock()
-                self._state = "open"
+                self._set("open")
+                opened = True
+            consecutive = self._consecutive
+        if opened:
+            from ..obs import flight
+
+            flight.trigger("breaker_open", site=self.site, consecutive=consecutive)
 
     def reset(self) -> None:
         """Force-close."""
         with self._lock:
             self._consecutive = 0
             self._probe_live = False
-            self._state = "closed"
+            self._set("closed")
 
 
 _BREAKERS: Dict[str, CircuitBreaker] = {}

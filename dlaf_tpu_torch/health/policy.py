@@ -25,9 +25,16 @@ An attempt that returns after its deadline (measured with the injected
 ``clock``) raises :class:`.errors.DeadlineExceededError` without a retry:
 the work is done and re-running it would be waste.
 
-Not ported yet: the reference's retry and deadline counters, its
-``resilience`` records and its latency observation (the telemetry port),
-and the injected stall ``inject.hang`` (the health-inject port).
+Records (reference ``policy.py:169-272``): each retry adds one to
+``dlaf_retry_total`` per label dict (``{"site": site}`` unless the caller
+names others) and writes a ``resilience`` retry record with its backoff;
+exhaustion writes ``give_up``; a deadline breach adds one to
+``dlaf_deadline_exceeded_total{site}`` and writes ``deadline``; each
+success of :func:`with_policy` feeds its wall to
+``obs.observe_latency(site, ...)``. All no-ops with metrics off.
+
+Not ported yet: the injected stall ``inject.hang`` (the health-inject
+port).
 """
 
 from __future__ import annotations
@@ -38,7 +45,14 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from .. import obs
 from .errors import DeadlineExceededError, HealthError
+
+#: Counter incremented once per retry (labels: site, or the caller's).
+RETRY_COUNTER = "dlaf_retry_total"
+
+#: Counter incremented once per per-attempt-deadline breach (labels: site).
+DEADLINE_COUNTER = "dlaf_deadline_exceeded_total"
 
 #: Exception families a retry can never fix (classification table above).
 NON_RETRYABLE = (ValueError, TypeError, AssertionError, KeyError,
@@ -119,30 +133,55 @@ class Attempt:
         self.failed = False
         self.reason = ""
         self.exc: Optional[BaseException] = None
+        self.retry_labels: Optional[tuple] = None
 
-    def fail(self, reason: str = "", exc: Optional[BaseException] = None) -> None:
+    def fail(self, reason: str = "", exc: Optional[BaseException] = None,
+             retry_labels: Optional[tuple] = None) -> None:
+        """Mark this attempt failed. ``retry_labels`` (a tuple of label
+        dicts) overrides the loop's retry-counter labels for THIS retry:
+        one ``dlaf_retry_total`` increment per dict (the batched recovery
+        counts per lane this way)."""
         self.failed = True
         self.reason = str(reason)
         self.exc = exc
+        if retry_labels is not None:
+            self.retry_labels = tuple(retry_labels)
+
+
+def _emit(site: str, event: str, **fields) -> None:
+    """One resilience JSONL record (no-op with the sink off)."""
+    attrs = fields.pop("attrs", None) or {}
+    obs.emit_event("resilience", site=site, event=event, attrs=attrs, **fields)
 
 
 def attempts(site: str, policy: RetryPolicy, *,
+             retry_labels: Optional[tuple] = None,
              sleep: Optional[Callable[[float], None]] = None):
     """Outcome-driven retry driver: yields :class:`Attempt` objects until
     the policy is exhausted or an attempt is left unmarked (success). On
-    each marked failure with budget left it sleeps the policy backoff.
-    Raising the site's contract error on exhaustion stays the caller's
-    job. ``site`` names the caller (the reference's record label)."""
+    each marked failure with budget left it counts the retry once per
+    label dict (``retry_labels``, default ``({"site": site},)``;
+    overridable per attempt with :meth:`Attempt.fail`), writes a retry
+    record and sleeps the policy backoff; exhaustion writes a ``give_up``
+    record. Raising the site's contract error stays the caller's job."""
     sleep = time.sleep if sleep is None else sleep
+    base_labels = tuple(retry_labels) if retry_labels is not None else ({"site": site},)
     for index in range(policy.max_attempts):
         a = Attempt(index)
         yield a
         if not a.failed:
             return
         if index + 1 < policy.max_attempts:
+            for labels in (a.retry_labels or base_labels):
+                obs.counter(RETRY_COUNTER, **labels).inc()
             delay = policy.delay_s(index)
+            _emit(site, "retry", attempt=index, delay_s=float(delay),
+                  attrs={"reason": a.reason} if a.reason else {})
             if delay > 0:
                 sleep(delay)
+        else:
+            _emit(site, "give_up", attempt=index,
+                  attrs={"reason": a.reason} if a.reason else {})
 
 
 def with_policy(site: str, fn: Callable, *args,
@@ -160,7 +199,8 @@ def with_policy(site: str, fn: Callable, *args,
     breaker fails the call fast with :class:`.errors.CircuitOpenError`,
     and each attempt's outcome feeds it, so N consecutive attempt
     failures open it even within one call. The per-attempt deadline is
-    measured with ``clock``."""
+    measured with ``clock``; a success's wall feeds
+    ``obs.observe_latency(site, ...)``."""
     clock = time.monotonic if clock is None else clock
     policy = policy if policy is not None else RetryPolicy()
     last: Optional[BaseException] = None
@@ -180,12 +220,17 @@ def with_policy(site: str, fn: Callable, *args,
             continue
         elapsed = clock() - t0
         if policy.attempt_deadline_s is not None and elapsed > policy.attempt_deadline_s:
+            obs.counter(DEADLINE_COUNTER, site=site).inc()
+            _emit(site, "deadline", attempt=a.index,
+                  attrs={"elapsed_s": float(elapsed),
+                         "deadline_s": float(policy.attempt_deadline_s)})
             if breaker is not None:
                 breaker.record_failure()
             raise DeadlineExceededError(site, elapsed, policy.attempt_deadline_s,
                                         attempt=a.index)
         if breaker is not None:
             breaker.record_success()
+        obs.observe_latency(site, elapsed)
         # drop the caught exception: its traceback references this frame
         # and would keep the guarded call's objects alive
         last = None

@@ -10,8 +10,13 @@ matrix, and on exhaustion raises :class:`.errors.FactorizationError`.
 :func:`robust_cholesky_batched` does the same per lane of a batch,
 re-dispatching only the failed lanes through the same warm bucket program.
 
-Not ported yet: the reference's per-attempt spans, its retry counters and
-its flight-recorder trigger (the telemetry port).
+Records, as the reference's (``recovery.py:89-330``): a span per attempt
+(``robust_cholesky.attempt`` with its attempt, shift and info;
+``robust_cholesky_batched.attempt`` with its lanes and failures), the
+retries counted as ``dlaf_retry_total{algo="cholesky"}`` and per lane as
+``{algo="cholesky_batched", lane}``, a failed finite guard as
+``dlaf_check_failures_total{what}``, a warning per retry, and the flight
+recorder's ``factorization_exhausted`` dump before the error is raised.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import obs
+from ..types import dtype_name
 from .errors import CheckError, FactorizationError
 from .info import _diag_tile_coords
 from .policy import RetryPolicy, attempts
@@ -65,6 +72,7 @@ def check_finite(what: str, mat) -> None:
     the host by design; callers gate it on the config knob."""
     count = sum(_nonfinite(s) for s in mat.shards())
     if count:
+        obs.counter("dlaf_check_failures_total", what=what).inc()
         raise CheckError(what, count)
 
 
@@ -109,13 +117,19 @@ def robust_cholesky(uplo: str, mat, *, max_attempts: int = 4, shift: Optional[fl
     _validate(max_attempts, shift, shift_growth)
     if checks_enabled():
         check_finite("cholesky input", mat)
+    n = mat.size.row
     alpha = 0.0
     shifts, infos = [], []
+    log = obs.get_logger("health")
     policy = RetryPolicy(max_attempts=max_attempts, backoff_base_s=0.0)
-    for a in attempts("robust_cholesky", policy):
-        work = shift_diagonal(mat, alpha)
-        out, info_dev = cholesky(uplo, work, donate=True, with_info=True)
-        info = int(info_dev)           # the recovery decision: one host sync
+    for a in attempts("robust_cholesky", policy, retry_labels=({"algo": "cholesky"},)):
+        span = obs.span("robust_cholesky.attempt", attempt=a.index, shift=float(alpha), n=n,
+                        uplo=uplo, dtype=dtype_name(mat.dtype))
+        with span:
+            work = shift_diagonal(mat, alpha)
+            out, info_dev = cholesky(uplo, work, donate=True, with_info=True)
+            info = int(info_dev)           # the recovery decision: one host sync
+            span.set_attr("info", info)
         shifts.append(float(alpha))
         infos.append(info)
         if info == 0:
@@ -126,6 +140,13 @@ def robust_cholesky(uplo: str, mat, *, max_attempts: int = 4, shift: Optional[fl
         if a.index + 1 < max_attempts:
             alpha = ((shift if shift is not None else _default_shift(mat)) if alpha == 0.0
                      else alpha * shift_growth)
+            log.warning(f"cholesky info={info} (first failing global column) at attempt "
+                        f"{a.index}; retrying with diagonal shift {alpha:.3e}", n=n,
+                        uplo=uplo, attempt=a.index)
+    # exhaustion is an incident: dump the flight ring (the retry records
+    # are in it) before raising
+    obs.flight.trigger("factorization_exhausted", algo="cholesky", attempts=max_attempts,
+                       failing_column=int(infos[-1]))
     raise FactorizationError(failing_column=infos[-1], attempts=max_attempts,
                              shifts=tuple(shifts), infos=tuple(infos))
 
@@ -174,10 +195,12 @@ def robust_cholesky_batched(uplo: str, a, *, nb: Optional[int] = None, max_attem
     if checks_enabled():
         count = _nonfinite(a)
         if count:
+            obs.counter("dlaf_check_failures_total", what="cholesky_batched input").inc()
             raise CheckError("cholesky_batched input", count)
     b_, n = a.shape[0], a.shape[1]
     nb = nb if nb is not None else default_nb(n)
     eye = torch.eye(n, dtype=a.dtype, device=a.device)
+    log = obs.get_logger("health")
     alpha = 0.0
     shifts, infos_hist = [], []
     lane_attempts = np.zeros(b_, dtype=int)
@@ -185,14 +208,20 @@ def robust_cholesky_batched(uplo: str, a, *, nb: Optional[int] = None, max_attem
     failed = np.arange(b_)
     policy = RetryPolicy(max_attempts=max_attempts, backoff_base_s=0.0)
     for att in attempts("robust_cholesky_batched", policy):
-        # the donated working batch at the full bucket width: failed lanes
-        # re-shifted from the original, the other slots identity pad lanes
-        work = eye.expand(b_, n, n).clone()
-        idx = torch.as_tensor(failed, device=a.device)
-        work[idx] = a[idx] + alpha * eye
-        fac, info_dev = cholesky_batched(uplo, work, nb=nb, with_info=True, donate=True,
-                                         service=service)
-        info = info_dev.cpu().numpy()       # the one host sync per attempt
+        span = obs.span("robust_cholesky_batched.attempt", attempt=att.index,
+                        shift=float(alpha), lanes=len(failed), batch=b_, n=n, uplo=uplo,
+                        dtype=dtype_name(a.dtype))
+        with span:
+            # the donated working batch at the full bucket width: failed
+            # lanes re-shifted from the original, the other slots identity
+            # pad lanes
+            work = eye.expand(b_, n, n).clone()
+            idx = torch.as_tensor(failed, device=a.device)
+            work[idx] = a[idx] + alpha * eye
+            fac, info_dev = cholesky_batched(uplo, work, nb=nb, with_info=True, donate=True,
+                                             service=service)
+            info = info_dev.cpu().numpy()       # the one host sync per attempt
+            span.set_attr("failed", int(np.count_nonzero(info[failed])))
         lane_attempts[failed] += 1
         full_info = np.zeros(b_, dtype=info.dtype)
         full_info[failed] = info[failed]
@@ -209,14 +238,22 @@ def robust_cholesky_batched(uplo: str, a, *, nb: Optional[int] = None, max_attem
             return BatchRecoveryResult(out, attempts=int(lane_attempts.max(initial=1)),
                                        lane_attempts=tuple(int(x) for x in lane_attempts),
                                        shifts=tuple(shifts), infos=tuple(infos_hist))
-        att.fail(reason=f"lanes={len(failed)}")
+        att.fail(reason=f"lanes={len(failed)}",
+                 retry_labels=tuple({"algo": "cholesky_batched", "lane": int(lane)}
+                                    for lane in failed))
         if att.index + 1 < max_attempts:
             if alpha == 0.0:
                 amax = (float(a.abs().max()) if a.numel() else 0.0) or 1.0
                 alpha = shift if shift is not None else float(np.sqrt(_eps(a.dtype))) * amax
             else:
                 alpha *= shift_growth
+            log.warning(f"cholesky_batched: {len(failed)} of {b_} lanes failed at attempt "
+                        f"{att.index} (infos {[int(full_info[i]) for i in failed]}); retrying "
+                        f"the subset with diagonal shift {alpha:.3e}", n=n, uplo=uplo,
+                        attempt=att.index, lanes=len(failed))
     bad = [int(full_info[i]) for i in failed]
+    obs.flight.trigger("factorization_exhausted", algo="cholesky_batched",
+                       attempts=max_attempts, failing_column=bad[0], lanes=len(bad))
     raise FactorizationError(failing_column=bad[0], attempts=max_attempts,
                              shifts=tuple(shifts), infos=tuple(bad))
 

@@ -26,9 +26,9 @@ import time
 import numpy as np
 import torch
 
-from .. import config
+from .. import config, obs
 from ..eigensolver.band_to_tridiag import band_to_tridiag
-from ..types import total_ops, type_letter
+from ..types import dtype_name, total_ops, type_letter
 from .miniapp_reduction_to_band import band_matrix, eigenvalue_drift, print_check, wide
 from .options import CheckIterFreq, add_miniapp_arguments, parse_miniapp_options, select_device
 
@@ -64,9 +64,12 @@ def run(argv=None) -> list[dict]:
     flops = total_ops(opts.dtype, 3.0 * n * n * b, 3.0 * n * n * b)
     results = []
     for run_i in range(-opts.nwarmups, opts.nruns):
-        t0 = time.perf_counter()
-        res = band_to_tridiag(band, b)
-        t = time.perf_counter() - t0
+        # the run's fenced span: its record derives GFlop/s from the flop model
+        with obs.span("miniapp_band_to_tridiag.run", flops=flops, run=run_i, warmup=run_i < 0,
+                      n=n, band=b, dtype=dtype_name(opts.dtype), backend="host"):
+            t0 = time.perf_counter()
+            res = band_to_tridiag(band, b)
+            t = time.perf_counter() - t0
         if run_i < 0:
             continue
         gflops = flops / t / 1e9
@@ -77,6 +80,8 @@ def run(argv=None) -> list[dict]:
         if opts.check is CheckIterFreq.ALL or (
                 opts.check is CheckIterFreq.LAST and run_i == opts.nruns - 1):
             check(band, res, device, opts.dtype)
+    # land the counters and histograms in the artifact now, not at exit
+    obs.flush()
     return results
 
 

@@ -26,14 +26,14 @@ import time
 import numpy as np
 import torch
 
-from .. import config
+from .. import config, obs
 from ..comm import multihost
 from ..comm.sync import barrier
 from ..common.index2d import TileElementSize
 from ..eigensolver.back_transform import bt_band_to_tridiag
 from ..eigensolver.band_to_tridiag import band_to_tridiag, share_tridiag
 from ..matrix.matrix import Matrix
-from ..types import total_ops, type_letter
+from ..types import dtype_name, total_ops, type_letter
 from .checks import effective_eps
 from .miniapp_band_to_tridiag import make_band
 from .options import (CheckIterFreq, add_miniapp_arguments, is_printer, parse_miniapp_options,
@@ -70,10 +70,13 @@ def run(argv=None) -> list[dict]:
     for run_i in range(-opts.nwarmups, opts.nruns):
         e_in = em.clone()
         barrier(e_in)
-        t0 = time.perf_counter()
-        out = bt_band_to_tridiag(tri, e_in)
-        barrier(out)
-        t = time.perf_counter() - t0
+        # the run's fenced span: its record derives GFlop/s from the flop model
+        with obs.span("miniapp_bt_band_to_tridiag.run", flops=flops, run=run_i, warmup=run_i < 0,
+                      n=n, m=m, band=b, dtype=dtype_name(opts.dtype), grid=f"{opts.grid_rows}x{opts.grid_cols}", backend=device.type):
+            t0 = time.perf_counter()
+            out = bt_band_to_tridiag(tri, e_in)
+            barrier(out)
+            t = time.perf_counter() - t0
         if run_i < 0:
             continue
         gflops = flops / t / 1e9
@@ -85,6 +88,8 @@ def run(argv=None) -> list[dict]:
         if opts.check is CheckIterFreq.ALL or (
                 opts.check is CheckIterFreq.LAST and run_i == opts.nruns - 1):
             check(tri, em, out, grid)
+    # land the counters and histograms in the artifact now, not at exit
+    obs.flush()
     return results
 
 

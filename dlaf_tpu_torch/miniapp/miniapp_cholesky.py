@@ -37,14 +37,14 @@ import time
 import numpy as np
 import torch
 
-from .. import config
+from .. import config, obs
 from ..algorithms.cholesky import cholesky
 from ..comm import multihost
 from ..comm.sync import barrier
 from ..common.index2d import GlobalElementSize, TileElementSize
 from ..matrix.matrix import Matrix
 from ..tile_ops.blas import hermitian_from, tri_mask
-from ..types import total_ops, type_letter
+from ..types import dtype_name, total_ops, type_letter
 from .generators import hpd_element_fn
 from .options import (CheckIterFreq, add_miniapp_arguments, is_printer, parse_miniapp_options,
                       select_grid)
@@ -76,10 +76,13 @@ def run(argv=None) -> list[dict]:
     for run_i in range(-opts.nwarmups, opts.nruns):
         mat = ref.clone()   # fresh copy per run
         barrier(mat)
-        t0 = time.perf_counter()
-        out = cholesky(args.uplo, mat, donate=True)
-        barrier(out)
-        t = time.perf_counter() - t0
+        # the run's fenced span: its record derives GFlop/s from the flop model
+        with obs.span("miniapp_cholesky.run", flops=flops, run=run_i, warmup=run_i < 0,
+                      n=n, nb=nb, uplo=args.uplo, dtype=dtype_name(opts.dtype), grid=f"{opts.grid_rows}x{opts.grid_cols}", backend=device.type):
+            t0 = time.perf_counter()
+            out = cholesky(args.uplo, mat, donate=True)
+            barrier(out)
+            t = time.perf_counter() - t0
         if run_i < 0:
             continue
         gflops = flops / t / 1e9
@@ -91,6 +94,8 @@ def run(argv=None) -> list[dict]:
         if opts.check is CheckIterFreq.ALL or (
                 opts.check is CheckIterFreq.LAST and run_i == opts.nruns - 1):
             check_cholesky(args.uplo, ref, out)
+    # land the counters and histograms in the artifact now, not at exit
+    obs.flush()
     return results
 
 

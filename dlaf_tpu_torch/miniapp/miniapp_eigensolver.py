@@ -40,13 +40,13 @@ import time
 
 import torch
 
-from .. import config
+from .. import config, obs
 from ..comm import multihost
 from ..comm.sync import barrier
 from ..common.index2d import GlobalElementSize, TileElementSize
 from ..eigensolver.eigensolver import eigensolver, gen_eigensolver
 from ..matrix.matrix import Matrix
-from ..types import total_ops, type_letter
+from ..types import dtype_name, total_ops, type_letter
 from .checks import effective_eps
 from .generators import hpd_element_fn
 from .miniapp_reduction_to_band import herm_setter, wide
@@ -91,13 +91,17 @@ def run(argv=None) -> list[dict]:
     for run_i in range(-opts.nwarmups, opts.nruns):
         a_in = am.clone()     # this run's copy, consumed by the solve
         barrier(a_in)
-        t0 = time.perf_counter()
-        if args.generalized:
-            res = gen_eigensolver(args.uplo, a_in, bm, band_size=band, donate=True)
-        else:
-            res = eigensolver(args.uplo, a_in, band_size=band, donate=True)
-        barrier(res.eigenvectors)
-        t = time.perf_counter() - t0
+        # the run's fenced span: its record derives GFlop/s from the flop model
+        with obs.span("miniapp_eigensolver.run", flops=flops, run=run_i, warmup=run_i < 0,
+                      n=n, nb=nb, uplo=args.uplo, generalized=bool(args.generalized),
+                      dtype=dtype_name(opts.dtype), grid=f"{opts.grid_rows}x{opts.grid_cols}", backend=device.type):
+            t0 = time.perf_counter()
+            if args.generalized:
+                res = gen_eigensolver(args.uplo, a_in, bm, band_size=band, donate=True)
+            else:
+                res = eigensolver(args.uplo, a_in, band_size=band, donate=True)
+            barrier(res.eigenvectors)
+            t = time.perf_counter() - t0
         if run_i < 0:
             continue
         gflops = flops / t / 1e9
@@ -109,6 +113,8 @@ def run(argv=None) -> list[dict]:
         if opts.check is CheckIterFreq.ALL or (
                 opts.check is CheckIterFreq.LAST and run_i == opts.nruns - 1):
             check(am, bm, res, grid)
+    # land the counters and histograms in the artifact now, not at exit
+    obs.flush()
     return results
 
 

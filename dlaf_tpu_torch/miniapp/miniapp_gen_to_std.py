@@ -38,7 +38,7 @@ import time
 import numpy as np
 import torch
 
-from .. import config
+from .. import config, obs
 from ..algorithms.cholesky import cholesky
 from ..algorithms.gen_to_std import gen_to_std
 from ..comm import multihost
@@ -46,7 +46,7 @@ from ..comm.sync import barrier
 from ..common.index2d import GlobalElementSize, TileElementSize
 from ..matrix.matrix import Matrix
 from ..tile_ops.blas import hermitian_from, tri_mask
-from ..types import total_ops, type_letter
+from ..types import dtype_name, total_ops, type_letter
 from .generators import herm_element_fn, hpd_element_fn
 from .options import (CheckIterFreq, add_miniapp_arguments, is_printer, parse_miniapp_options,
                       root_verdict, select_grid)
@@ -84,10 +84,13 @@ def run(argv=None) -> list[dict]:
     for run_i in range(-opts.nwarmups, opts.nruns):
         a_in = am.clone()   # fresh copy per run, transformed in place
         barrier(a_in)
-        t0 = time.perf_counter()
-        out = gen_to_std(args.uplo, a_in, bf, donate=True)
-        barrier(out)
-        t = time.perf_counter() - t0
+        # the run's fenced span: its record derives GFlop/s from the flop model
+        with obs.span("miniapp_gen_to_std.run", flops=flops, run=run_i, warmup=run_i < 0,
+                      n=n, nb=nb, uplo=args.uplo, dtype=dtype_name(opts.dtype), grid=f"{opts.grid_rows}x{opts.grid_cols}", backend=device.type):
+            t0 = time.perf_counter()
+            out = gen_to_std(args.uplo, a_in, bf, donate=True)
+            barrier(out)
+            t = time.perf_counter() - t0
         if run_i < 0:
             continue
         gflops = flops / t / 1e9
@@ -99,6 +102,8 @@ def run(argv=None) -> list[dict]:
         if opts.check is CheckIterFreq.ALL or (
                 opts.check is CheckIterFreq.LAST and run_i == opts.nruns - 1):
             check(args.uplo, am, bf, out, grid)
+    # land the counters and histograms in the artifact now, not at exit
+    obs.flush()
     return results
 
 

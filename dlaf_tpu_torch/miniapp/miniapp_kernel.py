@@ -10,7 +10,8 @@ lacpy, gemm, trsm and potrf of :mod:`..tile_ops`; the per-run line is
 
     [i] <t>s <gflops>GFlop/s <kernel> <type> (m, m) x<batch> <threads> <backend>
 
-The reference's ``obs`` spans and program telemetry wait for the
+Each run is a fenced ``miniapp_kernel.run`` span (:mod:`..obs`) with the
+flop model, as the reference's; its program telemetry waits for the
 telemetry port.
 
 Run:  python -m dlaf_tpu_torch.miniapp.miniapp_kernel --kernel gemm -m 256 --batch 64
@@ -25,12 +26,12 @@ import time
 import numpy as np
 import torch
 
-from .. import config
+from .. import config, obs
 from ..common.round_robin import RoundRobin
 from ..common.sync import hard_fence
 from ..tile_ops import blas as tb
 from ..tile_ops import lapack as tl
-from ..types import total_ops, type_letter
+from ..types import dtype_name, total_ops, type_letter
 from .options import add_miniapp_arguments, parse_miniapp_options, select_device
 
 
@@ -71,15 +72,20 @@ def run(argv=None) -> list[dict]:
     results = []
     for run_i in range(-opts.nwarmups, opts.nruns):
         a, spd = work.next_resource()
-        t0 = time.perf_counter()
-        hard_fence(fn(a, spd))
-        t = time.perf_counter() - t0
+        # the run's fenced span: its record derives GFlop/s from the flop model
+        with obs.span("miniapp_kernel.run", flops=flops, run=run_i, warmup=run_i < 0,
+                      kernel=args.kernel, m=m, batch=batch, dtype=dtype_name(dtype)):
+            t0 = time.perf_counter()
+            hard_fence(fn(a, spd))
+            t = time.perf_counter() - t0
         if run_i < 0:
             continue
         gflops = flops / t / 1e9
         print(f"[{run_i}] {t:.6f}s {gflops:.2f}GFlop/s {args.kernel} {type_letter(dtype)} "
               f"({m}, {m}) x{batch} {os.cpu_count()} {device.type}", flush=True)
         results.append({"run": run_i, "time_s": t, "gflops": gflops})
+    # land the counters and histograms in the artifact now, not at exit
+    obs.flush()
     return results
 
 

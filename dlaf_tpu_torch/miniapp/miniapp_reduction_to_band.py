@@ -42,13 +42,13 @@ import time
 import numpy as np
 import torch
 
-from .. import config
+from .. import config, obs
 from ..comm import multihost
 from ..comm.sync import barrier
 from ..common.index2d import GlobalElementSize, TileElementSize
 from ..eigensolver.reduction_to_band import extract_band, reduction_to_band
 from ..matrix.matrix import Matrix
-from ..types import total_ops, type_letter
+from ..types import dtype_name, total_ops, type_letter
 from .options import (CheckIterFreq, add_miniapp_arguments, is_printer, parse_miniapp_options,
                       root_verdict, select_grid)
 
@@ -85,10 +85,13 @@ def run(argv=None) -> list[dict]:
     for run_i in range(-opts.nwarmups, opts.nruns):
         mat = ref.clone()   # fresh copy per run, reduced in place
         barrier(mat)
-        t0 = time.perf_counter()
-        red = reduction_to_band(mat, band_size=band, donate=True)
-        barrier(red.matrix, red.taus)
-        t = time.perf_counter() - t0
+        # the run's fenced span: its record derives GFlop/s from the flop model
+        with obs.span("miniapp_reduction_to_band.run", flops=flops, run=run_i, warmup=run_i < 0,
+                      n=n, nb=nb, band=band, dtype=dtype_name(opts.dtype), grid=f"{opts.grid_rows}x{opts.grid_cols}", backend=device.type):
+            t0 = time.perf_counter()
+            red = reduction_to_band(mat, band_size=band, donate=True)
+            barrier(red.matrix, red.taus)
+            t = time.perf_counter() - t0
         if run_i < 0:
             continue
         gflops = flops / t / 1e9
@@ -100,6 +103,8 @@ def run(argv=None) -> list[dict]:
         if opts.check is CheckIterFreq.ALL or (
                 opts.check is CheckIterFreq.LAST and run_i == opts.nruns - 1):
             check(ref, red, grid)
+    # land the counters and histograms in the artifact now, not at exit
+    obs.flush()
     return results
 
 

@@ -32,14 +32,14 @@ import time
 import numpy as np
 import torch
 
-from .. import config
+from .. import config, obs
 from ..algorithms.triangular import triangular_solve
 from ..comm import multihost
 from ..comm.sync import barrier
 from ..common.index2d import GlobalElementSize, TileElementSize
 from ..matrix.matrix import Matrix
 from ..tile_ops.blas import _op, _tri
-from ..types import total_ops, type_letter
+from ..types import dtype_name, total_ops, type_letter
 from .options import (CheckIterFreq, add_miniapp_arguments, is_printer, parse_miniapp_options,
                       select_grid)
 
@@ -91,11 +91,15 @@ def run(argv=None) -> list[dict]:
     for run_i in range(-opts.nwarmups, opts.nruns):
         b_in = bm.clone()   # fresh copy per run, solved in place
         barrier(b_in)
-        t0 = time.perf_counter()
-        out = triangular_solve(args.side, args.uplo, args.op, args.diag, 1.0, am, b_in,
-                               donate_b=True)
-        barrier(out)
-        t = time.perf_counter() - t0
+        # the run's fenced span: its record derives GFlop/s from the flop model
+        with obs.span("miniapp_triangular_solver.run", flops=flops, run=run_i, warmup=run_i < 0,
+                      side=args.side, uplo=args.uplo, op=args.op, diag=args.diag, m=m, n=n, nb=nb,
+                      dtype=dtype_name(opts.dtype), grid=f"{opts.grid_rows}x{opts.grid_cols}", backend=device.type):
+            t0 = time.perf_counter()
+            out = triangular_solve(args.side, args.uplo, args.op, args.diag, 1.0, am, b_in,
+                                   donate_b=True)
+            barrier(out)
+            t = time.perf_counter() - t0
         if run_i < 0:
             continue
         gflops = flops / t / 1e9
@@ -107,6 +111,8 @@ def run(argv=None) -> list[dict]:
         if opts.check is CheckIterFreq.ALL or (
                 opts.check is CheckIterFreq.LAST and run_i == opts.nruns - 1):
             check(args, am, bm, out)
+    # land the counters and histograms in the artifact now, not at exit
+    obs.flush()
     return results
 
 

@@ -1,0 +1,129 @@
+"""Flight recorder: the last N records, dumped on incident triggers.
+
+Port of ``dlaf_tpu/obs/flight.py``. A bounded in-memory ring of the most
+recent ``DLAF_FLIGHT_RECORDER`` JSONL records, ALL types, captured on the
+sink's write path (after the ts/rank/trace stamps, before the file
+write). On a trigger the ring is dumped ATOMICALLY (temp file +
+``os.replace``) as a standalone JSONL artifact next to the main one
+(``<metrics_path>.flight.jsonl``): one ``flight_trigger`` header record
+naming the reason, then the ring verbatim, the moments BEFORE the
+incident.
+
+Trigger sites of the port (:data:`.sinks.FLIGHT_REASONS` is the schema
+owner and keeps the reference's whole vocabulary):
+
+* ``breaker_open``: a circuit breaker opens (health/circuit.py);
+* ``overload_shed``: the serve queue sheds at its admission bound
+  (serve/queue.py);
+* ``factorization_exhausted``: robust recovery raises
+  ``FactorizationError`` (health/recovery.py);
+* ``healthz_failure``: the live ``/healthz`` endpoint fails to build its
+  payload (obs/exporter.py);
+* ``slo_breach_burst``: >= ``DLAF_SLO_BURST`` over-objective latencies
+  inside one rolling SLO window for one op (obs/slo.py).
+
+Per-reason cooldown (default 60 s, injectable clock): the FIRST shed of a
+burst dumps; the next thousand do not re-dump the same ring. Dumps of
+different reasons within the cooldown still land; each dump REPLACES the
+artifact, with ``dump_seq`` in the header counting the triggers. A clean
+run writes nothing: the artifact's existence is the incident signal.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+import time
+from collections import deque
+from typing import Optional
+
+from ._state import STATE
+
+
+class FlightRecorder:
+    """The ring + dump machinery (module docstring). ``capacity`` is the
+    ring depth (the knob value); ``path`` overrides the default
+    ``<sink path>.flight.jsonl`` dump target (resolved lazily at dump
+    time so a ``%r`` metrics template that the sink expands late still
+    lands next to the real artifact)."""
+
+    __slots__ = ("capacity", "cooldown_s", "clock", "dump_seq", "_path",
+                 "_ring", "_lock", "_last_dump")
+
+    def __init__(self, capacity: int, path: Optional[str] = None,
+                 cooldown_s: float = 60.0, clock=time.monotonic):
+        if capacity < 1:
+            raise ValueError(f"FlightRecorder: capacity must be >= 1, "
+                             f"got {capacity}")
+        self.capacity = int(capacity)
+        self.cooldown_s = float(cooldown_s)
+        self.clock = clock
+        self.dump_seq = 0
+        self._path = path
+        self._ring = deque(maxlen=self.capacity)
+        self._lock = threading.Lock()
+        self._last_dump: dict = {}       # reason -> clock() of last dump
+
+    def capture(self, record: dict) -> None:
+        """Append one (already-stamped) record to the ring."""
+        with self._lock:
+            self._ring.append(record)
+
+    def path(self) -> Optional[str]:
+        """The dump target: the explicit path, else the live sink's
+        resolved path + ``.flight.jsonl`` (None when neither exists —
+        nowhere to dump)."""
+        if self._path:
+            return self._path
+        sink = STATE.sink
+        return f"{sink.path}.flight.jsonl" if sink is not None else None
+
+    def trigger(self, reason: str, **attrs) -> Optional[str]:
+        """Dump the ring for ``reason`` unless the same reason dumped
+        within the cooldown; returns the artifact path when a dump
+        happened (None: cooled down, or no dump target)."""
+        path = self.path()
+        if path is None:
+            return None
+        with self._lock:
+            now = self.clock()
+            last = self._last_dump.get(reason)
+            if last is not None and now - last < self.cooldown_s:
+                return None
+            self._last_dump[reason] = now
+            self.dump_seq += 1
+            header = {"v": 1, "type": "flight_trigger", "ts": time.time(),
+                      "reason": reason, "dump_seq": self.dump_seq,
+                      "records": len(self._ring),
+                      "attrs": {k: v for k, v in attrs.items()}}
+            records = list(self._ring)
+        tmp = f"{path}.tmp.{os.getpid()}"
+        with open(tmp, "w") as f:
+            f.write(json.dumps(header, default=str) + "\n")
+            for r in records:
+                f.write(json.dumps(r, default=str) + "\n")
+            f.flush()
+            os.fsync(f.fileno())
+        # the artifact either exists complete or not at all: a kill
+        # mid-dump must not leave a torn incident record
+        os.replace(tmp, path)
+        return path
+
+
+def trigger(reason: str, **attrs) -> Optional[str]:
+    """Module-level trigger hook for the incident sites: no-op (None)
+    when the recorder is unarmed (``DLAF_FLIGHT_RECORDER`` unset) —
+    callers pay one attribute read. Never raises: a failing dump must
+    not convert an incident into a crash at the incident site."""
+    rec = STATE.flight
+    if rec is None:
+        return None
+    try:
+        return rec.trigger(reason, **attrs)
+    except Exception:
+        from .logging import get_logger
+
+        get_logger("obs.flight").error(
+            f"flight-recorder dump failed for reason {reason!r}")
+        return None

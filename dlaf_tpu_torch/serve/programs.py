@@ -8,7 +8,9 @@ dtype, uplo/side/op/diag, with_info, donate)`` and serves it warm:
   step);
 * :meth:`ProgramService.evict` drops one bucket program;
 * every lookup counts a hit, miss, warmup or eviction, as the reference's
-  ``programs.py:191-376``.
+  ``programs.py:191-376``, in :meth:`ProgramService.stats` and in
+  ``dlaf_serve_cache_total{event,op}`` (:mod:`..obs`); each warmup compile
+  is a ``serve.warmup`` span.
 
 In the port a bucket program is the lane program of
 :mod:`..algorithms.batched` bound to its spec. Eager PyTorch compiles
@@ -16,8 +18,9 @@ nothing ahead of time, so a program's "compile" is its first warm call on
 inert operands (identity matrices, zero right-hand sides), timed as
 ``compile_s``: it loads the library's kernels and fills the allocator's
 cache for the bucket's shapes. A bound program holds no device memory, so
-the reference's LRU byte budget (``serve_cache_bytes``) and its pins,
-which would evict objects whose eviction frees nothing, are not ported;
+the reference's LRU byte budget (``serve_cache_bytes``, and the
+``dlaf_serve_cache_bytes`` gauge) and its pins, which would evict objects
+whose eviction frees nothing, are not ported;
 they return with a bucket program that owns memory (a CUDA graph per
 bucket). Not ported yet either: the autotune route member of the spec,
 the per-bucket telemetry and the persistent compile cache.
@@ -33,6 +36,7 @@ from typing import Optional
 
 import torch
 
+from .. import obs
 from ..types import torch_dtype
 
 
@@ -127,6 +131,10 @@ class _Entry:
     compile_s: float
 
 
+#: stats key -> the event label of ``dlaf_serve_cache_total``.
+_EVENTS = {"hits": "hit", "misses": "miss", "warmups": "warmup", "evictions": "evict"}
+
+
 class ProgramService:
     """Keyed bucket-program cache with warmup and evict (module
     docstring); programs are readied on ``device``. Thread-safe: a serving
@@ -140,6 +148,10 @@ class ProgramService:
                        "compiles": 0, "compile_s": 0.0}
 
     # -- compile / lookup ------------------------------------------------
+
+    def _count(self, event: str, spec: ProgramSpec) -> None:
+        self._stats[event] += 1
+        obs.counter("dlaf_serve_cache_total", event=_EVENTS[event], op=spec.op).inc()
 
     def _compile(self, spec: ProgramSpec) -> _Entry:
         """Bind the spec's program and run it once on inert operands (the
@@ -164,10 +176,10 @@ class ProgramService:
         with self._lock:
             entry = self._entries.get(spec)
             if entry is not None:
-                self._stats["hits"] += 1
+                self._count("hits", spec)
                 return entry.program
             entry = self._entries[spec] = self._compile(spec)
-            self._stats["misses"] += 1
+            self._count("misses", spec)
             return entry.program
 
     def run(self, spec: ProgramSpec, *args):
@@ -185,8 +197,9 @@ class ProgramService:
                 if spec in self._entries:
                     walls[spec] = 0.0
                     continue
-                entry = self._entries[spec] = self._compile(spec)
-                self._stats["warmups"] += 1
+                with obs.span("serve.warmup", op=spec.op, site=spec.site):
+                    entry = self._entries[spec] = self._compile(spec)
+                self._count("warmups", spec)
                 walls[spec] = entry.compile_s
         return walls
 
@@ -196,7 +209,7 @@ class ProgramService:
         with self._lock:
             if self._entries.pop(spec, None) is None:
                 return False
-            self._stats["evictions"] += 1
+            self._count("evictions", spec)
             return True
 
     # -- introspection ---------------------------------------------------

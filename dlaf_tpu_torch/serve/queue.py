@@ -36,10 +36,25 @@ dispatch retried under :mod:`..health.policy` behind a per-bucket circuit
 breaker (:mod:`..health.circuit`). :meth:`Queue.stats` snapshots the
 per-bucket depth, shed, expired and breaker states.
 
-Not ported yet: the reference's ``obs`` records, spans and trace IDs,
-its latency observation and per-request accuracy records with their
-residual program, the exporter registration, the autotune steering and
-the injected dispatch failures.
+Records (:mod:`..obs`), as the reference's (``queue.py:458-900``):
+``submit`` stamps one ``trace_id`` per request (``Ticket.trace_id``) and
+each dispatch draws one ``span_id`` and runs under a batch-scope
+``obs.trace_context`` (the members' trace IDs and the span ID), so every
+record of the dispatch (its retry and breaker records included) joins to
+its requests. Counters ``dlaf_serve_requests_total``,
+``dlaf_serve_dispatch_total``, ``dlaf_serve_shed_total``,
+``dlaf_serve_drained_total`` and ``dlaf_deadline_exceeded_total``, the
+``dlaf_serve_depth`` gauge, the ``serve.dispatch`` span and the
+``dlaf_serve_dispatch_seconds`` histogram; a ``serve`` dispatch record
+with its stage walls and a ``serve`` request record plus a
+``serve.request`` span per request; ``resilience`` records of each shed,
+expiry and drain; each request's latency into ``obs.observe_latency``.
+A queue registers itself with the ``/healthz`` exporter at construction,
+and an admission shed trips the flight recorder.
+
+Not ported yet: the reference's per-request accuracy records with their
+residual program (they need ``obs/accuracy.py``), the autotune steering
+and the injected dispatch failures.
 """
 
 from __future__ import annotations
@@ -54,6 +69,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from .. import obs
 from ..common.asserts import dlaf_assert
 from ..config import get_configuration, parse_serve_buckets
 from ..health import circuit as _circuit
@@ -154,10 +170,13 @@ class Ticket:
     """Handle returned by :meth:`Queue.submit`. ``done`` flips when the
     request's batch dispatched; :meth:`result` returns the unpadded
     per-request output as host (numpy) arrays and raises RuntimeError
-    while still queued. ``info`` is the request's info value once done."""
+    while still queued. ``info`` is the request's info value once done.
+    ``trace_id`` (16 hex characters, or the caller's) joins every record of
+    the request's chain."""
 
-    def __init__(self, request: Request, submitted: float):
+    def __init__(self, request: Request, submitted: float, trace_id: Optional[str] = None):
         self.request = request
+        self.trace_id = trace_id or obs.new_trace_id()
         self.submitted = submitted
         self.done = False
         self.error: Optional[BaseException] = None
@@ -295,6 +314,7 @@ class Queue:
         self.requests = 0
         self._in_flight = 0               # dispatches currently executing
         self._counts: dict = {}           # _BucketKey -> per-bucket counts
+        obs.exporter.register_queue(self)
 
     # -- submission ------------------------------------------------------
 
@@ -333,6 +353,14 @@ class Queue:
         while self.pending() >= self.max_depth:
             if self.shed:
                 self._bucket_counts(key)["shed"] += 1
+                obs.counter("dlaf_serve_shed_total", op=key.op, bucket_n=key.n).inc()
+                obs.emit_event("resilience", site="serve.queue", event="shed",
+                               attrs={"op": key.op, "bucket_n": key.n,
+                                      "depth": self.pending(), "max_depth": self.max_depth})
+                # a shed burst is an incident: the recorder's cooldown
+                # dumps the ring at the first shed only
+                obs.flight.trigger("overload_shed", op=key.op, bucket_n=key.n,
+                                   depth=self.pending(), max_depth=self.max_depth)
                 raise OverloadError(self.pending(), self.max_depth, op=key.op, bucket_n=key.n)
             fullest = max((k for k, v in self._pending.items() if v),
                           key=lambda k: len(self._pending[k]), default=None)
@@ -346,22 +374,26 @@ class Queue:
                 # was made; this submit is still admitted
                 pass
 
-    def submit(self, req: Request) -> Ticket:
+    def submit(self, req: Request, trace_id: Optional[str] = None) -> Ticket:
         """Enqueue one request; dispatch its bucket when the batch fills,
         and dispatch OTHER buckets past their deadline (submission is a
         clock edge). At the ``max_depth`` bound the submit sheds
         (:class:`..health.errors.OverloadError`, no ticket created) or
-        applies backpressure, by ``shed``."""
+        applies backpressure, by ``shed``. ``trace_id`` adopts a caller's
+        trace ID for the request (default: a fresh one)."""
         with self._lock:
             now = self.clock()
             key = self._key(req)          # validate BEFORE admission
             self._admit(key)
             if req.rid is None:
                 req.rid = next(self._rid)
-            ticket = Ticket(req, now)
+            ticket = Ticket(req, now, trace_id)
             lanes = self._pending.setdefault(key, [])
             lanes.append((req, ticket))
             self.requests += 1
+            if obs.metrics_active():
+                obs.counter("dlaf_serve_requests_total", op=req.op).inc()
+                obs.gauge("dlaf_serve_depth", op=key.op, bucket_n=key.n).set(float(len(lanes)))
             if len(lanes) >= self.batch:
                 self._dispatch(key)
             self.poll(now)
@@ -398,10 +430,16 @@ class Queue:
             for key in [k for k, lanes in self._pending.items() if lanes]:
                 lanes = self._pending.pop(key)
                 counts = self._bucket_counts(key)
+                obs.gauge("dlaf_serve_depth", op=key.op, bucket_n=key.n).set(0.0)
                 for req, ticket in lanes:
                     ticket.error = DrainedError("serve.queue", req.rid, op=key.op,
                                                 bucket_n=key.n)
                     counts["drained"] += 1
+                    obs.counter("dlaf_serve_drained_total", op=key.op).inc()
+                    with obs.trace_context(trace_id=ticket.trace_id):
+                        obs.emit_event("resilience", site="serve.queue", event="drain",
+                                       attrs={"rid": req.rid, "op": key.op,
+                                              "bucket_n": key.n})
                     drained.append((req, ticket))
             return drained
 
@@ -468,6 +506,7 @@ class Queue:
 
     def _dispatch(self, key: _BucketKey) -> None:
         lanes = self._pending.pop(key)
+        obs.gauge("dlaf_serve_depth", op=key.op, bucket_n=key.n).set(0.0)
         self._in_flight += 1
         try:
             if self._dispatch_lanes(key, lanes):
@@ -494,6 +533,12 @@ class Queue:
             if req.deadline_s is not None and waited > req.deadline_s:
                 ticket.error = DeadlineExceededError("serve.queue", waited, req.deadline_s)
                 self._bucket_counts(key)["expired"] += 1
+                obs.counter("dlaf_deadline_exceeded_total", site="serve.queue").inc()
+                with obs.trace_context(trace_id=ticket.trace_id):
+                    obs.emit_event("resilience", site="serve.queue", event="expired",
+                                   attrs={"rid": req.rid, "op": key.op, "bucket_n": key.n,
+                                          "waited_s": float(waited),
+                                          "deadline_s": float(req.deadline_s)})
             else:
                 live.append((req, ticket))
         return live
@@ -507,6 +552,15 @@ class Queue:
         reqs = [r for r, _ in lanes]
         tickets = [t for _, t in lanes]
         spec = self._spec(key)
+        resident = spec in self.service.specs()
+        # batch scope: the dispatch's span ID and its members' trace IDs
+        # stamp every record below (the policy's retries included)
+        span_id = obs.new_span_id()
+        with obs.trace_context(trace_id=[t.trace_id for t in tickets], span_id=span_id):
+            self._dispatch_traced(key, reqs, tickets, spec, resident, span_id)
+        return True
+
+    def _dispatch_traced(self, key, reqs, tickets, spec, resident: bool, span_id: str) -> None:
         t0 = self.clock()
         pad = _pad_lane(key)
         host = [np.stack([_pad_a(r, key.n) for r in reqs] + [pad[0]] * (self.batch - len(reqs)))]
@@ -526,7 +580,13 @@ class Queue:
             args = [torch.from_numpy(x).to(dev, copy=True) for x in host]
             return self.service.run(spec, *args)
 
-        out = with_policy(spec.site, _attempt, policy=policy, breaker=breaker, clock=self.clock)
+        t_compose = self.clock()
+        with obs.span("serve.dispatch", op=key.op, bucket_n=key.n, nrhs=key.nrhs,
+                      lanes=len(reqs), batch=self.batch, dtype=key.dtype,
+                      cache="hit" if resident else "miss"):
+            out = with_policy(spec.site, _attempt, policy=policy, breaker=breaker,
+                              clock=self.clock)
+        t_prog = self.clock()
         outs, info = _split_outputs(key.op, out)
         # one device -> host fetch per output; per-ticket results are views
         lane_outs = tuple(o.cpu().numpy() for o in outs)
@@ -539,8 +599,33 @@ class Queue:
             ticket.queue_s = max(t0 - ticket.submitted, 0.0)
             ticket.total_s = max(t1 - ticket.submitted, 0.0)
             ticket.done = True
+        t_unpad = self.clock()
         self.dispatches += 1
-        return True
+        if obs.metrics_active():
+            obs.counter("dlaf_serve_dispatch_total", op=key.op).inc()
+            obs.histogram("dlaf_serve_dispatch_seconds", op=key.op).observe(t1 - t0)
+        obs.emit_event("serve", event="dispatch", op=key.op, bucket_n=key.n, nrhs=key.nrhs,
+                       dtype=key.dtype, lanes=len(reqs), batch=self.batch,
+                       cache="hit" if resident else "miss", dispatch_s=float(t1 - t0),
+                       stages={"compose_s": float(t_compose - t0),
+                               "program_s": float(t_prog - t_compose),
+                               "fetch_s": float(t1 - t_prog),
+                               "unpad_s": float(t_unpad - t1)})
+        if not obs.metrics_active():
+            return
+        for req, ticket in zip(reqs, tickets):
+            n_req = int(np.asarray(req.a).shape[0])
+            attrs = {"rid": req.rid, "info": ticket.info}
+            # request scope: the one member's trace ID, the dispatch's span
+            with obs.trace_context(trace_id=ticket.trace_id, span_id=span_id):
+                obs.emit_event("serve", event="request", op=key.op, n=n_req, bucket_n=key.n,
+                               dtype=key.dtype, queue_s=float(ticket.queue_s),
+                               total_s=float(ticket.total_s), attrs=attrs)
+                # total_s ends at the dispatch's host copy, a real fence
+                obs.emit_event("span", name="serve.request", dur_s=float(ticket.total_s),
+                               depth=0, parent=None,
+                               attrs={"op": key.op, "n": n_req, "bucket_n": key.n, **attrs})
+                obs.observe_latency(f"serve.{key.op}", ticket.total_s, bucket=str(key.n))
 
 
 def _default_nb(n: int) -> int:

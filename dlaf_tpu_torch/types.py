@@ -66,6 +66,14 @@ def complex_of(dtype):
     return {np.float32: np.complex64, np.float64: np.complex128}[base_float(dtype)]
 
 
+def dtype_name(dtype) -> str:
+    """numpy's name of a torch or numpy dtype ("float64", "complex128"),
+    as the reference's records spell it."""
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).rsplit(".", 1)[-1]
+    return np.dtype(dtype).name
+
+
 def ops_weights(dtype) -> tuple[int, int]:
     """(add, mul) weights in real flops of one addition and one
     multiplication of ``dtype`` (reference ``types.h:120-131``)."""

@@ -1,5 +1,6 @@
 """The port stands alone: importing every module of ``dlaf_tpu_torch``
-(the multi-process ``comm/multihost.py`` among them), and ``chip_smoke``,
+(the multi-process ``comm/multihost.py`` and the telemetry package
+``obs`` among them), and ``chip_smoke``,
 loads no ``jax`` module and nothing of the JAX package ``dlaf_tpu``. Checked in a fresh interpreter, since the test process
 itself imports both packages."""
 
@@ -14,6 +15,7 @@ import importlib, pkgutil, sys
 import dlaf_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(dlaf_tpu_torch.__path__, "dlaf_tpu_torch.")]
 assert "dlaf_tpu_torch.comm.multihost" in names, "the multi-process module is not walked"
+assert "dlaf_tpu_torch.obs.exporter" in names, "the obs package is not walked"
 for name in names:
     importlib.import_module(name)
 import chip_smoke

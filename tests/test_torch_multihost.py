@@ -8,9 +8,9 @@ the CPU (2x2, one process per rank, gloo) of ``miniapp_cholesky`` and of
 the eigensolver pipeline's miniapps (HEGST, reduction to band, the
 generalized eigensolver, the chase back-transform).
 
-The reference's retry test also reads a ``dlaf_retry_total`` counter of
-its observability layer; the port has no ``obs`` yet (ROADMAP.md, queue 3),
-so that assertion is not held here.
+The retry test also holds the reference's ``dlaf_retry_total`` counter
+of the observability layer, and that a ``%r`` metrics path resolves to
+the process rank once the world is up.
 """
 
 import dataclasses
@@ -21,6 +21,7 @@ import sys
 import pytest
 import torch.distributed as dist
 
+from dlaf_tpu_torch import config, obs
 from dlaf_tpu_torch.comm import collectives as cc
 from dlaf_tpu_torch.comm import multihost
 from dlaf_tpu_torch.health import policy as hpolicy
@@ -104,10 +105,24 @@ def test_multihost_timeout_actionable_error(monkeypatch):
     assert seen["init_method"] == "tcp://10.0.0.1:8476" and seen["backend"] == "gloo"
 
 
-def test_multihost_connect_retries_transient_failures(monkeypatch):
+@pytest.fixture
+def metrics_on(tmp_path, monkeypatch):
+    """The obs layer recording into a ``%r`` path; reset afterwards (the
+    pinned rank must not leak into later tests)."""
+    monkeypatch.setenv("DLAF_METRICS_PATH", str(tmp_path / "run.%r.jsonl"))
+    config.initialize()
+    yield tmp_path
+    monkeypatch.delenv("DLAF_METRICS_PATH")
+    obs._reset_for_tests()
+    config.initialize()
+
+
+def test_multihost_connect_retries_transient_failures(monkeypatch, metrics_on):
     """A transient bring-up failure retries with backoff and the world
-    comes up on a later attempt; a caller bug raises at once with its own
-    message (never retried)."""
+    comes up on a later attempt, each retry counted once
+    (``dlaf_retry_total{site="multihost.connect"}``, the reference's
+    assertion), and the ``%r`` metrics path then names the process rank; a
+    caller bug raises at once with its own message (never retried)."""
     calls = []
 
     def flaky_init(**kw):
@@ -123,6 +138,13 @@ def test_multihost_connect_retries_transient_failures(monkeypatch):
     assert len(calls) == 3 and len(slept) == 2
     assert slept[0] < slept[1]           # exponential backoff
     assert calls[0]["init_method"] == "file:///tmp/x" and calls[0]["rank"] == 1
+    assert obs.registry().counter("dlaf_retry_total",
+                                  site="multihost.connect").snapshot()["value"] == 2
+    assert obs.current_rank() == 1
+    assert obs.STATE.sink.path == str(metrics_on / "run.1.jsonl")
+    obs.flush()
+    assert obs.validate_file(str(metrics_on / "run.1.jsonl")) == []
+    assert {r.get("rank") for r in obs.read_records(str(metrics_on / "run.1.jsonl"))} == {1}
 
     calls.clear()
 
@@ -168,9 +190,12 @@ def test_grid_of_the_multi_process_form_is_not_a_single_controller():
 def test_torchrun_miniapp_cholesky_on_cpu(tmp_path):
     """``torchrun`` launches 4 processes of ``miniapp_cholesky`` on a 2x2
     grid on the CPU (gloo): ``check: PASSED`` once (process 0 prints), and
-    every process exits 0."""
+    every process exits 0. With ``DLAF_METRICS_PATH=run.%r.jsonl`` each
+    process writes its own artifact, valid, stamped with its rank and
+    carrying its collectives' byte counters."""
     env = {**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "1",
-           "GLOO_SOCKET_IFNAME": "lo", "TMPDIR": str(tmp_path)}
+           "GLOO_SOCKET_IFNAME": "lo", "TMPDIR": str(tmp_path),
+           "DLAF_METRICS_PATH": str(tmp_path / "run.%r.jsonl")}
     env.pop("WORLD_SIZE", None)
     out = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "4",
@@ -181,6 +206,13 @@ def test_torchrun_miniapp_cholesky_on_cpu(tmp_path):
     assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
     assert out.stdout.count("check: PASSED") == 1, out.stdout
     assert out.stdout.count("GFlop/s sL (72, 72) (16, 16) (2, 2)") == 1, out.stdout
+    assert sorted(p.name for p in tmp_path.glob("run.*.jsonl")) == \
+        [f"run.{r}.jsonl" for r in range(4)]
+    for r in range(4):
+        path = str(tmp_path / f"run.{r}.jsonl")
+        assert obs.validate_file(path, require_spans=True, require_gflops=True,
+                                 require_collectives=True) == [], r
+        assert {rec.get("rank") for rec in obs.read_records(path)} == {r}
 
 
 @pytest.mark.parametrize("app,args,line", [

@@ -17,7 +17,10 @@ broadcast; the scatter from one process, the ragged gather to one and the
 pairwise exchange), ``from_global(root=)`` and ``gather_global``, the
 transposed-tile exchange (transpose, hermitianize), HEGST in both forms
 (blocked, with look-ahead, on the Ozaki route, with info; twosolve), the
-QR T factor, permute and general_sub_multiply. The 2x2 Cholesky factor
+QR T factor, permute and general_sub_multiply. Worlds of their own (2x2
+and 3x1, ``torch_mp_worker.A2A_CASES``) hold the pairwise all-to-all
+along the row axis, alone and inside the chase back-transform. The 2x2
+Cholesky factor
 is also held against ``dlaf_tpu``'s distributed builder on the virtual CPU
 devices at ``60 n eps``, and its HEGST at ``100 n eps``. A process that
 does not finish within its timeout fails the harness instead of hanging
@@ -102,12 +105,27 @@ def worlds(tmp_path_factory):
     return dirs, errors
 
 
+@pytest.fixture(scope="module")
+def a2a_worlds(tmp_path_factory):
+    """The all-to-all's worlds (``torch_mp_worker.A2A_GRIDS``), spawned
+    together; their output directories."""
+    dirs = {g: str(tmp_path_factory.mktemp(f"a2a{g}")) for g in w.A2A_GRIDS}
+    procs = {g: spawn(*w.A2A_GRIDS[g][:2], dirs[g], mode="a2a") for g in w.A2A_GRIDS}
+    errors = {}
+    for g, ps in procs.items():
+        try:
+            join(ps, TIMEOUT)
+        except (TimeoutError, RuntimeError) as e:
+            errors[g] = e
+    return dirs, errors
+
+
 def load(worlds, g, name):
     """Every process's result of case ``name`` on grid ``g``."""
     dirs, errors = worlds
     if g in errors:
         raise errors[g]
-    P, Q = w.GRIDS[g][:2]
+    P, Q = {**w.GRIDS, **w.A2A_GRIDS}[g][:2]
     res = [torch.load(os.path.join(dirs[g], f"{name}.r{i}.pt")) for i in range(P * Q)]
     for r in res:
         assert "error" not in r, r["error"]
@@ -119,7 +137,7 @@ def single(monkeypatch):
     """``run(name, g)``: the case on the single-controller grid, one thread
     as in the spawned processes; the knobs are restored afterwards."""
     def run(name, g):
-        P, Q = w.GRIDS[g][:2]
+        P, Q = {**w.GRIDS, **w.A2A_GRIDS}[g][:2]
         threads = torch.get_num_threads()
         torch.set_num_threads(1)
         try:
@@ -194,6 +212,15 @@ def compare(got, ref):
 @pytest.mark.parametrize("g", list(w.GRIDS))
 def test_multiprocess_bitwise_single_controller(worlds, single, g, name):
     compare(load(worlds, g, name), single(name, g))
+
+
+@pytest.mark.parametrize("name", list(w.A2A_CASES))
+@pytest.mark.parametrize("g", list(w.A2A_GRIDS))
+def test_multiprocess_all_to_all_bitwise_single_controller(a2a_worlds, single, g, name):
+    """The pairwise all-to-all (each process receives its chunk from each
+    peer only) gives the single controller's bits, alone and in the chase
+    back-transform, whose two all-to-alls run along the row axis."""
+    compare(load(a2a_worlds, g, name), single(name, g))
 
 
 @pytest.mark.parametrize("g", list(w.GRIDS))

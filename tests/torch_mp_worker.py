@@ -3,7 +3,7 @@
 ``tests/test_torch_multiprocess.py`` starts one of these per rank of a
 P x Q grid, each with a gloo world over a ``file://`` rendezvous:
 
-    python tests/torch_mp_worker.py <init-url> <rank> <world> <P> <Q> <out-dir> [cases|eigen|hang]
+    python tests/torch_mp_worker.py <init-url> <rank> <world> <P> <Q> <out-dir> [cases|eigen|a2a|hang]
 
 In ``cases`` mode it builds the multi-process grid on the CPU
 (:func:`dlaf_tpu_torch.comm.multihost.multihost_grid`), runs every case of
@@ -11,7 +11,9 @@ In ``cases`` mode it builds the multi-process grid on the CPU
 holds of each result to ``<out-dir>/<case>.r<rank>.pt``; the test
 computes the same cases on the single-controller grid and compares. The
 ``eigen`` mode does the same for :data:`EIGEN_CASES`
-(``tests/test_torch_multiprocess_eigen.py``), after :func:`span_probe`. In
+(``tests/test_torch_multiprocess_eigen.py``), after :func:`span_probe`, and
+the ``a2a`` mode for :data:`A2A_CASES` (the pairwise all-to-all of the
+chase back-transform, on the grids of :data:`A2A_GRIDS`). In
 ``hang`` mode rank 0 waits in a broadcast that rank 1 never joins (the
 test of the harness's timeout). This module imports only the port: the
 test module imports it for :data:`CASES` and :func:`run_case`.
@@ -196,6 +198,20 @@ EIGEN_CASES = {
     "gen_evp-z-U": dict(kind="gen_evp", dtype=C128, uplo="U"),
 }
 
+#: The worlds of the multi-process all-to-all (pairwise, each peer gets its
+#: chunk only): 2x2, and three ranks along the row axis, along which the
+#: chase back-transform exchanges (a 1x3 row line holds one rank).
+A2A_GRIDS = {"2x2": GRIDS["2x2"], "3x1": (3, 1, (2, 0), 40, 8)}
+
+#: The all-to-all's cases: the chase back-transform in float64 and
+#: complex128, and the verb itself along the row axis.
+A2A_CASES = {
+    "a2a-bt_b2t-d": dict(kind="bt_b2t", dtype=F64),
+    "a2a-bt_b2t-z": dict(kind="bt_b2t", dtype=C128),
+    "verb-all_to_all-row": dict(kind="verb", verb="all_to_all", axis=ROW_AXIS),
+    "verb-all_to_all-row-z": dict(kind="verb", verb="all_to_all", axis=ROW_AXIS, dtype=C128),
+}
+
 
 def hpd(n, dtype, seed=3):
     rng = np.random.default_rng(seed)
@@ -250,8 +266,8 @@ def run_case(name, grid, setenv, delenv) -> dict:
     multi-process grid on the CPU); knobs go through ``setenv``/``delenv``
     (the caller restores them). Returns ``{"mat": Matrix}``, ``"info"``,
     ``"value"``, ``"array"`` or ``"ranks"`` (a nested per-rank list)."""
-    spec = {**CASES, **EIGEN_CASES}[name]
-    P, Q, src, n, nb = GRIDS[f"{grid.size.row}x{grid.size.col}"]
+    spec = {**CASES, **EIGEN_CASES, **A2A_CASES}[name]
+    P, Q, src, n, nb = {**GRIDS, **A2A_GRIDS}[f"{grid.size.row}x{grid.size.col}"]
     for knob in KNOBS:
         delenv("DLAF_" + knob)
     for k, v in spec.get("knobs", {}).items():
@@ -533,7 +549,7 @@ def main(argv) -> int:
     def setenv(k, v):
         os.environ[k] = v
 
-    cases = EIGEN_CASES if mode == "eigen" else CASES
+    cases = {"eigen": EIGEN_CASES, "a2a": A2A_CASES}.get(mode, CASES)
     if mode == "eigen":
         torch.save(span_probe(grid, setenv, lambda k: os.environ.pop(k, None)),
                    os.path.join(out_dir, f"span.r{rank}.pt"))
