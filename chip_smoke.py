@@ -2461,8 +2461,10 @@ def obs_phase(torch, card, kmods, launches, out_dir, n: int = 16384, nb: int = 2
           f"[{card}]", flush=True)
     if missing or names.get("cholesky") != 1:
         raise AssertionError(f"obs profiler: step names missing {missing[:6]}")
-    if dev.type == "cuda" and (not kern or max(by_ann, by_corr) != len(kern)):
-        raise AssertionError("obs profiler: the #5 kernel is not inside the .bulk ranges")
+    if dev.type == "cuda" and (not kern or len(kern) != n_update
+                               or max(by_ann, by_corr) != len(kern)):
+        raise AssertionError("obs profiler: the #5 kernel events do not match the wrapper's "
+                             "launches, or are not inside the .bulk ranges")
 
     # -- the eigensolver: a case that deflates ------------------------------
     evp = os.path.join(out_dir, "evp.jsonl")
@@ -2484,14 +2486,14 @@ def obs_phase(torch, card, kmods, launches, out_dir, n: int = 16384, nb: int = 2
             and (counts.get("givens_undo", 0) > 0 or dev.type != "cuda")):
         raise AssertionError("obs evp: entry spans, merge counter or Givens undo missing")
 
-    # -- serving: the stream with the records off, then with the records
-    # and the exporter on -------------------------------------------------
+    # -- serving: the stream with the records off, on, on, off ------------
     reqs = _stream_requests(np, Request, stream, SERVE_SEED)
     half = stream // 2
 
     def serve_pass(port=None):
-        """One warmed stream in two halves (the exporter, if on, scraped
-        between and after); returns (wall, tickets, queue, scrapes)."""
+        """One warmed stream in two halves, the exporter (if on) scraped
+        between and after them outside the timed window; returns (wall,
+        tickets, queue, scrapes, seconds of the mid-stream scrape)."""
         q = Queue(ProgramService(device=dev), batch=16, buckets=(32, 64, 128, 256))
         q.warmup(reqs)
         run = q.service.run
@@ -2505,22 +2507,26 @@ def obs_phase(torch, card, kmods, launches, out_dir, n: int = 16384, nb: int = 2
             return run(spec, *args)
 
         q.service.run = flaky
-        scrapes = []
+        scrapes, scrape_s = [], 0.0
         t0 = time.perf_counter()
         tickets = [q.submit(r) for r in reqs[:half]]
         q.flush()
+        wall = time.perf_counter() - t0
         if port:
+            t0 = time.perf_counter()
             scrapes.append(_scrape(port, "/metrics"))
+            scrape_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
         tickets += [q.submit(r) for r in reqs[half:]]
         q.flush()
-        wall = time.perf_counter() - t0
+        wall += time.perf_counter() - t0
         if port:
             scrapes += [_scrape(port, "/metrics"), _scrape(port, "/healthz")]
         if len(failed) != 1 or not all(_residual_ok(np, t)[0] for t in tickets):
             raise AssertionError("obs serve: a residual missed its budget, or no retry")
-        return wall, tickets, q, scrapes
+        return wall, tickets, q, scrapes, scrape_s
 
-    wall_off, _, _, _ = serve_pass()
+    walls = {"off1": serve_pass()[0]}
     s = socket.socket()
     s.bind(("127.0.0.1", 0))
     port = s.getsockname()[1]
@@ -2528,23 +2534,33 @@ def obs_phase(torch, card, kmods, launches, out_dir, n: int = 16384, nb: int = 2
     serve_art = os.path.join(out_dir, "serve.jsonl")
     _obs_env(serve_art, DLAF_METRICS_PORT=str(port))
     config.initialize()
-    wall, tickets, q, (scrape1, scrape2, healthz) = serve_pass(port)
-    c1, c2 = _scraped_counters(scrape1), _scraped_counters(scrape2)
-    shrank = [k for k, v in c1.items() if c2.get(k, -1.0) < v]
-    stats_ok = json.loads(json.dumps(q.stats())) in json.loads(healthz)["queues"]
+    metrics_scrapes, stats_ok, scrape_walls = [], True, []
+    for tag in ("on1", "on2"):
+        walls[tag], tickets, q, (scrape1, scrape2, healthz), scrape_s = serve_pass(port)
+        metrics_scrapes += [scrape1, scrape2]
+        scrape_walls.append(scrape_s)
+        stats_ok = stats_ok and json.loads(json.dumps(q.stats())) in json.loads(healthz)["queues"]
     obs.flush()
     _obs_env(None)
     os.environ.pop("DLAF_METRICS_PORT", None)
     config.initialize()
+    walls["off2"] = serve_pass()[0]
+    counters = [_scraped_counters(t) for t in metrics_scrapes]
+    shrank = [k for c1, c2 in zip(counters, counters[1:]) for k, v in c1.items()
+              if c2.get(k, -1.0) < v]
     line = _obs_validate(root, serve_art, "--require-serve", "--require-resilience")
     lat = np.array([t.total_s for t in tickets])
-    print(f"[obs] serve: {stream} f64 requests, one injected dispatch failure retried each "
-          f"pass: records off {wall_off:.4f} s ({stream / wall_off:.1f} requests/s); records "
-          f"and /metrics on 127.0.0.1 {wall:.4f} s ({stream / wall:.1f} requests/s), p50 "
-          f"{np.percentile(lat, 50) * 1e3:.3f} ms p99 {np.percentile(lat, 99) * 1e3:.3f} ms; "
-          f"scrapes {len(scrape1)} and {len(scrape2)} bytes, {len(c2)} counter series, none "
-          f"decreased: {not shrank}; /healthz queue stats match: {stats_ok}; {line}; artifact "
-          f"{os.path.getsize(serve_art)} bytes [{card}]", flush=True)
+    print(f"[obs] serve: {stream} f64 requests a pass, one injected dispatch failure retried "
+          f"each pass, walls without the scrapes (records off, on with /metrics on 127.0.0.1, "
+          f"on, off): " + ", ".join(f"{k} {v:.4f} s ({stream / v:.1f} requests/s)"
+                                     for k, v in walls.items())
+          + f"; last on pass p50 {np.percentile(lat, 50) * 1e3:.3f} ms p99 "
+          f"{np.percentile(lat, 99) * 1e3:.3f} ms; mid-stream /metrics scrapes "
+          f"{', '.join(f'{t * 1e3:.3f}' for t in scrape_walls)} ms, "
+          f"{', '.join(str(len(t)) for t in metrics_scrapes)} bytes, {len(counters[-1])} "
+          f"counter series, none decreased: {not shrank}; /healthz queue stats match: "
+          f"{stats_ok}; {line}; artifact {os.path.getsize(serve_art)} bytes [{card}]",
+          flush=True)
     if shrank or not stats_ok:
         raise AssertionError(f"obs serve: counters shrank {shrank[:4]}, stats match {stats_ok}")
 

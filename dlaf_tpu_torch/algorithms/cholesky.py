@@ -690,29 +690,30 @@ def _cholesky_dist(lts, dist, *, uplo, use_pallas=False, use_mxu=False, use_mixe
                                                  * (ltc - max(0, -(-(k + 2 - Q) // Q))))
             _count_step_modes("cholesky_dist", *((1, 0) if lookahead and k + 1 < nt
                                                  else (0, 1)))
-        with obs.named_span(f"cholesky.step{k:03d}"):
+        with obs.named_span("cholesky.step%03d", k):
             if comm_la:
                 if ch_next is not None:
                     ch = ch_next
                 else:
-                    with obs.named_span(f"cholesky.step{k:03d}.panel"):
+                    with obs.named_span("cholesky.step%03d.panel", k):
                         ch = panel_chain(k, la)
-                with obs.named_span(f"cholesky.step{k:03d}.strip"):
+                with obs.named_span("cholesky.step%03d.strip", k):
                     la = step_pre(k, ch)
                 ch_next = None
                 if k + 1 < nt and la is not None:
                     # step k+1's chain, hoisted ahead of step k's bulk
-                    with obs.named_span(f"cholesky.step{k + 1:03d}.panel"):
+                    with obs.named_span("cholesky.step%03d.panel", k + 1):
                         ch_next = panel_chain(k + 1, la)
-                    n_row, n_col = chain_comm_counts(k + 1)
-                    cc.record_overlapped("cholesky_dist", ROW_AXIS, n_row)
-                    cc.record_overlapped("cholesky_dist", COL_AXIS, n_col)
+                    if obs.metrics_active():
+                        n_row, n_col = chain_comm_counts(k + 1)
+                        cc.record_overlapped("cholesky_dist", ROW_AXIS, n_row)
+                        cc.record_overlapped("cholesky_dist", COL_AXIS, n_col)
             else:
-                with obs.named_span(f"cholesky.step{k:03d}.panel"):
+                with obs.named_span("cholesky.step%03d.panel", k):
                     ch = panel_chain(k, la)
-                with obs.named_span(f"cholesky.step{k:03d}.strip"):
+                with obs.named_span("cholesky.step%03d.strip", k):
                     la = step_pre(k, ch)
-            with obs.named_span(f"cholesky.step{k:03d}.bulk"):
+            with obs.named_span("cholesky.step%03d.bulk", k):
                 step_bulk(k, ch, la is not None)
     return _dist_info(lts, ctx, n) if with_info else None
 

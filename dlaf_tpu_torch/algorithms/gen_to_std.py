@@ -485,20 +485,21 @@ def _hegst_dist(lts, lls, dist, *, uplo: str, use_mxu: bool = False, lookahead: 
         if ch_next is not None:
             ch = ch_next
         else:
-            with obs.named_span(f"hegst.step{k:03d}.panel"):
+            with obs.named_span("hegst.step%03d.panel", k):
                 ch = chain(k)
-        with obs.named_span(f"hegst.step{k:03d}.strip"):
+        with obs.named_span("hegst.step%03d.strip", k):
             stripped = step_pre(k, ch)
         # comm_la: step k+1's chain reads column (row) k+1, which the
         # stripped bulk of step k leaves alone
         ch_next = None
         if comm_la and stripped:
-            with obs.named_span(f"hegst.step{k + 1:03d}.panel"):
+            with obs.named_span("hegst.step%03d.panel", k + 1):
                 ch_next = chain(k + 1)
-            n_row, n_col = chain_comm_counts(k + 1)
-            cc.record_overlapped("hegst_dist", ROW_AXIS, n_row)
-            cc.record_overlapped("hegst_dist", COL_AXIS, n_col)
-        with obs.named_span(f"hegst.step{k:03d}.bulk"):
+            if obs.metrics_active():
+                n_row, n_col = chain_comm_counts(k + 1)
+                cc.record_overlapped("hegst_dist", ROW_AXIS, n_row)
+                cc.record_overlapped("hegst_dist", COL_AXIS, n_col)
+        with obs.named_span("hegst.step%03d.bulk", k):
             step_bulk(k, ch, stripped)
 
 

@@ -246,15 +246,15 @@ def _dist_solve(ltas, ltbs, dist_a, dist_b, *, side, uplo, op, diag, panel_fused
             # step run ahead of the previous step's deferred bulk
             cc.record_overlapped("triangular_solve_scan", ROW_AXIS, 1 + left)
             cc.record_overlapped("triangular_solve_scan", COL_AXIS, 1 + (not left))
-        name = "trsm.scanstep" if scan else f"trsm.step{k:03d}.panel"
-        with obs.named_span(name):
+        with (obs.named_span("trsm.scanstep") if scan
+              else obs.named_span("trsm.step%03d.panel", k)):
             xk = pivot(k)
             if cnt <= 0:
                 continue
             if scan:
                 pe, pxk, prev_lu = rest(k, xk, lu, cnt, lq, cnt_q, pe, pxk, prev_lu)
                 continue
-        with obs.named_span(f"trsm.step{k:03d}.bulk"):
+        with obs.named_span("trsm.step%03d.bulk", k):
             pe, pxk, prev_lu = rest(k, xk, lu, cnt, lq, cnt_q, pe, pxk, prev_lu)
 
 
@@ -338,10 +338,11 @@ def _dist_mult(ltas, ltbs, dist_a, dist_b, *, side, uplo, op, diag, scan):
     for ((lu, cnt), (lq, cnt_q)), k in steps:
         if cnt <= 0:
             continue
-        with obs.named_span("trmm.scanstep" if scan else f"trmm.step{k:03d}.panel"):
+        with (obs.named_span("trmm.scanstep") if scan
+              else obs.named_span("trmm.step%03d.panel", k)):
             bk, e = _mult_panels(ctx_a, ctx_b, ltas, ltbs, k, side=side, uplo=uplo, op=op,
                                  diag=diag, lu=lu, cnt=cnt, lq=lq, cnt_q=cnt_q, nt=nt)
-        with obs.NOOP_CTX if scan else obs.named_span(f"trmm.step{k:03d}.bulk"):
+        with obs.NOOP_CTX if scan else obs.named_span("trmm.step%03d.bulk", k):
             for r, c in cc.local_ranks(P, Q):
                 if left:
                     out[r][c][lu:lu + cnt].add_(tb.contract("rab,cbd->rcad", e[r][c],

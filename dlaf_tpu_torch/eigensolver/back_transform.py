@@ -378,13 +378,13 @@ def _dist_bt_r2b(lts_a, taus, lts_c, dist_a, dist_c, band: int, la: bool = False
 
     pend = pend_p = None
     for p in range(npan - 1, -1, -1):
-        with obs.named_span(f"bt_r2b.step{p:03d}.panel"):
+        with obs.named_span("bt_r2b.step%03d.panel", p):
             ch = chain(p)
         if ch is None:
             continue
         if not la:
             luc, t, v_my = ch
-            with obs.named_span(f"bt_r2b.step{p:03d}.bulk"):
+            with obs.named_span("bt_r2b.step%03d.bulk", p):
                 _r2b_update(v_my, t, lts_c, luc)
             continue
         if pend is not None:
@@ -392,12 +392,12 @@ def _dist_bt_r2b(lts_a, taus, lts_c, dist_a, dist_c, band: int, la: bool = False
             cc.record_overlapped("bt_r2b_dist", ROW_AXIS, 1)
             cc.record_overlapped("bt_r2b_dist", COL_AXIS, 1)
             luc, t, v_my = pend
-            with obs.named_span(f"bt_r2b.step{pend_p:03d}.bulk"):
+            with obs.named_span("bt_r2b.step%03d.bulk", pend_p):
                 _r2b_update(v_my, t, lts_c, luc)
         pend, pend_p = ch, p
     if pend is not None:
         luc, t, v_my = pend
-        with obs.named_span(f"bt_r2b.step{pend_p:03d}.bulk"):
+        with obs.named_span("bt_r2b.step%03d.bulk", pend_p):
             _r2b_update(v_my, t, lts_c, luc)
 
 

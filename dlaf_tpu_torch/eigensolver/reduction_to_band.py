@@ -420,35 +420,35 @@ def _red2band_dist(lts, dist, band: int, *, comm_la: bool = False) -> torch.Tens
     fac = None
     for p in range(npan):
         if not comm_la:
-            with obs.named_span(f"red2band.step{p:03d}.panel"):
+            with obs.named_span("red2band.step%03d.panel", p):
                 fac = factor_panel(p)
             if fac is None:
                 continue
-            with obs.named_span(f"red2band.step{p:03d}.strip"):
+            with obs.named_span("red2band.step%03d.strip", p):
                 step = trailing_ops(p, fac, False)
             if step is not None:
-                with obs.named_span(f"red2band.step{p:03d}.bulk"):
+                with obs.named_span("red2band.step%03d.bulk", p):
                     apply_bulk(step)
             continue
         if fac is None:
-            with obs.named_span(f"red2band.step{p:03d}.panel"):
+            with obs.named_span("red2band.step%03d.panel", p):
                 fac = factor_panel(p)
         if fac is None:
             continue
         strip_next = p + 1 < npan
-        with obs.named_span(f"red2band.step{p:03d}.strip"):
+        with obs.named_span("red2band.step%03d.strip", p):
             step = trailing_ops(p, fac, strip_next)
         fac = None
         if step is None:
             continue
         if strip_next:
             # panel p+1's gather, QR and write-back before panel p's bulk
-            with obs.named_span(f"red2band.step{p + 1:03d}.panel"):
+            with obs.named_span("red2band.step%03d.panel", p + 1):
                 fac = factor_panel(p + 1)
             if fac is not None:
                 cc.record_overlapped("red2band_dist", ROW_AXIS, 1)
                 cc.record_overlapped("red2band_dist", COL_AXIS, 1)
-        with obs.named_span(f"red2band.step{p:03d}.bulk"):
+        with obs.named_span("red2band.step%03d.bulk", p):
             apply_bulk(step)
     return taus_out
 

@@ -33,8 +33,12 @@ A collective counts once per verb call on each process, its bytes one
 rank's payload (``numel * element_size``), as the reference's per-device
 operand.
 
-Cost contract: with every knob off, each instrumented call site resolves
-to a module-level no-op singleton: one attribute read, no allocation.
+Cost contract: with every knob off, each instrumented call site costs
+one check of :data:`STATE` and resolves to a module-level no-op singleton,
+with no allocation; a per-step ``named_span`` formats its name only while
+a profiler is armed. The serve queue's trace and span IDs are drawn
+whatever the knobs (one per ticket, one per dispatch), as the
+reference's are.
 """
 
 from __future__ import annotations

@@ -163,14 +163,16 @@ def entry_span(name: str, attrs_fn):
     return Span(name, flops=kw.pop("flops", None), fenced=False, **kw)
 
 
-def named_span(name: str):
-    """Per-step phase name: ``torch.profiler.record_function(name)`` when
-    a profiler is armed (``trace_dir``), else the no-op singleton. Writes
-    no record (the reference's is a trace-time ``jax.named_scope``)."""
+def named_span(name: str, *args):
+    """Per-step phase name: ``torch.profiler.record_function(name % args)``
+    (``name`` itself without ``args``) when a profiler is armed
+    (``trace_dir``), else the no-op singleton. The name is formatted only
+    when armed, so a step's site costs one check when off. Writes no
+    record (the reference's is a trace-time ``jax.named_scope``)."""
     if not STATE.annotate:
         return NOOP_CTX
     _maybe_start_profiler()
-    return _record_function(name)
+    return _record_function(name % args if args else name)
 
 
 def scoped_step(name: str, fn):

@@ -171,12 +171,12 @@ class Ticket:
     request's batch dispatched; :meth:`result` returns the unpadded
     per-request output as host (numpy) arrays and raises RuntimeError
     while still queued. ``info`` is the request's info value once done.
-    ``trace_id`` (16 hex characters, or the caller's) joins every record of
-    the request's chain."""
+    ``trace_id`` (16 hex characters) joins every record of the request's
+    chain."""
 
-    def __init__(self, request: Request, submitted: float, trace_id: Optional[str] = None):
+    def __init__(self, request: Request, submitted: float):
         self.request = request
-        self.trace_id = trace_id or obs.new_trace_id()
+        self.trace_id = obs.new_trace_id()
         self.submitted = submitted
         self.done = False
         self.error: Optional[BaseException] = None
@@ -374,20 +374,19 @@ class Queue:
                 # was made; this submit is still admitted
                 pass
 
-    def submit(self, req: Request, trace_id: Optional[str] = None) -> Ticket:
+    def submit(self, req: Request) -> Ticket:
         """Enqueue one request; dispatch its bucket when the batch fills,
         and dispatch OTHER buckets past their deadline (submission is a
         clock edge). At the ``max_depth`` bound the submit sheds
         (:class:`..health.errors.OverloadError`, no ticket created) or
-        applies backpressure, by ``shed``. ``trace_id`` adopts a caller's
-        trace ID for the request (default: a fresh one)."""
+        applies backpressure, by ``shed``."""
         with self._lock:
             now = self.clock()
             key = self._key(req)          # validate BEFORE admission
             self._admit(key)
             if req.rid is None:
                 req.rid = next(self._rid)
-            ticket = Ticket(req, now, trace_id)
+            ticket = Ticket(req, now)
             lanes = self._pending.setdefault(key, [])
             lanes.append((req, ticket))
             self.requests += 1

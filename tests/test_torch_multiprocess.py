@@ -19,7 +19,9 @@ transposed-tile exchange (transpose, hermitianize), HEGST in both forms
 (blocked, with look-ahead, on the Ozaki route, with info; twosolve), the
 QR T factor, permute and general_sub_multiply. Worlds of their own (2x2
 and 3x1, ``torch_mp_worker.A2A_CASES``) hold the pairwise all-to-all
-along the row axis, alone and inside the chase back-transform. The 2x2
+along the row axis, alone and inside the chase back-transform, and with
+the transport watched, that each call receives only the peers' chunks
+through one pairwise exchange. The 2x2
 Cholesky factor
 is also held against ``dlaf_tpu``'s distributed builder on the virtual CPU
 devices at ``60 n eps``, and its HEGST at ``100 n eps``. A process that
@@ -221,6 +223,25 @@ def test_multiprocess_all_to_all_bitwise_single_controller(a2a_worlds, single, g
     peer only) gives the single controller's bits, alone and in the chase
     back-transform, whose two all-to-alls run along the row axis."""
     compare(load(a2a_worlds, g, name), single(name, g))
+
+
+@pytest.mark.parametrize("g", list(w.A2A_GRIDS))
+def test_multiprocess_all_to_all_receives_peer_chunks_only(a2a_worlds, g):
+    """Every ``cc.all_to_all`` call (the verb's and the chase
+    back-transform's two) crosses processes through one pairwise
+    exchange: each process receives (P-1)/P of its value's bytes, its
+    chunk from each peer, and no all-gather of the whole line."""
+    dirs, errors = a2a_worlds
+    if g in errors:
+        raise errors[g]
+    P, Q = w.A2A_GRIDS[g][:2]
+    for i in range(P * Q):
+        calls = torch.load(os.path.join(dirs[g], f"traffic.r{i}.pt"))
+        assert len(calls) == 3
+        for call in calls:
+            size, value = call["size"], call["value"]
+            assert [k for k, _ in call["moves"]] == ["exchange"]
+            assert call["moves"][0][1] * size == value * (size - 1)
 
 
 @pytest.mark.parametrize("g", list(w.GRIDS))

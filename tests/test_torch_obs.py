@@ -168,6 +168,15 @@ def test_registry_semantics():
 # the no-op fast path
 # ---------------------------------------------------------------------------
 
+class _Unformattable:
+    """A step index that fails when a name is formatted from it."""
+
+    def __index__(self):
+        raise AssertionError("a step name was formatted with no profiler armed")
+
+    __int__ = __index__
+
+
 def test_noop_fast_path_when_disabled(tmp_path):
     """With every knob off each site is the module-level singleton, the
     lazy attrs are never built, and a distributed Cholesky and a solve
@@ -177,6 +186,7 @@ def test_noop_fast_path_when_disabled(tmp_path):
     assert obs.span("a", flops=1.0, n=5) is obs.NOOP_SPAN
     assert obs.entry_span("algo", lambda: calls.append(1)) is obs.NOOP_SPAN
     assert obs.named_span("c") is obs.NOOP_CTX
+    assert obs.named_span("c.step%03d.panel", _Unformattable()) is obs.NOOP_CTX
     assert obs.counter("x", k="v") is obs.NOOP_COUNTER
     assert obs.gauge("y") is obs.NOOP_GAUGE
     assert obs.histogram("z") is obs.NOOP_HISTOGRAM
@@ -200,6 +210,7 @@ def test_noop_fast_path_when_disabled(tmp_path):
     # metrics on, no trace directory: the step phases still enter nothing
     metrics_on(tmp_path)
     assert obs.named_span("cholesky.step000.panel") is obs.NOOP_CTX
+    assert obs.named_span("cholesky.step%03d.panel", _Unformattable()) is obs.NOOP_CTX
     assert obs.scoped_step("s", fn) is fn
 
 

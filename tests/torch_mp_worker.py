@@ -480,6 +480,45 @@ def _eigen(spec, mat, n) -> dict:
     return {"mat": res.eigenvectors, "array": torch.as_tensor(res.eigenvalues)}
 
 
+def a2a_traffic_probe(grid, setenv, delenv) -> list:
+    """Run the all-to-all verb and the chase back-transform ("a2a-bt_b2t-d")
+    with ``cc._transport`` watched. Returns one entry per ``cc.all_to_all``
+    call: the axis' rank count, the bytes of this process's value, and the
+    ``(kind, bytes received)`` of every transport call made inside it."""
+    calls, inside = [], []
+    saved_transport, saved_a2a = cc._transport, cc.all_to_all
+
+    def nbytes(out):
+        if isinstance(out, torch.Tensor):
+            return out.numel() * out.element_size()
+        vals = out.values() if isinstance(out, dict) else out or []
+        return sum(nbytes(v) for v in vals)
+
+    def transport(kind, x, group, *args, **kwargs):
+        out = saved_transport(kind, x, group, *args, **kwargs)
+        if inside:
+            inside[-1]["moves"].append((kind, nbytes(out)))
+        return out
+
+    def all_to_all(xs, axis, **kwargs):
+        r, c = cc.local_ranks(*cc.grid_shape(xs))[0]
+        P, Q = cc.grid_shape(xs)
+        inside.append({"size": P if axis == ROW_AXIS else Q,
+                       "value": nbytes(xs[r][c]), "moves": []})
+        try:
+            return saved_a2a(xs, axis, **kwargs)
+        finally:
+            calls.append(inside.pop())
+
+    cc._transport, cc.all_to_all = transport, all_to_all
+    try:
+        for name in ("verb-all_to_all-row", "a2a-bt_b2t-d"):
+            run_case(name, grid, setenv, delenv)
+    finally:
+        cc._transport, cc.all_to_all = saved_transport, saved_a2a
+    return calls
+
+
 def span_probe(grid, setenv, delenv) -> dict:
     """Run case "evp-d-L" with the chase, the D&C and every tensor this
     process creates watched: the calls of ``band_to_tridiag`` and
@@ -550,6 +589,9 @@ def main(argv) -> int:
         os.environ[k] = v
 
     cases = {"eigen": EIGEN_CASES, "a2a": A2A_CASES}.get(mode, CASES)
+    if mode == "a2a":
+        torch.save(a2a_traffic_probe(grid, setenv, lambda k: os.environ.pop(k, None)),
+                   os.path.join(out_dir, f"traffic.r{rank}.pt"))
     if mode == "eigen":
         torch.save(span_probe(grid, setenv, lambda k: os.environ.pop(k, None)),
                    os.path.join(out_dir, f"span.r{rank}.pt"))
