@@ -1439,7 +1439,7 @@ def evp_paths(torch, dev, card, kmods, ok, launches) -> dict:
     chase back-transform's shape), gen-evp-d and gen-evp-s (B the HPD
     generator's; float32 with exact kernel launches). Returns the first
     cell's intermediate results for the D&C route sweep and the profile
-    phase."""
+    phase, and its eigenpairs on the host (``"eigenpairs"``)."""
     import numpy as np
 
     from dlaf_tpu_torch.miniapp.generators import hpd_element_fn
@@ -1469,9 +1469,15 @@ def evp_paths(torch, dev, card, kmods, ok, launches) -> dict:
         elif letter == "s" and gen:
             expect = {k: f(*grid, -(-n // nb)) for k, f in GEN_EVP_F32_GRID.items()}
         keep = {} if first is None else None
-        counts, _, _, _ = evp_cell(torch, dev, card, kmods, name, a.to(dtypes[letter]), nb,
-                                   band, grid, knobs, b=b, w_ref=w, expect=expect, keep=keep)
-        first = keep if first is None else first
+        counts, res, _, _ = evp_cell(torch, dev, card, kmods, name, a.to(dtypes[letter]), nb,
+                                     band, grid, knobs, b=b, w_ref=w, expect=expect, keep=keep)
+        if first is None:
+            # evp-d's eigenpairs on the host: the resilience phase's
+            # uninterrupted call
+            keep["eigenpairs"] = (res.eigenvalues.copy(),
+                                  [x.cpu() for x in res.eigenvectors.shards()])
+            first = keep
+        del res
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
         if _MXU in knobs:
@@ -2592,6 +2598,357 @@ def obs_phase(torch, card, kmods, launches, out_dir, n: int = 16384, nb: int = 2
         raise AssertionError(f"obs torchrun: files other than one per rank: {extra}")
 
 
+#: The eigensolver's five stage boundaries, in pipeline order.
+RESUME_STAGES = ("red2band", "b2t", "tridiag", "bt_b2t", "bt_r2b")
+
+
+def _strict(config, on: bool) -> None:
+    """``DLAF_STRICT`` on or off for this process and the ones it starts."""
+    os.environ["DLAF_STRICT"] = "1" if on else "0"
+    config.initialize()
+
+
+def _new_fallbacks(registry, before: dict) -> dict:
+    """``{(site, reason): count}`` the registry counted since ``before``."""
+    now = registry.fallback_counts()
+    return {k: v - before.get(k, 0) for k, v in now.items() if v != before.get(k, 0)}
+
+
+def _evp_counted(kmods, launches, what: str, fn):
+    """``fn()`` with the kernels' counts from 0: fails if a kernel other
+    than the Givens undo launched (the float64 eigensolver's default routes
+    launch none), adds the counts to ``launches``."""
+    for m in kmods:
+        m.reset_launches()
+    out = fn()
+    counts = {k: v for m in kmods for k, v in m.LAUNCHES.items()}
+    if any(v for k, v in counts.items() if k != "givens_undo"):
+        raise AssertionError(f"{what}: launches {counts}, expected the Givens undo's only")
+    for k, v in counts.items():
+        launches[k] += v
+    return out
+
+
+class _StageIO:
+    """Times ``matrix.checkpoint``'s stage writes and loads (bytes of each
+    payload file, seconds of each call) while the ``with`` block runs."""
+
+    def __init__(self, ckpt):
+        self.ckpt = ckpt
+        self.writes, self.loads = {}, {}
+
+    def __enter__(self):
+        save, load = self.ckpt.save_stage, self.ckpt.load_stage
+        self._orig = save, load
+
+        def timed_save(directory, stage, arrays, fingerprint):
+            t0 = time.perf_counter()
+            out = save(directory, stage, arrays, fingerprint)
+            self.writes[stage] = (os.path.getsize(os.path.join(directory, f"{stage}.npz")),
+                                  time.perf_counter() - t0)
+            return out
+
+        def timed_load(directory, stage):
+            t0 = time.perf_counter()
+            out = load(directory, stage)
+            self.loads[stage] = time.perf_counter() - t0
+            return out
+
+        self.ckpt.save_stage, self.ckpt.load_stage = timed_save, timed_load
+        return self
+
+    def __exit__(self, *exc):
+        self.ckpt.save_stage, self.ckpt.load_stage = self._orig
+
+
+def resilience_phase(torch, dev, card, kmods, launches, drive, out_dir, main_n: int = 16384,
+                     oz_n: int = 8192, deg=(2048, 256, 64), evp=(16384, 512, 128, (4, 4)),
+                     small_n: int = 4096, stream: int = 256, coll_n: int = 4096, nb: int = 256,
+                     app_args=(), evp_ref=None) -> None:
+    """The resilience layer on the card (``health.inject``, ``registry``,
+    ``resume``, ``matrix.checkpoint``), ``DLAF_STRICT`` off but where a
+    case asks for it:
+
+    * degradations: main-L under ``disable_pallas`` (#1–#4 0 launches, the
+      fallback counted at ``panel``/``step``, the miniapp's residual check;
+      under ``DLAF_STRICT=1`` the same call raises ``DegradationError``);
+      dist-L 2x2 under ``disable_pallas`` (#5 0); the distributed f64
+      ``ozaki_impl=pallas`` route under ``disable_ozaki`` (#6, #7 0); the
+      eigensolver at ``deg`` (n, nb, band) under ``force_native_failure``
+      (``secular``, ``deflate`` and ``band_to_tridiag`` counted, the
+      eigenpairs within budget);
+    * kill and resume: evp-d's A and shape (``evp``): one uninterrupted
+      call (``evp_ref``, evp-d's eigenvalues and eigenvector shards on the
+      host from the eigensolver phase, where given), ``preempt("b2t")``,
+      ``resume=True``, the eigenpairs bitwise the uninterrupted call's, each
+      stage's checkpoint bytes and write seconds and the load seconds of
+      the stages the resume loads; at ``small_n`` a preempt and resume at
+      each of the five boundaries, each bitwise, with every stage's bytes
+      and write and load seconds;
+    * serve: ``stream`` requests under ``fail_dispatch(nth=3, count=2)``,
+      every ticket answered bitwise as a clean pass's, ``dlaf_retry_total``
+      > 0; a sustained fault opens the bucket's breaker, and later tickets
+      fail fast;
+    * collectives: ``corrupt_collective("bcast", nth=1)`` on dist-L 2x2
+      with ``with_info``: the NaN detected, the next call clean.
+
+    ``nb`` is the Cholesky cells' block; ``app_args`` go to every miniapp
+    run (``("--backend", "cpu")`` with ``dev`` the CPU and small sizes
+    rehearse the phase there)."""
+    import numpy as np
+
+    from dlaf_tpu_torch import config, obs
+    from dlaf_tpu_torch.algorithms.cholesky import cholesky
+    from dlaf_tpu_torch.comm.grid import shared_grid
+    from dlaf_tpu_torch.common.index2d import GlobalElementSize, TileElementSize
+    from dlaf_tpu_torch.eigensolver.eigensolver import eigensolver
+    from dlaf_tpu_torch.health import inject, registry
+    from dlaf_tpu_torch.health.errors import (CircuitOpenError, DegradationError,
+                                              PreemptionError)
+    from dlaf_tpu_torch.matrix import checkpoint as ckpt
+    from dlaf_tpu_torch.matrix.matrix import Matrix
+    from dlaf_tpu_torch.miniapp import miniapp_cholesky
+    from dlaf_tpu_torch.miniapp.generators import hpd_element_fn
+    from dlaf_tpu_torch.miniapp.miniapp_eigensolver import eigen_residuals
+    from dlaf_tpu_torch.miniapp.miniapp_reduction_to_band import eigenvalue_drift
+    from dlaf_tpu_torch.serve import ProgramService, Queue, Request
+
+    t_all = time.perf_counter()
+    _strict(config, False)
+    share = ["--share-device", "--nruns", "2", "--nwarmups", "1", "--check-result", "last",
+             *app_args]
+    # main-L's arguments (cuda's panel_impl auto is fused: named here, so
+    # that the CPU rehearsal opens the panel route too)
+    main_l = ["-m", str(main_n), "-b", str(nb), *OBS_MAIN_L, "--dlaf:panel-impl=fused",
+              "--nruns", "2", "--nwarmups", "1", "--check-result", "last", *app_args]
+
+    # ---- degradations ----------------------------------------------------
+    def drill(name, ctx, argv, n, want_sites):
+        before = registry.fallback_counts()
+        t0 = time.perf_counter()
+        with ctx():
+            wall = drive(argv, n, nb, 3, {})        # every kernel 0 launches
+        got = _new_fallbacks(registry, before)
+        print(f"[resilience] {name}: best {wall:.6f} s, no kernel of the route launched, "
+              f"fallbacks {got} ({time.perf_counter() - t0:.1f} s) [{card}]", flush=True)
+        if not all(got.get((s, "injected_off"), 0) > 0 for s in want_sites):
+            raise AssertionError(f"{name}: fallbacks {got}, expected {want_sites} counted")
+
+    drill("main-L disable_pallas", inject.disable_pallas, main_l, main_n, ("panel", "step"))
+    _strict(config, True)
+    try:
+        with inject.disable_pallas(), contextlib.redirect_stdout(io.StringIO()):
+            miniapp_cholesky.run(main_l)
+        raise AssertionError("main-L disable_pallas under DLAF_STRICT=1 did not raise")
+    except DegradationError as e:
+        print(f"[resilience] main-L disable_pallas under DLAF_STRICT=1: DegradationError at "
+              f"site {e.site!r} ({e.reason})", flush=True)
+    _strict(config, False)
+    drill("dist-L 2x2 disable_pallas", inject.disable_pallas,
+          ["-m", str(main_n), "-b", str(nb), "--type", "s", "--uplo", "L", "--grid-rows", "2",
+           "--grid-cols", "2", "--dlaf:step-impl=fused", "--dlaf:panel-impl=fused", *share],
+          main_n,
+          ("panel", "step", "pallas_update"))
+    drill("dist-f64 2x2 ozaki_impl=pallas disable_ozaki", inject.disable_ozaki,
+          ["-m", str(oz_n), "-b", str(nb), "--type", "d", "--uplo", "L", "--grid-rows", "2",
+           "--grid-cols", "2", "--dlaf:f64-gemm=mxu", "--dlaf:f64-trsm=mixed",
+           "--dlaf:ozaki-impl=pallas", *share], oz_n, ("ozaki_gemm",))
+    def run_evp(a, n, nb_, band, grid, what, **kw):
+        g = shared_grid(*grid, dev) if grid else None
+        t0 = time.perf_counter()
+        res = _evp_counted(kmods, launches, what, lambda: eigensolver(
+            "L", Matrix.from_global(a, TileElementSize(nb_, nb_), g, device=dev),
+            band_size=band, donate=True, **kw))
+        _sync(torch, dev)
+        return res, time.perf_counter() - t0
+
+    config.initialize()          # the default routes again, after the miniapps' knobs
+    n, nb_e, band = deg
+    before = registry.fallback_counts()
+    a = _random_herm(torch, dev, n, torch.float64, 7)
+    with inject.force_native_failure():
+        res, t = run_evp(a, n, nb_e, band, None, "eigensolver force_native_failure")
+    got = _new_fallbacks(registry, before)
+    vals = eigen_residuals(a, None, res.eigenvalues, res.eigenvectors.to_global())
+    drift = eigenvalue_drift(torch.linalg.eigvalsh(a).cpu(), torch.as_tensor(res.eigenvalues))
+    eps = float(np.finfo(np.float64).eps)
+    ok_ = (max(vals.values()) < 200 * n * eps and drift < 100 * n * eps
+           and all(got.get((s, "native_unavailable"), 0) > 0
+                   for s in ("secular", "deflate", "band_to_tridiag")))
+    print(f"[resilience] eigensolver N={n} nb={nb_e} band={band} force_native_failure: "
+          f"{t:.6f} s, residual {vals['eigen_residual']:.3e} orthogonality "
+          f"{vals['orthogonality']:.3e} drift {drift:.3e} (tol {200 * n * eps:.3e}, drift "
+          f"{100 * n * eps:.3e}), fallbacks {got} [{card}]", flush=True)
+    if not ok_:
+        raise AssertionError("eigensolver under force_native_failure failed its check")
+    del a, res
+
+    # ---- kill and resume -------------------------------------------------
+    root = os.path.join(out_dir, "resume")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    print(f"[resilience] checkpoint disk: {shutil.disk_usage(root).free / 2 ** 30:.1f} GiB free "
+          f"under {root}", flush=True)
+
+    def host(res):
+        return res.eigenvalues, [x.cpu() for x in res.eigenvectors.shards()]
+
+    def same(res, ref):
+        lam, shards = ref
+        return (np.array_equal(res.eigenvalues, lam)
+                and all(torch.equal(p.cpu(), q) for p, q in zip(res.eigenvectors.shards(),
+                                                                shards)))
+
+    def kill_resume(a, n, nb_, band, grid, stage, ref, label):
+        rd = os.path.join(root, f"{label}-{stage}")
+        os.environ["DLAF_RESUME_DIR"] = rd
+        config.initialize()
+        try:
+            t0 = time.perf_counter()
+            try:
+                with inject.preempt(stage):
+                    run_evp(a, n, nb_, band, grid, f"{label} preempt {stage}")
+                raise AssertionError(f"{label}: preempt({stage!r}) did not stop the run")
+            except PreemptionError:
+                pass
+            t_kill = time.perf_counter() - t0
+            res, t_res = run_evp(a, n, nb_, band, grid, f"{label} resume", resume=True)
+        finally:
+            del os.environ["DLAF_RESUME_DIR"]
+            config.initialize()
+        ok_ = same(res, ref)
+        print(f"[resilience] {label} N={n} preempt at {stage}: killed after {t_kill:.3f} s, "
+              f"resumed in {t_res:.3f} s, eigenpairs {'bitwise' if ok_ else 'DIFFER from'} "
+              f"the uninterrupted call's [{card}]", flush=True)
+        if not ok_:
+            raise AssertionError(f"{label}: resume after {stage} is not bitwise")
+
+    n, nb_e, band, grid = evp
+    # evp-d's A (evp_paths' seed): the eigensolver phase's evp-d call is
+    # the uninterrupted one where the whole script runs
+    a = _random_herm(torch, dev, n, torch.float64, 20 + len("evp-d") + n % 97)
+    ref = evp_ref
+    if ref is None:
+        res, t_ref = run_evp(a, n, nb_e, band, grid, "evp-d uninterrupted")
+        ref = host(res)
+        del res
+        print(f"[resilience] evp-d N={n} nb={nb_e} band={band} {grid[0]}x{grid[1]} "
+              f"uninterrupted: {t_ref:.6f} s [{card}]", flush=True)
+    if not (np.isfinite(ref[0]).all() and ref[0].shape == (n,)):
+        raise AssertionError("evp-d uninterrupted: eigenvalues not finite")
+    def stage_io(label, io_, loaded_by):
+        for st in RESUME_STAGES:
+            nbytes, w = io_.writes[st]
+            load = (f"load {io_.loads[st]:.3f} s (warm)" if st in io_.loads
+                    else f"not loaded by {loaded_by}")
+            print(f"[resilience] {label} checkpoint {st}: {nbytes} bytes, write {w:.3f} s "
+                  f"({nbytes / w / 1e9:.2f} GB/s), {load} [{card}]", flush=True)
+
+    # the resume after b2t loads red2band and b2t; the later stages' loads
+    # are timed at small_n, where every resume below loads its stage
+    with _StageIO(ckpt) as io_:
+        kill_resume(a, n, nb_e, band, grid, "b2t", ref, "evp-d")
+    stage_io("evp-d", io_, "the b2t resume")
+    del ref, a
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    a = _random_herm(torch, dev, small_n, torch.float64, 41)
+    ref = host(run_evp(a, small_n, nb_e, band, grid, "evp small uninterrupted")[0])
+    with _StageIO(ckpt) as io_:
+        for st in RESUME_STAGES:
+            kill_resume(a, small_n, nb_e, band, grid, st, ref, "evp-small")
+    stage_io("evp-small", io_, "a resume")
+    del ref, a
+    shutil.rmtree(root, ignore_errors=True)
+
+    # ---- serve: a transient and a sustained dispatch fault ----------------
+    art = os.path.join(out_dir, "resilience_serve.jsonl")
+    if os.path.exists(art):
+        os.remove(art)
+    os.environ["DLAF_METRICS_PATH"] = art
+    config.initialize()
+    try:
+        reqs = _stream_requests(np, Request, stream, SERVE_SEED + 3)
+
+        def serve(fault):
+            q = Queue(ProgramService(device=dev), batch=16, buckets=(32, 64, 128, 256),
+                      deadline_s=1e9)
+            q.warmup(reqs)
+            t0 = time.perf_counter()
+            with fault():
+                ts = [q.submit(r) for r in reqs]
+                q.flush()
+            return ts, q, time.perf_counter() - t0
+
+        def retry_total():
+            # the process's counter: earlier phases' retries are in it too
+            return sum(m["value"] for m in obs.registry().snapshot()
+                       if m["name"] == "dlaf_retry_total")
+
+        clean, _, wall_clean = serve(contextlib.nullcontext)
+        before = retry_total()
+        faulted, q, wall = serve(lambda: inject.fail_dispatch(nth=3, count=2))
+        retries = retry_total() - before
+
+        def parts(t):
+            out = t.result()
+            return out if isinstance(out, tuple) else (out,)
+
+        bitwise = all(t.done and c.done and all(np.array_equal(x, y)
+                                                for x, y in zip(parts(t), parts(c)))
+                      for t, c in zip(faulted, clean))
+        print(f"[resilience] serve {stream} requests under fail_dispatch(nth=3, count=2): "
+              f"{sum(t.done for t in faulted)} answered, bitwise the clean pass's: {bitwise}, "
+              f"dlaf_retry_total +{retries:g}, {q.stats()['dispatches']} dispatches in "
+              f"{wall:.4f} s (the clean pass {wall_clean:.4f} s) [{card}]", flush=True)
+        if not (bitwise and retries > 0):
+            raise AssertionError("serve under fail_dispatch: not every ticket answered bitwise")
+        q = Queue(ProgramService(device=dev), batch=1, buckets=(32,), deadline_s=1e9,
+                  retry_attempts=3)
+        with inject.fail_dispatch(nth=0, count=10 ** 6):
+            try:
+                q.submit(Request(op="cholesky", a=np.eye(8)))
+                raise AssertionError("sustained fault: the first ticket did not fail")
+            except RuntimeError as e:
+                first = type(e).__name__
+            (bucket,) = q.stats()["buckets"].values()
+            state = bucket["breaker"]
+            t0 = time.perf_counter()
+            try:
+                q.submit(Request(op="cholesky", a=np.eye(8)))
+                raise AssertionError("sustained fault: the later ticket did not fail fast")
+            except CircuitOpenError:
+                fast = time.perf_counter() - t0
+        print(f"[resilience] serve sustained fault: first ticket {first}, breaker {state}, the "
+              f"next ticket CircuitOpenError in {fast * 1e3:.3f} ms", flush=True)
+        if state != "open":
+            raise AssertionError(f"sustained fault: breaker {state}, expected open")
+    finally:
+        del os.environ["DLAF_METRICS_PATH"]
+        config.initialize()
+
+    # ---- collectives -----------------------------------------------------
+    config.initialize(argv=["--dlaf:step-impl=fused"])
+    g = shared_grid(2, 2, dev)
+
+    def factor():
+        m = Matrix.from_element_fn(hpd_element_fn(coll_n, np.float32),
+                                   GlobalElementSize(coll_n, coll_n), TileElementSize(nb, nb),
+                                   g, dtype=np.float32)
+        _, info = cholesky("L", m, donate=True, with_info=True)
+        return int(info)
+
+    with inject.corrupt_collective("bcast", nth=1):
+        poisoned = factor()
+    clean = factor()
+    config.initialize()
+    print(f"[resilience] dist-L N={coll_n} 2x2 corrupt_collective('bcast', nth=1): info "
+          f"{poisoned}; the next call: info {clean}", flush=True)
+    if not (poisoned != 0 and clean == 0):
+        raise AssertionError("corrupt_collective: the poison was not detected, or it leaked")
+    print(f"[phase] resilience {time.perf_counter() - t_all:.1f} s", flush=True)
+
+
 def panel_products(torch, dev, randn, hpd, check, pk, cb) -> None:
     """The strip and slab products alone (``strip_kernel``, ``slab_kernel``
     of ``csrc/panel.cu`` through its C entries) against the plain
@@ -3073,6 +3430,11 @@ def main() -> int:
     from dlaf_tpu_torch.tile_ops import panel_kernels as pk
     from dlaf_tpu_torch.tile_ops import update_kernels as uk
 
+    # every phase but the resilience phase runs strict: a degradation
+    # raises (here and in the processes the script starts), and the
+    # registry's tally is read before the resilience phase
+    os.environ["DLAF_STRICT"] = "1"
+    config.initialize()
     card = smi_line()
     print(f"[card] {card}", flush=True)
     print(f"[versions] python {sys.version.split()[0]} torch {torch.__version__} "
@@ -3103,6 +3465,39 @@ def main() -> int:
     def hpd(d):
         x = randn(d, d)
         return x @ x.T + d * torch.eye(d, device=dev)
+
+    launches = {k: 0 for k in (*pk.LAUNCHES, *ok.LAUNCHES, *uk.LAUNCHES, *gk.LAUNCHES)}
+
+    def drive(argv, n, nb, nfact, expect, app=miniapp_cholesky):
+        """One miniapp run; checks its residual line and launch counts and
+        returns its fastest timed factorization (solve) (s). The Givens
+        undo's launches follow the data: added up, not checked."""
+        pk.reset_launches()
+        ok.reset_launches()
+        uk.reset_launches()
+        gk.reset_launches()
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = app.run(argv)
+        torch.cuda.synchronize()
+        counts = {**pk.LAUNCHES, **ok.LAUNCHES, **uk.LAUNCHES}
+        out = buf.getvalue()
+        print(out, end="", flush=True)
+        nt = -(-n // nb)
+        want = {k: expect.get(k, lambda nt: 0)(nt) * nfact for k in counts}
+        print(f"[main] launches {counts} expected {want} "
+              f"({time.perf_counter() - t:.1f} s)", flush=True)
+        if "check: PASSED" not in out:
+            raise AssertionError("main path: no 'check: PASSED' line")
+        if counts != want:
+            raise AssertionError(f"main path: launches {counts}, expected {want}")
+        for k, v in {**counts, **gk.LAUNCHES}.items():
+            launches[k] += v
+        return min(r["time_s"] for r in res)
+
+    kmods = (pk, ok, uk, gk)
+    artifacts = os.path.join(os.path.dirname(os.path.abspath(__file__)), "smoke_artifacts")
 
     # ---- phase 1: kernels against their plain versions -------------------
     t_phase = time.perf_counter()
@@ -3351,35 +3746,6 @@ def main() -> int:
     print(f"[phase] kernels {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # ---- phase 2: the main paths through the miniapp ---------------------
-    launches = {k: 0 for k in (*pk.LAUNCHES, *ok.LAUNCHES, *uk.LAUNCHES, *gk.LAUNCHES)}
-
-    def drive(argv, n, nb, nfact, expect, app=miniapp_cholesky):
-        """One miniapp run; checks its residual line and launch counts and
-        returns its fastest timed factorization (solve) (s). The Givens
-        undo's launches follow the data: added up, not checked."""
-        pk.reset_launches()
-        ok.reset_launches()
-        uk.reset_launches()
-        gk.reset_launches()
-        buf = io.StringIO()
-        t = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            res = app.run(argv)
-        torch.cuda.synchronize()
-        counts = {**pk.LAUNCHES, **ok.LAUNCHES, **uk.LAUNCHES}
-        out = buf.getvalue()
-        print(out, end="", flush=True)
-        nt = -(-n // nb)
-        want = {k: expect.get(k, lambda nt: 0)(nt) * nfact for k in counts}
-        print(f"[main] launches {counts} expected {want} "
-              f"({time.perf_counter() - t:.1f} s)", flush=True)
-        if "check: PASSED" not in out:
-            raise AssertionError("main path: no 'check: PASSED' line")
-        if counts != want:
-            raise AssertionError(f"main path: launches {counts}, expected {want}")
-        for k, v in {**counts, **gk.LAUNCHES}.items():
-            launches[k] += v
-        return min(r["time_s"] for r in res)
 
     t_phase = time.perf_counter()
     drive(["-m", "16384", "-b", "256", "--type", "s", "--uplo", "L",
@@ -3494,7 +3860,6 @@ def main() -> int:
     # ---- phase 2g: the rest of the algorithms layer (max_norm and permute
     # at config #4's shape, general_sub_multiply, the generalized miniapp)
     # and the serving entry point --------------------------------------
-    kmods = (pk, ok, uk, gk)
     t_phase = time.perf_counter()
     algos_phase(torch, dev, card, kmods, launches, drive)
     print(f"[phase] algos {time.perf_counter() - t_phase:.1f} s", flush=True)
@@ -3506,8 +3871,7 @@ def main() -> int:
     # profiler's names, the eigensolver's and the serve stream's artifacts
     # with the live exporter, one artifact per process under torchrun ----
     t_phase = time.perf_counter()
-    obs_phase(torch, card, kmods, launches,
-              os.path.join(os.path.dirname(os.path.abspath(__file__)), "smoke_artifacts", "obs"))
+    obs_phase(torch, card, kmods, launches, os.path.join(artifacts, "obs"))
     print(f"[phase] obs {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # ---- phase 3: the float64 / complex128 routes "auto" picks from ------
@@ -3593,7 +3957,20 @@ def main() -> int:
         profile_trsm(torch, dev, mode)
     profile_red2band(torch, dev)
     profile_evp(torch, dev, evp_keep)
+    evp_ref = evp_keep["eigenpairs"]
     del evp_keep
+
+    # ---- phase 5: the resilience layer (strict off but where it checks
+    # the raise), after the strict audit of every phase above ------------
+    from dlaf_tpu_torch.health import registry
+
+    tally = registry.fallback_counts()
+    print(f"[resilience] strict: dlaf_fallback_total after every earlier phase (the "
+          f"registry's tally): {sum(tally.values())} {tally}", flush=True)
+    if tally:
+        raise AssertionError(f"an earlier phase degraded: {tally}")
+    resilience_phase(torch, dev, card, kmods, launches, drive, artifacts, evp_ref=evp_ref)
+    del evp_ref
 
     order = (("potrf", "panel", "dlaf_tpu/tile_ops/pallas_panel.py:187"),
              ("solve", "panel", "dlaf_tpu/tile_ops/pallas_panel.py:296"),

@@ -64,6 +64,7 @@ from ..comm import collectives as cc
 from ..comm.grid import COL_AXIS, ROW_AXIS
 from ..common.asserts import dlaf_assert
 from ..health import info as hinfo
+from ..health.registry import route_available
 from ..matrix.matrix import Matrix
 from ..matrix.panel import (DistContext, bcast_diag, pad_diag_identity, to_device,
                             transpose_col_to_rows, transpose_row_to_cols, uniform_slot_start)
@@ -965,7 +966,11 @@ def _cholesky_distributed(uplo, mat, *, donate, with_info, trailing, lookahead, 
     comm_la = lookahead and config.resolve("comm_lookahead", dev) == "1"
     want_oz_pallas = use_mxu and config.resolve("ozaki_impl", dev) == "pallas"
     use_oz_pallas = want_oz_pallas and dtype == torch.float64 and nb <= ok.MASKED_MB_MAX
-    if want_oz_pallas and not use_oz_pallas:
+    if use_oz_pallas and not route_available("pallas", "ozaki_pallas"):
+        # a drill closed the pair kernel: the whole-rectangle Ozaki
+        # products run, counted (strict raises)
+        use_oz_pallas = False
+    elif want_oz_pallas and not use_oz_pallas:
         config.announce_once(("ozaki_pallas", dtype, nb),
                              f"ozaki_impl=pallas does not apply to dtype={dtype} mb={nb} on a "
                              f"grid (needs float64, mb<={ok.MASKED_MB_MAX}); using the "

@@ -115,6 +115,21 @@ GRID_AXIS = "grid"
 _WORLD = None
 
 
+#: Payload-corruption hook, installed ONLY by
+#: ``health.inject.corrupt_collective`` (fault drills); None otherwise, so
+#: its cost is one module-attribute read a verb call. It sees (kind, axis,
+#: the verb's nested per-rank values) and returns them, possibly poisoned.
+#: It runs before a verb's two forms part, so in the multi-process form the
+#: value :func:`_transport` carries is the poisoned one.
+_INJECT_HOOK = None
+
+
+def _maybe_inject(kind: str, axis: str, xs):
+    if _INJECT_HOOK is None:
+        return xs
+    return _INJECT_HOOK(kind, axis, xs)
+
+
 def _nbytes(x) -> int:
     return x.numel() * x.element_size() if isinstance(x, torch.Tensor) else 0
 
@@ -495,6 +510,7 @@ def bcast(xs, axis: str, src: int, *, shared: bool = False):
     """Broadcast the value of rank ``src`` along ``axis`` (reference
     ``kernels/broadcast.h``)."""
     _record_value("bcast", axis, xs, (src, 0) if axis == ROW_AXIS else (0, src))
+    xs = _maybe_inject("bcast", axis, xs)
     if _WORLD is not None:
         (r, c), group, line = _world_line(axis)
         return _only_local(xs, _plus_zero(_transport("broadcast", xs[r][c], group,
@@ -509,6 +525,7 @@ def bcast2d(xs, owner_r: int, owner_c: int):
     P, Q = grid_shape(xs)
     _record_value("bcast2d", ROW_AXIS, xs, (owner_r, owner_c))
     _record_value("bcast2d", COL_AXIS, xs, (owner_r, owner_c))
+    xs = _maybe_inject("bcast2d", ROW_AXIS, xs)
     if _WORLD is not None:
         r, c = _WORLD.local_ranks[0]
         return _only_local(xs, _plus_zero(_transport(
@@ -531,7 +548,7 @@ def all_reduce(xs, axis: str, op: str = "sum", *, shared: bool = False):
     fold of the values in rank order along the axis. :func:`reduce` runs
     through here and counts under this kind, as the reference's."""
     _record_value("all_reduce", axis, xs)
-    return _all_reduce(xs, axis, op, shared=shared)
+    return _all_reduce(_maybe_inject("all_reduce", axis, xs), axis, op, shared=shared)
 
 
 def _all_reduce(xs, axis: str, op: str = "sum", *, shared: bool = False):
@@ -572,7 +589,8 @@ def all_gather(xs, axis: str, *, tiled: bool = False, concat_axis: int = 0,
     axis ``concat_axis`` (of the axis' size), or concatenated along it
     when ``tiled``."""
     _record_value("all_gather", axis, xs)
-    return _all_gather(xs, axis, tiled=tiled, concat_axis=concat_axis, shared=shared)
+    return _all_gather(_maybe_inject("all_gather", axis, xs), axis, tiled=tiled,
+                       concat_axis=concat_axis, shared=shared)
 
 
 def _all_gather(xs, axis: str, *, tiled: bool = False, concat_axis: int = 0,
@@ -593,6 +611,7 @@ def all_to_all(xs, axis: str, *, split_axis: int, concat_axis: int):
     the layout transpose of the distributed chase back-transform). Every
     value's ``split_axis`` must divide by the axis' rank count."""
     _record_value("all_to_all", axis, xs)
+    xs = _maybe_inject("all_to_all", axis, xs)
     P, Q = grid_shape(xs)
     size = P if axis == ROW_AXIS else Q
     for r, c in local_ranks(P, Q):

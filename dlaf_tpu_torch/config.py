@@ -6,7 +6,9 @@ distributed Cholesky, the triangular solve and multiply
 band-to-tridiagonal chase (``chase_threads``), the divide-and-conquer
 tridiagonal solver (``secular_device_min_k``) and their f64/complex128
 routes; and the serving layer's (``serve_*``, the finite guard ``check``)
-the circuit breakers' (``circuit_*``), and the observability layer's
+the circuit breakers' (``circuit_*``), the resilience layer's (``strict``,
+``resume_dir``; :mod:`.health.registry`, :mod:`.health.resume`), and the
+observability layer's
 (``log``, ``metrics_path``, ``trace_dir``, ``metrics_port``, ``slo_*``,
 ``flight_recorder``; :mod:`.obs`), with the reference's environment
 names, defaults and validation (``config.py:400-417, 504-568, 617-624,
@@ -39,8 +41,10 @@ Not ported: ``ozaki_dot``, ``ozaki_group`` and ``ozaki_accum``. They pick
 the TPU's schedule of the same integer sums and give bit-identical
 results; the port has one schedule per route. ``qr_panel`` neither: the
 port's panel QR is always geqrf, the reference's choice off its TPU.
-``secular_impl`` neither: the merge's host secular solve is always the
-native one (a failed build raises), the numpy bisection its test twin.
+``secular_impl`` and ``band_to_tridiag_impl`` neither: the merge's host
+secular solve, its deflation scan and the chase are always the native
+ones; a failed build or load of their library degrades to the numpy twins
+through :mod:`.health.registry` (counted; ``strict`` raises).
 """
 
 from __future__ import annotations
@@ -139,6 +143,19 @@ class Configuration:
     #: their inputs and outputs for non-finite values and raise
     #: ``health.CheckError``. Off by default; the guard syncs with the host.
     check: bool = False
+    #: Strict degradation mode (``DLAF_STRICT``): a registered fallback
+    #: (:mod:`.health.registry`: the native secular solver, deflation scan
+    #: and chase -> their numpy twins, an explicitly asked fused panel or
+    #: step -> the composed route, a route a drill closed) raises
+    #: ``health.DegradationError`` instead of taking the degraded path.
+    strict: bool = False
+    #: Stage-checkpoint directory of the eigensolver pipeline
+    #: (``DLAF_RESUME_DIR``; :mod:`.health.resume`): when set, each of the
+    #: five stages (red2band, b2t, tridiag, bt_b2t, bt_r2b) writes an atomic
+    #: checkpoint, and ``eigensolver(..., resume=True)`` loads every stage
+    #: whose manifest matches the run's fingerprint instead of recomputing
+    #: it. Single controller only. Empty (default): no checkpoints.
+    resume_dir: str = ""
     #: Bucket ceilings of the serving layer (``DLAF_SERVE_BUCKETS``): a
     #: comma-separated ascending list of matrix orders that
     #: :class:`..serve.Queue` rounds request shapes up to, one bucket

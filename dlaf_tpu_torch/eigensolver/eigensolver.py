@@ -29,14 +29,27 @@ spans with the reference's flop model and attrs (``eigensolver.py:112,
 301``; ``dc_level_batch`` and ``bt_lookahead`` are 0, the knobs the port
 dropped), around the ``stage.*`` phase spans of the PhaseTimer.
 
-Not ported now: ``resume`` and the stage checkpoints (with the health and
-checkpoint port: ``resume=True`` raises rather than recompute silently),
-and the autotune steering.
+**Preemption-safe resume** (reference ``eigensolver.py:69-80, 131-290``;
+:mod:`..health.resume`): with ``DLAF_RESUME_DIR`` (config ``resume_dir``)
+set, the single controller writes an atomic stage checkpoint after each of
+red2band, b2t, tridiag, bt_b2t and bt_r2b, with the reference's payloads;
+``resume=True`` then loads every stage whose manifest matches this run's
+fingerprint (shape, dtype, grid, band, the device type in place of the
+reference's backend, so a checkpoint never crosses devices, and the stored
+triangle's sha256) and recomputes the rest from the loaded bytes, so a run
+killed at a boundary gives the uninterrupted run's eigenpairs bit for bit.
+A mismatched fingerprint, and ``resume=True`` without a directory, raise
+``health.ResumeError``; ``health.inject.preempt`` kills the run at a
+boundary after its checkpoint landed. A multi-process world ignores the
+directory (warned once) and refuses ``resume=True``.
+
+Not ported now: the autotune steering.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Optional
 
 import numpy as np
@@ -51,12 +64,15 @@ from ..common.asserts import dlaf_assert
 from ..common.index2d import RankIndex2D
 from ..common.sync import hard_fence
 from ..common.timer import PhaseTimer
+from ..config import get_configuration
+from ..health import resume as hresume
 from ..matrix import ops as mops
+from ..matrix.checkpoint import matrix_arrays, matrix_from_arrays
 from ..matrix.matrix import Matrix
 from ..types import dtype_name, total_ops
 from .back_transform import bt_band_to_tridiag, bt_reduction_to_band
-from .band_to_tridiag import band_to_tridiag, share_tridiag
-from .reduction_to_band import extract_band, reduction_to_band
+from .band_to_tridiag import TridiagResult, band_to_tridiag, share_tridiag
+from .reduction_to_band import BandReduction, extract_band, reduction_to_band
 from .tridiag_solver import tridiag_solver
 
 
@@ -90,9 +106,9 @@ def eigensolver(uplo: str, a: Matrix, phases: Optional[PhaseTimer] = None,
     ``donate=False`` it is left as it was. ``keep``, a dict, receives the
     stages' intermediate results: ``"reduction"`` (the band reduction),
     ``"tridiag"`` (the chase's result) and ``"dc_stats"`` (the D&C's
-    per-merge statistics)."""
-    dlaf_assert(not resume, "eigensolver: resume=True needs the stage checkpoints, which "
-                            "are not ported yet")
+    per-merge statistics; empty where the tridiag stage was resumed).
+    ``resume=True`` loads the stages ``DLAF_RESUME_DIR`` holds for this
+    run (module docstring)."""
     dlaf_assert(a.size.row == a.size.col, "eigensolver: square only")
     n = a.size.row
     if n == 0:
@@ -102,29 +118,89 @@ def eigensolver(uplo: str, a: Matrix, phases: Optional[PhaseTimer] = None,
         uplo=uplo, dtype=dtype_name(a.dtype), dc_level_batch=0, bt_lookahead=0,
         grid=f"{a.dist.grid_size.row}x{a.dist.grid_size.col}"))
     with span:
-        return _eigensolver(uplo, a, phases, band_size, donate, keep)
+        return _eigensolver(uplo, a, phases, band_size, donate, keep, resume)
 
 
-def _eigensolver(uplo, a, phases, band_size, donate, keep):
-    n = a.size.row
+def _stage_fingerprint(uplo, a, band_size) -> dict:
+    """The run a stage checkpoint is valid for: shape, block, uplo, dtype,
+    band and grid, the device type (a checkpoint never crosses devices:
+    the auto routes resolve per device type), and, where checkpoints are
+    armed on a single controller, a hash of the stored triangle of the
+    INPUT, so two runs of one shape over different matrices never trade
+    checkpoints. The other triangle is not read: it may hold anything."""
+    fp = dict(pipeline="eigensolver", n=int(a.size.row), nb=int(a.block_size.row), uplo=uplo,
+              dtype=dtype_name(a.dtype), band_size=int(band_size) if band_size else 0,
+              grid=f"{a.dist.grid_size.row}x{a.dist.grid_size.col}", backend=a.device.type)
+    if get_configuration().resume_dir and not (a.distributed and a.grid.multi_process):
+        # the triangle is cut on the device and hashed from the host copy's
+        # buffer: one crossing, no further copy of an n x n array
+        g = a.to_global()
+        tri = (torch.tril(g) if uplo == "L" else torch.triu(g)).cpu().numpy()
+        fp["input_sha"] = hashlib.sha256(np.ascontiguousarray(tri)).hexdigest()[:16]
+    return fp
+
+
+def _commit(ck, stage: str, pack) -> None:
+    """``ck.commit`` of the payload ``pack()``, formed (a host copy) only
+    when checkpoints are armed."""
+    ck.commit(stage, pack() if ck.directory else None)
+
+
+def _pack_red(red) -> dict:
+    return {**matrix_arrays(red.matrix, "matrix"), "taus": red.taus.cpu().numpy(),
+            "band": np.asarray(red.band, dtype=np.int64)}
+
+
+def _load_red(arrays, a) -> BandReduction:
+    return BandReduction(matrix=matrix_from_arrays(arrays, "matrix", a.grid, device=a.device),
+                         taus=torch.from_numpy(arrays["taus"]).to(a.device),
+                         band=int(arrays["band"]))
+
+
+def _pack_tri(tri) -> dict:
+    return {"d": np.asarray(tri.d), "e": np.asarray(tri.e), "v": np.asarray(tri.v),
+            "tau": np.asarray(tri.tau), "phase": np.asarray(tri.phase),
+            "band": np.asarray(tri.band, dtype=np.int64)}
+
+
+def _load_tri(arrays) -> TridiagResult:
+    return TridiagResult(d=arrays["d"], e=arrays["e"], v=arrays["v"], tau=arrays["tau"],
+                         phase=arrays["phase"], band=int(arrays["band"]))
+
+
+def _eigensolver(uplo, a, phases, band_size, donate, keep, resume):
     pt = phases if phases is not None else PhaseTimer()
     fence, fence_t = _fences(phases)
     dc_stats = [] if keep is not None else None
+    ck = hresume.stage_checkpointer("eigensolver", _stage_fingerprint(uplo, a, band_size),
+                                    resume=resume)
     with pt.phase("stage.reduction_to_band"):
-        # hermitianize gives a fresh matrix owned here, donated onward
-        ah = mops.hermitianize(a, uplo, donate=donate)
-        red = reduction_to_band(ah, band_size=band_size, donate=True)
+        if ck.completed("red2band"):
+            red = _load_red(ck.load("red2band"), a)
+        else:
+            # hermitianize gives a fresh matrix owned here, donated onward
+            ah = mops.hermitianize(a, uplo, donate=donate)
+            red = reduction_to_band(ah, band_size=band_size, donate=True)
+            _commit(ck, "red2band", lambda: _pack_red(red))
         fence(red.matrix)
     mp = a.distributed and a.grid.multi_process
     with pt.phase("stage.band_to_tridiag"):
-        # in the multi-process form the band reaches rank (0, 0)'s process
-        # only (None elsewhere), and only that process chases it
-        band = extract_band(red)
-        tri = None if band is None else band_to_tridiag(band, red.band)
-        del band
+        if ck.completed("b2t"):
+            tri = _load_tri(ck.load("b2t"))
+        else:
+            # in the multi-process form the band reaches rank (0, 0)'s
+            # process only (None elsewhere), and only that process chases it
+            band = extract_band(red)
+            tri = None if band is None else band_to_tridiag(band, red.band)
+            del band
+            _commit(ck, "b2t", lambda: _pack_tri(tri))
     with pt.phase("stage.tridiag_solver"):
         lam = z = None
-        if tri is not None:
+        resumed = ck.completed("tridiag")
+        if resumed:
+            arrays = ck.load("tridiag")
+            lam, z = arrays["lam"], torch.from_numpy(arrays["z"]).to(a.device)
+        elif tri is not None:
             lam, z = tridiag_solver(tri.d, tri.e, a.block_size.row, device=a.device,
                                     stats=dc_stats)
             fence_t(z)
@@ -138,24 +214,38 @@ def _eigensolver(uplo, a, phases, band_size, donate, keep):
                                                   src=a.grid.process_rank(0, 0))
             if dc_stats is not None and not owner:
                 dc_stats.extend(got)
+        if not resumed:
+            # every process passes the boundary (a multi-process world
+            # writes nothing, so only rank (0, 0)'s z is ever packed)
+            _commit(ck, "tridiag", lambda: {"lam": np.asarray(lam), "z": z.cpu().numpy()})
     with pt.phase("stage.bt_band_to_tridiag"):
-        if a.distributed:
+        if ck.completed("bt_b2t"):
+            arrays = ck.load("bt_b2t")
+            zb = (matrix_from_arrays(arrays, "zb", a.grid, device=a.device) if a.distributed
+                  else torch.from_numpy(arrays["zb"]).to(a.device))
+        elif a.distributed:
             # Q crosses from rank (0, 0)'s process by one scatter of shards
             zb = bt_band_to_tridiag(tri, Matrix.from_global(
                 z, a.block_size, grid=a.grid, source_rank=a.dist.source_rank,
                 root=RankIndex2D(0, 0), size=a.size, dtype=torch.float64))
-            del z
             fence(zb)
+            _commit(ck, "bt_b2t", lambda: matrix_arrays(zb, "zb"))
         else:
             zb = bt_band_to_tridiag(tri, z)
-            del z
             fence_t(zb)
+            _commit(ck, "bt_b2t", lambda: {"zb": zb.cpu().numpy()})
+        del z
     with pt.phase("stage.bt_reduction_to_band"):
-        out = bt_reduction_to_band(red, zb)
+        if ck.completed("bt_r2b"):
+            vecs = matrix_from_arrays(ck.load("bt_r2b"), "vecs", a.grid, device=a.device)
+        else:
+            out = bt_reduction_to_band(red, zb)
+            vecs = out if a.distributed else Matrix.from_global(
+                out, a.block_size, grid=a.grid, source_rank=a.dist.source_rank,
+                device=a.device)
+            fence(vecs)
+            _commit(ck, "bt_r2b", lambda: matrix_arrays(vecs, "vecs"))
         del zb
-        vecs = out if a.distributed else Matrix.from_global(
-            out, a.block_size, grid=a.grid, source_rank=a.dist.source_rank, device=a.device)
-        fence(vecs)
     if keep is not None:
         keep.update(reduction=red, tridiag=tri, dc_stats=dc_stats)
     return EigensolverResult(lam, vecs)

@@ -17,7 +17,11 @@ bisection over a k x k array); the O(n^2) assembly of the merge's
 coefficient matrix ``qc`` (scatters, the Givens undo, two permutations)
 and the O(n^3) products ``blkdiag(Q1, Q2) @ qc`` run on the device, so Q
 stays there for the whole merge tree and only O(n) vectors (and the host
-route's k x k coefficients) cross.
+route's k x k coefficients) cross. Where the native library of the
+secular solver and the deflation scan cannot be built or loaded, their
+numpy twins run, each degradation counted through :mod:`..health.registry`
+at the reference's sites ``secular`` and ``deflate`` (``DLAF_STRICT``
+raises).
 
 The Givens undo is one launch of the hand-written kernel of
 :mod:`..tile_ops.givens_kernels` for the whole sequence (the reference
@@ -126,11 +130,20 @@ def _secular_roots(ds: np.ndarray, zs: np.ndarray, rho: float):
 
 def _secular_roots_host(ds, zs, rho):
     """The host secular solve: the native safeguarded Newton of
-    ``native/secular.cpp`` (DLA-Future calls LAPACK laed4 here). A failed
-    build raises; there is no fallback."""
-    from ..native import bindings
+    ``native/secular.cpp`` (DLA-Future calls LAPACK laed4 here). When its
+    library cannot be built or loaded, the numpy bisection
+    :func:`_secular_roots` takes over through the degradation registry
+    (``dlaf_fallback_total{site="secular"}``, announced once, a raise under
+    ``DLAF_STRICT``), as the reference's site does."""
+    from ..health.registry import run_with_fallback
 
-    return bindings.secular_roots(ds, zs, rho)
+    def _native():
+        from ..native import bindings
+
+        return bindings.secular_roots(ds, zs, rho)
+
+    return run_with_fallback("secular", _native, lambda: _secular_roots(ds, zs, rho),
+                             expected=RuntimeError)
 
 
 def _deflation_scan_plain(ds, zs, live, tol):
@@ -162,11 +175,19 @@ def _deflation_scan_plain(ds, zs, live, tol):
 
 
 def _deflation_scan(ds, zs, live, tol):
-    """The deflation scan by the native single pass; raises when the
-    library cannot be built."""
-    from ..native import bindings
+    """The deflation scan by the native single pass; when its library
+    cannot be built or loaded, :func:`_deflation_scan_plain` runs, the
+    degradation counted at ``site="deflate"`` (a raise under
+    ``DLAF_STRICT``), as the reference's site does."""
+    try:
+        from ..native import bindings
 
-    return bindings.deflate_scan(ds, zs, live, tol)
+        return bindings.deflate_scan(ds, zs, live, tol)
+    except RuntimeError as e:
+        from ..health.registry import report_fallback
+
+        report_fallback("deflate", "native_unavailable", exc=e)
+    return _deflation_scan_plain(ds, zs, live, tol)
 
 
 def _secular_vcols_device(ds: torch.Tensor, zs: torch.Tensor, rho: float):

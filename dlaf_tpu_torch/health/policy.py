@@ -22,8 +22,9 @@ decision (``ValueError``, ``TypeError``, ``AssertionError``, ``KeyError``,
 is retryable unless ``RetryPolicy(retryable=...)`` narrows it.
 
 An attempt that returns after its deadline (measured with the injected
-``clock``) raises :class:`.errors.DeadlineExceededError` without a retry:
-the work is done and re-running it would be waste.
+``clock``, plus the stall :func:`.inject.hang` arms at the site, which is
+charged without sleeping) raises :class:`.errors.DeadlineExceededError`
+without a retry: the work is done and re-running it would be waste.
 
 Records (reference ``policy.py:169-272``): each retry adds one to
 ``dlaf_retry_total`` per label dict (``{"site": site}`` unless the caller
@@ -32,9 +33,6 @@ exhaustion writes ``give_up``; a deadline breach adds one to
 ``dlaf_deadline_exceeded_total{site}`` and writes ``deadline``; each
 success of :func:`with_policy` feeds its wall to
 ``obs.observe_latency(site, ...)``. All no-ops with metrics off.
-
-Not ported yet: the injected stall ``inject.hang`` (the health-inject
-port).
 """
 
 from __future__ import annotations
@@ -46,6 +44,7 @@ from typing import Callable, Optional
 import numpy as np
 
 from .. import obs
+from . import inject
 from .errors import DeadlineExceededError, HealthError
 
 #: Counter incremented once per retry (labels: site, or the caller's).
@@ -218,7 +217,7 @@ def with_policy(site: str, fn: Callable, *args,
                 raise
             a.fail(reason=type(e).__name__, exc=e)
             continue
-        elapsed = clock() - t0
+        elapsed = clock() - t0 + inject.hang_seconds(site)
         if policy.attempt_deadline_s is not None and elapsed > policy.attempt_deadline_s:
             obs.counter(DEADLINE_COUNTER, site=site).inc()
             _emit(site, "deadline", attempt=a.index,

@@ -8,9 +8,13 @@ ABI) are compiled with g++ at first use into ``dlaf_tpu_torch/_build/``
 with the deflation scan), each keyed by a hash of its sources, the flags
 and the host's instruction set (a ``-march=native`` library is never
 loaded on another CPU), and loaded with ``ctypes``. ``-march=native`` is
-tried first, then the build without it, as in the reference. Unlike the
-reference there is no fallback: a failed build or load raises, once built
-and then from the cache of the error. Nothing here runs at import time.
+tried first, then the build without it, as in the reference. A failed
+build or load raises, the first time and then from the cache of the error
+(the compiler is not respawned on each call), and is logged once at error
+level; the callers' numpy twins take over through
+:mod:`..health.registry` (counted, ``DLAF_STRICT`` raises).
+``health.inject.force_native_failure`` makes every load fail as a build
+would (:data:`_FORCE_BUILD_FAILURE`). Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -44,6 +48,25 @@ def _cpu_tag() -> str:
     except OSError:
         ident += platform.processor()
     return hashlib.sha1(ident.encode()).hexdigest()[:10]
+
+
+#: Test hook (``health.inject.force_native_failure``): when True, every
+#: :meth:`NativeLibrary.load` fails as if the compiler or the loader had,
+#: exercising the cached-error re-raise and every native -> numpy chain
+#: without breaking a real toolchain.
+_FORCE_BUILD_FAILURE = False
+
+
+def _reset_for_tests(force_failure: bool = False) -> None:
+    """Drop both libraries' cached library and error and (un)arm the
+    forced failure, so an injection context neither sees a loaded library
+    nor leaks its failure to later callers."""
+    global _FORCE_BUILD_FAILURE
+    for lib in (LIBRARY, DC_LIBRARY):
+        with lib._lock:
+            lib._lib = None
+            lib._error = None
+    _FORCE_BUILD_FAILURE = bool(force_failure)
 
 
 def _bind_chase(lib) -> None:
@@ -125,10 +148,18 @@ class NativeLibrary:
             if self._error is not None:
                 raise self._error
             try:
+                if _FORCE_BUILD_FAILURE:
+                    raise OSError("forced build failure (health.inject test hook)")
                 lib = ctypes.CDLL(self.build())
                 self._bind(lib)
             except (OSError, AttributeError, subprocess.CalledProcessError) as e:
                 self._error = RuntimeError(f"native {self.name}: build or load failed: {e!r}")
+                from ..obs import get_logger
+
+                # error level: an order-of-magnitude slowdown stays visible
+                # even where DLAF_LOG=error
+                get_logger("native").error(
+                    f"{self.name}: build/load failed ({e!r}); numpy fallbacks in effect")
                 raise self._error from e
             self._lib = lib
             return lib

@@ -327,7 +327,8 @@ def _validate_metrics(r: dict, where: str, errors: list) -> None:
 def validate_records(records, require_spans=False, require_gflops=False,
                      require_collectives=False, require_retries=False,
                      require_comm_overlap=False, require_serve=False,
-                     require_resilience=False, require_flight=False) -> list:
+                     require_resilience=False, require_flight=False,
+                     require_fallbacks=False) -> list:
     """Validate parsed records; returns a list of error strings (empty =
     valid). The ``require_*`` obligations, as the reference's:
 
@@ -348,9 +349,11 @@ def validate_records(records, require_spans=False, require_gflops=False,
       resume, and NO ``dlaf_circuit_state`` gauge left open (2) in the
       last snapshot;
     * ``require_flight``: >= 1 ``flight_trigger`` record with a known
-      reason and >= 1 ordinary record captured by the ring."""
+      reason and >= 1 ordinary record captured by the ring;
+    * ``require_fallbacks``: a positive ``dlaf_fallback_total`` counter in
+      a metrics snapshot (a degradation drill's audit trail)."""
     errors = []
-    n_spans = n_gflops = n_coll = n_retries = 0
+    n_spans = n_gflops = n_coll = n_retries = n_fallbacks = 0
     n_serve_batched = n_serve_miss = n_serve_requests = 0
     n_resilience_proof = 0
     n_flight_triggers = n_flight_context = 0
@@ -422,6 +425,8 @@ def validate_records(records, require_spans=False, require_gflops=False,
                         and m["value"] > 0 and labels.get("algo") \
                         and labels.get("axis"):
                     overlap_axes.add(labels["axis"])
+                if m.get("name") == "dlaf_fallback_total" and m["value"] > 0:
+                    n_fallbacks += 1
                 if m.get("name") == "dlaf_circuit_state":
                     # records are ordered, so this ends at the LAST
                     # snapshot's value per site
@@ -439,6 +444,9 @@ def validate_records(records, require_spans=False, require_gflops=False,
     if require_retries and n_retries == 0:
         errors.append("artifact contains no robust_cholesky.attempt "
                       "retry span (attempt >= 1)")
+    if require_fallbacks and n_fallbacks == 0:
+        errors.append("artifact contains no positive dlaf_fallback_total "
+                      "counter")
     if require_serve:
         if n_serve_batched == 0:
             errors.append("artifact contains no batched serve dispatch "

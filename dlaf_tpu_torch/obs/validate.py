@@ -9,6 +9,8 @@ Flags:
                             positive dlaf_comm_collective_bytes_total
     --require-retries       fail unless >= 1 robust_cholesky.attempt span
                             with attempt >= 1 (an actual shifted retry)
+    --require-fallbacks     fail unless a metrics snapshot carries a
+                            positive dlaf_fallback_total
     --require-comm-overlap  fail unless a metrics snapshot carries positive
                             finite dlaf_comm_overlapped_total{algo,axis}
                             counters AND finite per-axis
@@ -43,8 +45,8 @@ import sys
 from .metrics import prometheus_text
 from .sinks import read_records, validate_records
 
-_REQUIRES = ("spans", "gflops", "collectives", "retries", "comm-overlap",
-             "serve", "resilience", "flight")
+_REQUIRES = ("spans", "gflops", "collectives", "retries", "fallbacks",
+             "comm-overlap", "serve", "resilience", "flight")
 
 
 def main(argv=None) -> int:

@@ -52,9 +52,14 @@ expiry and drain; each request's latency into ``obs.observe_latency``.
 A queue registers itself with the ``/healthz`` exporter at construction,
 and an admission shed trips the flight recorder.
 
+Each dispatch attempt consults ``health.inject.maybe_fail_dispatch``
+inside the retried attempt, as the reference's does, so the dispatch-fault
+drill (``inject.fail_dispatch``) meets the policy's retries and the
+bucket's breaker.
+
 Not ported yet: the reference's per-request accuracy records with their
-residual program (they need ``obs/accuracy.py``), the autotune steering
-and the injected dispatch failures.
+residual program (they need ``obs/accuracy.py``) and the autotune
+steering.
 """
 
 from __future__ import annotations
@@ -73,6 +78,7 @@ from .. import obs
 from ..common.asserts import dlaf_assert
 from ..config import get_configuration, parse_serve_buckets
 from ..health import circuit as _circuit
+from ..health import inject
 from ..health.errors import DeadlineExceededError, DrainedError, OverloadError
 from ..health.policy import RetryPolicy, with_policy
 from .programs import ProgramService, cholesky_spec, eigh_spec, get_service, solve_spec
@@ -574,6 +580,9 @@ class Queue:
         policy = RetryPolicy(max_attempts=self.retry_attempts, backoff_base_s=self.retry_backoff_s)
 
         def _attempt():
+            # the dispatch-fault drill's hook, once per attempt, so the
+            # policy's retries meet the fault again
+            inject.maybe_fail_dispatch()
             # a fresh device copy per attempt: the program is donated the
             # batch, so a retry must not see a half-written one
             args = [torch.from_numpy(x).to(dev, copy=True) for x in host]

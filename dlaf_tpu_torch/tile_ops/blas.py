@@ -218,9 +218,16 @@ def mm_mxu(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def f64_gemm_uses_mxu(dtype: torch.dtype, dim: int, device_type: str) -> bool:
     """Does ``f64_gemm`` route this dtype at block size ``dim`` onto the
-    Ozaki route on ``device_type``?"""
-    return (config.resolve("f64_gemm", device_type) == "mxu" and dtype in _F64
-            and dim >= config.get_configuration().f64_gemm_min_dim)
+    Ozaki route on ``device_type``? The knob and the ``f64_gemm_min_dim``
+    gate are route policy (uncounted); ``health.inject.disable_ozaki``
+    then closes an open route, the degradation counted at
+    ``site="ozaki_gemm"`` (``DLAF_STRICT`` raises)."""
+    if not (config.resolve("f64_gemm", device_type) == "mxu" and dtype in _F64
+            and dim >= config.get_configuration().f64_gemm_min_dim):
+        return False
+    from ..health.registry import route_available
+
+    return route_available("ozaki", "ozaki_gemm")
 
 
 def trsm_panel_uses_mixed(dtype: torch.dtype, device_type: str) -> bool:
@@ -232,10 +239,18 @@ def trsm_panel_uses_mixed(dtype: torch.dtype, device_type: str) -> bool:
 def _mxu_f64(a: torch.Tensor, b: torch.Tensor, dims) -> bool:
     """Does ``f64_gemm`` put this product on the Ozaki route? Both
     operands float64/complex128 and every dimension at least
-    ``f64_gemm_min_dim`` (the reference's ``_mxu_f64``)."""
-    return (config.resolve("f64_gemm", a.device.type) == "mxu"
+    ``f64_gemm_min_dim`` (the reference's ``_mxu_f64``). Unlike the
+    reference's, this tile gate also honours ``health.inject.disable_ozaki``
+    (counted at ``site="ozaki_gemm"``, once a product), so that the drill
+    closes the route for every product, not for the algorithm-level
+    decisions only."""
+    if not (config.resolve("f64_gemm", a.device.type) == "mxu"
             and a.dtype in _F64 and b.dtype in _F64
-            and min(dims) >= config.get_configuration().f64_gemm_min_dim)
+            and min(dims) >= config.get_configuration().f64_gemm_min_dim):
+        return False
+    from ..health.registry import route_available
+
+    return route_available("ozaki", "ozaki_gemm")
 
 
 def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

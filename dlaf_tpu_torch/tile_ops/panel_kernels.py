@@ -411,23 +411,38 @@ def step(uplo: str, diag: torch.Tensor, strip: torch.Tensor, slab: torch.Tensor)
 # Route policy (the reference's panel_uses_fused / step_uses_fused)
 # ---------------------------------------------------------------------------
 
-def _fits(dtype: torch.dtype, nb: int, knob: str) -> bool:
-    if dtype in SUPPORTED and nb <= PANEL_MB_MAX:
-        return True
-    config.announce_once((knob, dtype, nb),
-                         f"{knob}=fused does not apply to dtype={dtype} nb={nb} (needs "
-                         f"float32/bfloat16, nb<={PANEL_MB_MAX}); using the composed route")
-    return False
+def _route(knob: str, site: str, dtype: torch.dtype, nb: int, device_type: str) -> bool:
+    """The fused route's gate (the reference's ``panel_uses_fused`` /
+    ``step_uses_fused``): ``knob`` must resolve to "fused" and the dtype
+    and block fit. Where they do not, an ``auto`` that resolved to "fused"
+    is route policy, announced once; an explicit "fused" is a degradation,
+    counted at ``site`` (``DLAF_STRICT`` raises). A fitting route is then
+    open unless ``health.inject.disable_pallas`` closed it (counted at
+    ``site`` too)."""
+    from ..health.registry import report_fallback, route_available
+
+    if config.resolve(knob, device_type) != "fused":
+        return False
+    if not (dtype in SUPPORTED and nb <= PANEL_MB_MAX):
+        detail = (f"dtype={dtype} nb={nb} (the fused {site} needs float32/bfloat16, "
+                  f"nb<={PANEL_MB_MAX})")
+        if getattr(config.get_configuration(), knob) == "fused":
+            report_fallback(site, "unsupported_dtype" if dtype not in SUPPORTED
+                            else "block_too_large", detail=detail)
+        else:
+            config.announce_once((knob, dtype, nb), f"{knob}=fused does not apply to "
+                                 f"{detail}; using the composed route")
+        return False
+    return route_available("pallas", site)
 
 
 def panel_uses_fused(dtype: torch.dtype, nb: int, device_type: str) -> bool:
-    """Do the potrf/solve tiles go through the panel kernels? Route
-    policy: resolved once per entry, announced once where it declines."""
-    return (config.resolve("panel_impl", device_type) == "fused"
-            and _fits(dtype, nb, "panel_impl"))
+    """Do the potrf/solve tiles go through the panel kernels? Resolved
+    once per entry (site ``panel``)."""
+    return _route("panel_impl", "panel", dtype, nb, device_type)
 
 
 def step_uses_fused(dtype: torch.dtype, nb: int, device_type: str) -> bool:
-    """Does each strip-bearing step go through the fused step kernels?"""
-    return (config.resolve("step_impl", device_type) == "fused"
-            and _fits(dtype, nb, "step_impl"))
+    """Does each strip-bearing step go through the fused step kernels?
+    (site ``step``)"""
+    return _route("step_impl", "step", dtype, nb, device_type)

@@ -129,6 +129,13 @@ def masked_trailing_update(a: torch.Tensor, vr: torch.Tensor, vc: torch.Tensor,
 def supports_update(dtype: torch.dtype, device_type: str) -> bool:
     """Route gate (the reference's ``supports_pallas_update``): float32 and
     bfloat16 on ``cuda``. ``DLAF_FORCE_PALLAS_UPDATE=1``, the reference's
-    test hook, opens it on the CPU too, where the plain version runs."""
+    test hook, opens it on the CPU too, where the plain version runs. That
+    much is route policy (uncounted); ``health.inject.disable_pallas``
+    then closes an open gate, the degradation counted at
+    ``site="pallas_update"`` (``DLAF_STRICT`` raises)."""
     forced = os.environ.get("DLAF_FORCE_PALLAS_UPDATE") == "1"
-    return dtype in SUPPORTED and (device_type == "cuda" or forced)
+    if not (dtype in SUPPORTED and (device_type == "cuda" or forced)):
+        return False
+    from ..health.registry import route_available
+
+    return route_available("pallas", "pallas_update")

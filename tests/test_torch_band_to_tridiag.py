@@ -120,19 +120,37 @@ def test_native_against_numpy_and_eigenvalues(dtype):
 
 
 def test_native_raises_instead_of_falling_back(monkeypatch, tmp_path):
-    """A library that cannot be built raises from the chase, and again
-    from the cached error (no compiler respawn), for either type."""
+    """A library that cannot be built raises from the native chase, and
+    again from the cached error (no compiler respawn), for either type;
+    under ``DLAF_STRICT`` the chase raises rather than fall back, and
+    otherwise it falls back to the reference's numpy chase, bit for bit
+    (the degradation counted: tests/test_torch_health_inject.py)."""
+    from dlaf_tpu_torch.health import circuit
+    from dlaf_tpu_torch.health.errors import DegradationError
+
     broken = pb.NativeLibrary(build_dir=str(tmp_path), cxx="false")
     monkeypatch.setattr(pb, "LIBRARY", broken)
     _, band = random_band(12, 3, np.float64, 1)
     with pytest.raises(RuntimeError, match="build or load failed"):
-        band_to_tridiag(band, 3)
+        pb.band_to_tridiag(band, 3)
     monkeypatch.setattr(broken, "build", lambda: pytest.fail("compiler respawned"))
-    with pytest.raises(RuntimeError, match="build or load failed"):
-        band_to_tridiag(band, 3)
     _, zband = random_band(12, 3, np.complex128, 1)
-    with pytest.raises(RuntimeError, match="build or load failed"):
-        band_to_tridiag(zband, 3)
+    for b in (band, zband):
+        with pytest.raises(RuntimeError, match="build or load failed"):
+            pb.band_to_tridiag(b, 3)
+        got, want = band_to_tridiag(b, 3), j_numpy(b, 3)
+        for f in ("d", "e", "v", "tau", "phase"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    monkeypatch.setenv("DLAF_STRICT", "1")
+    config.initialize()
+    try:
+        with pytest.raises(DegradationError, match="band_to_tridiag"):
+            band_to_tridiag(band, 3)
+    finally:
+        monkeypatch.delenv("DLAF_STRICT")
+        config.initialize()
+        # the failures opened the site's breaker: close it for later tests
+        circuit.reset("fallback.")
 
 
 def test_library_builds_into_the_port(tmp_path):

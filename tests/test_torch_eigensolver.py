@@ -9,7 +9,8 @@ complex128, n=128, nb=32, band 16: eigenvalues against the reference's at
 ``1e-12 scale``, the eigenpair residual ``|A Z - [B] Z diag(lambda)|_F /
 |A|_F`` and the orthogonality ``|Z^H [B] Z - I|_F`` below ``200 n eps``
 (the reference's budgets). Also: ``donate=False`` leaves the inputs'
-storage bitwise unchanged, ``resume=True`` raises, the stage walls and
+storage bitwise unchanged, ``resume=True`` without a resume dir raises,
+the stage walls and
 ``keep``, ``permute_array`` against the reference's, the launch formulas
 ``chip_smoke.py`` asserts (evp-mxu's #6, gen-evp-s's kernels) held by the
 calls of the plain versions, and the two miniapps at a tiny size on the
@@ -159,7 +160,11 @@ def test_donate_false_leaves_the_inputs_bitwise(grid):
 
 
 def test_resume_raises():
-    with pytest.raises(DlafAssertError, match="resume"):
+    """``resume=True`` without a resume dir raises rather than recompute
+    silently (the stage checkpoints themselves: test_torch_resilience.py)."""
+    from dlaf_tpu_torch.health.errors import ResumeError
+
+    with pytest.raises(ResumeError, match="DLAF_RESUME_DIR"):
         pe.eigensolver("L", port(herm(16, np.float64, 1), 4, None), resume=True)
 
 

@@ -1,6 +1,8 @@
 """The port stands alone: importing every module of ``dlaf_tpu_torch``
-(the multi-process ``comm/multihost.py`` and the telemetry package
-``obs`` among them), and ``chip_smoke``,
+(the multi-process ``comm/multihost.py``, the telemetry package ``obs``
+and the resilience modules ``health/inject.py``, ``health/registry.py``,
+``health/resume.py`` and ``matrix/checkpoint.py`` among them), and
+``chip_smoke``,
 loads no ``jax`` module and nothing of the JAX package ``dlaf_tpu``. Checked in a fresh interpreter, since the test process
 itself imports both packages."""
 
@@ -16,6 +18,8 @@ import dlaf_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(dlaf_tpu_torch.__path__, "dlaf_tpu_torch.")]
 assert "dlaf_tpu_torch.comm.multihost" in names, "the multi-process module is not walked"
 assert "dlaf_tpu_torch.obs.exporter" in names, "the obs package is not walked"
+for new in ("health.inject", "health.registry", "health.resume", "matrix.checkpoint"):
+    assert "dlaf_tpu_torch." + new in names, new + " is not walked"
 for name in names:
     importlib.import_module(name)
 import chip_smoke

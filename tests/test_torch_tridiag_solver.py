@@ -245,7 +245,14 @@ def test_native_deflate_scan_matches_plain_and_reference():
 
 def test_native_dc_library_builds_into_the_port(tmp_path, monkeypatch):
     """The D&C library is built from the port's sources into the port's
-    build directory; a failed build raises (no fallback), once."""
+    build directory; a failed build raises from the bindings, once (then
+    from the cached error), and the solver raises under ``DLAF_STRICT``
+    rather than take the numpy twins (which it takes otherwise, counted:
+    tests/test_torch_health_inject.py)."""
+    from dlaf_tpu_torch import config
+    from dlaf_tpu_torch.health import circuit
+    from dlaf_tpu_torch.health.errors import DegradationError
+
     import os
 
     lib = pbind.NativeLibrary(pbind.DC_LIBRARY.srcs, build_dir=str(tmp_path), name="dc",
@@ -257,10 +264,23 @@ def test_native_dc_library_builds_into_the_port(tmp_path, monkeypatch):
     monkeypatch.setattr(pbind, "DC_LIBRARY", broken)
     d, e = case("random", 40)
     with pytest.raises(RuntimeError, match="build or load failed"):
-        pt.tridiag_solver(d, e, 8, device="cpu")
+        pbind.secular_roots(np.arange(3.0), np.ones(3) / 3 ** 0.5, 1.0)
     monkeypatch.setattr(broken, "build", lambda: pytest.fail("compiler respawned"))
     with pytest.raises(RuntimeError, match="build or load failed"):
         pbind.secular_roots(np.arange(3.0), np.ones(3) / 3 ** 0.5, 1.0)
+    lam, _ = pt.tridiag_solver(d, e, 8, device="cpu")
+    np.testing.assert_allclose(lam, sla.eigvalsh_tridiagonal(d, e), rtol=0,
+                               atol=1e-12 * np.abs(lam).max())
+    monkeypatch.setenv("DLAF_STRICT", "1")
+    config.initialize()
+    try:
+        with pytest.raises(DegradationError):
+            pt.tridiag_solver(d, e, 8, device="cpu")
+    finally:
+        monkeypatch.delenv("DLAF_STRICT")
+        config.initialize()
+        # the failures opened the site's breaker: close it for later tests
+        circuit.reset("fallback.")
 
 
 def test_givens_plain_matches_numpy_loop():
