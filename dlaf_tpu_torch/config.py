@@ -10,7 +10,8 @@ the circuit breakers' (``circuit_*``), the resilience layer's (``strict``,
 ``resume_dir``; :mod:`.health.registry`, :mod:`.health.resume`), and the
 observability layer's
 (``log``, ``metrics_path``, ``trace_dir``, ``metrics_port``, ``slo_*``,
-``flight_recorder``; :mod:`.obs`), with the reference's environment
+``flight_recorder``; :mod:`.obs`) and the accuracy probes'
+(``accuracy``; :mod:`.obs.accuracy`), with the reference's environment
 names, defaults and validation (``config.py:400-417, 504-568, 617-624,
 635-670, 776-793, 812-866``). :func:`initialize` configures :mod:`.obs`
 from the resolved knobs, as the reference's does (``config.py:935-939``).
@@ -225,6 +226,17 @@ class Configuration:
     #: incident (breaker open, overload shed, recovery exhausted, /healthz
     #: failure, SLO breach burst). Needs ``metrics_path``. 0 (default): off.
     flight_recorder: int = 0
+    #: Accuracy telemetry (``DLAF_ACCURACY``, :mod:`.obs.accuracy`): "1"
+    #: arms the numerical-quality probes, each landing as an ``accuracy``
+    #: record with its ``dlaf_accuracy_ratio{site,metric}`` gauge: the
+    #: miniapps' timed runs (a seeded Hutchinson probe, O(n^2 k) on the
+    #: device), the D&C's per-level deflation fraction and the serve
+    #: queue's per-request residuals. "full" computes the exact Frobenius
+    #: residuals instead. "0" (default): no records; an explicit check
+    #: (``--check-result``) still computes, with the "1" probe. The factors
+    #: are never touched: every estimator runs after the algorithm, on its
+    #: outputs.
+    accuracy: str = "0"
 
 
 _VALID_CHOICES = {
@@ -241,6 +253,7 @@ _VALID_CHOICES = {
     "dist_step_mode": ("unrolled", "scan", "auto"),
     "hegst_impl": ("blocked", "twosolve", "auto"),
     "log": ("debug", "info", "warning", "error", "off"),
+    "accuracy": ("0", "1", "full"),
 }
 
 #: auto resolution per device type: (cuda choice, cpu choice).

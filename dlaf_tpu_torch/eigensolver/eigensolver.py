@@ -12,17 +12,25 @@ and for ``A x = lambda B x``: cholesky(B) -> gen_to_std -> eigensolver ->
 the triangular back-substitution of the eigenvectors.
 
 On a grid the reduction and both back-transforms run distributed; the
-band crosses to the host for the chase, and the D&C's Q, formed on rank
-(0, 0)'s device, is re-tiled onto the grid with ``Matrix.from_global``, as
-the reference does. In the multi-process form (one process per rank,
-:mod:`..comm.multihost`) the band's tiles are gathered on the process of
-rank (0, 0), which alone runs the chase and the D&C, as the single
-controller runs them once on rank (0, 0)'s device; the chase's arrays
-reach the other processes by the transport's broadcast, the eigenvalues
-as a small object, and Q by one scatter of shards
-(``from_global(root=)``). The other processes wait in that broadcast:
-they hold no ``n x n`` tensor from the band's gather to Q's scatter. Every process returns the same eigenvalues, and stage
-walls are this process's (the miniapps print process 0's).
+band crosses to the host for the chase. Where the D&C shards its merges
+(a grid of several ranks, order at least ``_SHARD_MERGE_MIN_N``;
+:mod:`.tridiag_solver`), its Q comes out 2-D block-sharded over the grid
+and is re-tiled into the block-cyclic ``Matrix`` of the back-transform by
+one exchange between ranks (``BlockQ.to_matrix``): no rank holds the
+whole Q, and nothing is scattered from rank (0, 0). Otherwise Q, formed
+on rank (0, 0)'s device, is cut into the grid's tiles with
+``Matrix.from_global``, as the reference does.
+
+In the multi-process form (one process per rank, :mod:`..comm.multihost`)
+the band's tiles are gathered on the process of rank (0, 0), which alone
+runs the chase; its arrays reach the other processes by the transport's
+broadcast. A sharded D&C then runs on every process, each holding its own
+blocks of Q and computing the same eigenvalues. An unsharded one runs on
+rank (0, 0)'s process only, the eigenvalues crossing as a small object and
+Q by one scatter of shards (``from_global(root=)``); the other processes
+wait in that broadcast, holding no ``n x n`` tensor from the band's
+gather to Q's scatter. Every process returns the same eigenvalues, and
+stage walls are this process's (the miniapps print process 0's).
 
 Records (:mod:`..obs`): the ``eigensolver`` and ``gen_eigensolver`` entry
 spans with the reference's flop model and attrs (``eigensolver.py:112,
@@ -73,7 +81,7 @@ from ..types import dtype_name, total_ops
 from .back_transform import bt_band_to_tridiag, bt_reduction_to_band
 from .band_to_tridiag import TridiagResult, band_to_tridiag, share_tridiag
 from .reduction_to_band import BandReduction, extract_band, reduction_to_band
-from .tridiag_solver import tridiag_solver
+from .tridiag_solver import BlockQ, shards_merges, tridiag_solver
 
 
 @dataclasses.dataclass
@@ -168,7 +176,31 @@ def _load_tri(arrays) -> TridiagResult:
                          phase=arrays["phase"], band=int(arrays["band"]))
 
 
+def _fence_q(fence_t, z) -> None:
+    """``fence_t`` of the D&C's Q, whole or in blocks."""
+    for t in (z.local_blocks() if isinstance(z, BlockQ) else [z]):
+        fence_t(t)
+
+
+def _host_q(z) -> np.ndarray:
+    """The D&C's Q on the host (the ``tridiag`` checkpoint's payload,
+    single controller)."""
+    return (z.to_global() if isinstance(z, BlockQ) else z).cpu().numpy()
+
+
+def _q_matrix(z, a) -> Matrix:
+    """The D&C's Q as the block-cyclic matrix of ``a``'s layout: a sharded
+    Q re-tiled by rank-to-rank exchanges (no rank holds it whole); a
+    whole Q (the tree's root unsharded, or a resumed payload) cut into
+    shards, in the multi-process form sent from rank (0, 0)'s process."""
+    if isinstance(z, BlockQ):
+        return z.to_matrix(a.block_size, a.dist.source_rank)
+    return Matrix.from_global(z, a.block_size, grid=a.grid, source_rank=a.dist.source_rank,
+                              root=RankIndex2D(0, 0), size=a.size, dtype=torch.float64)
+
+
 def _eigensolver(uplo, a, phases, band_size, donate, keep, resume):
+    n = a.size.row
     pt = phases if phases is not None else PhaseTimer()
     fence, fence_t = _fences(phases)
     dc_stats = [] if keep is not None else None
@@ -197,14 +229,21 @@ def _eigensolver(uplo, a, phases, band_size, donate, keep, resume):
     with pt.phase("stage.tridiag_solver"):
         lam = z = None
         resumed = ck.completed("tridiag")
+        # on a grid of several ranks, a D&C whose merges shard runs on
+        # every process, each holding its own blocks of Q
+        sharded = a.distributed and shards_merges(a.grid, n)
         if resumed:
             arrays = ck.load("tridiag")
             lam, z = arrays["lam"], torch.from_numpy(arrays["z"]).to(a.device)
+        elif sharded:
+            tri = share_tridiag(tri, a.grid)
+            lam, z = tridiag_solver(tri.d, tri.e, a.block_size.row, grid=a.grid, stats=dc_stats)
+            _fence_q(fence_t, z)
         elif tri is not None:
             lam, z = tridiag_solver(tri.d, tri.e, a.block_size.row, device=a.device,
                                     stats=dc_stats)
             fence_t(z)
-        if mp:
+        if mp and not sharded:
             # the other processes wait here: the chase's result crosses
             # as arrays, the eigenvalues and the merge statistics (O(n))
             # as one small object
@@ -216,18 +255,15 @@ def _eigensolver(uplo, a, phases, band_size, donate, keep, resume):
                 dc_stats.extend(got)
         if not resumed:
             # every process passes the boundary (a multi-process world
-            # writes nothing, so only rank (0, 0)'s z is ever packed)
-            _commit(ck, "tridiag", lambda: {"lam": np.asarray(lam), "z": z.cpu().numpy()})
+            # writes nothing, so only the single controller's Q is packed)
+            _commit(ck, "tridiag", lambda: {"lam": np.asarray(lam), "z": _host_q(z)})
     with pt.phase("stage.bt_band_to_tridiag"):
         if ck.completed("bt_b2t"):
             arrays = ck.load("bt_b2t")
             zb = (matrix_from_arrays(arrays, "zb", a.grid, device=a.device) if a.distributed
                   else torch.from_numpy(arrays["zb"]).to(a.device))
         elif a.distributed:
-            # Q crosses from rank (0, 0)'s process by one scatter of shards
-            zb = bt_band_to_tridiag(tri, Matrix.from_global(
-                z, a.block_size, grid=a.grid, source_rank=a.dist.source_rank,
-                root=RankIndex2D(0, 0), size=a.size, dtype=torch.float64))
+            zb = bt_band_to_tridiag(tri, _q_matrix(z, a))
             fence(zb)
             _commit(ck, "bt_b2t", lambda: matrix_arrays(zb, "zb"))
         else:

@@ -96,7 +96,8 @@ def tridiag_drift(w_ref: torch.Tensor, res) -> float:
 
 def check(band: np.ndarray, res, device, dtype) -> None:
     w_ref = torch.linalg.eigvalsh(wide(band_matrix(band, device)))
-    if not print_check(tridiag_drift(w_ref, res), band.shape[1], dtype):
+    if not print_check(tridiag_drift(w_ref, res), band.shape[1], dtype,
+                       "miniapp_band_to_tridiag", band.shape[0] - 1, of=w_ref):
         sys.exit(1)
 
 

@@ -34,7 +34,7 @@ from ..eigensolver.back_transform import bt_band_to_tridiag
 from ..eigensolver.band_to_tridiag import band_to_tridiag, share_tridiag
 from ..matrix.matrix import Matrix
 from ..types import dtype_name, total_ops, type_letter
-from .checks import effective_eps
+from .checks import report
 from .miniapp_band_to_tridiag import make_band
 from .options import (CheckIterFreq, add_miniapp_arguments, is_printer, parse_miniapp_options,
                       root_verdict, select_grid)
@@ -106,11 +106,8 @@ def check(tri, em: Matrix, out: Matrix, grid=None) -> None:
         qe = q @ e.to(q.dtype)
         resid = float(torch.linalg.matrix_norm(got.to(q.dtype) - qe)
                       / max(float(torch.linalg.matrix_norm(qe)), 1e-30))
-        eps, label = effective_eps(em.dtype)
-        tol = 100.0 * n * eps
-        verdict = resid == resid and resid < tol
-        print(f"check: {'PASSED' if verdict else 'FAILED'} residual={resid:.3e} "
-              f"tol={tol:.3e}{label}", flush=True)
+        verdict = report("miniapp_bt_band_to_tridiag", "bt_residual", resid, n=n,
+                         nb=em.block_size.row, c=100.0, dtype=em.dtype, of=got)
     root_verdict(grid, verdict)
 
 

@@ -8,8 +8,11 @@ per-run line
     [i] <t>s <gflops>GFlop/s <type><uplo> (m, m) (mb, mb) (P, Q) <threads> <backend>
 
 and check line ``check: PASSED|FAILED residual=... tol=...`` with
-``tol = 60 n eps``. The residual ``|A - L L^H|_F / |A|_F`` is computed
-exactly on the device.
+``tol = 60 n eps``. The residual ``|A - L L^H|_F / |A|_F`` is estimated on
+the device, where the matrices lie, by :func:`..obs.accuracy.
+cholesky_residual`: the seeded probe under ``DLAF_ACCURACY`` "0" and "1",
+exact under "full". Under ``DLAF_ACCURACY`` "1" or "full" every timed run
+that is not checked emits its ``accuracy`` record too.
 
 On a grid (``--grid-rows``, ``--grid-cols``; ``--share-device`` to put
 every rank on one device) the matrix is distributed block-cyclically and
@@ -34,17 +37,15 @@ import os
 import sys
 import time
 
-import numpy as np
-import torch
-
 from .. import config, obs
 from ..algorithms.cholesky import cholesky
 from ..comm import multihost
 from ..comm.sync import barrier
 from ..common.index2d import GlobalElementSize, TileElementSize
 from ..matrix.matrix import Matrix
-from ..tile_ops.blas import hermitian_from, tri_mask
+from ..obs import accuracy
 from ..types import dtype_name, total_ops, type_letter
+from .checks import report
 from .generators import hpd_element_fn
 from .options import (CheckIterFreq, add_miniapp_arguments, is_printer, parse_miniapp_options,
                       select_grid)
@@ -91,43 +92,31 @@ def run(argv=None) -> list[dict]:
                   f"({n}, {n}) ({nb}, {nb}) ({opts.grid_rows}, {opts.grid_cols}) {threads} "
                   f"{device.type}", flush=True)
         results.append({"run": run_i, "time_s": t, "gflops": gflops})
-        if opts.check is CheckIterFreq.ALL or (
-                opts.check is CheckIterFreq.LAST and run_i == opts.nruns - 1):
+        checked = opts.check is CheckIterFreq.ALL or (
+            opts.check is CheckIterFreq.LAST and run_i == opts.nruns - 1)
+        if checked:
             check_cholesky(args.uplo, ref, out)
+        elif accuracy.enabled():
+            # outside the timed region; a checked run records through its check
+            accuracy.emit("miniapp_cholesky", "cholesky_residual",
+                          accuracy.cholesky_residual(args.uplo, ref, out), n=n, nb=nb, c=60.0,
+                          dtype=opts.dtype, of=out,
+                          attrs={"uplo": args.uplo, "run": run_i,
+                                 "grid": f"{opts.grid_rows}x{opts.grid_cols}"})
     # land the counters and histograms in the artifact now, not at exit
     obs.flush()
     return results
 
 
-def cholesky_residual(uplo: str, ref: torch.Tensor, out: torch.Tensor) -> float:
-    """Exact ``|A - L L^H|_F / |A|_F`` (or the ``U^H U`` form) of the
-    global matrix ``ref`` and factor ``out``, computed on their device in
-    their dtype, norms accumulated in float64."""
-    a = hermitian_from(ref, uplo)
-    f = tri_mask(out, uplo)
-    r = a - (f @ f.mH if uplo == "L" else f.mH @ f)
-    wide = torch.complex128 if a.is_complex() else torch.float64
-    num = torch.linalg.vector_norm(r, dtype=wide)
-    den = torch.linalg.vector_norm(a, dtype=wide)
-    return float(num / den) if float(den) else float(num)
-
-
 def check_cholesky(uplo: str, ref: Matrix, out: Matrix) -> None:
-    """Print the ``check:`` line; exit 1 when it fails. In the
-    multi-process form every process gathers the matrices, process 0
-    computes the residual and prints, and every process exits 1 on a
-    failure."""
-    n = ref.size.row
-    a, f = ref.to_global(), out.to_global()
-    verdict = None
-    if is_printer():
-        resid = cholesky_residual(uplo, a, f)
-        tol = 60.0 * max(n, 1) * torch.finfo(ref.dtype.to_real()).eps
-        verdict = bool(np.isfinite(resid) and resid < tol)
-        print(f"check: {'PASSED' if verdict else 'FAILED'} residual={resid:.3e} tol={tol:.3e}",
-              flush=True)
-    del a, f
-    if not multihost.broadcast_object(verdict):
+    """Print the ``check:`` line; exit 1 when it fails. The estimate runs
+    where the matrices lie (in the multi-process form on every process,
+    the partial sums meeting in the grid's collectives): process 0
+    prints, every process exits 1 on a failure."""
+    resid = accuracy.cholesky_residual(uplo, ref, out)
+    if not report("miniapp_cholesky", "cholesky_residual", resid, n=ref.size.row,
+                  nb=ref.block_size.row, c=60.0, dtype=ref.dtype, of=out,
+                  attrs={"uplo": uplo}, printer=is_printer()):
         sys.exit(1)
 
 

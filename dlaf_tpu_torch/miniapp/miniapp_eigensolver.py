@@ -12,8 +12,14 @@ and the per-run line is
 then ``check: PASSED|FAILED residual=... orthogonality=... tol=...``: the
 eigenpair residual ``|A Z - [B] Z diag(lambda)|_F / |A|_F`` and the
 orthogonality ``|Z^H [B] Z - I|_F``, both below ``200 n eps`` (the
-reference's ``EIGEN_BUDGETS``), computed on the device with library
-products in float64 (complex128); a failed check exits 1.
+reference's ``EIGEN_BUDGETS``), estimated on the device where the
+matrices lie (:func:`..obs.accuracy.eigen_residuals`, and
+:func:`..obs.accuracy.b_orthogonality` with B: the seeded probe under
+``DLAF_ACCURACY`` "0" and "1", exact under "full"); a failed check exits
+1. The check and, under ``DLAF_ACCURACY`` "1" or "full", every unchecked
+timed run emit the reference's three ``accuracy`` records (the sampled
+per-pair maximum ``eigenpair_max`` among them); with B the
+``orthogonality`` record is the B-orthogonality the check holds.
 ``--band-size`` (default: the block size) must divide the block size. A
 grid (``--grid-rows``, ``--grid-cols``; ``--share-device`` for every rank
 on one device) runs the distributed pipeline.
@@ -21,8 +27,7 @@ on one device) runs the distributed pipeline.
 BASELINE config #5: gen_eigensolver, float64, N=32768, nb=512, 8x8.
 
 Under ``torchrun`` one process per rank (:mod:`.options`): process 0
-prints the run lines, rank (0, 0)'s process (which alone runs the chase
-and the D&C) the check.
+prints the run lines and the check.
 
 Run:  python -m dlaf_tpu_torch.miniapp.miniapp_eigensolver -m 4096 -b 256 --check-result last
       python -m dlaf_tpu_torch.miniapp.miniapp_eigensolver -m 4096 -b 256 --generalized \\
@@ -36,6 +41,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import sys
 import time
 
 import torch
@@ -46,15 +52,16 @@ from ..comm.sync import barrier
 from ..common.index2d import GlobalElementSize, TileElementSize
 from ..eigensolver.eigensolver import eigensolver, gen_eigensolver
 from ..matrix.matrix import Matrix
+from ..obs import accuracy
 from ..types import dtype_name, total_ops, type_letter
-from .checks import effective_eps
+from .checks import report
 from .generators import hpd_element_fn
 from .miniapp_reduction_to_band import herm_setter, wide
 from .options import (CheckIterFreq, add_miniapp_arguments, is_printer, parse_miniapp_options,
-                      root_verdict, select_grid)
+                      select_grid)
 
 #: Tolerance factors ``c`` of ``c n eps`` (the reference's EIGEN_BUDGETS).
-EIGEN_BUDGETS = {"eigen_residual": 200.0, "orthogonality": 200.0}
+EIGEN_BUDGETS = {"eigen_residual": 200.0, "eigenpair_max": 200.0, "orthogonality": 200.0}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -110,9 +117,18 @@ def run(argv=None) -> list[dict]:
                   f"{name} ({n}, {n}) ({nb}, {nb}) ({opts.grid_rows}, {opts.grid_cols}) "
                   f"{os.cpu_count()} {device.type}", flush=True)
         results.append({"run": run_i, "time_s": t, "gflops": gflops})
-        if opts.check is CheckIterFreq.ALL or (
-                opts.check is CheckIterFreq.LAST and run_i == opts.nruns - 1):
-            check(am, bm, res, grid)
+        checked = opts.check is CheckIterFreq.ALL or (
+            opts.check is CheckIterFreq.LAST and run_i == opts.nruns - 1)
+        if checked:
+            check(am, bm, res, args.uplo)
+        elif accuracy.enabled():
+            # outside the timed region; a checked run records through its check
+            for metric, value in estimates(am, bm, res, args.uplo).items():
+                accuracy.emit("miniapp_eigensolver", metric, value, n=n, nb=nb,
+                              c=EIGEN_BUDGETS[metric], dtype=opts.dtype, of=res.eigenvectors,
+                              attrs={"uplo": args.uplo, "generalized": bool(args.generalized),
+                                     "run": run_i,
+                                     "grid": f"{opts.grid_rows}x{opts.grid_cols}"})
     # land the counters and histograms in the artifact now, not at exit
     obs.flush()
     return results
@@ -132,25 +148,34 @@ def eigen_residuals(a: torch.Tensor, b, lam, z: torch.Tensor) -> dict:
     return {"eigen_residual": float(resid), "orthogonality": float(torch.linalg.matrix_norm(gram))}
 
 
-def check(am: Matrix, bm, res, grid=None) -> None:
+def estimates(am: Matrix, bm, res, uplo: str) -> dict:
+    """The eigenpairs' ``eigen_residual``, ``eigenpair_max`` and
+    ``orthogonality`` (with B: ``|Z^H B Z - I|_F``), estimated where the
+    matrices lie."""
+    vals = accuracy.eigen_residuals(uplo, am, res.eigenvalues, res.eigenvectors, b=bm)
+    if bm is not None:
+        vals["orthogonality"] = accuracy.b_orthogonality(uplo, bm, res.eigenvectors)
+    return vals
+
+
+def check(am: Matrix, bm, res, uplo: str) -> None:
     """The eigenpair residual and orthogonality below ``200 n eps`` each;
-    prints the check line, exits 1 when it fails. In the multi-process form
-    the matrices are gathered on rank (0, 0)'s process, which computes and
-    prints; every process exits 1 on a failure."""
-    n = am.size.row
-    a, z = am.gather_global(), res.eigenvectors.gather_global()
-    b = None if bm is None else bm.gather_global()
-    verdict = None
-    if a is not None:
-        vals = eigen_residuals(a, b, res.eigenvalues, z)
-        eps, label = effective_eps(am.dtype)
-        tol = {k: c * n * eps for k, c in EIGEN_BUDGETS.items()}
-        verdict = all(vals[k] == vals[k] and vals[k] < tol[k] for k in vals)
-        print(f"check: {'PASSED' if verdict else 'FAILED'} "
-              f"residual={vals['eigen_residual']:.3e} orthogonality={vals['orthogonality']:.3e} "
-              f"tol={tol['eigen_residual']:.3e}{label}", flush=True)
-    del a, b, z
-    root_verdict(grid, verdict)
+    prints the check line, exits 1 when it fails. The estimates run where
+    the matrices lie (in the multi-process form on every process): process
+    0 prints, every process exits 1 on a failure."""
+    n, nb = am.size.row, am.block_size.row
+    vals = estimates(am, bm, res, uplo)
+    attrs = {"uplo": uplo, "generalized": bm is not None}
+    passed = {k: accuracy.emit("miniapp_eigensolver", k, v, n=n, nb=nb, c=EIGEN_BUDGETS[k],
+                               dtype=am.dtype, of=res.eigenvectors,
+                               attrs=dict(attrs, check=True)).passed
+              for k, v in vals.items() if k != "eigen_residual"}
+    verdict = report("miniapp_eigensolver", "eigen_residual", vals["eigen_residual"], n=n,
+                     nb=nb, c=EIGEN_BUDGETS["eigen_residual"], dtype=am.dtype,
+                     of=res.eigenvectors, attrs=attrs, printer=is_printer(),
+                     extra=f" orthogonality={vals['orthogonality']:.3e}")
+    if not (verdict and passed["orthogonality"]):
+        sys.exit(1)
 
 
 def main(argv=None) -> int:

@@ -9,18 +9,21 @@ reference's ``total_ops(n^3/2, n^3/2)`` whatever the route's actual work
 
     [i] <t>s <gflops>GFlop/s <type><uplo> (n, n) (nb, nb) (P, Q) <threads> <backend>
 
-then ``check: PASSED|FAILED residual=... tol=...``: the exact residual
+then ``check: PASSED|FAILED residual=... tol=...``: the residual
 ``|L C L^H - A|_F / |A|_F`` (uplo U: ``|U^H C U - A|_F / |A|_F``), A and C
-Hermitian-expanded from their ``uplo`` triangles, computed on the
-device, against ``tol = 100 n eps`` (the reference's c = 100); a failed
-check exits 1. B is :func:`.generators.hpd_element_fn`; A is
+Hermitian-expanded from their ``uplo`` triangles, estimated on the device
+where the matrices lie (:func:`..obs.accuracy.hegst_residual`: the seeded
+probe under ``DLAF_ACCURACY`` "0" and "1", exact under "full"), against
+``tol = 100 n eps`` (the reference's c = 100); a failed check exits 1.
+Under ``DLAF_ACCURACY`` "1" or "full" every unchecked timed run emits its
+``accuracy`` record too. B is :func:`.generators.hpd_element_fn`; A is
 :func:`.generators.herm_element_fn` (the reference takes B's function for
 A too, which makes the standard matrix the identity).
 
 BASELINE config #3: complex128, N=8192, nb=256, 2x2.
 
 Under ``torchrun`` one process per rank (:mod:`.options`), process 0
-printing the run lines and rank (0, 0)'s process the check.
+printing the run lines and the check.
 
 Run:  python -m dlaf_tpu_torch.miniapp.miniapp_gen_to_std -m 8192 -b 256 --type z \\
           --grid-rows 2 --grid-cols 2 --share-device --check-result last
@@ -33,10 +36,8 @@ from __future__ import annotations
 
 import argparse
 import os
+import sys
 import time
-
-import numpy as np
-import torch
 
 from .. import config, obs
 from ..algorithms.cholesky import cholesky
@@ -45,11 +46,12 @@ from ..comm import multihost
 from ..comm.sync import barrier
 from ..common.index2d import GlobalElementSize, TileElementSize
 from ..matrix.matrix import Matrix
-from ..tile_ops.blas import hermitian_from, tri_mask
+from ..obs import accuracy
 from ..types import dtype_name, total_ops, type_letter
+from .checks import report
 from .generators import herm_element_fn, hpd_element_fn
 from .options import (CheckIterFreq, add_miniapp_arguments, is_printer, parse_miniapp_options,
-                      root_verdict, select_grid)
+                      select_grid)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -99,44 +101,31 @@ def run(argv=None) -> list[dict]:
                   f"({n}, {n}) ({nb}, {nb}) ({opts.grid_rows}, {opts.grid_cols}) "
                   f"{os.cpu_count()} {device.type}", flush=True)
         results.append({"run": run_i, "time_s": t, "gflops": gflops})
-        if opts.check is CheckIterFreq.ALL or (
-                opts.check is CheckIterFreq.LAST and run_i == opts.nruns - 1):
-            check(args.uplo, am, bf, out, grid)
+        checked = opts.check is CheckIterFreq.ALL or (
+            opts.check is CheckIterFreq.LAST and run_i == opts.nruns - 1)
+        if checked:
+            check(args.uplo, am, bf, out)
+        elif accuracy.enabled():
+            # outside the timed region; a checked run records through its check
+            accuracy.emit("miniapp_gen_to_std", "hegst_residual",
+                          accuracy.hegst_residual(args.uplo, am, bf, out), n=n, nb=nb, c=100.0,
+                          dtype=opts.dtype, of=out,
+                          attrs={"uplo": args.uplo, "run": run_i,
+                                 "grid": f"{opts.grid_rows}x{opts.grid_cols}"})
     # land the counters and histograms in the artifact now, not at exit
     obs.flush()
     return results
 
 
-def hegst_residual(uplo: str, a: torch.Tensor, bf: torch.Tensor, out: torch.Tensor) -> float:
-    """Exact ``|L C L^H - A|_F / |A|_F`` (uplo U: ``|U^H C U - A|_F /
-    |A|_F``) of the global matrices, on their device, norms accumulated in
-    float64 (complex128)."""
-    ag = hermitian_from(a, uplo)
-    c = hermitian_from(out, uplo)
-    f = tri_mask(bf, uplo)
-    r = (f @ c @ f.mH if uplo == "L" else f.mH @ c @ f) - ag
-    wide = torch.complex128 if ag.is_complex() else torch.float64
-    num = torch.linalg.vector_norm(r, dtype=wide)
-    den = torch.linalg.vector_norm(ag, dtype=wide)
-    return float(num / den) if float(den) else float(num)
-
-
-def check(uplo: str, am: Matrix, bf: Matrix, out: Matrix, grid=None) -> None:
-    """Print the ``check:`` line; exit 1 when it fails. In the
-    multi-process form the matrices are gathered on the process of rank
-    (0, 0), which computes the residual and prints; every process exits 1
-    on a failure."""
-    n = am.size.row
-    mats = [m.gather_global() for m in (am, bf, out)]
-    verdict = None
-    if mats[0] is not None:
-        resid = hegst_residual(uplo, *mats)
-        tol = 100.0 * max(n, 1) * torch.finfo(am.dtype.to_real()).eps
-        verdict = bool(np.isfinite(resid) and resid < tol)
-        print(f"check: {'PASSED' if verdict else 'FAILED'} residual={resid:.3e} tol={tol:.3e}",
-              flush=True)
-    del mats
-    root_verdict(grid, verdict)
+def check(uplo: str, am: Matrix, bf: Matrix, out: Matrix) -> None:
+    """Print the ``check:`` line; exit 1 when it fails. The estimate runs
+    where the matrices lie (in the multi-process form on every process):
+    process 0 prints, every process exits 1 on a failure."""
+    resid = accuracy.hegst_residual(uplo, am, bf, out)
+    if not report("miniapp_gen_to_std", "hegst_residual", resid, n=am.size.row,
+                  nb=am.block_size.row, c=100.0, dtype=am.dtype, of=out,
+                  attrs={"uplo": uplo}, printer=is_printer()):
+        sys.exit(1)
 
 
 def main(argv=None) -> int:

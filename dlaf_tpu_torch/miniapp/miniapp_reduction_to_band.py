@@ -49,6 +49,7 @@ from ..common.index2d import GlobalElementSize, TileElementSize
 from ..eigensolver.reduction_to_band import extract_band, reduction_to_band
 from ..matrix.matrix import Matrix
 from ..types import dtype_name, total_ops, type_letter
+from .checks import report
 from .options import (CheckIterFreq, add_miniapp_arguments, is_printer, parse_miniapp_options,
                       root_verdict, select_grid)
 
@@ -133,14 +134,13 @@ def wide(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.complex128 if x.is_complex() else torch.float64)
 
 
-def print_check(resid: float, n: int, dtype) -> bool:
-    """Print the ``check:`` line against ``100 n eps`` of ``dtype``; returns
-    whether it passed."""
-    tol = 100.0 * max(n, 1) * float(np.finfo(np.dtype(dtype).type(0).real.dtype).eps)
-    passed = bool(np.isfinite(resid) and resid < tol)
-    print(f"check: {'PASSED' if passed else 'FAILED'} residual={resid:.3e} tol={tol:.3e}",
-          flush=True)
-    return passed
+def print_check(resid: float, n: int, dtype, site: str, nb: int, of=None, attrs=None) -> bool:
+    """Print the ``check:`` line of an eigenvalue drift against ``100 n
+    eps`` of ``dtype`` and record it (an ``accuracy`` record of metric
+    ``eigenvalue_drift`` at ``site``, the reference's); returns whether it
+    passed."""
+    return report(site, "eigenvalue_drift", resid, n=n, nb=nb, c=100.0, dtype=dtype, of=of,
+                  attrs=attrs)
 
 
 @functools.lru_cache(maxsize=4)
@@ -162,7 +162,8 @@ def check(ref: Matrix, red, grid=None) -> None:
         dev = ref.device
         resid = eigenvalue_drift(setter_eigenvalues(ref.size.row, ref.dtype, dev),
                                  torch.linalg.eigvalsh(wide(band_matrix(band, dev))))
-        verdict = print_check(resid, ref.size.row, str(ref.dtype).removeprefix("torch."))
+        verdict = print_check(resid, ref.size.row, ref.dtype, "miniapp_reduction_to_band",
+                              ref.block_size.row, of=band, attrs={"band": red.band})
     root_verdict(grid, verdict)
 
 

@@ -10,9 +10,11 @@ L, m n^2 / 2 for R), and the same per-run line
     [i] <t>s <gflops>GFlop/s <type><side><uplo><op><diag> (m, n) (nb, nb) (P, Q) <threads> <backend>
 
 then ``check: PASSED|FAILED residual=... tol=...``: the residual
-``|op(T) X - B|_F / |B|_F`` is computed exactly on the device (the
-reference estimates it with a Hutchinson probe), ``tol = 60 max(m, n)
-eps``; a failed check exits 1.
+``|op(T) X - B|_F / |B|_F`` is estimated on the device where the matrices
+lie (:func:`..obs.accuracy.trsm_residual`: the seeded probe under
+``DLAF_ACCURACY`` "0" and "1", exact under "full"), ``tol = 60 max(m, n)
+eps``; a failed check exits 1. Under ``DLAF_ACCURACY`` "1" or "full" every
+unchecked timed run emits its ``accuracy`` record too.
 
 Under ``torchrun`` one process drives each rank of the grid
 (:mod:`.options`): process 0 prints, and every process exits 1 when the
@@ -29,7 +31,6 @@ import os
 import sys
 import time
 
-import numpy as np
 import torch
 
 from .. import config, obs
@@ -38,8 +39,9 @@ from ..comm import multihost
 from ..comm.sync import barrier
 from ..common.index2d import GlobalElementSize, TileElementSize
 from ..matrix.matrix import Matrix
-from ..tile_ops.blas import _op, _tri
+from ..obs import accuracy
 from ..types import dtype_name, total_ops, type_letter
+from .checks import report
 from .options import (CheckIterFreq, add_miniapp_arguments, is_printer, parse_miniapp_options,
                       select_grid)
 
@@ -108,39 +110,34 @@ def run(argv=None) -> list[dict]:
                   f"({m}, {n}) ({nb}, {nb}) ({opts.grid_rows}, {opts.grid_cols}) "
                   f"{os.cpu_count()} {device.type}", flush=True)
         results.append({"run": run_i, "time_s": t, "gflops": gflops})
-        if opts.check is CheckIterFreq.ALL or (
-                opts.check is CheckIterFreq.LAST and run_i == opts.nruns - 1):
+        checked = opts.check is CheckIterFreq.ALL or (
+            opts.check is CheckIterFreq.LAST and run_i == opts.nruns - 1)
+        if checked:
             check(args, am, bm, out)
+        elif accuracy.enabled():
+            # outside the timed region; a checked run records through its check
+            accuracy.emit("miniapp_triangular_solver", "trsm_residual",
+                          accuracy.trsm_residual(args.side, args.uplo, args.op, args.diag, 1.0,
+                                                 am, bm, out),
+                          n=max(m, n), nb=nb, c=60.0, dtype=opts.dtype, of=out,
+                          attrs={"side": args.side, "uplo": args.uplo, "op": args.op,
+                                 "diag": args.diag, "run": run_i,
+                                 "grid": f"{opts.grid_rows}x{opts.grid_cols}"})
     # land the counters and histograms in the artifact now, not at exit
     obs.flush()
     return results
 
 
-def trsm_residual(side, uplo, op, diag, a: torch.Tensor, b: torch.Tensor,
-                  x: torch.Tensor) -> float:
-    """Exact ``|op(T) X - B|_F / |B|_F`` of the global matrices on their
-    device, norms accumulated in float64 (complex128)."""
-    t = _op(_tri(a, uplo, diag), op)
-    r = (t @ x if side == "L" else x @ t) - b
-    wide = torch.complex128 if b.is_complex() else torch.float64
-    num = torch.linalg.vector_norm(r, dtype=wide)
-    den = torch.linalg.vector_norm(b, dtype=wide)
-    return float(num / den) if float(den) else float(num)
-
-
 def check(args, am: Matrix, bm: Matrix, out: Matrix) -> None:
-    """Print the ``check:`` line; exit 1 when it fails (every process, in
-    the multi-process form; process 0 computes and prints)."""
-    ag, bg, xg = am.to_global(), bm.to_global(), out.to_global()
-    verdict = None
-    if is_printer():
-        resid = trsm_residual(args.side, args.uplo, args.op, args.diag, ag, bg, xg)
-        tol = 60.0 * max(args.m, args.n, 1) * torch.finfo(bm.dtype.to_real()).eps
-        verdict = bool(np.isfinite(resid) and resid < tol)
-        print(f"check: {'PASSED' if verdict else 'FAILED'} residual={resid:.3e} tol={tol:.3e}",
-              flush=True)
-    del ag, bg, xg
-    if not multihost.broadcast_object(verdict):
+    """Print the ``check:`` line (``|op(T) X - B|_F / |B|_F`` below ``60
+    max(m, n) eps``, estimated where the matrices lie by
+    :func:`..obs.accuracy.trsm_residual`); exit 1 when it fails (every
+    process, in the multi-process form; process 0 prints)."""
+    resid = accuracy.trsm_residual(args.side, args.uplo, args.op, args.diag, 1.0, am, bm, out)
+    if not report("miniapp_triangular_solver", "trsm_residual", resid, n=max(args.m, args.n),
+                  nb=args.block_size, c=60.0, dtype=am.dtype, of=out,
+                  attrs={"side": args.side, "uplo": args.uplo, "op": args.op,
+                         "diag": args.diag}, printer=is_printer()):
         sys.exit(1)
 
 

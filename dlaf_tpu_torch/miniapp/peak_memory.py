@@ -1,0 +1,46 @@
+"""Run a miniapp, then print this process's peak device memory.
+
+    python dlaf_tpu_torch/miniapp/peak_memory.py MODULE [ARGS...]
+    torchrun --standalone --nproc-per-node 4 dlaf_tpu_torch/miniapp/peak_memory.py \\
+        miniapp_gen_eigensolver -m 16384 -b 256 --grid-rows 2 --grid-cols 2 --type d
+
+runs ``dlaf_tpu_torch.miniapp.MODULE`` with ARGS (its ``main``), then
+prints, on every process, for the card it allocated most on,
+
+    [peak] process <rank> <device>: max_memory_allocated <GiB> GiB, max_memory_reserved <GiB> GiB
+
+It imports the package by absolute name and takes nothing else from it, so
+the same file measures another checkout of the package put first on
+``PYTHONPATH`` (an older tree beside this one, in one call).
+"""
+
+from __future__ import annotations
+
+import importlib
+import os
+import sys
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv:
+        print(__doc__, file=sys.stderr)
+        return 2
+    import torch
+
+    mod = importlib.import_module(f"dlaf_tpu_torch.miniapp.{argv[0]}")
+    mod.main(argv[1:])
+    rank = int(os.environ.get("RANK", "0"))
+    if torch.cuda.is_available():
+        # the card this process allocated most on (its rank's)
+        dev = max(range(torch.cuda.device_count()), key=torch.cuda.max_memory_allocated)
+        print(f"[peak] process {rank} cuda:{dev}: max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.3f} GiB, max_memory_reserved "
+              f"{torch.cuda.max_memory_reserved(dev) / 2 ** 30:.3f} GiB", flush=True)
+    else:
+        print(f"[peak] process {rank} cpu: no device memory", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

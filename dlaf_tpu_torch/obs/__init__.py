@@ -1,8 +1,7 @@
 """dlaf_tpu_torch.obs: structured tracing, metrics and logging.
 
 Port of ``dlaf_tpu/obs/`` less its offline analysers (``aggregate``,
-``critpath``, ``devtrace``), its accuracy probes (``accuracy``) and its
-program telemetry (``telemetry``). The knobs, layered like every other
+``critpath``, ``devtrace``) and its program telemetry (``telemetry``). The knobs, layered like every other
 :class:`dlaf_tpu_torch.config.Configuration` field (default < user struct
 < env < ``--dlaf:`` argument):
 
@@ -22,6 +21,8 @@ program telemetry (``telemetry``). The knobs, layered like every other
   rolling latency windows and burn counter (:mod:`.slo`).
 * ``DLAF_FLIGHT_RECORDER``: the ring of the last N records, dumped on
   incidents (:mod:`.flight`).
+* ``DLAF_ACCURACY`` (``accuracy``): the numerical-quality probes and their
+  ``accuracy`` records (:mod:`.accuracy`), imported where they are used.
 
 **Counting rule.** The reference counts collectives, Cholesky steps, tile
 ops and D&C merges when a program is TRACED, once per compiled program.

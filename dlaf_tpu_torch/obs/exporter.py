@@ -13,14 +13,16 @@ routes:
   classic 0.0.4 text with no exemplar clause, which that grammar lacks.
 * ``GET /healthz``: one JSON object: each registered queue's
   ``Queue.stats()`` (exactly the structure the method returns), every
-  circuit breaker's state, the rolling SLO window state (one entry per
-  (op, bucket) with the ``dlaf_serve_latency_window`` p50/p95/p99 gauge
-  values, and the ``dlaf_slo_breach_total`` burn counters), and process
-  rank, pid and uptime. A payload build failure answers 500 AND trips the
+  circuit breaker's state, the worst live ``dlaf_accuracy_ratio`` gauge
+  (``accuracy.worst_bound_ratio``, None before any accuracy record), the
+  rolling SLO window state (one entry per (op, bucket) with the
+  ``dlaf_serve_latency_window`` p50/p95/p99 gauge values, and the
+  ``dlaf_slo_breach_total`` burn counters), and process rank, pid and
+  uptime. A payload build failure answers 500 AND trips the
   flight recorder (``healthz_failure``).
 
-The reference's ``accuracy`` and ``fleet`` entries come with the ports of
-``obs/accuracy.py`` and ``fleet/``. Queues register themselves at
+The reference's ``fleet`` entry comes with the port of ``fleet/``. Queues
+register themselves at
 construction (weakrefs: a dropped queue disappears from ``/healthz``).
 ``obs.configure`` owns the lifecycle: a port change restarts the server;
 ``obs._shutdown`` (atexit) and ``_reset_for_tests`` stop it.
@@ -93,6 +95,7 @@ def healthz_payload() -> dict:
         return float(v) if isinstance(v, (int, float)) \
             and not isinstance(v, bool) and math.isfinite(v) else None
 
+    worst = None
     slo_rows: dict = {}
     breaches: dict = {}
     reg = STATE.registry
@@ -103,7 +106,11 @@ def healthz_payload() -> dict:
         for m in reg.snapshot():
             name = m.get("name")
             labels = m.get("labels") or {}
-            if name == WINDOW_GAUGE and labels.get("q") in q_keys:
+            if name == "dlaf_accuracy_ratio":
+                v = safe(m.get("value"))
+                if v is not None and (worst is None or v > worst):
+                    worst = v
+            elif name == WINDOW_GAUGE and labels.get("q") in q_keys:
                 key = (labels.get("op", ""), labels.get("bucket", ""))
                 cell = slo_rows.setdefault(
                     key, {"op": key[0], "bucket": key[1]})
@@ -118,6 +125,7 @@ def healthz_payload() -> dict:
                      if _started_at is not None else 0.0),
         "queues": [q.stats() for q in live_queues()],
         "breakers": circuit.states(),
+        "accuracy": {"worst_bound_ratio": worst},
         "slo": {"windows": [slo_rows[k] for k in sorted(slo_rows)],
                 "breaches": breaches},
     }

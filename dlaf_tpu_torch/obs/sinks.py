@@ -38,6 +38,15 @@ type:
     >= 0, optional ``stages`` object of finite walls); ``request``: one
     served request (``op`` str, ``n`` int >= 1, ``bucket_n`` >= n,
     ``dtype`` str, finite ``queue_s``/``total_s`` >= 0, ``attrs``).
+``accuracy``
+    Numerical-quality record (:mod:`.accuracy`, the ``DLAF_ACCURACY``
+    knob): ``site``, ``metric``, ``platform`` and ``dtype`` non-empty strs,
+    ``n``/``nb`` non-negative ints, ``attrs`` object; ``value`` finite >= 0,
+    or null with ``nonfinite: true``. A budgeted metric also carries
+    finite ``bound_ratio = value / (c * n * eps)`` >= 0 with its ``c`` and
+    ``eps_eff`` (an informational metric, the D&C deflation fraction,
+    carries none); no record carries both ``bound_ratio`` and
+    ``nonfinite``.
 ``flight_trigger``
     Header of a flight-recorder dump: ``reason`` one of
     :data:`FLIGHT_REASONS`, ``dump_seq`` int >= 1, ``records`` int >= 0,
@@ -53,12 +62,12 @@ batch) and ``span_id`` (non-empty str).
 :func:`validate_records` is the schema owner behind the tests and
 ``python -m dlaf_tpu_torch.obs.validate``; its ``require_*`` flags are the
 reference's for the records above: spans, gflops, collectives, retries,
-comm-overlap, serve, resilience and flight. ``require_serve`` drops the
-reference's leg of a per-request ``accuracy`` record, whose emitter
-(``obs/accuracy.py``) is not ported yet. The validators of the
-``program``, ``accuracy``, ``devtrace``, ``critpath``/``whatif``/
-``schedule``, ``autotune`` and ``fleet`` records, and the history lines,
-come with the modules that emit them.
+comm-overlap, accuracy, serve, resilience and flight. The accuracy
+history lines (``.accuracy_history.jsonl``) have their own reader,
+:func:`validate_history_records`. The validators of the ``program``,
+``devtrace``, ``critpath``/``whatif``/``schedule``, ``autotune`` and
+``fleet`` records, and the bench history lines, come with the modules
+that emit them.
 """
 
 from __future__ import annotations
@@ -72,7 +81,8 @@ import time
 SCHEMA_VERSION = 1
 
 #: The record types this port writes.
-KNOWN_TYPES = ("span", "metrics", "log", "serve", "resilience", "flight_trigger")
+KNOWN_TYPES = ("span", "metrics", "log", "accuracy", "serve", "resilience",
+               "flight_trigger")
 
 #: The resilience record's event vocabulary (schema above).
 RESILIENCE_EVENTS = ("retry", "give_up", "deadline", "circuit_open",
@@ -188,6 +198,30 @@ def _validate_span(r: dict, where: str, errors: list) -> None:
             if not _finite(attrs.get(key)):
                 errors.append(
                     f"{where}: retry span missing finite attr {key!r}")
+
+
+def _validate_accuracy(r: dict, where: str, errors: list) -> None:
+    for key in ("site", "metric", "platform", "dtype"):
+        if not isinstance(r.get(key), str) or not r.get(key):
+            errors.append(f"{where}: accuracy record without a {key}")
+    for key in ("n", "nb"):
+        if not isinstance(r.get(key), int) or isinstance(r.get(key), bool) \
+                or r.get(key, -1) < 0:
+            errors.append(f"{where}: accuracy {key} must be a non-negative int")
+    value = r.get("value")
+    if r.get("nonfinite") is True:
+        if value is not None:
+            errors.append(f"{where}: nonfinite accuracy record must carry value null")
+        if "bound_ratio" in r:
+            errors.append(f"{where}: nonfinite accuracy record must not carry bound_ratio")
+    elif not _finite(value) or value < 0:
+        errors.append(f"{where}: accuracy value missing/non-finite/negative (use value "
+                      "null + nonfinite true for corrupted estimates)")
+    for key in ("bound_ratio", "c", "eps_eff"):
+        if key in r and (not _finite(r[key]) or r[key] < 0):
+            errors.append(f"{where}: accuracy {key} non-finite/negative")
+    if not isinstance(r.get("attrs", {}), dict):
+        errors.append(f"{where}: accuracy attrs must be an object")
 
 
 def _validate_serve(r: dict, where: str, errors: list) -> None:
@@ -328,7 +362,7 @@ def validate_records(records, require_spans=False, require_gflops=False,
                      require_collectives=False, require_retries=False,
                      require_comm_overlap=False, require_serve=False,
                      require_resilience=False, require_flight=False,
-                     require_fallbacks=False) -> list:
+                     require_fallbacks=False, require_accuracy=False) -> list:
     """Validate parsed records; returns a list of error strings (empty =
     valid). The ``require_*`` obligations, as the reference's:
 
@@ -341,10 +375,13 @@ def validate_records(records, require_spans=False, require_gflops=False,
     * ``require_comm_overlap``: positive ``dlaf_comm_overlapped_total
       {algo,axis}`` counters and per-axis
       ``dlaf_comm_collective_bytes_total`` for BOTH grid axes;
+    * ``require_accuracy``: >= 1 ``accuracy`` record with a finite value
+      and bound_ratio (an informational or non-finite record does not
+      count);
     * ``require_serve``: a warmed steady-state stream: >= 1 dispatch with
       >= 2 lanes and a cache hit, NO cache-miss dispatch, >= 1 request
-      with finite latency (the reference's per-request accuracy leg waits
-      for ``obs/accuracy.py``);
+      with finite latency and >= 1 ``accuracy`` record of site ``serve``
+      with a finite value and bound_ratio;
     * ``require_resilience``: >= 1 ``resilience`` record of event retry or
       resume, and NO ``dlaf_circuit_state`` gauge left open (2) in the
       last snapshot;
@@ -355,6 +392,7 @@ def validate_records(records, require_spans=False, require_gflops=False,
     errors = []
     n_spans = n_gflops = n_coll = n_retries = n_fallbacks = 0
     n_serve_batched = n_serve_miss = n_serve_requests = 0
+    n_accuracy = n_serve_accuracy = 0
     n_resilience_proof = 0
     n_flight_triggers = n_flight_context = 0
     circuit_state = {}                # site -> latest gauge value seen
@@ -385,7 +423,13 @@ def validate_records(records, require_spans=False, require_gflops=False,
                 n_flight_triggers += 1
             continue
         n_flight_context += 1
-        if rtype == "resilience":
+        if rtype == "accuracy":
+            _validate_accuracy(r, where, errors)
+            if _finite(r.get("value")) and _finite(r.get("bound_ratio")):
+                n_accuracy += 1
+                if r.get("site") == "serve":
+                    n_serve_accuracy += 1
+        elif rtype == "resilience":
             _validate_resilience(r, where, errors)
             if r.get("event") in ("retry", "resume"):
                 n_resilience_proof += 1
@@ -458,6 +502,12 @@ def validate_records(records, require_spans=False, require_gflops=False,
         if n_serve_requests == 0:
             errors.append("artifact contains no serve request record with "
                           "finite latency")
+        if n_serve_accuracy == 0:
+            errors.append("artifact contains no per-request accuracy "
+                          "record (site serve, finite value+bound_ratio)")
+    if require_accuracy and n_accuracy == 0:
+        errors.append("artifact contains no accuracy record with finite "
+                      "value and bound_ratio")
     if require_resilience:
         if n_resilience_proof == 0:
             errors.append("artifact contains no resilience retry/resume "
@@ -483,6 +533,30 @@ def validate_records(records, require_spans=False, require_gflops=False,
                           "dlaf_comm_collective_bytes_total for both grid "
                           f"axes (got {sorted(byte_axes)})")
     return errors
+
+
+#: An accuracy history line's fields (the reference's ``HISTORY_KINDS
+#: ["accuracy"]``): numeric ones finite, string ones non-empty.
+ACCURACY_HISTORY_FIELDS = (("value", "bound_ratio", "n", "nb"),
+                           ("site", "metric", "platform", "dtype", "ts", "source"))
+
+
+def validate_history_line(line: dict) -> list:
+    """Error strings for ONE accuracy history line (empty = valid)."""
+    if not isinstance(line, dict):
+        return ["accuracy history line is not an object"]
+    numeric, strings = ACCURACY_HISTORY_FIELDS
+    errors = [f"accuracy history field {key!r} missing/non-finite (got {line.get(key)!r})"
+              for key in numeric if not _finite(line.get(key))]
+    errors += [f"accuracy history field {key!r} missing/empty"
+               for key in strings if not isinstance(line.get(key), str) or not line.get(key)]
+    return errors
+
+
+def validate_history_records(records) -> list:
+    """Errors of an append-only accuracy history log, by entry."""
+    return [f"entry {i}: {e}" for i, line in enumerate(records)
+            for e in validate_history_line(line)]
 
 
 def read_records(path: str) -> list:

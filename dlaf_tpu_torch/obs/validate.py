@@ -16,11 +16,16 @@ Flags:
                             counters AND finite per-axis
                             dlaf_comm_collective_bytes_total for BOTH grid
                             axes (the comm look-ahead audit trail)
+    --require-accuracy      fail unless >= 1 accuracy record carries a
+                            finite value and bound_ratio (the
+                            DLAF_ACCURACY audit trail)
     --require-serve         fail unless the artifact carries a warmed
                             steady-state serving trail: >= 1 batched serve
                             dispatch (lanes >= 2, cache hit), ZERO
-                            cache-miss dispatches and >= 1 request record
-                            with finite latency
+                            cache-miss dispatches, >= 1 request record
+                            with finite latency and >= 1 per-request
+                            accuracy record (site serve, finite value and
+                            bound_ratio)
     --require-resilience    fail unless the artifact carries >= 1
                             resilience record with event retry or resume,
                             and NO dlaf_circuit_state gauge left at the
@@ -29,6 +34,11 @@ Flags:
                             incident dump: >= 1 flight_trigger record with
                             a known reason AND >= 1 ordinary pre-trigger
                             record captured by the ring
+    --accuracy-history      validate the file as an append-only accuracy
+                            history log (finite value/bound_ratio/n/nb,
+                            non-empty site/metric/platform/dtype/ts/
+                            source) instead of an artifact; incompatible
+                            with the --require-* flags
     --prom                  print the last metrics snapshot as Prometheus
                             text exposition after validating
 
@@ -43,18 +53,19 @@ from __future__ import annotations
 import sys
 
 from .metrics import prometheus_text
-from .sinks import read_records, validate_records
+from .sinks import read_records, validate_history_records, validate_records
 
 _REQUIRES = ("spans", "gflops", "collectives", "retries", "fallbacks",
-             "comm-overlap", "serve", "resilience", "flight")
+             "comm-overlap", "accuracy", "serve", "resilience", "flight")
 
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     flags = {a for a in argv if a.startswith("--")}
     paths = [a for a in argv if not a.startswith("--")]
-    known = {f"--require-{r}" for r in _REQUIRES} | {"--prom"}
-    if len(paths) != 1 or flags - known:
+    known = {f"--require-{r}" for r in _REQUIRES} | {"--prom", "--accuracy-history"}
+    history = "--accuracy-history" in flags
+    if len(paths) != 1 or flags - known or (history and len(flags) > 1):
         print(__doc__, file=sys.stderr)
         return 2
     path = paths[0]
@@ -63,6 +74,14 @@ def main(argv=None) -> int:
     except (OSError, ValueError) as e:
         print(f"INVALID {path}: {e}", file=sys.stderr)
         return 1
+    if history:
+        errors = validate_history_records(records)
+        for e in errors:
+            print(f"INVALID {path}: {e}", file=sys.stderr)
+        if errors:
+            return 1
+        print(f"VALID {path}: {len(records)} accuracy history entries")
+        return 0
     errors = validate_records(
         records, **{"require_" + r.replace("-", "_"): f"--require-{r}" in flags
                     for r in _REQUIRES})
@@ -71,10 +90,12 @@ def main(argv=None) -> int:
             print(f"INVALID {path}: {e}", file=sys.stderr)
         return 1
     counts = {t: sum(r.get("type") == t for r in records)
-              for t in ("span", "log", "serve", "resilience", "flight_trigger")}
+              for t in ("span", "log", "accuracy", "serve", "resilience",
+                        "flight_trigger")}
     snaps = [r for r in records if r.get("type") == "metrics"]
     ranks = sorted({r["rank"] for r in records if "rank" in r})
-    extra = f", {counts['serve']} serve records" if counts["serve"] else ""
+    extra = f", {counts['accuracy']} accuracy records" if counts["accuracy"] else ""
+    extra += f", {counts['serve']} serve records" if counts["serve"] else ""
     extra += f", {counts['resilience']} resilience records" if counts["resilience"] else ""
     extra += f", {counts['flight_trigger']} flight triggers" if counts["flight_trigger"] else ""
     extra += f", ranks {ranks}" if ranks else ""

@@ -57,9 +57,10 @@ inside the retried attempt, as the reference's does, so the dispatch-fault
 drill (``inject.fail_dispatch``) meets the policy's retries and the
 bucket's breaker.
 
-Not ported yet: the reference's per-request accuracy records with their
-residual program (they need ``obs/accuracy.py``) and the autotune
-steering.
+Under ``DLAF_ACCURACY`` (with metrics on) each request also gets an
+``accuracy`` record of site ``serve`` with its lane's exact residual
+(:func:`_residuals`, the reference's ``_residual_prog``), through
+:func:`..obs.accuracy.emit`. Not ported yet: the autotune steering.
 """
 
 from __future__ import annotations
@@ -76,6 +77,7 @@ import torch
 
 from .. import obs
 from ..common.asserts import dlaf_assert
+from ..obs import accuracy as obs_accuracy
 from ..config import get_configuration, parse_serve_buckets
 from ..health import circuit as _circuit
 from ..health import inject
@@ -621,7 +623,10 @@ class Queue:
                                "unpad_s": float(t_unpad - t1)})
         if not obs.metrics_active():
             return
-        for req, ticket in zip(reqs, tickets):
+        residuals = None
+        if obs_accuracy.enabled():
+            residuals = _residuals(key, host, outs, len(reqs))
+        for i, (req, ticket) in enumerate(zip(reqs, tickets)):
             n_req = int(np.asarray(req.a).shape[0])
             attrs = {"rid": req.rid, "info": ticket.info}
             # request scope: the one member's trace ID, the dispatch's span
@@ -634,6 +639,64 @@ class Queue:
                                depth=0, parent=None,
                                attrs={"op": key.op, "n": n_req, "bucket_n": key.n, **attrs})
                 obs.observe_latency(f"serve.{key.op}", ticket.total_s, bucket=str(key.n))
+                if residuals is not None:
+                    metric, c = _ACCURACY[key.op]
+                    obs_accuracy.emit("serve", metric, residuals[i], n=n_req,
+                                      nb=_default_nb(key.n), c=c, dtype=np.dtype(key.dtype),
+                                      of=outs[0], attrs={"op": key.op, "rid": req.rid,
+                                                         "bucket_n": key.n})
+
+
+#: op -> (accuracy metric, tolerance factor c): the reference's
+#: (``queue.py:385-390``).
+_ACCURACY = {"cholesky": ("cholesky_residual", 60.0),
+             "solve": ("trsm_residual", 60.0),
+             "eigh": ("eigen_residual", 200.0)}
+
+
+def _residuals(key: _BucketKey, host: list, outs: tuple, lanes: int) -> np.ndarray:
+    """The exact residual of each real lane of one dispatch (reference
+    ``_residual_prog``), on the outputs' device, batched over the lanes:
+    Cholesky ``|L L^H - A|_F / |A|_F``, the solve ``|op(T) X - alpha B|_F
+    / |alpha B|_F``, eigh ``|A V - V diag(w)|_F / |A|_F``, each on the
+    bucket-sized (padded) problem. Bucket problems are small, so the
+    O(n^3) check is cheap beside the solve."""
+    dev = outs[0].device
+    a = torch.from_numpy(host[0][:lanes]).to(dev)
+    tiny = torch.finfo(a.real.dtype if a.is_complex() else a.dtype).tiny
+
+    def fro(x):
+        return torch.sqrt(torch.sum(torch.abs(x) ** 2, dim=(-2, -1)))
+
+    def herm(x):
+        if key.uplo == "L":
+            return torch.tril(x) + torch.tril(x, -1).mH
+        return torch.triu(x) + torch.triu(x, 1).mH
+
+    if key.op == "cholesky":
+        ah = herm(a)
+        f = outs[0][:lanes]
+        tri = torch.tril(f) if key.uplo == "L" else torch.triu(f)
+        ll = tri @ tri.mH if key.uplo == "L" else tri.mH @ tri
+        res = fro(ll - ah) / torch.clamp(fro(ah), min=tiny)
+    elif key.op == "solve":
+        b = torch.from_numpy(host[1][:lanes]).to(dev)
+        alpha = torch.from_numpy(host[2][:lanes]).to(dev)
+        tri = torch.tril(a) if key.uplo == "L" else torch.triu(a)
+        if key.diag == "U":
+            eye = torch.eye(tri.shape[-1], dtype=torch.bool, device=dev)
+            tri = torch.where(eye, torch.ones((), dtype=tri.dtype, device=dev), tri)
+        if key.transa != "N":
+            tri = tri.mH if key.transa == "C" else tri.transpose(-1, -2)
+        x = outs[0][:lanes]
+        lhs = tri @ x if key.side == "L" else x @ tri
+        rhs = alpha[:, None, None] * b
+        res = fro(lhs - rhs) / torch.clamp(fro(rhs), min=tiny)
+    else:
+        ah = herm(a)
+        w, v = outs[0][:lanes], outs[1][:lanes]
+        res = fro(ah @ v - v * w[:, None, :].to(v.dtype)) / torch.clamp(fro(ah), min=tiny)
+    return res.cpu().numpy()
 
 
 def _default_nb(n: int) -> int:

@@ -204,19 +204,23 @@ def set_knobs(monkeypatch, **knobs):
     config.initialize()
 
 
-@pytest.mark.parametrize("shape", [(2, 2, 64, 16, 4, 32), (2, 2, 72, 16, 8, 40),
-                                   (2, 3, 80, 16, 8, 48), (4, 2, 61, 8, 4, 16)])
+@pytest.mark.parametrize("shape", [(2, 2, 64, 16, 4, 32, 512), (2, 2, 72, 16, 8, 40, 512),
+                                   (2, 3, 80, 16, 8, 48, 512), (4, 2, 61, 8, 4, 16, 512),
+                                   (2, 2, 96, 16, 8, 40, 32), (2, 3, 80, 8, 4, 48, 24)])
 def test_chip_smoke_evp_mxu_launch_formula(shape, monkeypatch):
     """``chip_smoke.evp_mxu_launches`` (evp-mxu's exact count of #6, the
     reduction, the D&C merges and both back-transforms) against the calls
     of the Ozaki product's plain version under ``f64_gemm=mxu``,
     ``ozaki_impl=pallas``, with ``K_MAX`` lowered so that the composed
     route of deeper contractions is taken too (bands below 64: the CPU's
-    group is the band, as cuda's)."""
+    group is the band, as cuda's); the last cases lower the D&C's sharding
+    threshold, so that its merges run sharded over the grid."""
     import chip_smoke as cs
+    from dlaf_tpu_torch.eigensolver import tridiag_solver as ts
     from dlaf_tpu_torch.tile_ops import ozaki_kernels as ok
 
-    P, Q, n, nb, b, k_max = shape
+    P, Q, n, nb, b, k_max, shard_min = shape
+    monkeypatch.setattr(ts, "_SHARD_MERGE_MIN_N", shard_min)
     calls = []
     real = ok.ozaki_product_plain
     monkeypatch.setattr(ok, "ozaki_product_plain",
@@ -226,7 +230,8 @@ def test_chip_smoke_evp_mxu_launch_formula(shape, monkeypatch):
               dist_step_mode="unrolled")
     a = herm(n, np.float64, 9)
     res = pe.eigensolver("L", port(a, nb, (P, Q)), band_size=b)
-    assert len(calls) == cs.evp_mxu_launches(P, Q, n, nb, b, k_max=k_max, min_dim=4)
+    assert len(calls) == cs.evp_mxu_launches(P, Q, n, nb, b, k_max=k_max, min_dim=4,
+                                             shard_min=shard_min)
     vals = eigen_residuals(torch.as_tensor(a), None, res.eigenvalues,
                            res.eigenvectors.to_global())
     assert max(vals.values()) < 200 * n * np.finfo(np.float64).eps

@@ -20,9 +20,9 @@ re-run against the port.
   factorization exhausted) and the clean run that dumps nothing.
 * The serve stream's and a ``robust_cholesky`` retry's artifacts pass the
   port's validator and the reference's under ``--require-serve``,
-  ``--require-resilience`` and ``--require-retries``. The reference's
-  ``--require-serve`` also wants a per-request accuracy record, which
-  needs ``obs/accuracy.py`` (not ported): that is its only error.
+  ``--require-resilience`` and ``--require-retries``. Under
+  ``DLAF_ACCURACY=1`` the stream carries the per-request accuracy records
+  that the reference's ``--require-serve`` also wants, so both pass it.
 """
 
 import gc
@@ -263,16 +263,17 @@ def test_trace_context_stamps_every_record_type_and_nests(tmp_path):
 def test_serve_trace_join_end_to_end(tmp_path):
     """One trace ID appears on the request's serve record, its span record
     and (by membership) the dispatch record; the span ID joins request and
-    dispatch; the artifact passes --require-serve."""
-    path = metrics_on(tmp_path)
+    dispatch; with DLAF_ACCURACY=1 the artifact passes --require-serve in
+    both validators, the reference's per-request accuracy leg included."""
+    path = metrics_on(tmp_path, accuracy="1")
     q, tickets = _serve_stream(n_reqs=4, batch=2)
     obs.flush()
     records = obs.read_records(path)
     assert not obs.validate_records(records, require_serve=True)
-    # the reference's only objection: no per-request accuracy record
-    assert jsinks.validate_records(records, require_serve=True) == [
-        "artifact contains no per-request accuracy record (site serve, finite "
-        "value+bound_ratio)"]
+    assert jsinks.validate_records(records, require_serve=True) == []
+    acc = [r for r in records if r.get("type") == "accuracy"]
+    assert len(acc) == 4 and {r["site"] for r in acc} == {"serve"}
+    assert all(r["bound_ratio"] < 1.0 for r in acc)
     tid = tickets[0].trace_id
     mine = [r for r in records if trace_matches(r, tid)]
     assert {r["type"] for r in mine} >= {"serve", "span"}

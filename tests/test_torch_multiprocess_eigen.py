@@ -10,7 +10,9 @@ back-transforms and the standard and generalized eigensolvers, each held
 bitwise to ``shared_grid(P, Q, "cpu")``. The chase and the D&C run on
 rank (0, 0)'s process only, and the other processes create no
 floating-point tensor of ``n x n`` elements from the band's gather to Q's
-scatter. The 2x2 generalized eigensolver is held against ``dlaf_tpu``'s
+scatter. With the D&C's sharding threshold lowered for a case, its merges
+run sharded on every process, bitwise the single controller's, and no
+process creates an ``n x n`` tensor. The 2x2 generalized eigensolver is held against ``dlaf_tpu``'s
 distributed one on the virtual CPU devices at the reference's eigenpair
 budget, ``200 n eps``.
 """
@@ -78,6 +80,20 @@ def test_chase_and_dc_on_rank_00_only(worlds, g):
         assert (r["chase"], r["dc"]) == (0, 0)
         assert 0 < r["largest"] < n * n, r["largest"]
         np.testing.assert_array_equal(r["eigenvalues"].numpy(), got[0]["eigenvalues"].numpy())
+
+
+@pytest.mark.parametrize("g", list(w.GRIDS))
+def test_sharded_dc_holds_no_whole_q(worlds, g):
+    """With the D&C's merges sharded, no process creates a floating-point
+    tensor of ``n x n`` elements or more (its largest: a row panel of
+    ``blkdiag(Q1, Q2)`` or a grid column's ``qc`` columns)."""
+    dirs, errors = worlds
+    if g in errors:
+        raise errors[g]
+    P, Q = w.GRIDS[g][:2]
+    for i in range(P * Q):
+        got = torch.load(os.path.join(dirs[g], f"dcpeak.r{i}.pt"))
+        assert 0 < got["largest"] < got["n"] ** 2, (i, got)
 
 
 @pytest.mark.parametrize("uplo,dtype", [("L", np.float64), ("U", np.complex128)])

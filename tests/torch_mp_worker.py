@@ -41,12 +41,13 @@ from dlaf_tpu_torch.comm.grid import COL_AXIS, ROW_AXIS, Grid
 from dlaf_tpu_torch.common.index2d import GlobalElementSize, RankIndex2D, TileElementSize
 from dlaf_tpu_torch.eigensolver import (back_transform, band_to_tridiag, eigensolver,
                                         reduction_to_band)
+from dlaf_tpu_torch.eigensolver import tridiag_solver as tsolv
 from dlaf_tpu_torch.matrix import ops as mops
 from dlaf_tpu_torch.matrix.matrix import Matrix
 
 KNOBS = ("CHOLESKY_TRAILING", "CHOLESKY_LOOKAHEAD", "COMM_LOOKAHEAD", "PANEL_IMPL",
          "STEP_IMPL", "OZAKI_IMPL", "F64_GEMM", "F64_TRSM", "F64_GEMM_MIN_DIM",
-         "FORCE_PALLAS_UPDATE", "DIST_STEP_MODE")
+         "FORCE_PALLAS_UPDATE", "DIST_STEP_MODE", "SECULAR_DEVICE_MIN_K")
 
 #: The grids: (P, Q, source rank, n, nb); n is not a multiple of nb and the
 #: tiles spread unevenly over the ranks.
@@ -196,7 +197,18 @@ EIGEN_CASES = {
     "evp-scan-d-L": dict(kind="evp", dtype=F64, uplo="L", knobs={"dist_step_mode": "scan"}),
     "gen_evp-d-L": dict(kind="gen_evp", dtype=F64, uplo="L"),
     "gen_evp-z-U": dict(kind="gen_evp", dtype=C128, uplo="U"),
+    # the D&C's sharded merges (``shard_min`` lowers the threshold for the
+    # call): the solver alone on a seeded tridiagonal of order DC_N, by the
+    # host and the device secular routes, and both eigensolvers
+    "dc-sharded-host": dict(kind="dc", shard_min=24, knobs={}),
+    "dc-sharded-device": dict(kind="dc", shard_min=24, knobs={"secular_device_min_k": 8}),
+    "evp-sharded-d-L": dict(kind="evp", dtype=F64, uplo="L", shard_min=16),
+    "gen_evp-sharded-z-U": dict(kind="gen_evp", dtype=C128, uplo="U", shard_min=16,
+                                knobs={"secular_device_min_k": 8}),
 }
+
+#: Order of the "dc" cases' tridiagonal.
+DC_N = 100
 
 #: The worlds of the multi-process all-to-all (pairwise, each peer gets its
 #: chunk only): 2x2, and three ranks along the row axis, along which the
@@ -440,7 +452,7 @@ def _more(spec, grid, sr, tile, P, Q, n, nb) -> dict:
         rng = np.random.default_rng(15)
         a, b, c = (rng.standard_normal((n, n)) for _ in range(3))
         return {"mat": general.general_sub_multiply(0.5, mat(a), mat(b), -1.5, mat(c), 1, 4)}
-    return _eigen(spec, mat, n)
+    return _eigen(spec, mat, n, grid, nb)
 
 
 def _band_input(n, dtype):
@@ -453,10 +465,34 @@ def _band_input(n, dtype):
     return band.astype(dtype)
 
 
-def _eigen(spec, mat, n) -> dict:
+def _eigen(spec, mat, n, grid=None, nb=None) -> dict:
     """The cases of :data:`EIGEN_CASES`; ``mat`` tiles a host array onto
-    the grid."""
-    kind, dtype = spec["kind"], spec["dtype"]
+    the grid. ``shard_min`` sets the D&C's sharding threshold for the
+    call."""
+    saved = tsolv._SHARD_MERGE_MIN_N
+    tsolv._SHARD_MERGE_MIN_N = spec.get("shard_min", saved)
+    try:
+        return _eigen_cases(spec, mat, n, grid, nb)
+    finally:
+        tsolv._SHARD_MERGE_MIN_N = saved
+
+
+def dc_tridiag():
+    """The "dc" cases' seeded tridiagonal ``(d, e)``: a random part, then
+    a Toeplitz (2, 1) part whose merges deflate by rotations."""
+    rng = np.random.default_rng(21)
+    d, e = rng.standard_normal(DC_N), rng.standard_normal(DC_N - 1)
+    d[DC_N // 2:], e[DC_N // 2:] = 2.0, 1.0
+    return d, e
+
+
+def _eigen_cases(spec, mat, n, grid, nb) -> dict:
+    kind = spec["kind"]
+    if kind == "dc":
+        d, e = dc_tridiag()
+        lam, q = tsolv.tridiag_solver(d, e, nb, grid=grid)
+        return {"array": torch.as_tensor(lam), "ranks": q.blocks}
+    dtype = spec["dtype"]
     uplo = spec.get("uplo", "L")
     if kind in ("red2band", "extract_band", "bt_r2b"):
         red = reduction_to_band.reduction_to_band(mat(herm(n, dtype)), band_size=BAND)
@@ -561,6 +597,28 @@ def span_probe(grid, setenv, delenv) -> dict:
     return {**state, "eigenvalues": res["array"]}
 
 
+def dc_peak_probe(grid, setenv, delenv) -> dict:
+    """Run case "dc-sharded-device" with every tensor this process creates
+    watched: the largest floating-point tensor, in elements, against the
+    tridiagonal's order."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    state = {"largest": 0}
+
+    class Track(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in tree_leaves(out):
+                if isinstance(t, torch.Tensor) and (t.is_floating_point() or t.is_complex()):
+                    state["largest"] = max(state["largest"], t.numel())
+            return out
+
+    with Track():
+        run_case("dc-sharded-device", grid, setenv, delenv)
+    return {**state, "n": DC_N}
+
+
 def _local_result(res: dict) -> dict:
     """What this process's rank holds of a case's result."""
     out = {k: v for k, v in res.items() if k in ("info", "value", "array", "root_array")}
@@ -595,6 +653,8 @@ def main(argv) -> int:
     if mode == "eigen":
         torch.save(span_probe(grid, setenv, lambda k: os.environ.pop(k, None)),
                    os.path.join(out_dir, f"span.r{rank}.pt"))
+        torch.save(dc_peak_probe(grid, setenv, lambda k: os.environ.pop(k, None)),
+                   os.path.join(out_dir, f"dcpeak.r{rank}.pt"))
     for name, spec in cases.items():
         try:
             res = {"ok": _local_result(run_case(name, grid, setenv,
