@@ -82,8 +82,9 @@ the multi-process form (``comm/multihost.py``: one process per rank):
     per device there (``cc.per_rank_once``), its counts with that sharing
     off (red2band-d-mxu's #6 also against ``red2band_mxu_launches``); then ``torchrun --standalone
     --nproc-per-node 4 -m dlaf_tpu_torch.miniapp.miniapp_cholesky -m 4096
-    -b 256 --grid-rows 2 --grid-cols 2 --share-device`` in float32 and
-    float64, and ``torchrun`` of miniapp_gen_to_std (complex128, N=4096),
+    -b 256 --grid-rows 2 --grid-cols 2 --share-device`` in float32 (the
+    float64 launch went to make room for the autotune phase), and
+    ``torchrun`` of miniapp_gen_to_std (complex128, N=4096),
     miniapp_reduction_to_band (config #4's widths at N=8192 on 2x2) and
     miniapp_gen_eigensolver (float64, N=4096, nb=256, 2x2), each with one
     ``check: PASSED`` and its wall beside the single controller's run of
@@ -253,6 +254,20 @@ with its launch counts (none, but the one #6 product under ``mxu``):
     a 256-request serve stream with ``DLAF_ACCURACY=1``, one record a
     request, through ``--require-serve``.
 
+33. autotune (``autotune/`` and ``obs/telemetry.py``; artifacts under
+    ``smoke_artifacts/autotune``), strict, ``DLAF_AUTOTUNE=1`` and
+    ``DLAF_PROGRAM_TELEMETRY=1`` into one artifact (:func:`autotune_phase`):
+    main-L's shape through the f32 ladder (two ``nan_tile`` breaches
+    escalate to rungs 2 and 3, six clean calls relax back to the start
+    rung, each call's launches the rung's, the start rung's factor bitwise
+    the ``DLAF_AUTOTUNE=0`` one), the f64 ladder's slice rungs s = 5..8
+    under ``f64_gemm=mxu`` (walls and residuals; #6 and #8 at every rung),
+    dist-L 2x2 (a breach escalates, the next call runs the new route), the
+    strict exhaustion drill (``--require-flight`` on its dump, its open
+    artifact rejected by ``--require-autotune``), one line per telemetry
+    site and main-L walls with the program records off and on; the
+    artifact through ``--require-telemetry --require-autotune``.
+
 The script sets ``DLAF_ACCURACY=full``, so every miniapp's check (here
 and in the processes it starts) computes the exact residual. On one card
 the collectives are device-local copies and every rank repeats the
@@ -267,10 +282,9 @@ defaults, with no knob set, beside every route "auto" could pick for them
 panels and native or Ozaki products): one timed factorization each, with
 its residual line and launch counts, and fails when the default is more
 than a quarter slower than the fastest of them. It factors a small ragged
-matrix against a float64 reference, profiles one float32 and two float64
-factorizations, one dist-L, dist-U, dist-f64 and dist-scan-L
-factorization, one config #2 solve unrolled and scan, one config #3
-HEGST blocked and twosolve, one config #4 reduction to band and evp-d's
+matrix against a float64 reference, profiles one float32 and one float64
+(Ozaki) factorization, one dist-L, dist-U and dist-f64 factorization, one
+config #2 solve unrolled and scan, one config #4 reduction to band and evp-d's
 device stages (the D&C and both back-transforms), and prints a JSON line
 of per-kernel numbers,
 the card's name and power limit, and as its last line ``{"ok": true,
@@ -283,6 +297,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import shutil
 import statistics
@@ -1029,9 +1044,9 @@ def red2band_paths(torch, dev, card, drive, ok) -> None:
 
     def r2b(name, argv, n, nb, letter, grid, expect=None):
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        _reset_peak()
         t = drive([*argv, *one], n, nb, 2, expect or {}, app=mrb)
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        peak = _peak_gib()
         dt = {"d": np.float64, "z": np.complex128}[letter]
         print(f"[red2band] {name:22s} N={n} nb={nb} {grid}: {t:.6f} s "
               f"{total_ops(dt, 2 * n ** 3 / 3, 2 * n ** 3 / 3) / t / 1e9:.2f} GFlop/s, peak "
@@ -1399,7 +1414,7 @@ def evp_cell(torch, dev, card, kmods, name, a, nb, band, grid, knobs=(), b=None,
     for m in kmods:
         m.reset_launches()
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    _reset_peak()
     with HostPeak() as host:
         t0 = time.perf_counter()
         if bm is None:
@@ -1409,7 +1424,7 @@ def evp_cell(torch, dev, card, kmods, name, a, nb, band, grid, knobs=(), b=None,
                                   keep=keep)
         torch.cuda.synchronize()
         t = time.perf_counter() - t0
-    peak_dev = torch.cuda.max_memory_allocated() / 2 ** 30
+    peak_dev = _peak_gib()
     counts = {k: v for m in kmods for k, v in m.LAUNCHES.items()}
     del mat
     z = res.eigenvectors.to_global()
@@ -1615,14 +1630,14 @@ def dc_route(torch, dev, card, gk, rows, launches, tri, nb: int = 512, sharded=N
         stats = []
         gk.reset_launches()
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        _reset_peak()
         with HostPeak() as host:
             t0 = time.perf_counter()
             lam, q = ts.tridiag_solver(dd, ee, nb, device=dev, stats=stats)
             torch.cuda.synchronize()
             t = time.perf_counter() - t0
         launches["givens_undo"] = launches.get("givens_undo", 0) + gk.LAUNCHES["givens_undo"]
-        return lam, q, stats, t, torch.cuda.max_memory_allocated() / 2 ** 30, host.text()
+        return lam, q, stats, t, _peak_gib(), host.text()
 
     def check(name, dd, ee, lam, q):
         t_ = torch.as_tensor
@@ -1823,6 +1838,22 @@ def profile_red2band(torch, dev, n: int = 16384, nb: int = 512, band: int = 128)
 
 #: Seed of the serve phase's request stream and the algos phase's matrices.
 SERVE_SEED = 20261017
+
+
+def _reset_peak() -> None:
+    """Reset the card's peak-memory counter and program telemetry's floor
+    of it (:func:`dlaf_tpu_torch.obs.telemetry.reset_peak_memory_stats`)."""
+    from dlaf_tpu_torch.obs import telemetry
+
+    telemetry.reset_peak_memory_stats()
+
+
+def _peak_gib() -> float:
+    """The card's peak allocation since :func:`_reset_peak`, in GiB,
+    whole across program telemetry's own resets."""
+    from dlaf_tpu_torch.obs import telemetry
+
+    return telemetry.max_memory_allocated() / 2 ** 30
 
 
 def _sync(torch, dev) -> None:
@@ -2819,6 +2850,306 @@ def accuracy_phase(torch, card, kmods, launches, out_dir, n: int = 16384, nb: in
         raise AssertionError(f"accuracy serve: {len(recs)} records, worst ratio {worst}")
 
 
+def rung_launches(rung: int, nt: int, ranks: int = 0) -> dict:
+    """Kernel launches of one float32 Cholesky (default knobs on cuda:
+    biggemm, lookahead 1) at a rung of the f32 ladder: rungs 0 and 1 fuse
+    the step (one rank: #4 each strip-bearing step, #1 for the last
+    tile; ``ranks`` on a grid: #3 per rank per step with a trailing
+    update, #1 on every rank), rung 2 the panel kernels alone (#1 per
+    step, #2 per strip-bearing step, on every rank), rung 3 none of them;
+    on a grid the update kernel (#5) at every rung."""
+    if not ranks:
+        return ({"step": nt - 1, "potrf": 1}, {"step": nt - 1, "potrf": 1},
+                {"potrf": nt, "solve": nt - 1}, {})[rung]
+    upd = {"masked_trailing_update": ranks * (nt - 1)}
+    fused = {"factor_solve": ranks * (nt - 1), "potrf": ranks, **upd}
+    return (fused, fused, {"potrf": ranks * nt, "solve": ranks * (nt - 1), **upd}, upd)[rung]
+
+
+def autotune_phase(torch, card, kmods, launches, out_dir, n: int = 16384, nb: int = 256,
+                   f64_n: int = 16384, dist_n: int = 8192, small_n: int = 4096,
+                   device: str = "cuda") -> None:
+    """The route autotuner (``autotune/``) and the program telemetry
+    (``obs/telemetry.py``) on the card, strict, with ``DLAF_AUTOTUNE=1``
+    and ``DLAF_PROGRAM_TELEMETRY=1`` into one artifact under ``out_dir``:
+
+    1. main-L's shape (float32, N=``n``, one rank, ``donate=False``): the
+       ``DLAF_AUTOTUNE=0`` factor, then a clean call at the start rung
+       (bitwise that factor), two ``inject.nan_tile`` breaches (escalate
+       to rungs 2 and 3), six clean calls (relax to 2, then to 1); every
+       call's launches are the rung's (:func:`rung_launches`) and every
+       clean call's probe within ``60 n eps``;
+    2. the f64 ladder under ``f64_gemm=mxu`` (trailing "ozaki", one rank,
+       N=``f64_n``): one call per slice rung s = 5..8, its wall (the call,
+       its probe included), the probe and the exact residual; #6 and #8 at
+       every rung, in equal counts;
+    3. dist-L (float32, N=``dist_n``, 2x2 on the card): a clean call, a
+       breach (escalate) and the next call under the escalated route (#3
+       and #5 at the start rung, #1/#2/#5 after);
+    4. exhaustion under strict (N=``small_n``, its own artifact): a breach
+       at rung 2, then one at the top raises ``AutotuneExhaustedError``;
+       the flight dump passes ``--require-flight`` and the artifact is
+       rejected by ``--require-autotune``;
+    5. telemetry: one line per kernel site (the first call's wall and
+       bytes, the site's program count), main-L walls over five calls with
+       the program records off and five on (donated: no probe), the
+       counts unchanged by the five; the artifact passes
+       ``--require-telemetry --require-autotune``.
+
+    ``device`` and the sizes let a CPU rehearsal run it small (where the
+    kernels' launches stay 0: the rung formulas then do not apply)."""
+    import numpy as np
+
+    from dlaf_tpu_torch import autotune, config, obs
+    from dlaf_tpu_torch.algorithms.cholesky import cholesky
+    from dlaf_tpu_torch.comm.grid import shared_grid
+    from dlaf_tpu_torch.common.index2d import GlobalElementSize, TileElementSize
+    from dlaf_tpu_torch.health import inject
+    from dlaf_tpu_torch.health.errors import AutotuneExhaustedError
+    from dlaf_tpu_torch.matrix.matrix import Matrix
+    from dlaf_tpu_torch.miniapp.generators import hpd_element_fn
+    from dlaf_tpu_torch.obs import accuracy
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    knobs = ("DLAF_AUTOTUNE", "DLAF_PROGRAM_TELEMETRY", "DLAF_AUTOTUNE_TABLE",
+             "DLAF_FLIGHT_RECORDER", "DLAF_ACCURACY")
+    saved = {k: os.environ.get(k) for k in knobs}
+    path = os.path.join(out_dir, "autotune.jsonl")
+    f32, f64l = autotune.LADDER_F32, autotune.LADDER_F64
+
+    def arm(metrics, argv=(), **env):
+        # the entries' probe is the Hutchinson "1" estimate (the script
+        # sets DLAF_ACCURACY=full for the miniapps' checks)
+        _obs_env(metrics, **{"DLAF_AUTOTUNE_TABLE": os.path.join(out_dir, "table.json"),
+                             "DLAF_ACCURACY": "1", "DLAF_FLIGHT_RECORDER": "0", **env})
+        config.initialize(argv=list(argv))
+
+    def make(n_, dtype, grid=None):
+        return Matrix.from_element_fn(hpd_element_fn(n_, dtype), GlobalElementSize(n_, n_),
+                                      TileElementSize(nb, nb), grid, dtype=dtype, device=dev)
+
+    def expect(want):
+        return want if cuda else {}
+
+    def steered(label, mat, want, *, poisoned=False):
+        """One steered call: launches asserted; returns (factor, its
+        decision records, wall s)."""
+        before = len(written())
+        x = inject.nan_tile(mat, tile=(1, 0), element=(2, 3)) if poisoned else mat
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        out = counted(kmods, launches, expect(want), lambda: cholesky("L", x), label)
+        _sync(torch, dev)
+        wall = time.perf_counter() - t0
+        new = [r for r in written()[before:] if r.get("type") == "autotune"]
+        return out, new, wall
+
+    def written():
+        return obs.read_records(path) if os.path.exists(path) else []
+
+    def trail(recs):
+        return " ".join(f"{r['reason']}:{r['rung_old']}->{r['rung_new']}" for r in recs)
+
+    # -- 1. main-L's shape, the f32 ladder ------------------------------------
+    t_case = time.perf_counter()
+    arm(None, DLAF_AUTOTUNE="0", DLAF_PROGRAM_TELEMETRY="0")
+    ref = make(n, np.float32)
+    nt = -(-n // nb)
+    plain = counted(kmods, launches, expect(rung_launches(1, nt)),
+                    lambda: cholesky("L", ref), "autotune main-L DLAF_AUTOTUNE=0")
+    arm(path, DLAF_AUTOTUNE="1", DLAF_PROGRAM_TELEMETRY="1")
+    key = autotune.site_key("cholesky", n=n, nb=nb, dtype=torch.float32, platform=dev.type)
+    steps = [("start", False, 1, "hold", 1), ("breach", True, 1, "escalate", 2),
+             ("breach", True, 2, "escalate", 3)]
+    steps += [("clean", False, 3, "hold", 3)] * 2 + [("clean", False, 3, "relax", 2)]
+    steps += [("clean", False, 2, "hold", 2)] * 2 + [("clean", False, 2, "relax", 1)]
+    lines = []
+    for i, (what, poisoned, rung, reason, after) in enumerate(steps):
+        out, recs, wall = steered(f"autotune main-L call {i} ({what}, rung {rung})", ref,
+                                  rung_launches(rung, nt), poisoned=poisoned)
+        got = (len(recs), recs[0]["reason"] if recs else None, recs[0]["rung_old"] if recs
+               else None, autotune.get_table().rung_of(key))
+        if got != (1, reason, rung, after):
+            raise AssertionError(f"autotune main-L call {i}: decision {got}, expected "
+                                 f"(1, {reason!r}, {rung}, {after})")
+        probe = recs[0]["probe"]    # the bound_ratio: the residual over 60 n eps
+        if not poisoned and not (probe is not None and probe < 1.0):
+            raise AssertionError(f"autotune main-L call {i}: probe ratio {probe} not within "
+                                 "60 n eps")
+        if i == 0 and out.to_numpy().tobytes() != plain.to_numpy().tobytes():
+            raise AssertionError("autotune main-L: the start rung's factor is not bitwise "
+                                 "the DLAF_AUTOTUNE=0 factor")
+        lines.append(f"call {i} {what:6s} rung {rung} ({f32.rungs[rung].tag()}): "
+                     f"{recs[0]['reason']} -> rung {after}, probe "
+                     f"{'nonfinite' if probe is None else f'{probe:.3e} of 60 n eps'}, "
+                     f"{wall:.3f} s")
+        del out
+    for ln in lines:
+        print(f"[autotune] main-L N={n} nb={nb} f32 {ln} [{card}]", flush=True)
+    print(f"[autotune] main-L: start-rung factor bitwise the DLAF_AUTOTUNE=0 factor; launches "
+          f"per rung {[rung_launches(r, nt) for r in range(4)] if cuda else 'not counted'} "
+          f"[{card}]", flush=True)
+    del plain, ref
+    _wall("autotune main-L f32 ladder", t_case)
+
+    # -- 2. the f64 ladder under f64_gemm=mxu ----------------------------------
+    t_case = time.perf_counter()
+    arm(path, ["--dlaf:f64-gemm=mxu", "--dlaf:cholesky-trailing=ozaki"], DLAF_AUTOTUNE="1",
+        DLAF_PROGRAM_TELEMETRY="1")
+    ref = make(f64_n, np.float64)
+    key64 = autotune.site_key("cholesky", n=f64_n, nb=nb, dtype=torch.float64,
+                              platform=dev.type)
+    tol64 = 60 * f64_n * float(np.finfo(np.float64).eps)
+    # one donated call (no probe) first, so the first rung's wall is not the
+    # process's first mxu call
+    autotune.get_table().entry(key64, f64l).rung = 4
+    for m in kmods:
+        m.reset_launches()
+    cholesky("L", ref.clone(), donate=True)
+    for k, v in ((k, v) for m in kmods for k, v in m.LAUNCHES.items()):
+        launches[k] += v
+    oz_counts = []
+    for rung in (1, 2, 3, 4):
+        autotune.get_table().entry(key64, f64l).rung = rung
+        for m in kmods:
+            m.reset_launches()
+        before = len(written())
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        out = cholesky("L", ref)
+        _sync(torch, dev)
+        wall = time.perf_counter() - t0
+        counts = {k: v for m in kmods for k, v in m.LAUNCHES.items()}
+        for k, v in counts.items():
+            launches[k] += v
+        recs = [r for r in written()[before:] if r.get("type") == "autotune"]
+        exact = accuracy.cholesky_residual("L", ref, out, "full")
+        oz = (counts["ozaki_product"], counts["ozaki_syrk"])
+        oz_counts.append(oz)
+        print(f"[autotune] f64 mxu ladder N={f64_n} nb={nb} rung {rung} "
+              f"({f64l.rungs[rung].tag()}): wall {wall:.6f} s (the call, its probe included), "
+              f"probe {recs[0]['attrs'].get('value', float('nan')):.3e}, exact residual "
+              f"{exact:.3e} ({exact / tol64:.3e} of 60 n eps), decision {trail(recs)}, #6 "
+              f"{oz[0]} #8 {oz[1]} [{card}]", flush=True)
+        if cuda and (min(oz) == 0 or oz != oz_counts[0]):
+            raise AssertionError(f"autotune f64 rung {rung}: #6/#8 launches {oz}, first rung "
+                                 f"{oz_counts[0]}")
+        if not math.isfinite(exact):
+            raise AssertionError(f"autotune f64 rung {rung}: residual {exact}")
+        del out
+    del ref
+    _wall("autotune f64 mxu slice rungs", t_case)
+
+    # -- 3. dist-L 2x2 on the card -----------------------------------------------
+    t_case = time.perf_counter()
+    arm(path, DLAF_AUTOTUNE="1", DLAF_PROGRAM_TELEMETRY="1")
+    ref = make(dist_n, np.float32, shared_grid(2, 2, dev))
+    dnt = -(-dist_n // nb)
+    for i, (what, poisoned, rung, reason) in enumerate(
+            (("start", False, 1, "hold"), ("breach", True, 1, "escalate"),
+             ("escalated", False, 2, "hold"))):
+        _, recs, wall = steered(f"autotune dist-L call {i} ({what})", ref,
+                                rung_launches(rung, dnt, 4), poisoned=poisoned)
+        if [(r["reason"], r["rung_old"]) for r in recs] != [(reason, rung)]:
+            raise AssertionError(f"autotune dist-L call {i}: {trail(recs)}, expected "
+                                 f"{reason} at rung {rung}")
+        print(f"[autotune] dist-L N={dist_n} nb={nb} 2x2 on one card call {i} {what}: rung "
+              f"{rung} ({f32.rungs[rung].tag()}) {trail(recs)}, launches "
+              f"{rung_launches(rung, dnt, 4) if cuda else 'not counted'}, {wall:.3f} s "
+              f"[{card}]", flush=True)
+    del ref
+    _wall("autotune dist-L 2x2", t_case)
+
+    # -- 4. exhaustion under strict --------------------------------------------
+    t_case = time.perf_counter()
+    bad = os.path.join(out_dir, "exhausted.jsonl")
+    arm(bad, DLAF_AUTOTUNE="1", DLAF_PROGRAM_TELEMETRY="0", DLAF_FLIGHT_RECORDER="64",
+        DLAF_AUTOTUNE_TABLE=os.path.join(out_dir, "exhausted.table.json"))
+    small = make(small_n, np.float32)
+    skey = autotune.site_key("cholesky", n=small_n, nb=nb, dtype=torch.float32,
+                             platform=dev.type)
+    autotune.get_table().entry(skey, f32).rung = 2
+    cholesky("L", inject.nan_tile(small, tile=(1, 0), element=(2, 3)))
+    try:
+        cholesky("L", inject.nan_tile(small, tile=(1, 0), element=(2, 3)))
+    except AutotuneExhaustedError as e:
+        raised = e
+    else:
+        raise AssertionError("autotune: a breach at the top rung did not raise under strict")
+    flight = _obs_validate(root, bad + ".flight.jsonl", "--require-flight")
+    gate = subprocess.run([sys.executable, "-m", "dlaf_tpu_torch.obs.validate", bad,
+                           "--require-autotune"], capture_output=True, text=True, timeout=120,
+                          env={**os.environ, "PYTHONPATH": root})
+    if gate.returncode != 1 or "exhausted" not in gate.stderr:
+        raise AssertionError(f"autotune: the exhausted artifact was not rejected by "
+                             f"--require-autotune (exit {gate.returncode}): {gate.stderr}")
+    print(f"[autotune] exhaustion N={small_n} f32 strict: {type(raised).__name__} at "
+          f"{raised.site} rung {raised.rung} ({raised.ladder} ladder); {flight}; the open "
+          f"artifact rejected by --require-autotune: {gate.stderr.strip().splitlines()[-1]} "
+          f"[{card}]", flush=True)
+    del small
+    _wall("autotune exhaustion", t_case)
+
+    # -- 5. telemetry ------------------------------------------------------------
+    t_case = time.perf_counter()
+    arm(path, DLAF_AUTOTUNE="1", DLAF_PROGRAM_TELEMETRY="1")
+    records = written()
+    first = {}
+    for r in records:
+        if r.get("type") == "program" and r.get("event") == "compile":
+            first.setdefault(r["site"], r)
+    reg = obs.registry()
+
+    def keys(site):
+        return int(reg.counter("dlaf_retrace_total", site=site).snapshot()["value"])
+
+    for site in sorted(first):
+        hbm = first[site].get("hbm", {})
+        print(f"[autotune] program {site}: compile_s {first[site]['compile_s']:.6f} (the first "
+              f"call of its first key, fenced), args {hbm.get('args', 0):.0f} B, output "
+              f"{hbm.get('output', 0):.0f} B, peak {hbm.get('peak', float('nan')):.0f} B, "
+              f"programs (dlaf_retrace_total) {keys(site)} [{card}]", flush=True)
+    ref = make(n, np.float32)
+    walls = {}
+    for mode in ("0", "1", "0", "1"):
+        arm(path, DLAF_AUTOTUNE="1", DLAF_PROGRAM_TELEMETRY=mode)
+        before = {s: keys(s) for s in first}
+        ts = []
+        for _ in range(5):
+            x = ref.clone()
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            counted(kmods, launches, expect(rung_launches(1, nt)),
+                    lambda: cholesky("L", x, donate=True), f"autotune records {mode}")
+            _sync(torch, dev)
+            ts.append(time.perf_counter() - t0)
+        if {s: keys(s) for s in first} != before:
+            raise AssertionError(f"autotune telemetry: program counts moved over five "
+                                 f"repeated main-L calls: {before}")
+        walls.setdefault(mode, []).extend(ts)
+    print(f"[autotune] main-L N={n} nb={nb} f32 walls over 10 calls each (two rounds of five, "
+          f"donated, no probe), program records off: median "
+          f"{statistics.median(walls['0']):.6f} s [{min(walls['0']):.6f}, "
+          f"{max(walls['0']):.6f}], on: median {statistics.median(walls['1']):.6f} s "
+          f"[{min(walls['1']):.6f}, {max(walls['1']):.6f}]; program counts unchanged by "
+          f"repeated calls [{card}]", flush=True)
+    del ref
+    obs.flush()
+    line = _obs_validate(root, path, "--require-telemetry", "--require-autotune")
+    print(f"[autotune] {line} [{card}]", flush=True)
+    for k, v in saved.items():
+        os.environ.pop(k, None)
+        if v is not None:
+            os.environ[k] = v
+    _obs_env(None)
+    config.initialize()
+    _wall("autotune telemetry", t_case)
+
+
 def _strict(config, on: bool) -> None:
     """``DLAF_STRICT`` on or off for this process and the ones it starts."""
     os.environ["DLAF_STRICT"] = "1" if on else "0"
@@ -3619,9 +3950,10 @@ def multiprocess_phase(torch, card, launches, device: str = "cuda:0", n: int = M
     # the user's launch: torchrun, one process per rank, sharing this card
     root = os.path.dirname(os.path.abspath(__file__))
     env = {**os.environ, "PYTHONPATH": root, "GLOO_SOCKET_IFNAME": "lo"}
-    for letter in ("s", "d"):
-        torchrun_beside_single(card, "miniapp_cholesky", (*big, "--type", letter),
-                               "the Cholesky", env, app_args)
+    # float32 only: the spawned processes above hold the float64 Cholesky
+    # bitwise, and a second launch costs mostly its start-up
+    torchrun_beside_single(card, "miniapp_cholesky", (*big, "--type", "s"), "the Cholesky",
+                           env, app_args)
     for app, args, what in MP_TORCHRUN:
         torchrun_beside_single(card, app, args, what, env, app_args)
     visible = torch.cuda.device_count()
@@ -4114,6 +4446,9 @@ def main() -> int:
     t_phase = time.perf_counter()
     accuracy_phase(torch, card, kmods, launches, os.path.join(artifacts, "accuracy"))
     print(f"[phase] accuracy {time.perf_counter() - t_phase:.1f} s", flush=True)
+    t_phase = time.perf_counter()
+    autotune_phase(torch, card, kmods, launches, os.path.join(artifacts, "autotune"))
+    print(f"[phase] autotune {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # ---- phase 3: the float64 / complex128 routes "auto" picks from ------
     # the default (no knob) beside each route it could resolve to, uplo L,
@@ -4159,6 +4494,7 @@ def main() -> int:
 
     # ---- phase 4: small ragged factors against a float64 reference -------
     t_phase = time.perf_counter()
+    t_case = t_phase
     rng = np.random.default_rng(7)
     x = rng.standard_normal((500, 500))
     a = x @ x.T + 500 * np.eye(500)
@@ -4179,27 +4515,28 @@ def main() -> int:
               f"rel_err={err:.3e} tol={tol:.0e} shape={got.shape}", flush=True)
         if not (np.isfinite(got).all() and int(info) == 0 and err < tol):
             raise AssertionError("small ragged factor disagrees with the float64 reference")
+    t_case = _wall("small ragged factors", t_case)
 
+    # the f64 default's and dist-scan-L's profiles went to make room for the
+    # autotune phase (their last breakdowns: PERF.md §5)
     profile_factorization(torch, dev, ["--dlaf:step-impl=fused", "--dlaf:cholesky-lookahead=1"],
                           "f32", np.float32)
     profile_factorization(torch, dev, ["--dlaf:cholesky-trailing=ozaki",
                                        "--dlaf:ozaki-impl=pallas",
                                        "--dlaf:cholesky-lookahead=1"], "f64", np.float64)
-    profile_factorization(torch, dev, [], "f64 default", np.float64)
     profile_factorization(torch, dev, ["--dlaf:step-impl=fused"], "dist-L f32", np.float32,
                           grid_shape=(2, 2))
     profile_factorization(torch, dev, ["--dlaf:panel-impl=fused", "--dlaf:step-impl=xla"],
                           "dist-U f32", np.float32, n=8192, grid_shape=(2, 4), uplo="U")
     profile_factorization(torch, dev, ["--dlaf:f64-gemm=mxu", "--dlaf:f64-trsm=mixed"],
                           "dist-f64", np.float64, grid_shape=(2, 2))
-    profile_factorization(torch, dev, ["--dlaf:cholesky-trailing=scan", "--dlaf:step-impl=fused",
-                                       "--dlaf:cholesky-lookahead=1"], "dist-scan-L f32",
-                          np.float32, grid_shape=(2, 2))
+    t_case = _wall("profiles: factorizations", t_case)
     for mode in ("unrolled", "scan"):
         profile_trsm(torch, dev, mode)
     profile_red2band(torch, dev)
     profile_evp(torch, dev, evp_keep)
     del evp_keep
+    _wall("profiles: trsm, red2band, evp-d", t_case)
     print(f"[phase] small factors and profiles {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # ---- phase 5: the resilience layer (strict off but where it checks

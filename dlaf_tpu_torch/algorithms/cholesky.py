@@ -38,9 +38,16 @@ docstring); with trailing "scan", :func:`_cholesky_dist_scan`, the
 reference's distributed scan builder (``_build_dist_cholesky_scan``
 :1208-1686), as a Python loop at the reference's uniform shapes.
 
+Under ``DLAF_AUTOTUNE`` (:mod:`..autotune`) :func:`cholesky` takes its
+site's route from the route table around the whole call and, when the
+input survives (``donate=False``), feeds the factor's Hutchinson probe
+back (the reference's ``cholesky.py:1738-1760``).
+
 Records (:mod:`..obs`), as the reference's: the ``cholesky`` entry span
 (unfenced, with the reference's flop model and attrs,
-``cholesky.py:1842-1850``); ``dlaf_algo_tile_ops_total{algo,op}`` and
+``cholesky.py:1842-1850``); the program telemetry sites
+``cholesky.local``, ``cholesky.local_scan`` and ``cholesky.dist``
+(:mod:`..obs.telemetry`); ``dlaf_algo_tile_ops_total{algo,op}`` and
 ``dlaf_cholesky_steps_total{algo,mode}`` per step as it runs (the
 reference counts them once per traced program, :mod:`..obs` has the
 rule); and on a grid the per-step ``cholesky.step<k>`` phases
@@ -60,6 +67,7 @@ import numpy as np
 import torch
 
 from .. import config, obs
+from ..autotune import routes as at_routes
 from ..comm import collectives as cc
 from ..comm.grid import COL_AXIS, ROW_AXIS
 from ..common.asserts import dlaf_assert
@@ -983,15 +991,20 @@ def _cholesky_distributed(uplo, mat, *, donate, with_info, trailing, lookahead, 
     kw = dict(uplo=uplo, use_mxu=use_mxu, use_mixed=use_mixed, use_oz_pallas=use_oz_pallas,
               lookahead=lookahead, with_info=with_info, panel_fused=panel_fused,
               step_fused=step_fused)
-    if scan:
-        # the update kernel is unrolled-only, and the scan body already
-        # orders its panel chain ahead of the deferred bulk: no comm_la
-        info = _cholesky_dist_scan(lts, mat.dist, **kw)
-    else:
-        info = _cholesky_dist(lts, mat.dist, use_pallas=uk.supports_update(dtype, dev)
-                              and not use_mxu, comm_la=comm_la, **kw)
+    if not scan:
+        kw.update(use_pallas=uk.supports_update(dtype, dev) and not use_mxu, comm_la=comm_la)
+    _, info = obs.telemetry.call("cholesky.dist", _dist_program, lts, mat.dist, scan=scan, **kw)
     res = Matrix(mat.dist, shards, mat.grid)
     return (res, info) if with_info else res
+
+
+def _dist_program(lts, dist, *, scan, **kw):
+    """``(lts, info)`` of :func:`_cholesky_dist` or, with ``scan``,
+    :func:`_cholesky_dist_scan` (the update kernel is unrolled-only, and
+    the scan body already orders its panel chain ahead of the deferred
+    bulk: no ``comm_la``), factoring ``lts`` in place."""
+    info = (_cholesky_dist_scan if scan else _cholesky_dist)(lts, dist, **kw)
+    return lts, info
 
 
 def cholesky(uplo: str, mat: Matrix, *, donate: bool = False, with_info: bool = False):
@@ -1005,7 +1018,28 @@ def cholesky(uplo: str, mat: Matrix, *, donate: bool = False, with_info: bool = 
     tensor, 0 on success or the 1-based first failing column; the factor
     is bitwise the same either way. ``donate=True`` releases ``mat``'s
     storage to the factorization: ``mat`` must not be used afterwards.
+
+    Under ``DLAF_AUTOTUNE`` the call runs under its site's route (op
+    ``cholesky``) and, when ``mat`` survives and the cadence is due, the
+    factor's Hutchinson residual (``c = 60``) feeds the route table.
     """
+    from .. import autotune
+
+    steer = autotune.steering_for_matrix("cholesky", mat)
+    if steer is None:
+        return _cholesky(uplo, mat, donate=donate, with_info=with_info)
+    with steer.applied():
+        out = _cholesky(uplo, mat, donate=donate, with_info=with_info)
+    if not donate and steer.probe_due:
+        from ..obs import accuracy
+
+        res = out[0] if with_info else out
+        steer.observe(accuracy.cholesky_residual(uplo, mat, res), c=60.0, of=res,
+                      attrs={"entry": "cholesky", "uplo": uplo})
+    return out
+
+
+def _cholesky(uplo: str, mat: Matrix, *, donate: bool, with_info: bool):
     dlaf_assert(uplo in ("L", "U"), f"cholesky: uplo must be 'L' or 'U', got {uplo!r}")
     dlaf_assert(mat.size.row == mat.size.col, "cholesky: matrix must be square")
     dlaf_assert(mat.block_size.row == mat.block_size.col, "cholesky: block must be square")
@@ -1032,7 +1066,8 @@ def cholesky(uplo: str, mat: Matrix, *, donate: bool = False, with_info: bool = 
         dtype=dtype_name(dtype), trailing=trailing, lookahead=int(lookahead),
         comm_lookahead=int(lookahead and config.resolve("comm_lookahead", dev) == "1"),
         panel_impl="fused" if panel_fused else "xla",
-        step_impl="fused" if step_fused else "xla", grid=f"{P}x{Q}"))
+        step_impl="fused" if step_fused else "xla", **at_routes.span_attrs(),
+        grid=f"{P}x{Q}"))
     with entry:
         return _cholesky_entry(uplo, mat, donate=donate, with_info=with_info, trailing=trailing,
                                lookahead=lookahead, panel_fused=panel_fused,
@@ -1053,14 +1088,16 @@ def _cholesky_entry(uplo, mat, *, donate, with_info, trailing, lookahead, panel_
     if donate:
         mat.storage = None
     if trailing == "scan":
-        out = _cholesky_local_scan(
+        out = obs.telemetry.call(
+            "cholesky.local_scan", _cholesky_local_scan,
             a, uplo=uplo, nb=nb, use_mxu=tb.f64_gemm_uses_mxu(dtype, nb, dev),
             use_mixed=tb.trsm_panel_uses_mixed(dtype, dev), lookahead=lookahead,
             with_info=with_info, panel_fused=panel_fused, step_fused=step_fused)
     else:
-        out = _cholesky_local(a, uplo=uplo, nb=nb, trailing=trailing, lookahead=lookahead,
-                              with_info=with_info, panel_fused=panel_fused,
-                              step_fused=step_fused)
+        out = obs.telemetry.call(
+            "cholesky.local", _cholesky_local, a, uplo=uplo, nb=nb, trailing=trailing,
+            lookahead=lookahead, with_info=with_info, panel_fused=panel_fused,
+            step_fused=step_fused)
     info = None
     if with_info:
         out, info = out

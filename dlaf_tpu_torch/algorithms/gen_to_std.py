@@ -48,10 +48,15 @@ Records (:mod:`..obs`): the ``gen_to_std`` entry span with the
 reference's flop model and attrs (``gen_to_std.py:831``); on a grid the
 blocked form's per-step ``hegst.step<k>.panel|strip|bulk`` phases and
 ``dlaf_comm_overlapped_total`` of the chain hoisted by
-``comm_lookahead``.
+``comm_lookahead``; the program telemetry sites ``gen_to_std.local`` and
+``gen_to_std.dist`` of the blocked forms (:mod:`..obs.telemetry`).
 
-Not ported now: the reference's autotune steering of ``gen_to_std`` and
-its program telemetry.
+Under ``DLAF_AUTOTUNE`` (:mod:`..autotune`) ``gen_to_std`` runs under its
+site's route (op ``hegst``) and, when ``a`` survives (``donate=False``),
+feeds the transform's Hutchinson residual back (the reference's
+``gen_to_std.py:750-837``). The twosolve form takes its routes through
+the triangular solver's own ``trsm`` steering; its probe still reports
+at ``hegst``.
 """
 
 from __future__ import annotations
@@ -60,6 +65,7 @@ import numpy as np
 import torch
 
 from .. import config, obs
+from ..autotune import routes as at_routes
 from ..comm import collectives as cc
 from ..comm.grid import COL_AXIS, ROW_AXIS
 from ..common.asserts import dlaf_assert
@@ -514,7 +520,28 @@ def gen_to_std(uplo: str, a: Matrix, b_factor: Matrix, *, donate: bool = False,
     not be used afterwards); ``b_factor`` is never written. With
     ``with_info=True`` returns ``(out, info)``: an int32 device tensor, 0
     when the factor's diagonal is finite and nonzero, else the 1-based
-    first singular global column (the result is the same either way)."""
+    first singular global column (the result is the same either way).
+
+    Under ``DLAF_AUTOTUNE`` the call runs under its site's route (op
+    ``hegst``) and, when ``a`` survives and the cadence is due, the
+    transform's Hutchinson residual (``c = 100``) feeds the route table."""
+    from .. import autotune
+
+    steer = autotune.steering_for_matrix("hegst", a)
+    if steer is None:
+        return _gen_to_std_entry(uplo, a, b_factor, donate=donate, with_info=with_info)
+    with steer.applied():
+        out = _gen_to_std_entry(uplo, a, b_factor, donate=donate, with_info=with_info)
+    if not donate and steer.probe_due:
+        from ..obs import accuracy
+
+        res = out[0] if with_info else out
+        steer.observe(accuracy.hegst_residual(uplo, a, b_factor, res), c=100.0, of=res,
+                      attrs={"entry": "gen_to_std", "uplo": uplo})
+    return out
+
+
+def _gen_to_std_entry(uplo, a, b_factor, *, donate, with_info):
     dlaf_assert(uplo in ("L", "U"), f"gen_to_std: bad uplo {uplo!r}")
     info = hinfo.matrix_diag_info(b_factor, singular=True) if with_info else None
     dlaf_assert(a.size == b_factor.size, "gen_to_std: A/B size mismatch")
@@ -534,7 +561,7 @@ def gen_to_std(uplo: str, a: Matrix, b_factor: Matrix, *, donate: bool = False,
     span = obs.entry_span("gen_to_std", lambda: dict(
         flops=total_ops(a.dtype, n ** 3 / 2, n ** 3 / 2), n=n, nb=nb, uplo=uplo,
         dtype=dtype_name(a.dtype), impl="twosolve" if use_twosolve else hegst_impl,
-        panel_impl="fused" if panel_fused else "xla",
+        panel_impl="fused" if panel_fused else "xla", **at_routes.span_attrs(),
         grid=f"{a.dist.grid_size.row}x{a.dist.grid_size.col}"))
     with span:
         res = _gen_to_std(uplo, a, b_factor, donate, use_twosolve, panel_fused)
@@ -548,9 +575,10 @@ def _gen_to_std(uplo, a, b_factor, donate, use_twosolve, panel_fused):
     nb = a.block_size.row
     lookahead = config.resolve("cholesky_lookahead", dev) == "1"
     if not a.distributed:
-        out = _hegst_local(tiles_to_global(a.storage, a.dist),
-                           tiles_to_global(b_factor.storage, b_factor.dist), uplo=uplo, nb=nb,
-                           lookahead=lookahead, panel_fused=panel_fused)
+        out = obs.telemetry.call("gen_to_std.local", _hegst_local,
+                                 tiles_to_global(a.storage, a.dist),
+                                 tiles_to_global(b_factor.storage, b_factor.dist), uplo=uplo,
+                                 nb=nb, lookahead=lookahead, panel_fused=panel_fused)
         return mops.merge_triangle(a.with_storage(global_to_tiles(out, a.dist)), a, uplo,
                                    donate_new=True, donate_orig=donate)
     # one set of slot indices serves A and the factor: both axes must align
@@ -561,9 +589,16 @@ def _gen_to_std(uplo, a, b_factor, donate, use_twosolve, panel_fused):
     shards = a.storage if donate else [s if s is None else s.clone() for s in a.storage]
     if donate:
         a.storage = None
-    _hegst_dist(cc.per_rank(P, Q, lambda r, c: shards[r * Q + c]),
-                cc.per_rank(P, Q, lambda r, c: b_factor.storage[r * Q + c]), a.dist,
-                uplo=uplo, use_mxu=use_mxu, lookahead=lookahead,
-                comm_la=lookahead and config.resolve("comm_lookahead", dev) == "1",
-                panel_fused=panel_fused)
+    obs.telemetry.call("gen_to_std.dist", _hegst_program,
+                       cc.per_rank(P, Q, lambda r, c: shards[r * Q + c]),
+                       cc.per_rank(P, Q, lambda r, c: b_factor.storage[r * Q + c]), a.dist,
+                       uplo=uplo, use_mxu=use_mxu, lookahead=lookahead,
+                       comm_la=lookahead and config.resolve("comm_lookahead", dev) == "1",
+                       panel_fused=panel_fused)
     return Matrix(a.dist, shards, a.grid)
+
+
+def _hegst_program(lts, lls, dist, **kw):
+    """:func:`_hegst_dist` in place on ``lts``, returning them."""
+    _hegst_dist(lts, lls, dist, **kw)
+    return lts

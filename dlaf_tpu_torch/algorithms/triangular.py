@@ -31,9 +31,15 @@ forms' index-free ``trsm.scanstep``/``trmm.scanstep``, and for the
 pipelined scan solve ``dlaf_comm_overlapped_total`` of the pivot chain's
 collectives that run ahead of the deferred bulk.
 
-Not ported now: the reference's autotune steering of ``triangular_solve``
-and its program telemetry (they come with the autotune and telemetry
-ports), and the ``comm_lookahead`` hoist of the scan solve's A-panel
+Program telemetry sites (:mod:`..obs.telemetry`): ``triangular_solve.dist``
+and ``triangular_multiply.dist``. Under ``DLAF_AUTOTUNE``
+(:mod:`..autotune`) ``triangular_solve`` runs under its site's route (op
+``trsm``: the distributed pivot chain's ``panel_impl``, and ``f64_trsm``
+and the slice count on the Ozaki route) and, when ``b`` survives
+(``donate_b=False``), feeds the solve's Hutchinson residual back (the
+reference's ``triangular.py:772-842``).
+
+Not ported now: the ``comm_lookahead`` hoist of the scan solve's A-panel
 read, which reorders only the emission of identical values: the port's
 eager loop reads A once per step either way.
 """
@@ -44,6 +50,7 @@ import numpy as np
 import torch
 
 from .. import config, obs
+from ..autotune import routes as at_routes
 from ..comm import collectives as cc
 from ..comm.grid import COL_AXIS, ROW_AXIS
 from ..common.asserts import dlaf_assert
@@ -388,12 +395,36 @@ def triangular_solve(side: str, uplo: str, op: str, diag: str, alpha, a: Matrix,
     not be used afterwards); otherwise neither ``a`` nor ``b`` is written.
     ``with_info=True`` returns ``(X, info)``: an int32 device tensor, 0
     when every diagonal entry of ``A`` is finite and nonzero, else the
-    1-based first singular global column; 0 for ``diag='U'``."""
+    1-based first singular global column; 0 for ``diag='U'``.
+
+    Under ``DLAF_AUTOTUNE`` the call runs under its site's route (op
+    ``trsm``) and, when ``b`` survives and the cadence is due, the solve's
+    Hutchinson residual (``c = 60``) feeds the route table."""
+    from .. import autotune
+
+    steer = autotune.steering_for_matrix("trsm", a)
+    if steer is None:
+        return _triangular_solve_entry(side, uplo, op, diag, alpha, a, b, donate_b=donate_b,
+                                       with_info=with_info)
+    with steer.applied():
+        out = _triangular_solve_entry(side, uplo, op, diag, alpha, a, b, donate_b=donate_b,
+                                      with_info=with_info)
+    if not donate_b and steer.probe_due:
+        from ..obs import accuracy
+
+        res = out[0] if with_info else out
+        steer.observe(accuracy.trsm_residual(side, uplo, op, diag, alpha, a, b, res), c=60.0,
+                      of=res, attrs={"entry": "triangular_solve",
+                                     "combo": f"{side}{uplo}{op}{diag}"})
+    return out
+
+
+def _triangular_solve_entry(side, uplo, op, diag, alpha, a, b, *, donate_b, with_info):
     _check_args(side, uplo, op, diag, a, b)
     dev = a.device.type
     panel_fused = a.distributed and pk.panel_uses_fused(a.dtype, a.block_size.row, dev)
     with _entry_span("triangular_solve", side, uplo, op, diag, a, b,
-                     panel_impl="fused" if panel_fused else "xla"):
+                     panel_impl="fused" if panel_fused else "xla", **at_routes.span_attrs()):
         return _triangular_solve(side, uplo, op, diag, alpha, a, b, donate_b=donate_b,
                                  with_info=with_info, panel_fused=panel_fused)
 
@@ -443,10 +474,17 @@ def _triangular_solve(side, uplo, op, diag, alpha, a, b, *, donate_b, with_info,
     ltas, _ = _grid_shards(a, copy=False)
     kw = dict(side=side, uplo=uplo, op=op, diag=diag, panel_fused=panel_fused)
     scan = config.resolve_step_mode(a.dist.nr_tiles.row, dev) == "scan"
-    _dist_solve(ltas, ltbs, a.dist, b.dist, scan=scan,
-                lookahead=scan and config.resolve("cholesky_lookahead", dev) == "1", **kw)
+    obs.telemetry.call("triangular_solve.dist", _solve_program, ltas, ltbs, a.dist, b.dist,
+                       scan=scan,
+                       lookahead=scan and config.resolve("cholesky_lookahead", dev) == "1", **kw)
     res = Matrix(b.dist, shards, b.grid)
     return (res, info) if with_info else res
+
+
+def _solve_program(ltas, ltbs, dist_a, dist_b, **kw):
+    """:func:`_dist_solve` in place on ``ltbs``, returning them."""
+    _dist_solve(ltas, ltbs, dist_a, dist_b, **kw)
+    return ltbs
 
 
 def triangular_multiply(side: str, uplo: str, op: str, diag: str, alpha, a: Matrix,
@@ -471,7 +509,8 @@ def _triangular_multiply(side, uplo, op, diag, alpha, a, b):
                         what="triangular_multiply(A, B)")
     ltas, _ = _grid_shards(a, copy=False)
     ltbs, _ = _grid_shards(b, copy=False)
-    out = _dist_mult(ltas, ltbs, a.dist, b.dist, side=side, uplo=uplo, op=op, diag=diag,
-                     scan=config.resolve_step_mode(a.dist.nr_tiles.row, dev) == "scan")
+    out = obs.telemetry.call("triangular_multiply.dist", _dist_mult, ltas, ltbs, a.dist,
+                             b.dist, side=side, uplo=uplo, op=op, diag=diag,
+                             scan=config.resolve_step_mode(a.dist.nr_tiles.row, dev) == "scan")
     return Matrix(b.dist, [x if x is None else x.mul_(alpha) for row in out for x in row],
                   b.grid)

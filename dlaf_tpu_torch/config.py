@@ -10,11 +10,20 @@ the circuit breakers' (``circuit_*``), the resilience layer's (``strict``,
 ``resume_dir``; :mod:`.health.registry`, :mod:`.health.resume`), and the
 observability layer's
 (``log``, ``metrics_path``, ``trace_dir``, ``metrics_port``, ``slo_*``,
-``flight_recorder``; :mod:`.obs`) and the accuracy probes'
-(``accuracy``; :mod:`.obs.accuracy`), with the reference's environment
-names, defaults and validation (``config.py:400-417, 504-568, 617-624,
-635-670, 776-793, 812-866``). :func:`initialize` configures :mod:`.obs`
+``flight_recorder``; :mod:`.obs`), the accuracy probes'
+(``accuracy``; :mod:`.obs.accuracy`), the program telemetry's
+(``program_telemetry``; :mod:`.obs.telemetry`) and the route autotuner's
+(``autotune``, ``autotune_table``, ``autotune_margin``,
+``autotune_relax_after``, ``autotune_probe_every``, ``autotune_budget``;
+:mod:`.autotune`), with the reference's environment names, defaults and
+validation (``config.py:400-417, 456-503, 504-568, 617-624, 635-670,
+681, 751, 776-793, 812-866``). :func:`initialize` configures :mod:`.obs`
 from the resolved knobs, as the reference's does (``config.py:935-939``).
+:func:`resolve` and :func:`resolve_slices` are the single owners of the
+knobs an autotune route overrides (``panel_impl``, ``step_impl``,
+``f64_trsm``, ``ozaki_impl``, ``f64_gemm_slices``): the active route of
+:func:`.autotune.applied` wins over the configured value, as in the
+reference's ``config.py:995-1041`` and ``tile_ops/blas.py:63``.
 Same layering (highest wins):
 ``--dlaf:<knob>=<value>`` arguments > ``DLAF_<KNOB>`` environment
 variables > a user ``Configuration`` > the defaults.
@@ -237,6 +246,43 @@ class Configuration:
     #: are never touched: every estimator runs after the algorithm, on its
     #: outputs.
     accuracy: str = "0"
+    #: Accuracy-steered route autotuning (``DLAF_AUTOTUNE``,
+    #: :mod:`.autotune`): "1" closes the loop on the accuracy probes: the
+    #: routes of ``panel_impl``/``step_impl``/``f64_trsm``/``ozaki_impl``/
+    #: ``f64_gemm_slices`` are chosen per (op, n-bucket, nb, dtype, device
+    #: type) from a route table fed by the Hutchinson probe after each
+    #: entry call whose input survives: escalate one ladder rung at a
+    #: breach, relax one after ``autotune_relax_after`` comfortable probes.
+    #: "0": no probe, no override (the start rungs are the defaults).
+    #: "auto" (default): "0" on both ``cuda`` and ``cpu``, the reference's
+    #: choice off its TPU: on the card ``f64_gemm`` resolves "native", so
+    #: the f64 ladder's slice counts bind nowhere by default.
+    autotune: str = "auto"
+    #: Route-table persistence path (``DLAF_AUTOTUNE_TABLE``): a
+    #: schema-checked JSON table warm-started at first use (a malformed,
+    #: stale or other-version table raises, naming the field) and written
+    #: atomically after every decision, by process 0 only. Empty (default):
+    #: in memory only.
+    autotune_table: str = ""
+    #: A probe with ``bound_ratio <= margin`` counts toward a relax; ratios
+    #: in (margin, 1] hold and reset the streak (``DLAF_AUTOTUNE_MARGIN``).
+    autotune_margin: float = 0.25
+    #: Consecutive comfortable probes before one relax
+    #: (``DLAF_AUTOTUNE_RELAX_AFTER``); an escalation is immediate.
+    autotune_relax_after: int = 3
+    #: Probe every K-th entry call per site, the first always
+    #: (``DLAF_AUTOTUNE_PROBE_EVERY``); un-probed calls still take the route.
+    autotune_probe_every: int = 1
+    #: Relaxes per site per process (``DLAF_AUTOTUNE_BUDGET``; 0 =
+    #: unbounded); escalations are never limited.
+    autotune_budget: int = 16
+    #: Program telemetry (``DLAF_PROGRAM_TELEMETRY``, :mod:`.obs.telemetry`):
+    #: the first call of each distinct program key at an instrumented site
+    #: records its wall (``dlaf_compile_seconds{site}``), the key count
+    #: (``dlaf_retrace_total{site}``) and its memory
+    #: (``dlaf_hbm_bytes{what,site}``), with a ``program`` record in the
+    #: ``metrics_path`` artifact. Off (default): every site is a passthrough.
+    program_telemetry: bool = False
 
 
 _VALID_CHOICES = {
@@ -254,6 +300,7 @@ _VALID_CHOICES = {
     "hegst_impl": ("blocked", "twosolve", "auto"),
     "log": ("debug", "info", "warning", "error", "off"),
     "accuracy": ("0", "1", "full"),
+    "autotune": ("0", "1", "auto"),
 }
 
 #: auto resolution per device type: (cuda choice, cpu choice).
@@ -342,6 +389,21 @@ def _validate(cfg: Configuration) -> None:
     if cfg.flight_recorder < 0:
         raise ValueError(f"flight_recorder={cfg.flight_recorder}: must be "
                          ">= 0 (0 = flight recorder off; N = ring depth)")
+    if not 0 < cfg.autotune_margin <= 1:
+        raise ValueError(f"autotune_margin={cfg.autotune_margin}: must be "
+                         "in (0, 1] (the relax-comfort bound_ratio "
+                         "threshold; 1 would erase the hysteresis band)")
+    if cfg.autotune_relax_after < 1:
+        raise ValueError(f"autotune_relax_after={cfg.autotune_relax_after}:"
+                         " must be >= 1 (consecutive comfortable probes "
+                         "before a relax)")
+    if cfg.autotune_probe_every < 1:
+        raise ValueError(f"autotune_probe_every="
+                         f"{cfg.autotune_probe_every}: must be >= 1 "
+                         "(probe every K-th entry call per site)")
+    if cfg.autotune_budget < 0:
+        raise ValueError(f"autotune_budget={cfg.autotune_budget}: must be "
+                         ">= 0 (0 = unbounded per-site relax budget)")
     parse_serve_buckets(cfg.serve_buckets)   # raises on a malformed list
 
 
@@ -408,8 +470,8 @@ def initialize(user: Optional[Configuration] = None,
     from . import obs
 
     obs.configure(log_level=cfg.log, metrics_path=cfg.metrics_path,
-                  trace_dir=cfg.trace_dir, metrics_port=cfg.metrics_port,
-                  flight_recorder=cfg.flight_recorder)
+                  trace_dir=cfg.trace_dir, program_telemetry=cfg.program_telemetry,
+                  metrics_port=cfg.metrics_port, flight_recorder=cfg.flight_recorder)
     _active = cfg
     return _active
 
@@ -434,9 +496,26 @@ def _announce(knob: str, device_type: str, choice) -> None:
                   "knob explicitly to override")
 
 
+#: The knobs :func:`resolve` lets an autotune route override.
+ROUTED = ("panel_impl", "step_impl", "f64_trsm", "ozaki_impl")
+
+
+def route_override(field: str):
+    """The active autotune route's override of ``field`` (None: inherit
+    the configuration), :func:`.autotune.routes.override`."""
+    from .autotune.routes import override
+
+    return override(field)
+
+
 def resolve(knob: str, device_type: str) -> str:
     """``knob``'s value with "auto" resolved for ``device_type`` ("cuda"
-    or "cpu"), announced once per (knob, device type, choice)."""
+    or "cpu"), announced once per (knob, device type, choice). For the
+    :data:`ROUTED` knobs the active autotune route's override wins."""
+    if knob in ROUTED:
+        routed = route_override(knob)
+        if routed is not None:
+            return routed
     value = getattr(get_configuration(), knob)
     if value != "auto":
         return value
@@ -446,12 +525,26 @@ def resolve(knob: str, device_type: str) -> str:
 
 
 def resolve_slices() -> int:
-    """``f64_gemm_slices`` with 0 resolved to :data:`AUTO_SLICES`."""
+    """``f64_gemm_slices`` with 0 resolved to :data:`AUTO_SLICES`; the
+    active autotune route's slice count wins."""
+    routed = route_override("f64_gemm_slices")
+    if routed is not None:
+        return int(routed)
     s = get_configuration().f64_gemm_slices
     if s:
         return s
     _announce("f64_gemm_slices", "any", AUTO_SLICES)
     return AUTO_SLICES
+
+
+def resolve_autotune(device_type: str) -> str:
+    """``autotune`` with "auto" resolved: "0" on ``cuda`` and ``cpu``
+    alike (the reference's choice off its TPU), announced once."""
+    value = get_configuration().autotune
+    if value != "auto":
+        return value
+    _announce("autotune", device_type, "0")
+    return "0"
 
 
 def resolve_secular_device_min_k(device_type: str) -> int:

@@ -34,11 +34,13 @@ Records (:mod:`..obs`): the ``bt_band_to_tridiag`` and
 attrs (``back_transform.py:269, 577``: ``impl`` is "blocked", ``group``
 the resolved group, ``bt_lookahead`` 0); on a grid the reflector-block
 steps ``bt_r2b.step<p>.panel|bulk`` and the scan form's
-``bt_r2b.scanstep``.
+``bt_r2b.scanstep``; the program telemetry sites
+``bt_reduction_to_band.local`` and ``.dist`` (:mod:`..obs.telemetry`).
 
 Not ported: the reference's ``matrix/memory.py`` placement (the port puts
-tensors on an explicit device with ``torch.as_tensor``), its program
-telemetry, and its ``route=`` argument (autotune).
+tensors on an explicit device with ``torch.as_tensor``), and its
+``route=`` argument: an eager call reads the active autotune route as it
+runs (the eigensolver applies it around this stage, :mod:`..autotune`).
 """
 
 from __future__ import annotations
@@ -448,6 +450,12 @@ def _dist_bt_r2b_scan(lts_a, taus, lts_c, dist_a, dist_c, band: int) -> None:
                 step(subs_a, subs_c, npan - 1 - i, lu_off, lc_off)
 
 
+def _bt_r2b_program(lts_a, taus, lts_c, dist_a, dist_c, band, *, scan):
+    """The distributed reflector blocks in place on ``lts_c``, returned."""
+    (_dist_bt_r2b_scan if scan else _dist_bt_r2b)(lts_a, taus, lts_c, dist_a, dist_c, band)
+    return lts_c
+
+
 def bt_reduction_to_band(red: BandReduction, evecs):
     """Eigenvectors of the ORIGINAL matrix from those of the band matrix:
     the reduction's reflector blocks in reverse order.
@@ -493,17 +501,16 @@ def _bt_reduction_to_band(red: BandReduction, evecs):
         lts_c = cc.per_rank(P, Q, lambda r, c: shards[r * Q + c])
         scan = config.resolve_step_mode(max(ceil_div(a.size.row, red.band) - 1, 1),
                                         dev) == "scan"
-        if scan:
-            _dist_bt_r2b_scan(lts_a, red.taus, lts_c, a.dist, evecs.dist, red.band)
-        else:
-            _dist_bt_r2b(lts_a, red.taus, lts_c, a.dist, evecs.dist, red.band)
+        obs.telemetry.call("bt_reduction_to_band.dist", _bt_r2b_program, lts_a, red.taus,
+                           lts_c, a.dist, evecs.dist, red.band, scan=scan)
         return Matrix(evecs.dist, shards, evecs.grid)
     a_v = tiles_to_global(a.storage, a.dist)
     if isinstance(evecs, Matrix):
         e = tiles_to_global(evecs.storage, evecs.dist).to(a_v.dtype)
     else:
         e = torch.as_tensor(evecs).to(a_v.device, a_v.dtype, copy=True)
-    out = _bt_r2b_local(a_v, red.taus.to(a_v.device), e, nb=red.band)
+    out = obs.telemetry.call("bt_reduction_to_band.local", _bt_r2b_local, a_v,
+                             red.taus.to(a_v.device), e, nb=red.band)
     if isinstance(evecs, Matrix):
         return Matrix(evecs.dist, global_to_tiles(out, evecs.dist), evecs.grid)
     return out

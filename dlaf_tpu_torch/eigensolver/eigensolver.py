@@ -51,7 +51,13 @@ A mismatched fingerprint, and ``resume=True`` without a directory, raise
 boundary after its checkpoint landed. A multi-process world ignores the
 directory (warned once) and refuses ``resume=True``.
 
-Not ported now: the autotune steering.
+**Autotune steering** (reference ``eigensolver.py:102-117, 200-273``;
+:mod:`..autotune`): under ``DLAF_AUTOTUNE`` one steering handle (op
+``eigensolver``) serves the whole pipeline. Its route is applied around
+reduction to band and its back-transform only; the host chase and the
+D&C keep the configured route, as in the reference. When ``a`` survives
+(``donate=False``) and the cadence is due, the Hutchinson eigenpair
+residual (``c = 200``) feeds the route table.
 """
 
 from __future__ import annotations
@@ -63,7 +69,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import obs
+from .. import autotune, obs
 from ..algorithms.cholesky import cholesky
 from ..algorithms.gen_to_std import gen_to_std
 from ..algorithms.triangular import triangular_solve
@@ -121,12 +127,22 @@ def eigensolver(uplo: str, a: Matrix, phases: Optional[PhaseTimer] = None,
     n = a.size.row
     if n == 0:
         return EigensolverResult(np.zeros(0), a)
+    steer = autotune.steering_for_matrix("eigensolver", a)
+    route = steer.route if steer is not None else None
     span = obs.entry_span("eigensolver", lambda: dict(
         flops=total_ops(a.dtype, 5 * n ** 3 / 3, 5 * n ** 3 / 3), n=n, nb=a.block_size.row,
         uplo=uplo, dtype=dtype_name(a.dtype), dc_level_batch=0, bt_lookahead=0,
+        **({"autotune_route": route.as_dict()} if route is not None and route.key() else {}),
         grid=f"{a.dist.grid_size.row}x{a.dist.grid_size.col}"))
     with span:
-        return _eigensolver(uplo, a, phases, band_size, donate, keep, resume)
+        result = _eigensolver(uplo, a, phases, band_size, donate, keep, resume, route)
+    if steer is not None and not donate and steer.probe_due:
+        from ..obs import accuracy
+
+        est = accuracy.eigen_residuals(uplo, a, result.eigenvalues, result.eigenvectors)
+        steer.observe(est["eigen_residual"], c=200.0, of=result.eigenvectors,
+                      attrs={"entry": "eigensolver", "uplo": uplo})
+    return result
 
 
 def _stage_fingerprint(uplo, a, band_size) -> dict:
@@ -199,7 +215,7 @@ def _q_matrix(z, a) -> Matrix:
                               root=RankIndex2D(0, 0), size=a.size, dtype=torch.float64)
 
 
-def _eigensolver(uplo, a, phases, band_size, donate, keep, resume):
+def _eigensolver(uplo, a, phases, band_size, donate, keep, resume, route=None):
     n = a.size.row
     pt = phases if phases is not None else PhaseTimer()
     fence, fence_t = _fences(phases)
@@ -212,7 +228,8 @@ def _eigensolver(uplo, a, phases, band_size, donate, keep, resume):
         else:
             # hermitianize gives a fresh matrix owned here, donated onward
             ah = mops.hermitianize(a, uplo, donate=donate)
-            red = reduction_to_band(ah, band_size=band_size, donate=True)
+            with autotune.applied(route):
+                red = reduction_to_band(ah, band_size=band_size, donate=True)
             _commit(ck, "red2band", lambda: _pack_red(red))
         fence(red.matrix)
     mp = a.distributed and a.grid.multi_process
@@ -275,7 +292,8 @@ def _eigensolver(uplo, a, phases, band_size, donate, keep, resume):
         if ck.completed("bt_r2b"):
             vecs = matrix_from_arrays(ck.load("bt_r2b"), "vecs", a.grid, device=a.device)
         else:
-            out = bt_reduction_to_band(red, zb)
+            with autotune.applied(route):
+                out = bt_reduction_to_band(red, zb)
             vecs = out if a.distributed else Matrix.from_global(
                 out, a.block_size, grid=a.grid, source_rank=a.dist.source_rank,
                 device=a.device)

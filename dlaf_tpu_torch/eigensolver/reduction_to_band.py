@@ -50,10 +50,11 @@ reference's flop model and attrs (``reduction_to_band.py:667``); on a
 grid the per-step ``red2band.step<p>.panel|strip|bulk`` phases (the
 hoisted next panel named as its own step's), the scan form's
 ``red2band.scanstep``, and ``dlaf_comm_overlapped_total`` of the panel
-gather hoisted by ``comm_lookahead``.
-
-Not ported now: the reference's ``route=`` argument (autotune) and its
-program telemetry.
+gather hoisted by ``comm_lookahead``; the program telemetry sites
+``reduction_to_band.local``, ``.local_scan`` and ``.dist``
+(:mod:`..obs.telemetry`). The reference's ``route=`` argument is not
+needed: an eager call reads the active autotune route as it runs (the
+eigensolver applies it around this stage, :mod:`..autotune`).
 """
 
 from __future__ import annotations
@@ -548,21 +549,32 @@ def _reduction_to_band(a: Matrix, band: int, donate: bool) -> BandReduction:
         g = tiles_to_global(a.storage, a.dist)
         if donate:
             a.storage = None
-        out, taus = (_red2band_local_scan if scan else _red2band_local)(g, nb=band)
+        if scan:
+            out, taus = obs.telemetry.call("reduction_to_band.local_scan",
+                                           _red2band_local_scan, g, nb=band)
+        else:
+            out, taus = obs.telemetry.call("reduction_to_band.local", _red2band_local, g,
+                                           nb=band)
         return BandReduction(Matrix(a.dist, global_to_tiles(out, a.dist), a.grid), taus, band)
     shards = a.storage if donate else [s if s is None else s.clone() for s in a.storage]
     if donate:
         a.storage = None
     P, Q = a.dist.grid_size.row, a.dist.grid_size.col
     lts = cc.per_rank(P, Q, lambda r, c: shards[r * Q + c])
-    if scan:
-        # the scan body's W reads the whole trailing window every step, so
-        # the next panel's gather cannot go ahead of the bulk
-        taus = _red2band_dist_scan(lts, a.dist, band)
-    else:
-        taus = _red2band_dist(lts, a.dist, band,
-                              comm_la=config.resolve("comm_lookahead", dev) == "1")
+    # the scan body's W reads the whole trailing window every step, so the
+    # next panel's gather cannot go ahead of the bulk
+    _, taus = obs.telemetry.call("reduction_to_band.dist", _red2band_program, lts, a.dist,
+                                 band, scan=scan,
+                                 comm_la=not scan
+                                 and config.resolve("comm_lookahead", dev) == "1")
     return BandReduction(Matrix(a.dist, shards, a.grid), taus, band)
+
+
+def _red2band_program(lts, dist, band, *, scan, comm_la):
+    """``(lts, taus)`` of the distributed reduction, in place on ``lts``."""
+    if scan:
+        return lts, _red2band_dist_scan(lts, dist, band)
+    return lts, _red2band_dist(lts, dist, band, comm_la=comm_la)
 
 
 def _band_tiles(mat: Matrix):

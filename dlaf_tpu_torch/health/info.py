@@ -10,7 +10,7 @@ grid each rank reads only the diagonal tiles it owns
 vectors with an all-reduce max over both grid axes. The triangular solve
 reads its info from the stored diagonal of ``A``
 (:func:`matrix_diag_info`; on a multi-process grid by the same owner-masked
-merge).
+merge), a program telemetry site ``diag_info`` (:mod:`..obs.telemetry`).
 """
 
 from __future__ import annotations
@@ -93,6 +93,16 @@ def matrix_diag_info(mat, *, singular: bool = False) -> torch.Tensor:
     ``singular=True`` is the triangular solve's detection (a zero or
     non-finite diagonal entry); the default matches ``potrf_info``
     (non-finite only)."""
+    from .. import obs
+
+    return obs.telemetry.call("diag_info", _diag_info_program, mat.storage, mat.dist,
+                              mat.grid, singular=singular)
+
+
+def _diag_info_program(storage, dist, grid, *, singular: bool) -> torch.Tensor:
+    from ..matrix.matrix import Matrix
+
+    mat = Matrix(dist, storage, grid)
     coords = _diag_tile_coords(mat.dist)
     if not coords:
         return torch.zeros((), dtype=torch.int32, device=mat.device)

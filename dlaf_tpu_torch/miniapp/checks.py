@@ -31,6 +31,14 @@ def report(site: str, metric: str, value: float, *, n: int, nb: int, c: float, d
     """Emit a checked estimate's ``accuracy`` record and (``printer``) print
     its ``check:`` line (``extra`` after the residual); returns whether it
     passed: finite and below ``c n eps``."""
+    return report_result(site, metric, value, n=n, nb=nb, c=c, dtype=dtype, of=of,
+                         attrs=attrs, printer=printer, extra=extra).passed
+
+
+def report_result(site: str, metric: str, value: float, *, n: int, nb: int, c: float, dtype,
+                  of=None, attrs=None, printer: bool = True, extra: str = ""):
+    """:func:`report`, returning the :class:`..obs.accuracy.AccuracyResult`
+    (what the Cholesky miniapp feeds the autotuner)."""
     from ..obs import accuracy
 
     res = accuracy.emit(site, metric, value, n=n, nb=nb, c=c, dtype=dtype, of=of,
@@ -38,4 +46,4 @@ def report(site: str, metric: str, value: float, *, n: int, nb: int, c: float, d
     if printer:
         print(f"check: {'PASSED' if res.passed else 'FAILED'} residual={float(value):.3e}"
               f"{extra} tol={res.tol:.3e}{res.eps_label}", flush=True)
-    return res.passed
+    return res

@@ -12,7 +12,11 @@ and check line ``check: PASSED|FAILED residual=... tol=...`` with
 the device, where the matrices lie, by :func:`..obs.accuracy.
 cholesky_residual`: the seeded probe under ``DLAF_ACCURACY`` "0" and "1",
 exact under "full". Under ``DLAF_ACCURACY`` "1" or "full" every timed run
-that is not checked emits its ``accuracy`` record too.
+that is not checked emits its ``accuracy`` record too. Under
+``DLAF_AUTOTUNE`` each of these residuals (checked, and the timed runs'
+records) is fed to the route table (:func:`..autotune.ingest_result`, the
+reference's ``miniapp_cholesky.py:145-150, 179-184``): the timed runs
+donate their input, so the entry itself has nothing left to probe.
 
 On a grid (``--grid-rows``, ``--grid-cols``; ``--share-device`` to put
 every rank on one device) the matrix is distributed block-cyclically and
@@ -37,7 +41,7 @@ import os
 import sys
 import time
 
-from .. import config, obs
+from .. import autotune, config, obs
 from ..algorithms.cholesky import cholesky
 from ..comm import multihost
 from ..comm.sync import barrier
@@ -45,7 +49,7 @@ from ..common.index2d import GlobalElementSize, TileElementSize
 from ..matrix.matrix import Matrix
 from ..obs import accuracy
 from ..types import dtype_name, total_ops, type_letter
-from .checks import report
+from .checks import report_result
 from .generators import hpd_element_fn
 from .options import (CheckIterFreq, add_miniapp_arguments, is_printer, parse_miniapp_options,
                       select_grid)
@@ -98,11 +102,15 @@ def run(argv=None) -> list[dict]:
             check_cholesky(args.uplo, ref, out)
         elif accuracy.enabled():
             # outside the timed region; a checked run records through its check
-            accuracy.emit("miniapp_cholesky", "cholesky_residual",
-                          accuracy.cholesky_residual(args.uplo, ref, out), n=n, nb=nb, c=60.0,
-                          dtype=opts.dtype, of=out,
-                          attrs={"uplo": args.uplo, "run": run_i,
-                                 "grid": f"{opts.grid_rows}x{opts.grid_cols}"})
+            res = accuracy.emit("miniapp_cholesky", "cholesky_residual",
+                                accuracy.cholesky_residual(args.uplo, ref, out), n=n, nb=nb,
+                                c=60.0, dtype=opts.dtype, of=out,
+                                attrs={"uplo": args.uplo, "run": run_i,
+                                       "grid": f"{opts.grid_rows}x{opts.grid_cols}"})
+            # the donated run's feed: the entry could not probe
+            autotune.ingest_result("cholesky", res, n=n, nb=nb, dtype=opts.dtype,
+                                   platform=device.type,
+                                   attrs={"entry": "miniapp_cholesky", "run": run_i})
     # land the counters and histograms in the artifact now, not at exit
     obs.flush()
     return results
@@ -114,9 +122,14 @@ def check_cholesky(uplo: str, ref: Matrix, out: Matrix) -> None:
     the partial sums meeting in the grid's collectives): process 0
     prints, every process exits 1 on a failure."""
     resid = accuracy.cholesky_residual(uplo, ref, out)
-    if not report("miniapp_cholesky", "cholesky_residual", resid, n=ref.size.row,
-                  nb=ref.block_size.row, c=60.0, dtype=ref.dtype, of=out,
-                  attrs={"uplo": uplo}, printer=is_printer()):
+    res = report_result("miniapp_cholesky", "cholesky_residual", resid, n=ref.size.row,
+                        nb=ref.block_size.row, c=60.0, dtype=ref.dtype, of=out,
+                        attrs={"uplo": uplo}, printer=is_printer())
+    # the donated run's feed (the checked residual steers the route table)
+    autotune.ingest_result("cholesky", res, n=ref.size.row, nb=ref.block_size.row,
+                           dtype=ref.dtype, platform=out.device.type,
+                           attrs={"entry": "miniapp_cholesky", "check": True})
+    if not res.passed:
         sys.exit(1)
 
 

@@ -11,8 +11,8 @@ lacpy, gemm, trsm and potrf of :mod:`..tile_ops`; the per-run line is
     [i] <t>s <gflops>GFlop/s <kernel> <type> (m, m) x<batch> <threads> <backend>
 
 Each run is a fenced ``miniapp_kernel.run`` span (:mod:`..obs`) with the
-flop model, as the reference's; its program telemetry waits for the
-telemetry port.
+flop model, as the reference's, and each call of the op a program
+telemetry site ``miniapp_kernel.<kernel>`` (:mod:`..obs.telemetry`).
 
 Run:  python -m dlaf_tpu_torch.miniapp.miniapp_kernel --kernel gemm -m 256 --batch 64
 """
@@ -66,8 +66,10 @@ def run(argv=None) -> list[dict]:
         "potrf": (lambda a, spd: tl.potrf("L", spd), batch * m**3 / 6),
     }
     fn, half_flops = kernels[args.kernel]
+    site = f"miniapp_kernel.{args.kernel}"
     for a, spd in work:    # first calls (library set-up) outside the timing
-        hard_fence(fn(a, spd))
+        # with DLAF_PROGRAM_TELEMETRY the artifact carries this first call
+        hard_fence(obs.telemetry.call(site, fn, a, spd))
     flops = total_ops(dtype, half_flops, half_flops)
     results = []
     for run_i in range(-opts.nwarmups, opts.nruns):
@@ -76,7 +78,7 @@ def run(argv=None) -> list[dict]:
         with obs.span("miniapp_kernel.run", flops=flops, run=run_i, warmup=run_i < 0,
                       kernel=args.kernel, m=m, batch=batch, dtype=dtype_name(dtype)):
             t0 = time.perf_counter()
-            hard_fence(fn(a, spd))
+            hard_fence(obs.telemetry.call(site, fn, a, spd))
             t = time.perf_counter() - t0
         if run_i < 0:
             continue

@@ -9,9 +9,12 @@ prints, on every process, for the card it allocated most on,
 
     [peak] process <rank> <device>: max_memory_allocated <GiB> GiB, max_memory_reserved <GiB> GiB
 
-It imports the package by absolute name and takes nothing else from it, so
-the same file measures another checkout of the package put first on
-``PYTHONPATH`` (an older tree beside this one, in one call).
+It imports the package by absolute name and takes nothing else from it but
+program telemetry's peak reader (the allocator's peak, whole across the
+resets of ``DLAF_PROGRAM_TELEMETRY``; ``torch.cuda.max_memory_allocated``
+in a checkout without it), so the same file measures another checkout of
+the package put first on ``PYTHONPATH`` (an older tree beside this one, in
+one call).
 """
 
 from __future__ import annotations
@@ -31,11 +34,16 @@ def main(argv=None) -> int:
     mod = importlib.import_module(f"dlaf_tpu_torch.miniapp.{argv[0]}")
     mod.main(argv[1:])
     rank = int(os.environ.get("RANK", "0"))
+    try:
+        # whole across program telemetry's resets of the counter
+        from dlaf_tpu_torch.obs.telemetry import max_memory_allocated as peak
+    except ImportError:     # a checkout from before program telemetry
+        peak = torch.cuda.max_memory_allocated
     if torch.cuda.is_available():
         # the card this process allocated most on (its rank's)
-        dev = max(range(torch.cuda.device_count()), key=torch.cuda.max_memory_allocated)
+        dev = max(range(torch.cuda.device_count()), key=peak)
         print(f"[peak] process {rank} cuda:{dev}: max_memory_allocated "
-              f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.3f} GiB, max_memory_reserved "
+              f"{peak(dev) / 2 ** 30:.3f} GiB, max_memory_reserved "
               f"{torch.cuda.max_memory_reserved(dev) / 2 ** 30:.3f} GiB", flush=True)
     else:
         print(f"[peak] process {rank} cpu: no device memory", flush=True)

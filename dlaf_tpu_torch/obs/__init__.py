@@ -1,7 +1,7 @@
 """dlaf_tpu_torch.obs: structured tracing, metrics and logging.
 
 Port of ``dlaf_tpu/obs/`` less its offline analysers (``aggregate``,
-``critpath``, ``devtrace``) and its program telemetry (``telemetry``). The knobs, layered like every other
+``critpath``, ``devtrace``). The knobs, layered like every other
 :class:`dlaf_tpu_torch.config.Configuration` field (default < user struct
 < env < ``--dlaf:`` argument):
 
@@ -23,6 +23,10 @@ Port of ``dlaf_tpu/obs/`` less its offline analysers (``aggregate``,
   incidents (:mod:`.flight`).
 * ``DLAF_ACCURACY`` (``accuracy``): the numerical-quality probes and their
   ``accuracy`` records (:mod:`.accuracy`), imported where they are used.
+* ``DLAF_PROGRAM_TELEMETRY`` (``program_telemetry``): the first call of
+  each distinct program at an instrumented site records its wall, the
+  site's key count and its memory (:mod:`.telemetry`, ``program``
+  records).
 
 **Counting rule.** The reference counts collectives, Cholesky steps, tile
 ops and D&C merges when a program is TRACED, once per compiled program.
@@ -52,6 +56,7 @@ from . import logging as _logging
 from . import metrics as _metrics
 from . import sinks as _sinks
 from . import slo as _slo
+from . import telemetry as telemetry
 from . import trace as _trace
 from ._state import LOG_LEVELS, STATE, current_rank
 from .context import (current_trace, new_span_id, new_trace_id,
@@ -81,13 +86,13 @@ __all__ = [
     "set_rank", "current_rank", "expand_rank_template",
     "trace_context", "current_trace", "new_trace_id", "new_span_id",
     "single_trace_id", "trace_matches", "observe_latency", "quantile",
-    "SlidingWindow", "FlightRecorder", "exporter",
+    "SlidingWindow", "FlightRecorder", "exporter", "telemetry",
 ]
 
 
 def configure(log_level: str = "info", metrics_path: str = "",
-              trace_dir: str = "", metrics_port: int = 0,
-              flight_recorder: int = 0) -> None:
+              trace_dir: str = "", program_telemetry: bool = False,
+              metrics_port: int = 0, flight_recorder: int = 0) -> None:
     """(Re)configure the layer: called by ``config.initialize()`` with the
     resolved knobs, or lazily from the environment by the first logging
     call in a process that never initializes the configuration.
@@ -105,6 +110,9 @@ def configure(log_level: str = "info", metrics_path: str = "",
     ``metrics_port`` starts the live ``/metrics`` + ``/healthz`` exporter
     (:mod:`.exporter`) as a daemon thread on 127.0.0.1, and turns the
     registry on even without a sink. 0 (default): no thread, no socket.
+    ``program_telemetry`` (``DLAF_PROGRAM_TELEMETRY``) arms the program
+    records of :mod:`.telemetry` (and the registry, even without a sink);
+    off, every telemetry site is a passthrough.
     ``flight_recorder`` arms a bounded ring of the last N sink records,
     dumped atomically to ``<metrics_path>.flight.jsonl`` on incident
     triggers (:mod:`.flight`); it needs a sink and warns once when armed
@@ -130,7 +138,9 @@ def configure(log_level: str = "info", metrics_path: str = "",
                          ">= 0 (0 = exporter off)")
     STATE.metrics_on = STATE.sink is not None or port > 0
     STATE.annotate = bool(trace_dir)
-    if STATE.registry is None and (STATE.metrics_on or STATE.annotate):
+    STATE.telemetry_on = bool(program_telemetry)
+    if STATE.registry is None and (STATE.metrics_on or STATE.annotate
+                                   or STATE.telemetry_on):
         STATE.registry = _metrics.Registry()
     # live exporter lifecycle: restart on a port change, stop on 0
     if port != STATE.exporter_port:
@@ -148,7 +158,8 @@ def configure(log_level: str = "info", metrics_path: str = "",
             STATE.flight = _flight.FlightRecorder(cap)
     else:
         STATE.flight = None
-    if (STATE.metrics_on or STATE.annotate) and not STATE.atexit_registered:
+    if (STATE.metrics_on or STATE.annotate or STATE.telemetry_on) \
+            and not STATE.atexit_registered:
         STATE.atexit_registered = True
         atexit.register(_shutdown)
     STATE.configured = True
@@ -284,5 +295,7 @@ def _reset_for_tests() -> None:
     STATE.rank = None
     STATE.flight = None
     STATE.exporter_port = 0
+    STATE.telemetry_on = False
     _slo.set_clock(None)
     _logging.reset_once()
+    telemetry._reset_for_tests()

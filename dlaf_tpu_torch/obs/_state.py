@@ -27,7 +27,7 @@ class _ObsState:
     __slots__ = ("configured", "log_level", "log_level_num", "metrics_on",
                  "annotate", "trace_dir", "sink", "registry",
                  "profiler_started", "profiler", "atexit_registered",
-                 "rank", "flight", "exporter_port")
+                 "rank", "flight", "exporter_port", "telemetry_on")
 
     def __init__(self):
         self.configured = False
@@ -44,6 +44,7 @@ class _ObsState:
         self.rank = None                 # pinned process rank, or None
         self.flight = None               # FlightRecorder, or None
         self.exporter_port = 0           # DLAF_METRICS_PORT in effect (0=off)
+        self.telemetry_on = False        # DLAF_PROGRAM_TELEMETRY knob
 
 
 STATE = _ObsState()
@@ -55,7 +56,8 @@ def _warn(msg: str) -> None:
 
 def ensure_env_defaults() -> None:
     """Lazy fallback: pick up ``DLAF_LOG``, ``DLAF_METRICS_PATH``,
-    ``DLAF_TRACE_DIR``, ``DLAF_METRICS_PORT`` and ``DLAF_FLIGHT_RECORDER``
+    ``DLAF_TRACE_DIR``, ``DLAF_PROGRAM_TELEMETRY``, ``DLAF_METRICS_PORT``
+    and ``DLAF_FLIGHT_RECORDER``
     from the environment when nothing has called
     :func:`dlaf_tpu_torch.obs.configure` yet. A later configure()
     overrides this. A malformed variable warns instead of raising here
@@ -84,6 +86,8 @@ def ensure_env_defaults() -> None:
     configure(log_level=level,
               metrics_path=os.environ.get("DLAF_METRICS_PATH", ""),
               trace_dir=os.environ.get("DLAF_TRACE_DIR", ""),
+              program_telemetry=os.environ.get("DLAF_PROGRAM_TELEMETRY", "").strip().lower()
+              in ("1", "true", "yes", "on"),
               metrics_port=_int_env("DLAF_METRICS_PORT"),
               flight_recorder=_int_env("DLAF_FLIGHT_RECORDER"))
 

@@ -47,6 +47,23 @@ type:
     ``eps_eff`` (an informational metric, the D&C deflation fraction,
     carries none); no record carries both ``bound_ratio`` and
     ``nonfinite``.
+``program``
+    Program-telemetry record (:mod:`.telemetry`, the
+    ``DLAF_PROGRAM_TELEMETRY`` knob): ``site`` str, ``event``
+    "compile" | "retrace", finite ``compile_s`` >= 0 (compile events;
+    optional ``trace_s``), optional ``hbm`` object of finite byte counts
+    (``args``/``output``, and on ``cuda`` ``temp``/``peak``), ``attrs``
+    object.
+``autotune``
+    One route decision (:mod:`..autotune`, the ``DLAF_AUTOTUNE`` knob):
+    ``site`` non-empty str (the route-table key label),
+    ``op``/``dtype``/``platform`` non-empty strs, ``n_bucket``/``nb``
+    non-negative ints, ``reason`` one of :data:`AUTOTUNE_REASONS`,
+    ``rung_old``/``rung_new`` non-negative ints consistent with the
+    reason (``escalate``: new > old; ``relax``: new < old;
+    ``hold``/``exhausted``: new == old), ``route_old``/``route_new``
+    objects, ``probe`` finite >= 0 or null with ``nonfinite: true``, and
+    ``attrs`` object.
 ``flight_trigger``
     Header of a flight-recorder dump: ``reason`` one of
     :data:`FLIGHT_REASONS`, ``dump_seq`` int >= 1, ``records`` int >= 0,
@@ -62,12 +79,12 @@ batch) and ``span_id`` (non-empty str).
 :func:`validate_records` is the schema owner behind the tests and
 ``python -m dlaf_tpu_torch.obs.validate``; its ``require_*`` flags are the
 reference's for the records above: spans, gflops, collectives, retries,
-comm-overlap, accuracy, serve, resilience and flight. The accuracy
-history lines (``.accuracy_history.jsonl``) have their own reader,
-:func:`validate_history_records`. The validators of the ``program``,
-``devtrace``, ``critpath``/``whatif``/``schedule``, ``autotune`` and
-``fleet`` records, and the bench history lines, come with the modules
-that emit them.
+comm-overlap, accuracy, serve, resilience, flight, telemetry and autotune.
+The accuracy history lines (``.accuracy_history.jsonl``) have their own
+reader, :func:`validate_history_records`. The validators of the
+``devtrace``, ``critpath``/``whatif``/``schedule`` and ``fleet`` records
+come with the modules that emit them; the bench history lines with the
+port's benchmark.
 """
 
 from __future__ import annotations
@@ -82,7 +99,7 @@ SCHEMA_VERSION = 1
 
 #: The record types this port writes.
 KNOWN_TYPES = ("span", "metrics", "log", "accuracy", "serve", "resilience",
-               "flight_trigger")
+               "flight_trigger", "program", "autotune")
 
 #: The resilience record's event vocabulary (schema above).
 RESILIENCE_EVENTS = ("retry", "give_up", "deadline", "circuit_open",
@@ -96,6 +113,9 @@ FLIGHT_REASONS = ("breaker_open", "overload_shed",
                   "factorization_exhausted", "accuracy_breach",
                   "healthz_failure", "slo_breach_burst",
                   "autotune_exhausted", "fleet_worker_down")
+
+#: The autotune decision vocabulary (:func:`..autotune.table.decide`).
+AUTOTUNE_REASONS = ("escalate", "relax", "hold", "exhausted")
 
 def expand_rank_template(path: str) -> str:
     """Resolve a ``%r`` per-rank placeholder in a metrics path, but ONLY
@@ -198,6 +218,77 @@ def _validate_span(r: dict, where: str, errors: list) -> None:
             if not _finite(attrs.get(key)):
                 errors.append(
                     f"{where}: retry span missing finite attr {key!r}")
+
+
+def _validate_program(r: dict, where: str, errors: list) -> None:
+    if not isinstance(r.get("site"), str) or not r.get("site"):
+        errors.append(f"{where}: program record without a site")
+    event = r.get("event")
+    if event not in ("compile", "retrace"):
+        errors.append(f"{where}: program event must be compile|retrace, "
+                      f"got {event!r}")
+    if event == "compile":
+        if not _finite(r.get("compile_s")) or r.get("compile_s", -1) < 0:
+            errors.append(f"{where}: program compile_s "
+                          "missing/non-finite/negative")
+    elif "compile_s" in r and (not _finite(r["compile_s"])
+                               or r["compile_s"] < 0):
+        errors.append(f"{where}: program compile_s non-finite/negative")
+    if "trace_s" in r and (not _finite(r["trace_s"]) or r["trace_s"] < 0):
+        errors.append(f"{where}: program trace_s non-finite/negative")
+    hbm = r.get("hbm")
+    if hbm is not None:
+        if not isinstance(hbm, dict):
+            errors.append(f"{where}: program hbm must be an object")
+        else:
+            for key, v in hbm.items():
+                if not _finite(v):
+                    errors.append(f"{where}: program hbm[{key!r}] "
+                                  "non-finite")
+    if not isinstance(r.get("attrs", {}), dict):
+        errors.append(f"{where}: program attrs must be an object")
+
+
+def _validate_autotune(r: dict, where: str, errors: list) -> None:
+    for key in ("site", "op", "dtype", "platform"):
+        if not isinstance(r.get(key), str) or not r.get(key):
+            errors.append(f"{where}: autotune record without a {key}")
+    for key in ("n_bucket", "nb", "rung_old", "rung_new"):
+        if not isinstance(r.get(key), int) or isinstance(r.get(key), bool) \
+                or r.get(key, -1) < 0:
+            errors.append(f"{where}: autotune {key} must be a non-negative "
+                          "int")
+    reason = r.get("reason")
+    if reason not in AUTOTUNE_REASONS:
+        errors.append(f"{where}: autotune reason must be one of "
+                      f"{AUTOTUNE_REASONS}, got {reason!r}")
+    old, new = r.get("rung_old"), r.get("rung_new")
+    if isinstance(old, int) and isinstance(new, int):
+        # a transition that contradicts its reason would let a decision
+        # trail lie about what the controller did
+        if reason == "escalate" and not new > old:
+            errors.append(f"{where}: autotune escalate must raise the "
+                          f"rung (old {old}, new {new})")
+        if reason == "relax" and not new < old:
+            errors.append(f"{where}: autotune relax must lower the rung "
+                          f"(old {old}, new {new})")
+        if reason in ("hold", "exhausted") and new != old:
+            errors.append(f"{where}: autotune {reason} must keep the "
+                          f"rung (old {old}, new {new})")
+    probe = r.get("probe")
+    if r.get("nonfinite") is True:
+        if probe is not None:
+            errors.append(f"{where}: nonfinite autotune record must carry "
+                          "probe null")
+    elif not _finite(probe) or probe < 0:
+        errors.append(f"{where}: autotune probe missing/non-finite/"
+                      "negative (use probe null + nonfinite true for "
+                      "corrupted estimates)")
+    for key in ("route_old", "route_new"):
+        if not isinstance(r.get(key), dict):
+            errors.append(f"{where}: autotune {key} must be an object")
+    if not isinstance(r.get("attrs", {}), dict):
+        errors.append(f"{where}: autotune attrs must be an object")
 
 
 def _validate_accuracy(r: dict, where: str, errors: list) -> None:
@@ -362,7 +453,8 @@ def validate_records(records, require_spans=False, require_gflops=False,
                      require_collectives=False, require_retries=False,
                      require_comm_overlap=False, require_serve=False,
                      require_resilience=False, require_flight=False,
-                     require_fallbacks=False, require_accuracy=False) -> list:
+                     require_fallbacks=False, require_accuracy=False,
+                     require_telemetry=False, require_autotune=False) -> list:
     """Validate parsed records; returns a list of error strings (empty =
     valid). The ``require_*`` obligations, as the reference's:
 
@@ -381,20 +473,36 @@ def validate_records(records, require_spans=False, require_gflops=False,
     * ``require_serve``: a warmed steady-state stream: >= 1 dispatch with
       >= 2 lanes and a cache hit, NO cache-miss dispatch, >= 1 request
       with finite latency and >= 1 ``accuracy`` record of site ``serve``
-      with a finite value and bound_ratio;
+      with a finite value and bound_ratio, and no serve site with retrace
+      evidence at count >= 2 (a ``dlaf_retrace_total{site=serve.*}``
+      counter >= 2, or two ``retrace`` program records of one serve site:
+      a bucket program compiled again mid-stream);
     * ``require_resilience``: >= 1 ``resilience`` record of event retry or
       resume, and NO ``dlaf_circuit_state`` gauge left open (2) in the
       last snapshot;
     * ``require_flight``: >= 1 ``flight_trigger`` record with a known
       reason and >= 1 ordinary record captured by the ring;
     * ``require_fallbacks``: a positive ``dlaf_fallback_total`` counter in
-      a metrics snapshot (a degradation drill's audit trail)."""
+      a metrics snapshot (a degradation drill's audit trail);
+    * ``require_telemetry``: >= 1 finite compile-seconds observation,
+      finite memory accounting and retrace evidence, each leg met by a
+      metrics snapshot (``dlaf_compile_seconds`` histogram,
+      ``dlaf_hbm_bytes`` gauge, ``dlaf_retrace_total`` counter) or by the
+      ``program`` records;
+    * ``require_autotune``: >= 1 ``autotune`` record of reason escalate or
+      relax (the loop moved a route), and NO site whose LAST decision is
+      ``exhausted`` (a ladder left at its top under a breach is an open
+      incident)."""
     errors = []
     n_spans = n_gflops = n_coll = n_retries = n_fallbacks = 0
     n_serve_batched = n_serve_miss = n_serve_requests = 0
     n_accuracy = n_serve_accuracy = 0
     n_resilience_proof = 0
     n_flight_triggers = n_flight_context = 0
+    n_compile_obs = n_hbm = n_retrace = 0
+    n_autotune_moves = 0
+    autotune_last = {}                # site -> last decision reason seen
+    serve_retrace_sites = {}          # serve.* site -> trace evidence count
     circuit_state = {}                # site -> latest gauge value seen
     overlap_axes, byte_axes = set(), set()
     for i, r in enumerate(records):
@@ -423,7 +531,26 @@ def validate_records(records, require_spans=False, require_gflops=False,
                 n_flight_triggers += 1
             continue
         n_flight_context += 1
-        if rtype == "accuracy":
+        if rtype == "autotune":
+            _validate_autotune(r, where, errors)
+            if r.get("reason") in ("escalate", "relax"):
+                n_autotune_moves += 1
+            if isinstance(r.get("site"), str) and r.get("reason") in AUTOTUNE_REASONS:
+                # records are ordered: this ends at each site's LAST decision
+                autotune_last[r["site"]] = r["reason"]
+        elif rtype == "program":
+            _validate_program(r, where, errors)
+            if r.get("event") == "compile" and _finite(r.get("compile_s")):
+                n_compile_obs += 1
+            if r.get("event") == "retrace":
+                n_retrace += 1
+                site = r.get("site")
+                if isinstance(site, str) and site.startswith("serve."):
+                    serve_retrace_sites[site] = serve_retrace_sites.get(site, 0) + 1
+            hbm = r.get("hbm")
+            if isinstance(hbm, dict) and hbm and all(_finite(v) for v in hbm.values()):
+                n_hbm += 1
+        elif rtype == "accuracy":
             _validate_accuracy(r, where, errors)
             if _finite(r.get("value")) and _finite(r.get("bound_ratio")):
                 n_accuracy += 1
@@ -457,7 +584,14 @@ def validate_records(records, require_spans=False, require_gflops=False,
         elif rtype == "metrics":
             _validate_metrics(r, where, errors)
             for m in r.get("metrics") or []:
-                if not isinstance(m, dict) or not _finite(m.get("value")):
+                if not isinstance(m, dict):
+                    continue
+                # histograms carry count/sum, never a value
+                if m.get("name") == "dlaf_compile_seconds" and m.get("kind") == "histogram" \
+                        and isinstance(m.get("count"), int) and m["count"] >= 1 \
+                        and _finite(m.get("sum")):
+                    n_compile_obs += 1
+                if not _finite(m.get("value")):
                     continue
                 labels = m.get("labels") or {}
                 if m.get("name") == "dlaf_comm_collective_bytes_total" \
@@ -475,6 +609,14 @@ def validate_records(records, require_spans=False, require_gflops=False,
                     # records are ordered, so this ends at the LAST
                     # snapshot's value per site
                     circuit_state[labels.get("site", "")] = float(m["value"])
+                if m.get("name") == "dlaf_hbm_bytes":
+                    n_hbm += 1
+                if m.get("name") == "dlaf_retrace_total" and m["value"] >= 1:
+                    n_retrace += 1
+                    site = str(labels.get("site", ""))
+                    if site.startswith("serve.") and m["value"] >= 2:
+                        serve_retrace_sites[site] = max(serve_retrace_sites.get(site, 0),
+                                                        int(m["value"]))
         elif rtype == "log":
             if not isinstance(r.get("msg"), str):
                 errors.append(f"{where}: log without msg")
@@ -505,6 +647,32 @@ def validate_records(records, require_spans=False, require_gflops=False,
         if n_serve_accuracy == 0:
             errors.append("artifact contains no per-request accuracy "
                           "record (site serve, finite value+bound_ratio)")
+        hot = sorted(s for s, c in serve_retrace_sites.items() if c >= 2)
+        if hot:
+            errors.append("serve bucket program(s) retraced mid-stream "
+                          f"(count >= 2): {hot}")
+    if require_telemetry:
+        if n_compile_obs == 0:
+            errors.append("artifact contains no finite compile-seconds "
+                          "observation (program record or "
+                          "dlaf_compile_seconds histogram)")
+        if n_hbm == 0:
+            errors.append("artifact contains no finite HBM accounting "
+                          "(dlaf_hbm_bytes gauge or program-record hbm)")
+        if n_retrace == 0:
+            errors.append("artifact contains no retrace evidence "
+                          "(dlaf_retrace_total counter >= 1 or program "
+                          "retrace record)")
+    if require_autotune:
+        if n_autotune_moves == 0:
+            errors.append("artifact contains no autotune escalate/relax "
+                          "decision record (the closed loop never moved "
+                          "a route)")
+        exhausted = sorted(s for s, reason in autotune_last.items()
+                           if reason == "exhausted")
+        if exhausted:
+            errors.append("autotune ladder(s) left exhausted at artifact "
+                          f"end (last decision 'exhausted'): {exhausted}")
     if require_accuracy and n_accuracy == 0:
         errors.append("artifact contains no accuracy record with finite "
                       "value and bound_ratio")

@@ -25,11 +25,21 @@ Flags:
                             cache-miss dispatches, >= 1 request record
                             with finite latency and >= 1 per-request
                             accuracy record (site serve, finite value and
-                            bound_ratio)
+                            bound_ratio), and no serve site retraced
+                            (dlaf_retrace_total{site=serve.*} >= 2)
     --require-resilience    fail unless the artifact carries >= 1
                             resilience record with event retry or resume,
                             and NO dlaf_circuit_state gauge left at the
                             open value (2) in the last metrics snapshot
+    --require-telemetry     fail unless the artifact carries the program
+                            telemetry trail: >= 1 finite compile-seconds
+                            observation, finite memory accounting and
+                            retrace evidence (program records or the
+                            dlaf_compile_seconds / dlaf_hbm_bytes /
+                            dlaf_retrace_total metrics)
+    --require-autotune      fail unless >= 1 autotune record escalated or
+                            relaxed a route, and no site's LAST decision
+                            is 'exhausted' (an open incident)
     --require-flight        validate the file as a flight-recorder
                             incident dump: >= 1 flight_trigger record with
                             a known reason AND >= 1 ordinary pre-trigger
@@ -56,7 +66,8 @@ from .metrics import prometheus_text
 from .sinks import read_records, validate_history_records, validate_records
 
 _REQUIRES = ("spans", "gflops", "collectives", "retries", "fallbacks",
-             "comm-overlap", "accuracy", "serve", "resilience", "flight")
+             "comm-overlap", "accuracy", "serve", "resilience", "flight",
+             "telemetry", "autotune")
 
 
 def main(argv=None) -> int:
@@ -91,13 +102,15 @@ def main(argv=None) -> int:
         return 1
     counts = {t: sum(r.get("type") == t for r in records)
               for t in ("span", "log", "accuracy", "serve", "resilience",
-                        "flight_trigger")}
+                        "flight_trigger", "program", "autotune")}
     snaps = [r for r in records if r.get("type") == "metrics"]
     ranks = sorted({r["rank"] for r in records if "rank" in r})
     extra = f", {counts['accuracy']} accuracy records" if counts["accuracy"] else ""
     extra += f", {counts['serve']} serve records" if counts["serve"] else ""
     extra += f", {counts['resilience']} resilience records" if counts["resilience"] else ""
     extra += f", {counts['flight_trigger']} flight triggers" if counts["flight_trigger"] else ""
+    extra += f", {counts['program']} program records" if counts["program"] else ""
+    extra += f", {counts['autotune']} autotune decisions" if counts["autotune"] else ""
     extra += f", ranks {ranks}" if ranks else ""
     print(f"VALID {path}: {len(records)} records ({counts['span']} spans, "
           f"{len(snaps)} metrics snapshots, {counts['log']} logs{extra})")

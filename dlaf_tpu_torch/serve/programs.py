@@ -22,8 +22,18 @@ the reference's LRU byte budget (``serve_cache_bytes``, and the
 ``dlaf_serve_cache_bytes`` gauge) and its pins, which would evict objects
 whose eviction frees nothing, are not ported;
 they return with a bucket program that owns memory (a CUDA graph per
-bucket). Not ported yet either: the autotune route member of the spec,
-the per-bucket telemetry and the persistent compile cache.
+bucket). Not ported yet either: the persistent compile cache.
+
+The spec's ``route`` member (reference ``programs.py:64-79``) is the
+bucket's autotune route (``Route.key()`` pairs, :mod:`..autotune`): a
+learned route change is a NEW bucket program (a visible miss and its
+compile, a site with a ``.rt_<tag>`` suffix), never a change under a warm
+one. An eager program reads the routed knobs as it runs, so the bound
+program applies its spec's route around every call, whatever thread
+dispatches it. Each compile is one program telemetry event at the
+bucket's site (:func:`..obs.telemetry.aot_compile`, the reference's
+``programs.py:250-260``): ``dlaf_retrace_total{site=serve.*}`` stays 1 per
+bucket unless a program is compiled again (evicted, then missed).
 """
 
 from __future__ import annotations
@@ -31,7 +41,6 @@ from __future__ import annotations
 import dataclasses
 import functools
 import threading
-import time
 from typing import Optional
 
 import torch
@@ -56,34 +65,43 @@ class ProgramSpec:
     nrhs: int = 0           # solve only: rhs free-axis width
     with_info: bool = True
     donate: bool = False
+    #: the bucket's autotune route (``Route.key()`` pairs; () = none)
+    route: tuple = ()
 
     @property
     def site(self) -> str:
-        """Per-bucket label (the breaker site and the stats key)."""
+        """Per-bucket label (the breaker, stats and telemetry site); a
+        route adds at most one label per ladder rung."""
         extra = (f".{self.side}{self.uplo}{self.transa}{self.diag}.r{self.nrhs}"
                  if self.op == "solve" else f".{self.uplo}")
+        if self.route:
+            from ..autotune.routes import Route
+
+            extra += f".rt_{Route(**dict(self.route)).tag()}"
         return (f"serve.{self.op}.b{self.batch}n{self.n}nb{self.nb}.{self.dtype}{extra}"
                 + (".info" if self.with_info else "") + (".don" if self.donate else ""))
 
 
 def cholesky_spec(*, batch: int, n: int, nb: int, dtype: str, uplo: str = "L",
-                  with_info: bool = True, donate: bool = False) -> ProgramSpec:
+                  with_info: bool = True, donate: bool = False, route: tuple = ()) -> ProgramSpec:
     return ProgramSpec(op="cholesky", batch=int(batch), n=int(n), nb=int(nb), dtype=str(dtype),
-                       uplo=uplo, with_info=bool(with_info), donate=bool(donate))
+                       uplo=uplo, with_info=bool(with_info), donate=bool(donate),
+                       route=tuple(route))
 
 
 def solve_spec(*, batch: int, n: int, nrhs: int, nb: int, dtype: str, side: str = "L",
                uplo: str = "L", transa: str = "N", diag: str = "N", with_info: bool = True,
-               donate: bool = False) -> ProgramSpec:
+               donate: bool = False, route: tuple = ()) -> ProgramSpec:
     return ProgramSpec(op="solve", batch=int(batch), n=int(n), nb=int(nb), dtype=str(dtype),
                        uplo=uplo, side=side, transa=transa, diag=diag, nrhs=int(nrhs),
-                       with_info=bool(with_info), donate=bool(donate))
+                       with_info=bool(with_info), donate=bool(donate), route=tuple(route))
 
 
 def eigh_spec(*, batch: int, n: int, nb: int, dtype: str, uplo: str = "L",
-              with_info: bool = True, donate: bool = False) -> ProgramSpec:
+              with_info: bool = True, donate: bool = False, route: tuple = ()) -> ProgramSpec:
     return ProgramSpec(op="eigh", batch=int(batch), n=int(n), nb=int(nb), dtype=str(dtype),
-                       uplo=uplo, with_info=bool(with_info), donate=bool(donate))
+                       uplo=uplo, with_info=bool(with_info), donate=bool(donate),
+                       route=tuple(route))
 
 
 def program_builder(spec: ProgramSpec):
@@ -125,6 +143,24 @@ def _inert_args(args, device) -> list:
     return out
 
 
+class _Routed:
+    """A bucket program bound to its spec's autotune route: the route is
+    applied around every call (an eager program reads the routed knobs as
+    it runs, and a dispatch thread inherits no contextvar)."""
+
+    def __init__(self, fn, route: tuple):
+        from ..autotune.routes import Route
+
+        self.fn = fn
+        self.route = Route(**dict(route))
+
+    def __call__(self, *args):
+        from ..autotune.routes import applied
+
+        with applied(self.route):
+            return self.fn(*args)
+
+
 @dataclasses.dataclass
 class _Entry:
     program: object
@@ -154,21 +190,16 @@ class ProgramService:
         obs.counter("dlaf_serve_cache_total", event=_EVENTS[event], op=spec.op).inc()
 
     def _compile(self, spec: ProgramSpec) -> _Entry:
-        """Bind the spec's program and run it once on inert operands (the
-        "compile"); its wall is ``compile_s``."""
+        """Bind the spec's program (with its route) and run it once on
+        inert operands, fenced (the "compile", a telemetry event at the
+        bucket's site); its wall is ``compile_s``."""
         fn, args, _ = program_builder(spec)
-        inert = _inert_args(args, self.device)
-        cuda = self.device.type == "cuda"
-        if cuda:
-            torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
-        fn(*inert)
-        if cuda:
-            torch.cuda.synchronize(self.device)
-        compile_s = time.perf_counter() - t0
+        if spec.route:
+            fn = _Routed(fn, spec.route)
+        prog = obs.telemetry.aot_compile(spec.site, fn, *_inert_args(args, self.device))
         self._stats["compiles"] += 1
-        self._stats["compile_s"] += compile_s
-        return _Entry(program=fn, compile_s=compile_s)
+        self._stats["compile_s"] += prog.compile_s
+        return _Entry(program=fn, compile_s=prog.compile_s)
 
     def get(self, spec: ProgramSpec):
         """The program for ``spec``: compiled on a miss (counted ``miss``),

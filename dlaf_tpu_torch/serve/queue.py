@@ -60,7 +60,18 @@ bucket's breaker.
 Under ``DLAF_ACCURACY`` (with metrics on) each request also gets an
 ``accuracy`` record of site ``serve`` with its lane's exact residual
 (:func:`_residuals`, the reference's ``_residual_prog``), through
-:func:`..obs.accuracy.emit`. Not ported yet: the autotune steering.
+:func:`..obs.accuracy.emit`.
+
+Autotune steering (reference ``queue.py:392, 674-680, 737, 778,
+909-935``; :mod:`..autotune`): each bucket consults the same route table
+as the algorithm entries (serve op -> table op: ``cholesky`` ->
+``cholesky``, ``solve`` -> ``trsm``, ``eigh`` -> ``eigensolver``), its
+spec carrying the route, so a learned route change dispatches a new bucket
+program. Under ``DLAF_ACCURACY`` each dispatch's WORST real-lane residual
+feeds the bucket's entry, one decision per dispatch, after the dispatch's
+bookkeeping: a strict ``AutotuneExhaustedError`` surfaces to the caller
+but the dispatch itself succeeded (tickets fulfilled, counted as a
+dispatch, not a failure).
 """
 
 from __future__ import annotations
@@ -488,17 +499,28 @@ class Queue:
 
     # -- warmup ----------------------------------------------------------
 
+    def _steering(self, key: _BucketKey):
+        """The bucket's autotune steering handle (None: the loop is
+        closed for it), against the table the algorithm entries learn."""
+        from .. import autotune
+
+        return autotune.steering(_AUTOTUNE_OP[key.op], n=key.n, nb=_default_nb(key.n),
+                                 dtype=key.dtype, platform=self.service.device.type)
+
     def _spec(self, key: _BucketKey):
         nb = _default_nb(key.n)
+        steer = self._steering(key)
+        route = steer.route.key() if steer is not None else ()
         if key.op == "cholesky":
             return cholesky_spec(batch=self.batch, n=key.n, nb=nb, dtype=key.dtype,
-                                 uplo=key.uplo, with_info=True, donate=True)
+                                 uplo=key.uplo, with_info=True, donate=True, route=route)
         if key.op == "solve":
             return solve_spec(batch=self.batch, n=key.n, nrhs=key.nrhs, nb=nb,
                               dtype=key.dtype, side=key.side, uplo=key.uplo,
-                              transa=key.transa, diag=key.diag, with_info=True, donate=True)
+                              transa=key.transa, diag=key.diag, with_info=True, donate=True,
+                              route=route)
         return eigh_spec(batch=self.batch, n=key.n, nb=nb, dtype=key.dtype, uplo=key.uplo,
-                         with_info=True, donate=True)
+                         with_info=True, donate=True, route=route)
 
     def warmup_specs(self, requests) -> tuple:
         """The exact ProgramSpecs a stream of ``requests`` dispatches
@@ -516,7 +538,8 @@ class Queue:
         obs.gauge("dlaf_serve_depth", op=key.op, bucket_n=key.n).set(0.0)
         self._in_flight += 1
         try:
-            if self._dispatch_lanes(key, lanes):
+            ran, observe = self._dispatch_lanes(key, lanes)
+            if ran:
                 self._bucket_counts(key)["dispatches"] += 1
         except Exception as e:
             self._bucket_counts(key)["failures"] += 1
@@ -530,6 +553,11 @@ class Queue:
             raise
         finally:
             self._in_flight -= 1
+        if observe is not None:
+            # after the bookkeeping: the batch completed and its tickets are
+            # fulfilled, so a strict exhaustion raise here is an accuracy
+            # incident, never a dispatch failure
+            observe()
 
     def _expire_lanes(self, key: _BucketKey, lanes: list, now: float) -> list:
         """Cancel requests whose queue wait exceeded their deadline; returns
@@ -550,12 +578,14 @@ class Queue:
                 live.append((req, ticket))
         return live
 
-    def _dispatch_lanes(self, key: _BucketKey, lanes: list) -> bool:
-        """Compose, run and unpad one batch; False when every lane expired
-        (no program ran, and it counts as no dispatch)."""
+    def _dispatch_lanes(self, key: _BucketKey, lanes: list):
+        """Compose, run and unpad one batch; returns ``(ran, observe)``:
+        False when every lane expired (no program ran, and it counts as no
+        dispatch), and the deferred autotune feedback (None when the loop
+        is closed), which :meth:`_dispatch` runs after its bookkeeping."""
         lanes = self._expire_lanes(key, lanes, self.clock())
         if not lanes:
-            return False
+            return False, None
         reqs = [r for r, _ in lanes]
         tickets = [t for _, t in lanes]
         spec = self._spec(key)
@@ -564,10 +594,9 @@ class Queue:
         # stamp every record below (the policy's retries included)
         span_id = obs.new_span_id()
         with obs.trace_context(trace_id=[t.trace_id for t in tickets], span_id=span_id):
-            self._dispatch_traced(key, reqs, tickets, spec, resident, span_id)
-        return True
+            return True, self._dispatch_traced(key, reqs, tickets, spec, resident, span_id)
 
-    def _dispatch_traced(self, key, reqs, tickets, spec, resident: bool, span_id: str) -> None:
+    def _dispatch_traced(self, key, reqs, tickets, spec, resident: bool, span_id: str):
         t0 = self.clock()
         pad = _pad_lane(key)
         host = [np.stack([_pad_a(r, key.n) for r in reqs] + [pad[0]] * (self.batch - len(reqs)))]
@@ -622,7 +651,7 @@ class Queue:
                                "fetch_s": float(t1 - t_prog),
                                "unpad_s": float(t_unpad - t1)})
         if not obs.metrics_active():
-            return
+            return None
         residuals = None
         if obs_accuracy.enabled():
             residuals = _residuals(key, host, outs, len(reqs))
@@ -645,6 +674,23 @@ class Queue:
                                       nb=_default_nb(key.n), c=c, dtype=np.dtype(key.dtype),
                                       of=outs[0], attrs={"op": key.op, "rid": req.rid,
                                                          "bucket_n": key.n})
+        steer = self._steering(key) if residuals is not None else None
+        if steer is None:
+            return None
+        # the dispatch's WORST real lane feeds the bucket's table entry
+        worst = float(residuals.max()) if len(residuals) else 0.0
+        if not np.isfinite(residuals).all():
+            worst = float("nan")
+        _, c = _ACCURACY[key.op]
+        member_ids = [t.trace_id for t in tickets]
+        of = outs[0]
+
+        def observe():
+            # the batch's trace scope again (the deferral left it)
+            with obs.trace_context(trace_id=member_ids, span_id=span_id):
+                steer.observe(worst, c=c, of=of, attrs={"source": "serve", "op": key.op,
+                                                       "bucket_n": key.n, "lanes": len(reqs)})
+        return observe
 
 
 #: op -> (accuracy metric, tolerance factor c): the reference's
@@ -652,6 +698,10 @@ class Queue:
 _ACCURACY = {"cholesky": ("cholesky_residual", 60.0),
              "solve": ("trsm_residual", 60.0),
              "eigh": ("eigen_residual", 200.0)}
+
+#: serve op -> route-table op (the reference's ``queue.py:392``): the
+#: buckets share the algorithm entries' table entries.
+_AUTOTUNE_OP = {"cholesky": "cholesky", "solve": "trsm", "eigh": "eigensolver"}
 
 
 def _residuals(key: _BucketKey, host: list, outs: tuple, lanes: int) -> np.ndarray:

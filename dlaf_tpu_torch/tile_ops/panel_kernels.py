@@ -66,7 +66,9 @@ Each wrapper uses its plain version (``potrf_plain``, ``panel_solve_plain``,
 ``factor_solve_plain``, ``step_plain``: same math, straightforward tensor
 code) only for a tensor on the CPU. For a CUDA tensor it launches the
 kernels or raises. Each call that launches adds one to ``LAUNCHES[name]``,
-however many CUDA launches the call makes.
+however many CUDA launches the call makes. Each wrapper is a program
+telemetry site with the reference's label (``pallas_panel.potrf``,
+``.solve``, ``.factor_solve``, ``.step``; :mod:`..obs.telemetry`).
 """
 
 from __future__ import annotations
@@ -76,6 +78,7 @@ import ctypes
 import torch
 
 from .. import config
+from ..obs import telemetry
 from . import cuda_build as cb
 
 #: Micro-block width of the potrf ladder and of the triangular inverse.
@@ -264,9 +267,35 @@ def step_plain(uplo: str, diag: torch.Tensor, strip: torch.Tensor, slab: torch.T
 # Wrappers: kernel on a CUDA tensor, plain version on a CPU tensor
 # ---------------------------------------------------------------------------
 
-@cb.on_device
 def potrf(uplo: str, a: torch.Tensor) -> torch.Tensor:
-    """Cholesky factor of one tile (see :func:`potrf_plain`).
+    """Cholesky factor of one tile (see :func:`potrf_plain`); telemetry
+    site ``pallas_panel.potrf``."""
+    return telemetry.call("pallas_panel.potrf", _potrf, uplo, a)
+
+
+def panel_solve(side: str, uplo: str, op: str, diag: str, a: torch.Tensor,
+                b: torch.Tensor, *, alpha=1.0) -> torch.Tensor:
+    """Panel TRSM against one triangular tile (see
+    :func:`panel_solve_plain`); telemetry site ``pallas_panel.solve``."""
+    return telemetry.call("pallas_panel.solve", _panel_solve, side, uplo, op, diag, a, b,
+                          alpha=alpha)
+
+
+def factor_solve(uplo: str, diag: torch.Tensor, strip: torch.Tensor):
+    """Potrf + whole-strip solve (see :func:`factor_solve_plain`);
+    telemetry site ``pallas_panel.factor_solve``."""
+    return telemetry.call("pallas_panel.factor_solve", _factor_solve, uplo, diag, strip)
+
+
+def step(uplo: str, diag: torch.Tensor, strip: torch.Tensor, slab: torch.Tensor):
+    """One fused blocked step (see :func:`step_plain`); telemetry site
+    ``pallas_panel.step``."""
+    return telemetry.call("pallas_panel.step", _step, uplo, diag, strip, slab)
+
+
+@cb.on_device
+def _potrf(uplo: str, a: torch.Tensor) -> torch.Tensor:
+    """Cholesky factor of one tile.
 
     Replaces ``pallas_panel._fused_potrf``. Bound by latency (256 dependent
     column steps at d=256), not bytes or flops; one block with the lower
@@ -285,9 +314,9 @@ def potrf(uplo: str, a: torch.Tensor) -> torch.Tensor:
 
 
 @cb.on_device
-def panel_solve(side: str, uplo: str, op: str, diag: str, a: torch.Tensor,
-                b: torch.Tensor, *, alpha=1.0) -> torch.Tensor:
-    """Panel TRSM against one triangular tile (see :func:`panel_solve_plain`).
+def _panel_solve(side: str, uplo: str, op: str, diag: str, a: torch.Tensor,
+                 b: torch.Tensor, *, alpha=1.0) -> torch.Tensor:
+    """Panel TRSM against one triangular tile.
 
     Replaces ``pallas_panel._fused_solve_rows``/``fused_panel_solve``. Bound
     by the strip product's FMAs (m d^2 / 2 on the triangle) and the shared
@@ -301,7 +330,7 @@ def panel_solve(side: str, uplo: str, op: str, diag: str, a: torch.Tensor,
         b = (alpha * b).to(out_dtype)
     if side == "L":
         flip = {"N": "T", "T": "N", "C": "N"}
-        return panel_solve("R", uplo, flip[op], diag, a, b.mT).mT
+        return _panel_solve("R", uplo, flip[op], diag, a, b.mT).mT
     d = a.shape[-1]
     _require(a, d)
     if b.dtype != a.dtype:
@@ -326,8 +355,8 @@ def panel_solve(side: str, uplo: str, op: str, diag: str, a: torch.Tensor,
 
 
 @cb.on_device
-def factor_solve(uplo: str, diag: torch.Tensor, strip: torch.Tensor):
-    """Potrf + whole-strip solve (see :func:`factor_solve_plain`).
+def _factor_solve(uplo: str, diag: torch.Tensor, strip: torch.Tensor):
+    """Potrf + whole-strip solve.
 
     Replaces ``pallas_panel._fused_factor_solve_rows``/``fused_factor_solve``.
     The TPU kernel keeps the factor's inverse in VMEM across its in-order
@@ -336,7 +365,7 @@ def factor_solve(uplo: str, diag: torch.Tensor, strip: torch.Tensor):
     if diag.device.type == "cpu":
         return factor_solve_plain(uplo, diag, strip)
     if uplo == "U":
-        fac, pan = factor_solve("L", diag.mT, strip.mT)
+        fac, pan = _factor_solve("L", diag.mT, strip.mT)
         return fac.mT, pan.mT
     d = diag.shape[-1]
     _require(diag, d)
@@ -365,8 +394,8 @@ def factor_solve(uplo: str, diag: torch.Tensor, strip: torch.Tensor):
 
 
 @cb.on_device
-def step(uplo: str, diag: torch.Tensor, strip: torch.Tensor, slab: torch.Tensor):
-    """One fused blocked step (see :func:`step_plain`).
+def _step(uplo: str, diag: torch.Tensor, strip: torch.Tensor, slab: torch.Tensor):
+    """One fused blocked step.
 
     Replaces ``pallas_panel._fused_step_lower``/``fused_step``. Bound by the
     strip and slab products' flops; the factor, the inverse, the strip
@@ -375,7 +404,7 @@ def step(uplo: str, diag: torch.Tensor, strip: torch.Tensor, slab: torch.Tensor)
     if diag.device.type == "cpu":
         return step_plain(uplo, diag, strip, slab)
     if uplo == "U":
-        fac, pan, ns = step("L", diag.mT, strip.mT, slab.mT)
+        fac, pan, ns = _step("L", diag.mT, strip.mT, slab.mT)
         return fac.mT, pan.mT, ns.mT
     d = diag.shape[-1]
     _require(diag, d)
@@ -418,15 +447,23 @@ def _route(knob: str, site: str, dtype: torch.dtype, nb: int, device_type: str) 
     is route policy, announced once; an explicit "fused" is a degradation,
     counted at ``site`` (``DLAF_STRICT`` raises). A fitting route is then
     open unless ``health.inject.disable_pallas`` closed it (counted at
-    ``site`` too)."""
+    ``site`` too).
+
+    An autotune route's override (:mod:`..autotune.routes`) is policy,
+    never a degradation: it counts no fallback and never raises, and its
+    "fused" binds on ``cuda`` only (the ladders stay inert on the CPU),
+    where an explicit configured "fused" binds everywhere."""
     from ..health.registry import report_fallback, route_available
 
     if config.resolve(knob, device_type) != "fused":
         return False
+    routed = config.route_override(knob) is not None
+    if routed and device_type != "cuda":
+        return False
     if not (dtype in SUPPORTED and nb <= PANEL_MB_MAX):
         detail = (f"dtype={dtype} nb={nb} (the fused {site} needs float32/bfloat16, "
                   f"nb<={PANEL_MB_MAX})")
-        if getattr(config.get_configuration(), knob) == "fused":
+        if not routed and getattr(config.get_configuration(), knob) == "fused":
             report_fallback(site, "unsupported_dtype" if dtype not in SUPPORTED
                             else "block_too_large", detail=detail)
         else:

@@ -10,6 +10,8 @@ In ``cases`` mode it builds the multi-process grid on the CPU
 :data:`CASES` through the port's entry points and writes what its rank
 holds of each result to ``<out-dir>/<case>.r<rank>.pt``; the test
 computes the same cases on the single-controller grid and compares. The
+``autotune`` mode runs :func:`autotune_probe` (a breach and the next
+factor under the route autotuner, ``tests/test_torch_autotune.py``). The
 ``eigen`` mode does the same for :data:`EIGEN_CASES`
 (``tests/test_torch_multiprocess_eigen.py``), after :func:`span_probe`, and
 the ``a2a`` mode for :data:`A2A_CASES` (the pairwise all-to-all of the
@@ -619,6 +621,28 @@ def dc_peak_probe(grid, setenv, delenv) -> dict:
     return {**state, "n": DC_N}
 
 
+def autotune_probe(grid, out_dir, rank) -> dict:
+    """Under ``DLAF_AUTOTUNE=1`` (records to ``at.r<rank>.jsonl``, the table
+    to ``table.json``): a Cholesky of a NaN-poisoned copy (a breach), then
+    the clean factor under the escalated route. Returns the factor and
+    whether this process writes the table."""
+    from dlaf_tpu_torch import autotune, obs
+    from dlaf_tpu_torch.health import inject
+
+    P, Q, src, n, nb = GRIDS[f"{grid.size.row}x{grid.size.col}"]
+    for k, v in (("DLAF_AUTOTUNE", "1"), ("DLAF_LOG", "off"),
+                 ("DLAF_METRICS_PATH", os.path.join(out_dir, "at.r%r.jsonl")),
+                 ("DLAF_AUTOTUNE_TABLE", os.path.join(out_dir, "table.json"))):
+        os.environ[k] = v
+    config.initialize()
+    mat = Matrix.from_global(hpd(n, F64), TileElementSize(nb, nb), grid,
+                             source_rank=RankIndex2D(*src))
+    cholesky("L", inject.nan_tile(mat, tile=(1, 0), element=(2, 3)))
+    out = cholesky("L", mat)
+    obs.flush()
+    return {"mat": out, "value": float(autotune.get_table().writer)}
+
+
 def _local_result(res: dict) -> dict:
     """What this process's rank holds of a case's result."""
     out = {k: v for k, v in res.items() if k in ("info", "value", "array", "root_array")}
@@ -646,6 +670,11 @@ def main(argv) -> int:
     def setenv(k, v):
         os.environ[k] = v
 
+    if mode == "autotune":
+        torch.save(_local_result(autotune_probe(grid, out_dir, rank)),
+                   os.path.join(out_dir, f"autotune.r{rank}.pt"))
+        multihost.finalize_multihost()
+        return 0
     cases = {"eigen": EIGEN_CASES, "a2a": A2A_CASES}.get(mode, CASES)
     if mode == "a2a":
         torch.save(a2a_traffic_probe(grid, setenv, lambda k: os.environ.pop(k, None)),
