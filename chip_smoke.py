@@ -225,7 +225,26 @@ with its launch counts (none, but the one #6 product under ``mxu``):
     ``cholesky()`` calls; an overload pass (max_depth 16, shed, a 2x
     burst) that fails if depth passes the bound or a ticket is stranded;
     ``robust_cholesky_batched`` with two indefinite lanes;
-31. obs (the telemetry core; artifacts under the git-ignored
+31. fleet (``fleet/`` and ``obs/aggregate.py``; artifacts under
+    ``smoke_artifacts/fleet``, :func:`fleet_phase`): real worker processes
+    (``python -m dlaf_tpu_torch.fleet.worker``, each with its own CUDA
+    context on the one card) behind in-process routers, serve's buckets,
+    16 lanes, float64: (a) a warmed seeded 512-request stream of the serve
+    mix through ``fleet_workers`` (3) workers and through one, every
+    residual checked,
+    requests/s, p50/p99 at the router, tickets per worker, start-up and
+    warm-up seconds, no ``heartbeat_timeout``/``redispatch``/
+    ``ticket_lost`` record; (b) 128 requests under a long deadline, the
+    worker holding the most unacknowledged tickets SIGKILLed, every ticket
+    correct, >= 1 redispatch, 0 lost, the recovery seconds, the merged
+    artifact through ``--require-fleet``; (c) its SIGTERM twin (handbacks,
+    no redispatch, exit 0, ``--require-fleet``); (d) failover off: the
+    stranded tickets raise ``WorkerLostError`` and ``--require-fleet``
+    rejects the artifact; (e) ``aggregate --trace`` of one redispatched
+    ticket joins the router's route and redispatch records and the
+    surviving worker's serve record; at shutdown every worker drains and
+    exits 0, the SIGKILLed ones -9;
+32. obs (the telemetry core; artifacts under the git-ignored
     ``smoke_artifacts/obs``): main-L (``miniapp_cholesky`` N=16384,
     nb=256, f32, fused step) with the knobs off and with
     ``DLAF_METRICS_PATH`` on, three timed calls each in-process: equal
@@ -246,7 +265,7 @@ with its launch counts (none, but the one #6 product under ``mxu``):
     ``miniapp_cholesky`` N=4096 2x2 with ``run.%r.jsonl``: four valid
     artifacts, each of its own rank, with collective counters;
 
-32. accuracy (``obs/accuracy.py``; artifacts under
+33. accuracy (``obs/accuracy.py``; artifacts under
     ``smoke_artifacts/accuracy``): main-L (float32, N=16384) and dist-L
     (2x2) factored once, the Hutchinson probe's and the exact residual's
     times and values (within ``60 n eps``); ``miniapp_cholesky`` under ``DLAF_ACCURACY=1`` and ``full``,
@@ -254,7 +273,7 @@ with its launch counts (none, but the one #6 product under ``mxu``):
     a 256-request serve stream with ``DLAF_ACCURACY=1``, one record a
     request, through ``--require-serve``.
 
-33. autotune (``autotune/`` and ``obs/telemetry.py``; artifacts under
+34. autotune (``autotune/`` and ``obs/telemetry.py``; artifacts under
     ``smoke_artifacts/autotune``), strict, ``DLAF_AUTOTUNE=1`` and
     ``DLAF_PROGRAM_TELEMETRY=1`` into one artifact (:func:`autotune_phase`):
     main-L's shape through the f32 ladder (two ``nan_tile`` breaches
@@ -2359,6 +2378,441 @@ def serve_phase(torch, dev, card, kmods, launches, count: int = 2048,
 
 
 # ---------------------------------------------------------------------------
+# The fleet phase: router and worker processes on the card
+# ---------------------------------------------------------------------------
+
+#: Bucket ceilings of the fleet phase (the serve phase's), for the router's
+#: bucket strings and the workers' queues alike.
+FLEET_BUCKETS = "32,64,128,256"
+
+
+def _fleet_layout() -> tuple:
+    """``(tag, worker indices)`` of the fleet phase's three fleets: as many
+    as the ``fleet_workers`` knob says (``DLAF_FLEET_WORKERS``, 3) behind
+    R1, one behind R2, two behind R3. The indices differ between the
+    fleets, so each router's workers have breakers (``fleet.worker{k}``,
+    one per process) and ``%r`` shards of their own. Legs b and c each
+    stop one of R1's workers and leave it one to take their tickets: R1
+    needs three."""
+    from dlaf_tpu_torch import config
+
+    workers = config.get_configuration().fleet_workers
+    if workers < 3:
+        raise ValueError(f"fleet phase: fleet_workers={workers}; legs b and c need 3 or more")
+    return (("w", tuple(range(workers))), ("one", (workers,)),
+            ("off", (workers + 1, workers + 2)))
+
+
+def _fleet_wait(router, cond, what: str, timeout: float = 60.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"fleet: {what} (router {router.stats()})")
+        router.poll()
+        time.sleep(0.002)
+
+
+def _fleet_resolve(router, tickets, timeout: float = 120.0) -> dict:
+    """Poll ``router`` until every ticket resolves; ``{seq: perf_counter
+    at which its resolution was seen}`` and the seconds spent inside
+    ``poll`` (the router thread's own work)."""
+    seen, busy = {}, 0.0
+    deadline = time.monotonic() + timeout
+    while len(seen) < len(tickets):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"fleet: {len(tickets) - len(seen)} tickets unresolved after "
+                                 f"{timeout} s ({router.stats()})")
+        t0 = time.perf_counter()
+        router.poll()
+        now = time.perf_counter()
+        busy += now - t0
+        for t in tickets:
+            if t.seq not in seen and t.resolved():
+                seen[t.seq] = now
+        time.sleep(0.001)
+    return seen, busy
+
+
+def _fleet_stream(np, router, reqs):
+    """Submit ``reqs``, flush, wait: (tickets, wall, end-to-end latencies at
+    the router, the router thread's busy seconds)."""
+    t0 = time.perf_counter()
+    tickets, sent = [], {}
+    for r in reqs:
+        t = router.submit(r)
+        sent[t.seq] = time.perf_counter()
+        tickets.append(t)
+    router.flush()
+    busy = time.perf_counter() - t0
+    seen, polled = _fleet_resolve(router, tickets)
+    wall = time.perf_counter() - t0
+    return tickets, wall, np.array([seen[t.seq] - sent[t.seq] for t in tickets]), busy + polled
+
+
+def _fleet_check(np, tickets, what: str) -> str:
+    """Every resolved ticket's residual within its budget (the serve
+    phase's check); the worst residual/budget per op."""
+    checks = [(t, _residual_ok(np, t)) for t in tickets]
+    bad = [t.seq for t, c in checks if not c[0]]
+    if bad:
+        raise AssertionError(f"fleet {what}: tickets {bad[:8]} missed their residual budget")
+    worst = {op: max((c[1] / c[2] for t, c in checks if t.request.op == op), default=0.0)
+             for op in ("cholesky", "solve", "eigh")}
+    return " ".join(f"{op} {v:.3e}" for op, v in worst.items())
+
+
+def _fleet_victim(router, tickets, live, settle: float = 0.3) -> tuple:
+    """After ``settle`` seconds of polling (full batches come back), the
+    worker of ``live`` holding the most unacknowledged tickets and that
+    count."""
+    end = time.monotonic() + settle
+    while time.monotonic() < end:
+        router.poll()
+        time.sleep(0.002)
+    held = {w: sum(1 for t in tickets if not t.resolved() and t.worker == w) for w in live}
+    victim = max(held, key=held.get)
+    if not held[victim]:
+        raise AssertionError(f"fleet: no worker holds an unacknowledged ticket {held}")
+    return victim, held
+
+
+def _fleet_merge(out_dir: str, tag: str, shards, router_art: str, *flags) -> tuple:
+    """``python -m dlaf_tpu_torch.obs.aggregate`` of the worker shards and
+    the router's artifact (last: its argument position is its rank), then
+    ``python -m dlaf_tpu_torch.obs.validate --require-fleet``, both in this
+    process (their ``main``); (merged path, validate's exit code, its
+    output)."""
+    from dlaf_tpu_torch.obs import aggregate, validate
+
+    merged = os.path.join(out_dir, f"{tag}_merged.jsonl")
+    with open(os.path.join(out_dir, f"{tag}_aggregate.txt"), "w") as f, \
+            contextlib.redirect_stdout(f):
+        rc = aggregate.main([*shards, router_art, "-o", merged, *flags])
+    if rc:
+        raise AssertionError(f"fleet {tag}: aggregate exit {rc}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(buf):
+        vrc = validate.main([merged, "--require-fleet"])
+    return merged, vrc, buf.getvalue().strip()
+
+
+def fleet_phase(torch, dev, card, out_dir, stream: int = 512, drill: int = 128,
+                buckets: str = FLEET_BUCKETS, batch: int = 16, device: str = "cuda",
+                root: str = None) -> None:
+    """The fleet serve tier on the card (item 31 of the module docstring).
+
+    The worker processes start together (``subprocess.Popen`` of a fresh
+    interpreter each, never a fork of this CUDA process):
+    ``fleet_workers`` (3) behind router R1 (legs a, b, c), one behind R2
+    (the one-worker stream of leg a), two behind R3, built with
+    ``DLAF_FLEET_FAILOVER=0`` (leg d), each fleet with worker indices of
+    its own (:func:`_fleet_layout`). The
+    workers run with a 60 s queue deadline, so partial batches wait for a
+    fill or a flush (the legs' unacknowledged tickets), and write their
+    records to ``%r`` shards; the routers' records go to one artifact per
+    leg. A thread polls the routers no leg is driving, so their heartbeats
+    stay live. Warm-up sends the stream's bucket specs by (op, bucket) so
+    that no worker is silent for one whole warm-up. At shutdown the routers
+    drain their fleets: a drain that raises or leaves a worker routable, a
+    worker that must be killed, or an exit code other than 0 (-9 for the
+    two SIGKILLed workers) fails the phase."""
+    import signal
+    import threading
+
+    import numpy as np
+
+    from dlaf_tpu_torch import config, obs
+    from dlaf_tpu_torch.fleet import Router
+    from dlaf_tpu_torch.health.errors import WorkerLostError
+    from dlaf_tpu_torch.obs import aggregate, trace_matches
+    from dlaf_tpu_torch.serve import ProgramService, Queue, Request
+
+    root = root or os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(out_dir, exist_ok=True)
+    for name in os.listdir(out_dir):
+        os.remove(os.path.join(out_dir, name))
+    t_phase = t_case = time.perf_counter()
+    saved = {k: os.environ.get(k) for k in ("DLAF_SERVE_BUCKETS", "DLAF_FLEET_FAILOVER")}
+    os.environ["DLAF_SERVE_BUCKETS"] = buckets
+    _obs_env(os.path.join(out_dir, "a_router.jsonl"))
+    config.initialize()
+    r1, r2 = Router(port=0), Router(port=0)
+    os.environ["DLAF_FLEET_FAILOVER"] = "0"
+    config.initialize()
+    r3 = Router(port=0)
+    os.environ.pop("DLAF_FLEET_FAILOVER")
+    config.initialize()
+    if r3.failover or not r1.failover:
+        raise AssertionError("fleet: DLAF_FLEET_FAILOVER did not reach the routers")
+    ids = dict(_fleet_layout())
+    wide = f"{len(ids['w'])} workers"
+    layout = (("w", r1, ids["w"]), ("one", r2, ids["one"]), ("off", r3, ids["off"]))
+    env = {**os.environ, "PYTHONPATH": root, "DLAF_SERVE_DEADLINE_MS": "60000",
+           "DLAF_SERVE_BATCH": str(batch), "DLAF_SERVE_BUCKETS": buckets, "DLAF_ACCURACY": "0",
+           "DLAF_LOG": "warning"}
+    procs, started = {}, time.perf_counter()
+    for tag, router, ks in layout:
+        for k in ks:
+            log = open(os.path.join(out_dir, f"{tag}.{k}.log"), "w")
+            procs[(tag, k)] = subprocess.Popen(
+                [sys.executable, "-m", "dlaf_tpu_torch.fleet.worker", "--connect",
+                 f"127.0.0.1:{router.port}", "--worker", str(k), "--backend", device],
+                env={**env, "DLAF_METRICS_PATH": os.path.join(out_dir, f"{tag}.r%r.jsonl")},
+                stdout=log, stderr=subprocess.STDOUT, cwd=root)
+            log.close()
+    idle = {r1, r2, r3}
+    stop = []
+    expect = {key: 0 for key in procs}  # exit codes at shutdown
+
+    def keep_alive():
+        while not stop:
+            for r in list(idle):
+                r.poll()
+            time.sleep(0.05)
+
+    pump = threading.Thread(target=keep_alive, daemon=True)
+    up_at = {}
+    try:
+        deadline = time.monotonic() + 180
+        while len(up_at) < len(procs):
+            for tag, router, _ in layout:
+                router.poll()
+                for k, m in router.stats()["workers"].items():
+                    if m["state"] == "up" and (tag, k) not in up_at:
+                        up_at[(tag, k)] = time.perf_counter() - started
+            for key, p in procs.items():
+                if p.poll() is not None:
+                    raise AssertionError(f"fleet worker {key} exited {p.returncode} before its "
+                                         f"hello (log {out_dir}/{key[0]}.{key[1]}.log)")
+            if time.monotonic() > deadline:
+                raise AssertionError(f"fleet: workers never said hello: {sorted(up_at)}")
+            time.sleep(0.01)
+        pump.start()
+        print(f"[fleet] start-up: {len(procs)} worker processes ({device}, each its own "
+              f"context) up in {max(up_at.values()):.2f} s; per worker "
+              + ", ".join(f"{t}{k} {s:.2f} s" for (t, k), s in sorted(up_at.items()))
+              + f" [{card}]", flush=True)
+        t_case = _wall("fleet start-up", t_case)
+
+        # -- warm-up: the stream's bucket programs in every worker ---------
+        reqs = _stream_requests(np, Request, stream, SERVE_SEED + 20)
+        specs = Queue(ProgramService(device=dev), batch=batch).warmup_specs(reqs)
+        groups = {}
+        for spec in specs:
+            groups.setdefault((spec.op, spec.n), []).append(spec)
+        warm = {}
+
+        def warm_all(tag, router):
+            for group in groups.values():
+                got = router.warmup(group, timeout_s=120.0)
+                for k, sec in got.items():
+                    warm.setdefault((tag, k), []).append(sec)
+
+        idle.clear()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=warm_all, args=(tag, router))
+                   for tag, router, _ in layout]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        warm_wall = time.perf_counter() - t0
+        idle.update({r2, r3})
+        short = [key for key in procs if len(warm.get(key, [])) != len(groups)]
+        if short:
+            raise AssertionError(f"fleet: warm-up unacknowledged by {short}")
+        print(f"[fleet] warm-up: {len(specs)} bucket programs in {len(groups)} messages to each "
+              f"worker, {warm_wall:.2f} s for all; first warm calls per worker "
+              + ", ".join(f"{t}{k} {sum(v):.2f} s (longest message {max(v):.2f} s)"
+                          for (t, k), v in sorted(warm.items())) + f" [{card}]", flush=True)
+        t_case = _wall("fleet warm-up", t_case)
+
+        # -- (a) the clean stream: R1's workers, then one ------------------
+        idle.discard(r1)
+        res = {}
+        for label, router in ((wide, r1), ("1 worker", r2)):
+            idle.discard(router)
+            tickets, wall, lat, busy = _fleet_stream(np, router, reqs)
+            idle.add(router)
+            worst = _fleet_check(np, tickets, f"clean stream {label}")
+            per = {}
+            for t in tickets:
+                per[t.worker] = per.get(t.worker, 0) + 1
+            st = router.stats()
+            res[label] = stream / wall
+            print(f"[fleet] (a) clean stream, {label}: {stream} f64 requests (n 17-256: "
+                  f"{sum(r.op == 'cholesky' for r in reqs)} cholesky, "
+                  f"{sum(r.op == 'solve' for r in reqs)} solve, "
+                  f"{sum(r.op == 'eigh' for r in reqs)} eigh) in {wall:.4f} s: "
+                  f"{stream / wall:.1f} requests/s, latency at the router p50 "
+                  f"{np.percentile(lat, 50) * 1e3:.3f} ms p99 {np.percentile(lat, 99) * 1e3:.3f} "
+                  f"ms; tickets per worker {dict(sorted(per.items()))}; router thread busy "
+                  f"{busy:.3f} s ({100 * busy / wall:.1f}% of the wall); worst residual/budget "
+                  f"{worst} [{card}]", flush=True)
+            if st["redispatches"] or st["lost"]:
+                raise AssertionError(f"fleet clean stream {label}: {st}")
+        print(f"[fleet] (a) 1 worker against {wide}: {res['1 worker']:.1f} against "
+              f"{res[wide]:.1f} requests/s, {wide}/1 worker "
+              f"{res[wide] / res['1 worker']:.2f}x (a finding, not a gate) [{card}]",
+              flush=True)
+        obs.flush()
+        clean = [r for r in obs.read_records(os.path.join(out_dir, "a_router.jsonl"))
+                 if r.get("type") == "fleet"]
+        bad = [r["event"] for r in clean
+               if r["event"] in ("heartbeat_timeout", "redispatch", "ticket_lost")]
+        if bad:
+            raise AssertionError(f"fleet clean leg: {bad}")
+        t_case = _wall("fleet (a) clean streams", t_case)
+
+        shards = [os.path.join(out_dir, f"w.r{k}.jsonl") for k in ids["w"]]
+        live = list(ids["w"])
+
+        def leg(tag, router, sig, seed, count, live):
+            """Submit ``count`` requests, stop the worker of ``live`` with
+            the most unacknowledged tickets by ``sig``, flush, resolve."""
+            _obs_env(os.path.join(out_dir, f"{tag}_router.jsonl"))
+            config.initialize()
+            idle.discard(router)
+            before = router.stats()
+            tickets = [router.submit(r) for r in
+                       _stream_requests(np, Request, count, SERVE_SEED + seed)]
+            victim, held = _fleet_victim(router, tickets, live)
+            key = ("off" if router is r3 else "w", victim)
+            proc = procs[key]
+            expect[key] = -signal.SIGKILL if sig == signal.SIGKILL else 0
+            t_stop = time.perf_counter()
+            proc.send_signal(sig)
+            _fleet_wait(router, lambda: router.stats()["workers"][victim]["state"] == "dead",
+                        f"worker {victim} never read dead")
+            router.flush()
+            seen, _ = _fleet_resolve(router, tickets)
+            idle.add(router)
+            rc = proc.wait(timeout=60)
+            after = router.stats()
+            delta = {k: after[k] - before[k] for k in ("redispatches", "handbacks", "lost")}
+            return tickets, victim, held, t_stop, seen, rc, delta
+
+        # -- (b) SIGKILL: failover ----------------------------------------
+        tickets, victim, held, t_kill, seen, rc, delta = leg("b", r1, signal.SIGKILL, 21, drill, live)
+        worst = _fleet_check(np, tickets, "SIGKILL leg")
+        moved = [t for t in tickets if t.redispatched]
+        recovery = max(seen[t.seq] for t in moved) - t_kill if moved else float("nan")
+        if not (delta["redispatches"] >= 1 and delta["lost"] == 0 and rc == -signal.SIGKILL):
+            raise AssertionError(f"fleet SIGKILL leg: {delta}, worker exit {rc}")
+        live.remove(victim)
+        merged, vrc, vout = _fleet_merge(out_dir, "b", shards, os.path.join(out_dir,
+                                                                            "b_router.jsonl"))
+        print(f"[fleet] (b) SIGKILL: {drill} requests, unacknowledged per worker {held}, "
+              f"worker {victim} killed (exit {rc}): {delta['redispatches']} redispatched, "
+              f"{delta['lost']} lost, all {len(tickets)} correct (worst residual/budget "
+              f"{worst}); recovery {recovery:.4f} s from the kill to the last redispatched "
+              f"answer; merged artifact --require-fleet: exit {vrc} ({vout}) [{card}]",
+              flush=True)
+        if vrc:
+            raise AssertionError(f"fleet SIGKILL leg: --require-fleet rejected {merged}")
+
+        # -- (e) one trace across the processes ---------------------------
+        pick = moved[0]
+        recs = [r for r in aggregate.merge_artifacts([*shards, os.path.join(
+            out_dir, "b_router.jsonl")]) if trace_matches(r, pick.trace_id)]
+        kinds = {(r.get("type"), r.get("event"), r.get("rank")) for r in recs}
+        router_rank = len(shards)
+        want = {("fleet", "route", router_rank), ("fleet", "redispatch", router_rank),
+                ("serve", "request", pick.worker)}
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            trc = aggregate.main([merged, "--trace", pick.trace_id])
+        for line in buf.getvalue().splitlines():
+            print(f"[fleet] (e) {line}", flush=True)
+        print(f"[fleet] (e) trace {pick.trace_id} (ticket {pick.seq}, worker {victim} -> "
+              f"{pick.worker}): {len(recs)} records across the router and the workers, "
+              f"aggregate --trace exit {trc}; route, redispatch and the survivor's serve "
+              f"request {'joined' if want <= kinds else 'MISSING'}", flush=True)
+        if trc or not want <= kinds:
+            raise AssertionError(f"fleet trace join: {sorted(map(str, kinds))}")
+        t_case = _wall("fleet (b) SIGKILL and (e) trace", t_case)
+
+        # -- (c) SIGTERM: the graceful twin --------------------------------
+        tickets, victim, held, t_term, seen, rc, delta = leg("c", r1, signal.SIGTERM, 22, drill, live)
+        worst = _fleet_check(np, tickets, "SIGTERM leg")
+        live.remove(victim)
+        merged, vrc, vout = _fleet_merge(out_dir, "c", shards, os.path.join(out_dir,
+                                                                            "c_router.jsonl"))
+        print(f"[fleet] (c) SIGTERM: {drill} requests, unacknowledged per worker {held}, "
+              f"worker {victim} drained (exit {rc}): {delta['handbacks']} handed back, "
+              f"{delta['redispatches']} redispatched, {delta['lost']} lost, all "
+              f"{len(tickets)} correct (worst residual/budget {worst}) in "
+              f"{max(seen.values()) - t_term:.4f} s from the signal; merged artifact "
+              f"--require-fleet: exit {vrc} ({vout}) [{card}]", flush=True)
+        if not (delta["handbacks"] >= 1 and delta["redispatches"] == 0 and delta["lost"] == 0
+                and rc == 0 and vrc == 0):
+            raise AssertionError(f"fleet SIGTERM leg: {delta}, exit {rc}, validate {vrc}")
+        t_case = _wall("fleet (c) SIGTERM", t_case)
+
+        # -- (d) failover off: the must-trip leg ---------------------------
+        tickets, victim, held, _, seen, rc, delta = leg("d", r3, signal.SIGKILL, 23, drill // 2,
+                                                       list(ids["off"]))
+        lost = [t for t in tickets if t.error is not None]
+        raised = 0
+        for t in lost:
+            try:
+                t.result()
+            except RuntimeError as e:
+                raised += isinstance(e.__cause__, WorkerLostError)
+        _fleet_check(np, [t for t in tickets if t.error is None], "failover-off leg")
+        merged, vrc, vout = _fleet_merge(
+            out_dir, "d", [os.path.join(out_dir, f"off.r{k}.jsonl") for k in ids["off"]],
+            os.path.join(out_dir, "d_router.jsonl"))
+        print(f"[fleet] (d) failover off: {drill // 2} requests, worker {victim} killed holding "
+              f"{held[victim]}: {delta['lost']} lost, {raised} raise WorkerLostError, "
+              f"{delta['redispatches']} redispatched; --require-fleet on the merged artifact: "
+              f"exit {vrc} (must reject): {vout.splitlines()[0] if vout else ''}", flush=True)
+        if not (delta["lost"] >= 1 and raised == len(lost) == delta["lost"]
+                and delta["redispatches"] == 0 and vrc == 1 and "ticket_lost" in vout):
+            raise AssertionError(f"fleet failover-off leg: {delta}, raised {raised}, "
+                                 f"validate {vrc}")
+        t_case = _wall("fleet (d) failover off", t_case)
+    finally:
+        stop.append(True)
+        if pump.is_alive():
+            pump.join(timeout=5)
+        # the shutdown's faults fail the phase below, once the legs passed
+        # (a leg's own exception is the one to see otherwise)
+        faults = []
+        for router in (r1, r2, r3):
+            try:
+                router.drain_fleet(timeout_s=20)
+            except Exception as e:
+                faults.append(f"drain_fleet raised {e!r}")
+            if router.membership.routable():
+                faults.append(f"workers {router.membership.routable()} routable after the drain")
+        exits = {}
+        for key, p in procs.items():
+            try:
+                exits[key] = p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                exits[key] = p.wait()
+                faults.append(f"worker {key} killed 30 s after the drain")
+        for router in (r1, r2, r3):
+            router.close()
+        _obs_env(None)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        config.initialize()
+    print(f"[fleet] shutdown: worker exits {dict(sorted(exits.items()))}", flush=True)
+    faults += [f"worker {key} exited {rc}, not {expect[key]}"
+               for key, rc in sorted(exits.items()) if rc != expect[key]]
+    if faults:
+        raise AssertionError(f"fleet shutdown: {faults}")
+    _wall("fleet shutdown", t_case)
+    print(f"[fleet] phase {time.perf_counter() - t_phase:.1f} s (budget 60 s)", flush=True)
+
+
+# ---------------------------------------------------------------------------
 # The obs phase: the telemetry core on the card
 # ---------------------------------------------------------------------------
 
@@ -4436,6 +4890,9 @@ def main() -> int:
     t_phase = time.perf_counter()
     serve_phase(torch, dev, card, kmods, launches)
     print(f"[phase] serve {time.perf_counter() - t_phase:.1f} s", flush=True)
+    t_phase = time.perf_counter()
+    fleet_phase(torch, dev, card, os.path.join(artifacts, "fleet"))
+    print(f"[phase] fleet {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # ---- phase 2h: the telemetry core (obs): records off and on, the
     # profiler's names, the eigensolver's and the serve stream's artifacts

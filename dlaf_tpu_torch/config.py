@@ -6,7 +6,8 @@ distributed Cholesky, the triangular solve and multiply
 band-to-tridiagonal chase (``chase_threads``), the divide-and-conquer
 tridiagonal solver (``secular_device_min_k``) and their f64/complex128
 routes; and the serving layer's (``serve_*``, the finite guard ``check``)
-the circuit breakers' (``circuit_*``), the resilience layer's (``strict``,
+the circuit breakers' (``circuit_*``), the fleet tier's (``fleet_*``;
+:mod:`.fleet`), the resilience layer's (``strict``,
 ``resume_dir``; :mod:`.health.registry`, :mod:`.health.resume`), and the
 observability layer's
 (``log``, ``metrics_path``, ``trace_dir``, ``metrics_port``, ``slo_*``,
@@ -16,7 +17,7 @@ observability layer's
 (``autotune``, ``autotune_table``, ``autotune_margin``,
 ``autotune_relax_after``, ``autotune_probe_every``, ``autotune_budget``;
 :mod:`.autotune`), with the reference's environment names, defaults and
-validation (``config.py:400-417, 456-503, 504-568, 617-624, 635-670,
+validation (``config.py:400-417, 456-503, 504-606, 617-624, 635-670,
 681, 751, 776-793, 812-866``). :func:`initialize` configures :mod:`.obs`
 from the resolved knobs, as the reference's does (``config.py:935-939``).
 :func:`resolve` and :func:`resolve_slices` are the single owners of the
@@ -199,6 +200,35 @@ class Configuration:
     #: Seconds an open breaker rejects calls before it admits one
     #: half-open probe (``DLAF_CIRCUIT_COOLDOWN_S``).
     circuit_cooldown_s: float = 30.0
+    #: Fleet size (``DLAF_FLEET_WORKERS``): how many serve worker replicas
+    #: a launcher spawns behind one router (``chip_smoke.py``'s fleet
+    #: phase, for its main router). The router itself accepts any number
+    #: of ``hello`` connections.
+    fleet_workers: int = 3
+    #: Router ping interval, milliseconds (``DLAF_FLEET_HEARTBEAT_MS``):
+    #: the router pings each routable worker at its clock edges this often.
+    fleet_heartbeat_ms: float = 1000.0
+    #: Heartbeat silence budget, milliseconds
+    #: (``DLAF_FLEET_HEARTBEAT_TIMEOUT_MS``): an ``up`` worker silent this
+    #: long turns ``suspect`` at the next router clock edge: its breaker
+    #: is forced open, its unacknowledged tickets go to siblings, and it
+    #: is readmitted by a half-open probe. Read against the router's
+    #: injectable clock.
+    fleet_heartbeat_timeout_ms: float = 5000.0
+    #: Failover (``DLAF_FLEET_FAILOVER``): True re-dispatches a dead
+    #: worker's unacknowledged tickets to siblings (at-least-once, zero
+    #: loss); False fails them with ``health.WorkerLostError`` and
+    #: ``ticket_lost`` records, which ``--require-fleet`` rejects.
+    fleet_failover: bool = True
+    #: Attempts of one router ticket dispatch under the policy engine
+    #: (``DLAF_FLEET_RETRY_ATTEMPTS``), the worker chosen again at each;
+    #: above ``circuit_threshold`` a sustained per-worker fault opens that
+    #: worker's breaker and the remaining attempts go to a sibling.
+    fleet_retry_attempts: int = 5
+    #: Base backoff between router dispatch attempts, milliseconds
+    #: (``DLAF_FLEET_RETRY_BACKOFF_MS``; exponential, seeded jitter); 0
+    #: retries at once, since a re-route goes to another worker.
+    fleet_retry_backoff_ms: float = 0.0
     #: Structured-log level of :mod:`.obs.logging` (``DLAF_LOG``): "debug",
     #: "info", "warning", "error" or "off". The once-per-choice auto-knob
     #: notices go through it, so ``DLAF_LOG=off`` silences them.
@@ -368,6 +398,24 @@ def _validate(cfg: Configuration) -> None:
     if not cfg.serve_retry_backoff_ms >= 0:
         raise ValueError(f"serve_retry_backoff_ms="
                          f"{cfg.serve_retry_backoff_ms}: must be >= 0")
+    if cfg.fleet_workers < 1:
+        raise ValueError(f"fleet_workers={cfg.fleet_workers}: must be "
+                         ">= 1 (replicas behind the fleet router)")
+    if not cfg.fleet_heartbeat_ms > 0:
+        raise ValueError(f"fleet_heartbeat_ms={cfg.fleet_heartbeat_ms}: "
+                         "must be > 0 (the router ping cadence)")
+    if not cfg.fleet_heartbeat_timeout_ms >= cfg.fleet_heartbeat_ms:
+        raise ValueError(
+            f"fleet_heartbeat_timeout_ms={cfg.fleet_heartbeat_timeout_ms}:"
+            f" must be >= fleet_heartbeat_ms={cfg.fleet_heartbeat_ms} "
+            "(a timeout shorter than one ping interval declares every "
+            "healthy worker suspect)")
+    if cfg.fleet_retry_attempts < 1:
+        raise ValueError(f"fleet_retry_attempts={cfg.fleet_retry_attempts}:"
+                         " must be >= 1 (1 = no dispatch retry)")
+    if not cfg.fleet_retry_backoff_ms >= 0:
+        raise ValueError(f"fleet_retry_backoff_ms="
+                         f"{cfg.fleet_retry_backoff_ms}: must be >= 0")
     if cfg.circuit_threshold < 1:
         raise ValueError(f"circuit_threshold={cfg.circuit_threshold}: must "
                          "be >= 1 (consecutive failures before opening)")

@@ -35,11 +35,14 @@ can be driven end to end without breaking a real component.
 All state is process-global and off by default; a hook's cost when
 disarmed is one module-attribute read. Every context disarms on exit, and
 those that can trip circuit breakers (:func:`force_native_failure`,
-:func:`disable_route`, :func:`fail_dispatch`) reset the breakers they may
+:func:`disable_route`, :func:`fail_dispatch`, :func:`fail_fleet_dispatch`)
+reset the breakers they may
 have opened, so a drill never fails fast into unrelated code.
 
-The reference's ``fail_fleet_dispatch`` (the fleet router's twin of
-:func:`fail_dispatch`) waits for the port of the fleet tier.
+* :func:`fail_fleet_dispatch`: the fleet router's twin of
+  :func:`fail_dispatch`, counted by FLEET attempt index (a schedule of its
+  own, so the router's faults replay exactly while in-process workers
+  dispatch).
 """
 
 from __future__ import annotations
@@ -59,8 +62,10 @@ _COLLECTIVE: Optional[dict] = None
 #: Route names currently forced unavailable (see :func:`disable_route`).
 _DISABLED_ROUTES: set = set()
 
-#: Armed dispatch fault: {"nth", "count", "every", "exc", "seen"} or None.
-_FAIL_DISPATCH: Optional[dict] = None
+#: Armed dispatch faults by schedule: "serve" (the serve dispatch) and
+#: "fleet" (the fleet router's ticket dispatch, counted on its own); each
+#: {"nth", "count", "every", "exc", "seen"}, absent when disarmed.
+_FAIL: dict = {}
 
 #: Armed clock-aware stalls: policy site -> seconds.
 _HANGS: dict = {}
@@ -234,14 +239,13 @@ def _reset_breakers(prefix: str) -> None:
 # Dispatch and policy-engine faults
 # ---------------------------------------------------------------------------
 
-def maybe_fail_dispatch() -> None:
-    """Hook of the serve dispatch path, once per dispatch ATTEMPT (so the
-    policy's retries meet the fault again): raises the armed exception
-    when this attempt falls on a faulted index."""
-    if _FAIL_DISPATCH is None:
+def _attempt_faulted(slot: str, what: str) -> None:
+    """One attempt of schedule ``slot``: raises its armed exception when
+    this attempt falls on a faulted index."""
+    if slot not in _FAIL:
         return
     with _LOCK:
-        spec = _FAIL_DISPATCH
+        spec = _FAIL.get(slot)
         if spec is None:
             return
         idx = spec["seen"]
@@ -251,33 +255,64 @@ def maybe_fail_dispatch() -> None:
         else:
             hit = spec["nth"] <= idx < spec["nth"] + spec["count"]
     if hit:
-        raise spec["exc"](f"injected dispatch fault (attempt {idx})")
+        raise spec["exc"](f"injected {what} fault (attempt {idx})")
 
 
 @contextlib.contextmanager
+def _arm_attempts(slot: str, name: str, breakers: str, nth: int, count: int,
+                  every: Optional[int], exc: type):
+    """Arm schedule ``slot`` (the context ``name``) for its extent; the
+    breakers whose site starts with ``breakers`` are reset on exit."""
+    if count < 1:
+        raise ValueError(f"{name}: count={count} must be >= 1")
+    if every is not None and every < 1:
+        raise ValueError(f"{name}: every={every} must be >= 1")
+    with _LOCK:
+        if slot in _FAIL:
+            raise RuntimeError(f"{name} is not reentrant")
+        _FAIL[slot] = {"nth": int(nth), "count": int(count),
+                       "every": None if every is None else int(every),
+                       "exc": exc, "seen": 0}
+    try:
+        yield
+    finally:
+        with _LOCK:
+            _FAIL.pop(slot, None)
+        _reset_breakers(breakers)
+
+
+def maybe_fail_dispatch() -> None:
+    """Hook of the serve dispatch path, once per dispatch ATTEMPT (so the
+    policy's retries meet the fault again): raises the armed exception
+    when this attempt falls on a faulted index."""
+    _attempt_faulted("serve", "dispatch")
+
+
 def fail_dispatch(nth: int = 0, count: int = 1, every: Optional[int] = None,
                   exc: type = RuntimeError):
     """Raise ``exc`` inside the serve dispatch attempt, by attempt index:
     attempts ``nth .. nth+count-1`` fail (or, with ``every``, every
     ``every``-th attempt from ``nth`` on: the flapping fault of the breaker
     soak). Not reentrant; the ``serve.`` breakers are reset on exit."""
-    global _FAIL_DISPATCH
-    if count < 1:
-        raise ValueError(f"fail_dispatch: count={count} must be >= 1")
-    if every is not None and every < 1:
-        raise ValueError(f"fail_dispatch: every={every} must be >= 1")
-    with _LOCK:
-        if _FAIL_DISPATCH is not None:
-            raise RuntimeError("fail_dispatch is not reentrant")
-        _FAIL_DISPATCH = {"nth": int(nth), "count": int(count),
-                          "every": None if every is None else int(every),
-                          "exc": exc, "seen": 0}
-    try:
-        yield
-    finally:
-        with _LOCK:
-            _FAIL_DISPATCH = None
-        _reset_breakers("serve.")
+    return _arm_attempts("serve", "fail_dispatch", "serve.", nth, count, every, exc)
+
+
+def maybe_fail_fleet_dispatch() -> None:
+    """Hook the fleet router consults once per ticket-dispatch attempt
+    (inside the retried attempt, so the fault meets the policy's retries
+    and the routed worker's breaker): raises the armed exception when this
+    attempt falls on a faulted index."""
+    _attempt_faulted("fleet", "fleet dispatch")
+
+
+def fail_fleet_dispatch(nth: int = 0, count: int = 1, every: Optional[int] = None,
+                        exc: type = RuntimeError):
+    """Raise ``exc`` inside the fleet router's ticket-dispatch attempt, by
+    fleet attempt index, as :func:`fail_dispatch` does for the serve
+    dispatch. Not reentrant; the ``fleet.`` breakers are reset on exit, so
+    an injected storm never leaves a worker's breaker failing fast into
+    real routing."""
+    return _arm_attempts("fleet", "fail_fleet_dispatch", "fleet.", nth, count, every, exc)
 
 
 def hang_seconds(site: str) -> float:

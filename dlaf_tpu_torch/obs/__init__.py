@@ -1,7 +1,8 @@
 """dlaf_tpu_torch.obs: structured tracing, metrics and logging.
 
-Port of ``dlaf_tpu/obs/`` less its offline analysers (``aggregate``,
-``critpath``, ``devtrace``). The knobs, layered like every other
+Port of ``dlaf_tpu/obs/`` less two offline analysers (``critpath``,
+``devtrace``); the third, the artifact merger ``python -m
+dlaf_tpu_torch.obs.aggregate``, is :mod:`.aggregate`. The knobs, layered like every other
 :class:`dlaf_tpu_torch.config.Configuration` field (default < user struct
 < env < ``--dlaf:`` argument):
 

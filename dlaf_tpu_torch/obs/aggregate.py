@@ -1,0 +1,759 @@
+"""Merge per-rank observability artifacts into one timeline.
+
+    python -m dlaf_tpu_torch.obs.aggregate rank0.jsonl rank1.jsonl ... \\
+        [-o merged.jsonl] [--chrome trace.json] [--top N] [--align] \\
+        [--trace <id>] [--top-slow N]
+
+Port of ``dlaf_tpu/obs/aggregate.py``, a pure reader with the reference's
+output: the same merged JSONL, tables and Chrome trace for the same
+artifacts. A multi-process run writes one ``DLAF_METRICS_PATH`` artifact
+per process (the ``%r`` template, one per rank or fleet worker); this tool
+merges them and reports what a single artifact cannot show:
+
+* **per-rank skew**: per span name, count and total wall per rank and the
+  max-min skew across ranks (a straggler shows as skew on the
+  collective-bound spans);
+* **collective imbalance**: per (counter, kind, axis), the per-rank
+  count/byte values of each rank's last metrics snapshot and their
+  max/min ratio;
+* **measured span overlap**: per span name, each rank's share of its run
+  wall, the cross-rank aligned fraction (how much of the name's wall
+  coincides on all ranks), and the ``*_lookahead`` knob attrs the entry
+  spans carried;
+* **accuracy**: per (site, metric), each rank's record count and worst
+  ``bound_ratio`` from the ``accuracy`` records, nonfinite estimates
+  first;
+* **autotune**: per route-table site, the decision trail of the
+  ``autotune`` records, escalations and exhaustions first;
+* **device timeline**: the ``devtrace``/``measured_overlap`` records, where
+  an artifact carries them (a reader only: the port writes none yet).
+
+``--chrome`` exports the merged spans as Chrome/Perfetto trace events
+(``pid`` = rank, host spans nested by time on one track, ``program``
+compile events on their own), alignable with a ``DLAF_TRACE_DIR``
+``torch.profiler`` trace in the same viewer.
+
+**Clock caveat**: timestamps are per-host wall clocks, compared directly
+by the aligned fractions and the Chrome timeline: honest to the hosts'
+clock sync. ``--align`` rebases each rank's timeline to its own earliest
+span start before the reports and the Chrome export (the ``-o`` artifact
+keeps the raw timestamps).
+
+``--trace <id>`` joins ONE request's causal chain: its ``serve`` request
+record, the dispatch that served it (through the shared ``span_id``), and
+every other record stamped with the trace ID (a fleet router's ``route``
+and ``redispatch`` records among them, in another process's artifact),
+as the request's waterfall (queue wait, compose, program, fetch, unpad)
+plus the trace's record inventory. ``--top-slow N`` lists the N worst
+end-to-end requests with their trace IDs, the entry point into
+``--trace``. Both print only their report.
+
+A record's rank is its own ``rank`` field, else the file's ``r<N>``
+(``%r``) name, else an unresolved ``u<pid>`` placeholder mapped to
+:data:`UNRESOLVED_RANK_BASE` + pid, else the argument position.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import sys
+
+from .sinks import read_records
+
+#: Entry-span attrs that select a pipelined program structure; surfaced
+#: in the overlap report so "measured under which knobs" is in the table.
+KNOB_ATTRS = ("lookahead", "comm_lookahead", "bt_lookahead",
+              "dc_level_batch")
+
+_RANK_IN_NAME = re.compile(r"(?:^|[._-])r(\d+)(?=$|[._-])")
+#: the sink's unresolved-rank placeholder (``%r`` expanded before any
+#: backend existed): ``u<pid>`` in place of the rank digits — matched
+#: with or without the conventional literal ``r`` prefix of the
+#: ``.r%r.`` template (a bare ``.%r.`` template yields ``.u<pid>.``)
+_UNRESOLVED_IN_NAME = re.compile(r"(?:^|[._-])r?u(\d+)(?=$|[._-])")
+
+#: pseudo-rank base for unresolved-rank artifacts: far above any real
+#: rank, so pre-init records stay a visibly separate row in every report
+#: instead of silently absorbing into whichever real rank shares their
+#: argument position.
+UNRESOLVED_RANK_BASE = 1_000_000
+
+
+def infer_rank(path: str, position: int) -> int:
+    """Rank for a file whose records carry none: the ``r<N>`` filename
+    convention of the ``%r`` template; an unresolved-rank placeholder
+    file (``ru<pid>``, written by pre-backend-init records) maps to
+    ``UNRESOLVED_RANK_BASE + pid`` — a distinct, visibly-bogus rank —
+    and anything else falls back to the argument position."""
+    base = os.path.basename(path)
+    m = _RANK_IN_NAME.search(base)
+    if m:
+        return int(m.group(1))
+    m = _UNRESOLVED_IN_NAME.search(base)
+    if m:
+        return UNRESOLVED_RANK_BASE + int(m.group(1))
+    return position
+
+
+def merge_artifacts(paths) -> list:
+    """Read + merge artifacts; every record is stamped with its rank
+    (its own ``rank`` field when present, else the file's inferred rank)
+    and the merged list is ordered by ``ts``. Raises ValueError/OSError
+    on an unreadable artifact — a half-merged timeline would lie."""
+    merged = []
+    for pos, path in enumerate(paths):
+        fallback = infer_rank(path, pos)
+        for r in read_records(path):
+            if isinstance(r, dict):
+                r.setdefault("rank", fallback)
+                merged.append(r)
+    merged.sort(key=lambda r: (r.get("ts") or 0.0))
+    return merged
+
+
+def rebase_per_rank(records) -> list:
+    """Shift each rank's records so its earliest SPAN start is t=0 (the
+    ``--align`` mode): removes inter-host wall-clock offset from the
+    cross-rank overlap/Chrome views at the cost of absolute time and
+    true cross-rank start ordering. Returns new record dicts; ranks with
+    no spans keep their timestamps."""
+    base: dict = {}
+    for r in records:
+        if r.get("type") == "span":
+            start = (r.get("ts") or 0.0) - (r.get("dur_s") or 0.0)
+            rank = r.get("rank", 0)
+            base[rank] = min(base.get(rank, start), start)
+    out = []
+    for r in records:
+        rank = r.get("rank", 0)
+        if rank in base and isinstance(r.get("ts"), (int, float)):
+            r = dict(r, ts=r["ts"] - base[rank])
+        out.append(r)
+    return out
+
+
+def spans_by_rank(records) -> dict:
+    """{rank: [span records]} (spans only)."""
+    out: dict = {}
+    for r in records:
+        if r.get("type") == "span":
+            out.setdefault(r.get("rank", 0), []).append(r)
+    return out
+
+
+def rank_skew_rows(records) -> list:
+    """Per span name: ``{"name", "per_rank": {rank: {"count", "total"}},
+    "skew_s": max-min total across ranks}``, sorted by total wall."""
+    per_name: dict = {}
+    for rank, spans in spans_by_rank(records).items():
+        for s in spans:
+            cell = per_name.setdefault(s.get("name", "?"), {}) \
+                .setdefault(rank, {"count": 0, "total": 0.0})
+            cell["count"] += 1
+            cell["total"] += s.get("dur_s", 0.0) or 0.0
+    rows = []
+    for name, per_rank in per_name.items():
+        totals = [c["total"] for c in per_rank.values()]
+        rows.append({"name": name, "per_rank": per_rank,
+                     "total_s": sum(totals),
+                     "skew_s": max(totals) - min(totals)})
+    rows.sort(key=lambda row: -row["total_s"])
+    return rows
+
+
+def format_skew_table(rows, top_n: int = 25) -> list:
+    """Printable lines for the per-rank skew table."""
+    ranks = sorted({rank for row in rows for rank in row["per_rank"]})
+    head = "  ".join(f"r{rank:<2d} total(ms) xN".rjust(18) for rank in ranks)
+    lines = [f"{'span':<32s} {head}  {'skew(ms)':>9s}"]
+    for row in rows[:top_n]:
+        cells = []
+        for rank in ranks:
+            c = row["per_rank"].get(rank)
+            cells.append(f"{c['total'] * 1e3:12.2f} x{c['count']:<4d}"
+                         if c else f"{'-':>12s}      ")
+        lines.append(f"{row['name'][:32]:<32s} " + "  ".join(cells)
+                     + f"  {row['skew_s'] * 1e3:9.2f}")
+    return lines
+
+
+def accuracy_rows(records) -> list:
+    """Per (site, metric): per-rank record count, worst (max) finite
+    ``bound_ratio``, worst value, and nonfinite count from the merged
+    ``accuracy`` records, nonfinite first, then by worst ratio, so a
+    corrupted rank tops the table."""
+    per: dict = {}
+    for r in records:
+        if r.get("type") != "accuracy":
+            continue
+        cell = per.setdefault((r.get("site", "?"), r.get("metric", "?")), {}) \
+            .setdefault(r.get("rank", 0),
+                        {"count": 0, "worst_ratio": None, "worst_value": None,
+                         "nonfinite": 0})
+        cell["count"] += 1
+        if r.get("nonfinite"):
+            cell["nonfinite"] += 1
+        for key, field in (("bound_ratio", "worst_ratio"),
+                           ("value", "worst_value")):
+            v = r.get(key)
+            if isinstance(v, (int, float)) and not isinstance(v, bool) \
+                    and (cell[field] is None or v > cell[field]):
+                cell[field] = v
+    rows = []
+    for (site, metric), per_rank in per.items():
+        rows.append({
+            "site": site, "metric": metric, "per_rank": per_rank,
+            "nonfinite": sum(c["nonfinite"] for c in per_rank.values()),
+            "worst_ratio": max((c["worst_ratio"] for c in per_rank.values()
+                                if c["worst_ratio"] is not None),
+                               default=None)})
+    rows.sort(key=lambda row: (-row["nonfinite"],
+                               -(row["worst_ratio"] or -1.0)))
+    return rows
+
+
+def format_accuracy_table(rows, top_n: int = 25) -> list:
+    """Printable lines for the accuracy table."""
+    lines = []
+    for row in rows[:top_n]:
+        cells = []
+        for rank, c in sorted(row["per_rank"].items()):
+            if c["nonfinite"]:
+                shown = "NONFINITE"
+            elif c["worst_ratio"] is not None:
+                shown = "%.3g" % c["worst_ratio"]
+            elif c["worst_value"] is not None:
+                # informational metric (no budget): show the raw value
+                shown = "%.3g*" % c["worst_value"]
+            else:
+                shown = "-"
+            cells.append("r%s=%s x%d" % (rank, shown, c["count"]))
+        worst = "-" if row["worst_ratio"] is None \
+            else "%.3g" % row["worst_ratio"]
+        flag = "  !! NONFINITE" if row["nonfinite"] else ""
+        lines.append("%s/%s: worst bound_ratio %s  [%s]%s"
+                     % (row["site"], row["metric"], worst,
+                        " ".join(cells), flag))
+    return lines
+
+
+def autotune_rows(records) -> list:
+    """Per route-table site: the ordered decision trail from the merged
+    ``autotune`` records, escalations and exhaustions first, then by
+    decision count, so the sites the loop moved (or failed) top the
+    section."""
+    per: dict = {}
+    for r in records:
+        if r.get("type") != "autotune":
+            continue
+        site = r.get("site", "?")
+        cell = per.setdefault(site, {"decisions": [], "escalations": 0,
+                                     "exhausted": 0, "moves": 0})
+        cell["decisions"].append(r)
+        reason = r.get("reason")
+        if reason == "escalate":
+            cell["escalations"] += 1
+        if reason == "exhausted":
+            cell["exhausted"] += 1
+        if reason in ("escalate", "relax"):
+            cell["moves"] += 1
+    rows = []
+    for site, cell in per.items():
+        last = cell["decisions"][-1]
+        rows.append({"site": site, "decisions": cell["decisions"],
+                     "count": len(cell["decisions"]),
+                     "escalations": cell["escalations"],
+                     "exhausted": cell["exhausted"],
+                     "moves": cell["moves"],
+                     "final_rung": last.get("rung_new"),
+                     "final_reason": last.get("reason"),
+                     "final_route": last.get("route_new")})
+    rows.sort(key=lambda row: (-row["exhausted"], -row["escalations"],
+                               -row["count"], row["site"]))
+    return rows
+
+
+def format_autotune_trail(rows, top_n: int = 10,
+                          trail_n: int = 6) -> list:
+    """Printable lines for the autotune decision-trail section: one
+    summary line per site plus its last ``trail_n`` decisions."""
+    lines = []
+    for row in rows[:top_n]:
+        flag = "  !! EXHAUSTED" if row["exhausted"] else ""
+        route = row["final_route"] or {}
+        route_s = " ".join(f"{k}={v}" for k, v in sorted(route.items())) \
+            or "default"
+        lines.append(
+            "%s: %d decision(s), %d move(s), %d escalation(s); final "
+            "rung %s (%s) via %s%s"
+            % (row["site"], row["count"], row["moves"],
+               row["escalations"], row["final_rung"], route_s,
+               row["final_reason"], flag))
+        for r in row["decisions"][-trail_n:]:
+            probe = ("NONFINITE" if r.get("nonfinite")
+                     else ("%.3g" % r["probe"]
+                           if isinstance(r.get("probe"), (int, float))
+                           else "-"))
+            lines.append("  %-9s rung %s -> %s  probe %s"
+                         % (r.get("reason"), r.get("rung_old"),
+                            r.get("rung_new"), probe))
+    return lines
+
+
+#: Waterfall stage order: queue wait from the request record, then the
+#: dispatch record's ``stages`` object (serve/queue.py emits them).
+WATERFALL_STAGES = (("queue wait", None), ("compose", "compose_s"),
+                    ("program", "program_s"), ("fetch", "fetch_s"),
+                    ("unpad", "unpad_s"))
+
+
+def request_rows(records) -> list:
+    """Per-request rows joined across the trace convention: each
+    ``serve`` request record, with the stage timings of the
+    dispatch record sharing its ``span_id``. Sorted worst end-to-end
+    latency first — the ``--top-slow`` order."""
+    dispatches = {}
+    for r in records:
+        if r.get("type") == "serve" and r.get("event") == "dispatch" \
+                and isinstance(r.get("span_id"), str):
+            dispatches[r["span_id"]] = r
+    rows = []
+    for r in records:
+        if r.get("type") != "serve" or r.get("event") != "request":
+            continue
+        d = dispatches.get(r.get("span_id"))
+        rows.append({
+            "trace_id": r.get("trace_id"),
+            "span_id": r.get("span_id"),
+            "rank": r.get("rank", 0),
+            "op": r.get("op", "?"),
+            "n": r.get("n"),
+            "bucket_n": r.get("bucket_n"),
+            "dtype": r.get("dtype", "?"),
+            "queue_s": r.get("queue_s", 0.0) or 0.0,
+            "total_s": r.get("total_s", 0.0) or 0.0,
+            "stages": (d or {}).get("stages"),
+            "dispatch_s": (d or {}).get("dispatch_s"),
+            "lanes": (d or {}).get("lanes"),
+        })
+    rows.sort(key=lambda row: -row["total_s"])
+    return rows
+
+
+def _stage_values(row) -> list:
+    """``[(label, seconds)]`` for one request row's waterfall."""
+    out = [("queue wait", row["queue_s"])]
+    for label, key in WATERFALL_STAGES[1:]:
+        v = (row.get("stages") or {}).get(key)
+        if isinstance(v, (int, float)):
+            out.append((label, float(v)))
+    return out
+
+
+def format_request_table(rows, top_n: int = 5) -> list:
+    """Printable lines for the slowest-requests table: one line per
+    request, total + stage breakdown + trace ID."""
+    lines = []
+    for row in rows[:top_n]:
+        stages = " | ".join(f"{label} {v * 1e3:.2f}"
+                            for label, v in _stage_values(row))
+        tid = row["trace_id"] if isinstance(row["trace_id"], str) \
+            else "-"
+        lines.append(f"{row['total_s'] * 1e3:10.2f} ms  {row['op']:<9s}"
+                     f" n={row['n']}/{row['bucket_n']}  ({stages})"
+                     f"  trace {tid}")
+    return lines
+
+
+def format_waterfall(row, width: int = 40) -> list:
+    """The per-request waterfall: one bar-chart line per stage, scaled
+    to the request's end-to-end wall."""
+    total = max(row["total_s"], 1e-12)
+    lines = [f"request: op={row['op']} n={row['n']} "
+             f"bucket={row['bucket_n']} dtype={row['dtype']} "
+             f"rank={row['rank']} lanes={row.get('lanes')}  "
+             f"total {row['total_s'] * 1e3:.2f} ms"]
+    for label, v in _stage_values(row):
+        bar = "#" * max(int(round(width * v / total)), 1 if v > 0 else 0)
+        lines.append(f"  {label:<12s} {v * 1e3:10.3f} ms  {bar}")
+    if row.get("stages") is None:
+        lines.append("  (no dispatch stage record joined — span_id "
+                     "missing or dispatch record not in this artifact)")
+    return lines
+
+
+def trace_report(records, trace_id: str) -> list:
+    """Printable report for ONE trace ID: the request waterfall(s) plus
+    an inventory of every record stamped with the ID (request-scoped
+    string match or batch-scope list membership). Empty list = the ID
+    appears nowhere."""
+    from .context import trace_matches
+
+    matched = [r for r in records
+               if isinstance(r, dict) and trace_matches(r, trace_id)]
+    if not matched:
+        return []
+    lines = [f"== trace {trace_id}: {len(matched)} records =="]
+    rows = [row for row in request_rows(matched)
+            if row["trace_id"] == trace_id]
+    for row in rows:
+        lines.extend(format_waterfall(row))
+    lines.append("records on this trace:")
+    for r in matched:
+        rtype = r.get("type", "?")
+        what = r.get("name") or r.get("site") or r.get("op") or ""
+        event = r.get("event") or r.get("metric") or ""
+        scope = "batch" if isinstance(r.get("trace_id"), list) else "request"
+        lines.append(f"  {rtype:<14s} {what:<24s} {event:<12s} "
+                     f"[{scope} scope, rank {r.get('rank', 0)}]")
+    return lines
+
+
+def devtrace_rows(records) -> list:
+    """Printable lines for any ``devtrace``/``measured_overlap`` records
+    in the merged artifact (the device-timeline attribution writes them;
+    this is the merge view)."""
+    lines = []
+    for r in records:
+        if r.get("type") == "devtrace":
+            lines.append(
+                f"trace {r.get('trace', '?')}: device busy "
+                f"{(r.get('device_busy_s') or 0.0) * 1e3:.2f} ms, "
+                f"coverage {(r.get('coverage') or 0.0) * 100:.1f}% "
+                f"(join={r.get('join', '?')}, rank {r.get('rank', 0)})")
+    for r in records:
+        if r.get("type") == "measured_overlap":
+            lines.append(
+                f"  {r.get('algo', '?')}/{r.get('axis', '?')}: "
+                f"{(r.get('overlap_frac') or 0.0) * 100:.1f}% of "
+                f"{(r.get('collective_s') or 0.0) * 1e3:.2f} ms "
+                "collective time MXU-overlapped")
+    return lines
+
+
+def collective_imbalance(records) -> list:
+    """Cross-rank imbalance of the collective counters: for each
+    (counter name, kind, axis) in each rank's LAST metrics snapshot,
+    the per-rank values and max/min ratio. Sorted by ratio."""
+    last_snap: dict = {}
+    for r in records:
+        if r.get("type") == "metrics":
+            last_snap[r.get("rank", 0)] = r       # ts-ordered: last wins
+    per_key: dict = {}
+    for rank, snap in last_snap.items():
+        for m in snap.get("metrics") or []:
+            if not isinstance(m, dict) or m.get("kind") != "counter":
+                continue
+            name = m.get("name", "")
+            if "comm_collective" not in name:
+                continue
+            labels = m.get("labels") or {}
+            key = (name, labels.get("kind", "?"), labels.get("axis", "?"))
+            per_key.setdefault(key, {})[rank] = m.get("value", 0.0)
+    rows = []
+    for (name, kind, axis), per_rank in per_key.items():
+        vals = list(per_rank.values())
+        lo, hi = min(vals), max(vals)
+        rows.append({"name": name, "kind": kind, "axis": axis,
+                     "per_rank": per_rank,
+                     "ratio": (hi / lo) if lo > 0 else float("inf")})
+    rows.sort(key=lambda row: -row["ratio"])
+    return rows
+
+
+def _intervals(spans):
+    """[(start, end)] per span list (ts is stamped at exit)."""
+    out = []
+    for s in spans:
+        end = s.get("ts") or 0.0
+        dur = s.get("dur_s") or 0.0
+        out.append((end - dur, end))
+    return sorted(out)
+
+
+def _union(intervals):
+    merged = []
+    for lo, hi in intervals:
+        if merged and lo <= merged[-1][1]:
+            merged[-1] = (merged[-1][0], max(merged[-1][1], hi))
+        else:
+            merged.append((lo, hi))
+    return merged
+
+
+def overlap_report(records) -> dict:
+    """Measured span overlap across the merged timeline.
+
+    Per rank: run wall (first span start to last span end) and each span
+    name's share of it. Per span name on >= 2 ranks: the cross-rank
+    *aligned* fraction — |intersection of the name's union-intervals
+    across ranks| / max per-rank total. Plus the ``*_lookahead``-family
+    knob attrs the spans carried, so the numbers are attributable to a
+    program structure.
+
+    Cross-rank fractions compare per-host wall clocks directly; for
+    hosts without NTP-grade sync, rebase first (:func:`rebase_per_rank`,
+    the CLI's ``--align``)."""
+    by_rank = spans_by_rank(records)
+    per_rank_wall = {}
+    name_intervals: dict = {}
+    knobs: dict = {}
+    for rank, spans in by_rank.items():
+        iv = _intervals(spans)
+        # wall = earliest start to LATEST END — not the end of the
+        # latest-starting span (a nested step span inside a long entry
+        # span would otherwise understate the wall and inflate shares)
+        per_rank_wall[rank] = (max(hi for _, hi in iv)
+                               - min(lo for lo, _ in iv)) if iv else 0.0
+        for s in spans:
+            end = s.get("ts") or 0.0
+            dur = s.get("dur_s") or 0.0
+            name_intervals.setdefault(s.get("name", "?"), {}) \
+                .setdefault(rank, []).append((end - dur, end))
+            attrs = s.get("attrs") or {}
+            for k in KNOB_ATTRS:
+                if k in attrs:
+                    knobs.setdefault(k, set()).add(attrs[k])
+    aligned = {}
+    for name, per_rank in name_intervals.items():
+        if len(per_rank) < 2:
+            continue
+        unions = [_union(sorted(iv)) for iv in per_rank.values()]
+        inter = unions[0]
+        for u in unions[1:]:
+            inter = _intersect(inter, u)
+        inter_len = sum(hi - lo for lo, hi in inter)
+        denom = max(sum(hi - lo for lo, hi in u) for u in unions)
+        aligned[name] = inter_len / denom if denom > 0 else 0.0
+    shares = {}
+    for name, per_rank in name_intervals.items():
+        tot = {rank: sum(hi - lo for lo, hi in iv)
+               for rank, iv in per_rank.items()}
+        shares[name] = {rank: (tot[rank] / per_rank_wall[rank]
+                               if per_rank_wall.get(rank) else 0.0)
+                        for rank in tot}
+    return {"rank_wall_s": per_rank_wall, "share": shares,
+            "aligned": aligned,
+            "knobs": {k: sorted(v) for k, v in knobs.items()}}
+
+
+def _intersect(a, b):
+    out, i, j = [], 0, 0
+    while i < len(a) and j < len(b):
+        lo = max(a[i][0], b[j][0])
+        hi = min(a[i][1], b[j][1])
+        if hi > lo:
+            out.append((lo, hi))
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return out
+
+
+def chrome_trace(records) -> dict:
+    """Merged records as Chrome trace-event JSON: one process per rank
+    (``pid`` = rank), host spans on track 0 (nested by time), program
+    compile events on track 1. Times are microseconds relative to the
+    earliest span start, the format's convention."""
+    events = []
+    starts = []
+    for r in records:
+        if r.get("type") == "span":
+            starts.append((r.get("ts") or 0.0) - (r.get("dur_s") or 0.0))
+        elif r.get("type") == "program" and r.get("event") == "compile":
+            dur = (r.get("compile_s") or 0.0) + (r.get("trace_s") or 0.0)
+            starts.append((r.get("ts") or 0.0) - dur)
+    t0 = min(starts) if starts else 0.0
+    ranks = sorted({r.get("rank", 0) for r in records})
+    for rank in ranks:
+        events.append({"ph": "M", "name": "process_name", "pid": rank,
+                       "args": {"name": f"rank {rank}"}})
+        events.append({"ph": "M", "name": "process_sort_index", "pid": rank,
+                       "args": {"sort_index": rank}})
+        events.append({"ph": "M", "name": "thread_name", "pid": rank,
+                       "tid": 0, "args": {"name": "host spans"}})
+        events.append({"ph": "M", "name": "thread_name", "pid": rank,
+                       "tid": 1, "args": {"name": "program compiles"}})
+    for r in records:
+        rank = r.get("rank", 0)
+        if r.get("type") == "span":
+            dur = r.get("dur_s") or 0.0
+            start = (r.get("ts") or 0.0) - dur
+            args = dict(r.get("attrs") or {})
+            args["depth"] = r.get("depth")
+            if r.get("gflops") is not None:
+                args["gflops"] = r["gflops"]
+            events.append({"ph": "X", "name": r.get("name", "?"),
+                           "pid": rank, "tid": 0,
+                           "ts": (start - t0) * 1e6, "dur": dur * 1e6,
+                           "args": args})
+        elif r.get("type") == "program" and r.get("event") == "compile":
+            dur = (r.get("compile_s") or 0.0) + (r.get("trace_s") or 0.0)
+            start = (r.get("ts") or 0.0) - dur
+            events.append({"ph": "X",
+                           "name": f"compile {r.get('site', '?')}",
+                           "pid": rank, "tid": 1,
+                           "ts": (start - t0) * 1e6, "dur": dur * 1e6,
+                           "args": {"compile_s": r.get("compile_s"),
+                                    "trace_s": r.get("trace_s"),
+                                    "hbm": r.get("hbm")}})
+    return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    out_path = chrome_path = None
+    top_n = 25
+    align = False
+    trace_id = None
+    top_slow = None
+    paths = []
+    i = 0
+    while i < len(argv):
+        a = argv[i]
+        if a == "-o":
+            i += 1
+            out_path = argv[i] if i < len(argv) else None
+        elif a == "--chrome":
+            i += 1
+            chrome_path = argv[i] if i < len(argv) else None
+        elif a == "--top":
+            i += 1
+            try:
+                top_n = int(argv[i]) if i < len(argv) else top_n
+            except ValueError:
+                print(__doc__, file=sys.stderr)
+                return 2
+        elif a == "--trace":
+            i += 1
+            trace_id = argv[i] if i < len(argv) else None
+        elif a == "--top-slow":
+            i += 1
+            try:
+                top_slow = int(argv[i]) if i < len(argv) else None
+            except ValueError:
+                print(__doc__, file=sys.stderr)
+                return 2
+        elif a == "--align":
+            align = True
+        elif a.startswith("-"):
+            print(__doc__, file=sys.stderr)
+            return 2
+        else:
+            paths.append(a)
+        i += 1
+    if not paths or (out_path is None and "-o" in argv) \
+            or (chrome_path is None and "--chrome" in argv) \
+            or (trace_id is None and "--trace" in argv) \
+            or (top_slow is None and "--top-slow" in argv) \
+            or (top_slow is not None and top_slow < 1):
+        print(__doc__, file=sys.stderr)
+        return 2
+    try:
+        records = merge_artifacts(paths)
+    except (OSError, ValueError) as e:
+        print(f"aggregate: {e}", file=sys.stderr)
+        return 1
+    if not records:
+        print("aggregate: no records in any artifact", file=sys.stderr)
+        return 1
+    if trace_id is not None:
+        # report-only mode: one request's causal chain
+        lines = trace_report(records, trace_id)
+        if not lines:
+            print(f"aggregate: trace {trace_id!r} appears in no record",
+                  file=sys.stderr)
+            return 1
+        for line in lines:
+            print(line)
+        return 0
+    if top_slow is not None:
+        rows = request_rows(records)
+        if not rows:
+            print("aggregate: no serve request records to rank",
+                  file=sys.stderr)
+            return 1
+        print(f"== top {min(top_slow, len(rows))} slowest requests "
+              f"(of {len(rows)}) ==")
+        for line in format_request_table(rows, top_slow):
+            print(f"  {line}")
+        return 0
+    ranks = sorted({r.get("rank", 0) for r in records})
+    print(f"== merged {len(records)} records from {len(paths)} artifact(s), "
+          f"ranks {ranks}{' (per-rank aligned timelines)' if align else ''}"
+          " ==")
+    # --align: reports + chrome view per-rank-rebased timelines; the -o
+    # merged artifact below always keeps the raw timestamps
+    view = rebase_per_rank(records) if align else records
+
+    rows = rank_skew_rows(view)
+    if rows:
+        print("\n== per-rank span skew ==")
+        for line in format_skew_table(rows, top_n):
+            print(f"  {line}")
+
+    acc = accuracy_rows(view)
+    if acc:
+        print("\n== accuracy (worst bound_ratio per rank; docs/accuracy.md)"
+              " ==")
+        for line in format_accuracy_table(acc, top_n):
+            print(f"  {line}")
+
+    atn = autotune_rows(view)
+    if atn:
+        print("\n== autotune decision trail (docs/autotune.md) ==")
+        for line in format_autotune_trail(atn, top_n):
+            print(f"  {line}")
+
+    imb = collective_imbalance(view)
+    if imb:
+        print("\n== collective imbalance (last snapshot per rank) ==")
+        for row in imb[:top_n]:
+            per = " ".join(f"r{rank}={int(v)}" for rank, v in
+                           sorted(row["per_rank"].items()))
+            ratio = "inf" if row["ratio"] == float("inf") \
+                else f"{row['ratio']:.3f}"
+            print(f"  {row['name']}{{kind={row['kind']},axis={row['axis']}}}"
+                  f": {per}  max/min={ratio}")
+
+    dt = devtrace_rows(view)
+    if dt:
+        print("\n== device-timeline attribution (obs.devtrace) ==")
+        for line in dt:
+            print(f"  {line}")
+
+    ov = overlap_report(view)
+    if ov["rank_wall_s"]:
+        print("\n== measured span overlap ==")
+        for rank in sorted(ov["rank_wall_s"]):
+            print(f"  rank {rank}: wall {ov['rank_wall_s'][rank] * 1e3:.2f}"
+                  " ms")
+        for name, share in sorted(ov["share"].items()):
+            per = " ".join(f"r{rank}={s * 100:.1f}%" for rank, s in
+                           sorted(share.items()))
+            al = (f"  aligned={ov['aligned'][name] * 100:.1f}%"
+                  if name in ov["aligned"] else "")
+            print(f"  {name}: share {per}{al}")
+        if ov["knobs"]:
+            knobs = " ".join(f"{k}={v}" for k, v in
+                             sorted(ov["knobs"].items()))
+            print(f"  knob attrs seen: {knobs}")
+
+    if out_path:
+        with open(out_path, "w") as f:
+            for r in records:
+                f.write(json.dumps(r, default=str) + "\n")
+        print(f"\nmerged artifact: {out_path}")
+    if chrome_path:
+        with open(chrome_path, "w") as f:
+            json.dump(chrome_trace(view), f)
+        print(f"chrome trace: {chrome_path} (open in ui.perfetto.dev or "
+              "chrome://tracing)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -18,12 +18,15 @@ routes:
   rolling SLO window state (one entry per (op, bucket) with the
   ``dlaf_serve_latency_window`` p50/p95/p99 gauge values, and the
   ``dlaf_slo_breach_total`` burn counters), and process rank, pid and
-  uptime. A payload build failure answers 500 AND trips the
-  flight recorder (``healthz_failure``).
+  uptime; in a process that holds a fleet router, a ``fleet`` entry: one
+  ``Router.fleet_view()`` per live router (membership, unresolved
+  tickets, redispatch/handback/lost counts and the workers' breakers,
+  local and non-blocking: a wedged worker never wedges ``/healthz``). A
+  payload build failure answers 500 AND trips the flight recorder
+  (``healthz_failure``).
 
-The reference's ``fleet`` entry comes with the port of ``fleet/``. Queues
-register themselves at
-construction (weakrefs: a dropped queue disappears from ``/healthz``).
+Queues and routers register themselves at construction (weakrefs: a
+dropped one disappears from ``/healthz``).
 ``obs.configure`` owns the lifecycle: a port change restarts the server;
 ``obs._shutdown`` (atexit) and ``_reset_for_tests`` stop it.
 """
@@ -48,6 +51,9 @@ _started_at: Optional[float] = None
 _QUEUES: list = []
 _QUEUES_LOCK = threading.Lock()
 
+#: weakrefs to live fleet routers (see module docstring).
+_FLEETS: list = []
+
 
 def register_queue(queue) -> None:
     """Expose ``queue`` on ``/healthz`` for its lifetime (a weakref;
@@ -62,6 +68,21 @@ def live_queues() -> list:
         alive = [(r, r()) for r in _QUEUES]
         _QUEUES[:] = [r for r, q in alive if q is not None]
         return [q for _, q in alive if q is not None]
+
+
+def register_fleet(router) -> None:
+    """Expose a fleet ``Router`` on ``/healthz`` for its lifetime (a
+    weakref; ``fleet.Router.__init__`` calls it)."""
+    with _QUEUES_LOCK:
+        _FLEETS[:] = [r for r in _FLEETS if r() is not None]
+        _FLEETS.append(weakref.ref(router))
+
+
+def live_fleets() -> list:
+    with _QUEUES_LOCK:
+        alive = [(r, r()) for r in _FLEETS]
+        _FLEETS[:] = [r for r, f in alive if f is not None]
+        return [f for _, f in alive if f is not None]
 
 
 #: Content types the endpoint answers with (negotiated per request).
@@ -129,6 +150,9 @@ def healthz_payload() -> dict:
         "slo": {"windows": [slo_rows[k] for k in sorted(slo_rows)],
                 "breaches": breaches},
     }
+    fleets = [f.fleet_view() for f in live_fleets()]
+    if fleets:
+        payload["fleet"] = fleets
     return payload
 
 

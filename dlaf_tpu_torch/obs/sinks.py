@@ -64,6 +64,13 @@ type:
     ``hold``/``exhausted``: new == old), ``route_old``/``route_new``
     objects, ``probe`` finite >= 0 or null with ``nonfinite: true``, and
     ``attrs`` object.
+``fleet``
+    One decision of the fleet router (:mod:`..fleet.router`, its only
+    writer): ``event`` one of :data:`FLEET_EVENTS`, ``worker`` int >= 0
+    (the replica the decision is about), ``attrs`` object; the
+    ticket-scoped events (``route``, ``redispatch``, ``handback``,
+    ``ticket_lost``) also carry the router ticket's ``seq`` (int >= 0)
+    and its ``trace_id``.
 ``flight_trigger``
     Header of a flight-recorder dump: ``reason`` one of
     :data:`FLIGHT_REASONS`, ``dump_seq`` int >= 1, ``records`` int >= 0,
@@ -79,12 +86,12 @@ batch) and ``span_id`` (non-empty str).
 :func:`validate_records` is the schema owner behind the tests and
 ``python -m dlaf_tpu_torch.obs.validate``; its ``require_*`` flags are the
 reference's for the records above: spans, gflops, collectives, retries,
-comm-overlap, accuracy, serve, resilience, flight, telemetry and autotune.
-The accuracy history lines (``.accuracy_history.jsonl``) have their own
-reader, :func:`validate_history_records`. The validators of the
-``devtrace``, ``critpath``/``whatif``/``schedule`` and ``fleet`` records
-come with the modules that emit them; the bench history lines with the
-port's benchmark.
+comm-overlap, accuracy, serve, resilience, flight, telemetry, autotune and
+fleet. The accuracy history lines (``.accuracy_history.jsonl``) have their
+own reader, :func:`validate_history_records`. The validators of the
+``devtrace`` and ``critpath``/``whatif``/``schedule`` records come with
+the modules that emit them; the bench history lines with the port's
+benchmark.
 """
 
 from __future__ import annotations
@@ -99,7 +106,7 @@ SCHEMA_VERSION = 1
 
 #: The record types this port writes.
 KNOWN_TYPES = ("span", "metrics", "log", "accuracy", "serve", "resilience",
-               "flight_trigger", "program", "autotune")
+               "flight_trigger", "program", "autotune", "fleet")
 
 #: The resilience record's event vocabulary (schema above).
 RESILIENCE_EVENTS = ("retry", "give_up", "deadline", "circuit_open",
@@ -113,6 +120,13 @@ FLIGHT_REASONS = ("breaker_open", "overload_shed",
                   "factorization_exhausted", "accuracy_breach",
                   "healthz_failure", "slo_breach_burst",
                   "autotune_exhausted", "fleet_worker_down")
+
+#: The fleet record's event vocabulary (the router's decisions).
+#: ``route``/``redispatch``/``handback``/``ticket_lost`` are ticket-scoped
+#: (``seq`` and the ticket's trace context); the rest concern a member.
+FLEET_EVENTS = ("route", "redispatch", "handback", "worker_up",
+                "worker_dead", "heartbeat_timeout", "draining",
+                "drained", "probe", "ticket_lost")
 
 #: The autotune decision vocabulary (:func:`..autotune.table.decide`).
 AUTOTUNE_REASONS = ("escalate", "relax", "hold", "exhausted")
@@ -393,6 +407,28 @@ def _validate_resilience(r: dict, where: str, errors: list) -> None:
         errors.append(f"{where}: resilience attrs must be an object")
 
 
+def _validate_fleet(r: dict, where: str, errors: list) -> None:
+    """One fleet decision record (the schema above)."""
+    event = r.get("event")
+    if event not in FLEET_EVENTS:
+        errors.append(f"{where}: fleet event must be one of "
+                      f"{FLEET_EVENTS}, got {event!r}")
+    worker = r.get("worker")
+    if not isinstance(worker, int) or isinstance(worker, bool) or worker < 0:
+        errors.append(f"{where}: fleet record needs a non-negative int "
+                      f"worker, got {worker!r}")
+    if event in ("route", "redispatch", "handback", "ticket_lost"):
+        seq = r.get("seq")
+        if not isinstance(seq, int) or isinstance(seq, bool) or seq < 0:
+            errors.append(f"{where}: fleet {event} record needs a "
+                          f"non-negative int seq, got {seq!r}")
+        if not isinstance(r.get("trace_id"), str) or not r.get("trace_id"):
+            errors.append(f"{where}: fleet {event} record must be "
+                          "trace-stamped (joinable to its request)")
+    if not isinstance(r.get("attrs", {}), dict):
+        errors.append(f"{where}: fleet attrs must be an object")
+
+
 def _validate_flight_trigger(r: dict, where: str, errors: list) -> None:
     if r.get("reason") not in FLIGHT_REASONS:
         errors.append(f"{where}: flight_trigger reason must be one of "
@@ -454,7 +490,8 @@ def validate_records(records, require_spans=False, require_gflops=False,
                      require_comm_overlap=False, require_serve=False,
                      require_resilience=False, require_flight=False,
                      require_fallbacks=False, require_accuracy=False,
-                     require_telemetry=False, require_autotune=False) -> list:
+                     require_telemetry=False, require_autotune=False,
+                     require_fleet=False) -> list:
     """Validate parsed records; returns a list of error strings (empty =
     valid). The ``require_*`` obligations, as the reference's:
 
@@ -492,7 +529,11 @@ def validate_records(records, require_spans=False, require_gflops=False,
     * ``require_autotune``: >= 1 ``autotune`` record of reason escalate or
       relax (the loop moved a route), and NO site whose LAST decision is
       ``exhausted`` (a ladder left at its top under a breach is an open
-      incident)."""
+      incident);
+    * ``require_fleet``: >= 1 ``fleet`` record of event ``route``, ZERO
+      ``ticket_lost`` records, and >= 1 ``redispatch`` whenever a
+      ``worker_dead`` record's reason is not ``drained`` (an ungraceful
+      death with no failover)."""
     errors = []
     n_spans = n_gflops = n_coll = n_retries = n_fallbacks = 0
     n_serve_batched = n_serve_miss = n_serve_requests = 0
@@ -501,6 +542,8 @@ def validate_records(records, require_spans=False, require_gflops=False,
     n_flight_triggers = n_flight_context = 0
     n_compile_obs = n_hbm = n_retrace = 0
     n_autotune_moves = 0
+    n_fleet_routes = n_fleet_redispatch = n_fleet_lost = 0
+    n_fleet_ungraceful_dead = 0
     autotune_last = {}                # site -> last decision reason seen
     serve_retrace_sites = {}          # serve.* site -> trace evidence count
     circuit_state = {}                # site -> latest gauge value seen
@@ -538,6 +581,18 @@ def validate_records(records, require_spans=False, require_gflops=False,
             if isinstance(r.get("site"), str) and r.get("reason") in AUTOTUNE_REASONS:
                 # records are ordered: this ends at each site's LAST decision
                 autotune_last[r["site"]] = r["reason"]
+        elif rtype == "fleet":
+            _validate_fleet(r, where, errors)
+            event = r.get("event")
+            if event == "route":
+                n_fleet_routes += 1
+            elif event == "redispatch":
+                n_fleet_redispatch += 1
+            elif event == "ticket_lost":
+                n_fleet_lost += 1
+            elif event == "worker_dead" \
+                    and (r.get("attrs") or {}).get("reason") != "drained":
+                n_fleet_ungraceful_dead += 1
         elif rtype == "program":
             _validate_program(r, where, errors)
             if r.get("event") == "compile" and _finite(r.get("compile_s")):
@@ -673,6 +728,18 @@ def validate_records(records, require_spans=False, require_gflops=False,
         if exhausted:
             errors.append("autotune ladder(s) left exhausted at artifact "
                           f"end (last decision 'exhausted'): {exhausted}")
+    if require_fleet:
+        if n_fleet_routes == 0:
+            errors.append("artifact contains no fleet route record (the "
+                          "router never dispatched anything)")
+        if n_fleet_lost > 0:
+            errors.append(f"artifact contains {n_fleet_lost} fleet "
+                          "ticket_lost record(s) — the zero-loss "
+                          "contract (docs/fleet.md) is violated")
+        if n_fleet_ungraceful_dead > 0 and n_fleet_redispatch == 0:
+            errors.append(f"artifact contains {n_fleet_ungraceful_dead} "
+                          "ungraceful fleet worker death(s) but no "
+                          "redispatch record — failover never ran")
     if require_accuracy and n_accuracy == 0:
         errors.append("artifact contains no accuracy record with finite "
                       "value and bound_ratio")

@@ -40,6 +40,11 @@ Flags:
     --require-autotune      fail unless >= 1 autotune record escalated or
                             relaxed a route, and no site's LAST decision
                             is 'exhausted' (an open incident)
+    --require-fleet         fail unless the artifact carries the fleet
+                            tier's zero-loss trail: >= 1 fleet record with
+                            event route, ZERO ticket_lost records, and a
+                            redispatch record wherever a worker died
+                            ungracefully (worker_dead not 'drained')
     --require-flight        validate the file as a flight-recorder
                             incident dump: >= 1 flight_trigger record with
                             a known reason AND >= 1 ordinary pre-trigger
@@ -67,7 +72,7 @@ from .sinks import read_records, validate_history_records, validate_records
 
 _REQUIRES = ("spans", "gflops", "collectives", "retries", "fallbacks",
              "comm-overlap", "accuracy", "serve", "resilience", "flight",
-             "telemetry", "autotune")
+             "telemetry", "autotune", "fleet")
 
 
 def main(argv=None) -> int:
@@ -102,7 +107,7 @@ def main(argv=None) -> int:
         return 1
     counts = {t: sum(r.get("type") == t for r in records)
               for t in ("span", "log", "accuracy", "serve", "resilience",
-                        "flight_trigger", "program", "autotune")}
+                        "flight_trigger", "program", "autotune", "fleet")}
     snaps = [r for r in records if r.get("type") == "metrics"]
     ranks = sorted({r["rank"] for r in records if "rank" in r})
     extra = f", {counts['accuracy']} accuracy records" if counts["accuracy"] else ""
@@ -111,6 +116,7 @@ def main(argv=None) -> int:
     extra += f", {counts['flight_trigger']} flight triggers" if counts["flight_trigger"] else ""
     extra += f", {counts['program']} program records" if counts["program"] else ""
     extra += f", {counts['autotune']} autotune decisions" if counts["autotune"] else ""
+    extra += f", {counts['fleet']} fleet records" if counts["fleet"] else ""
     extra += f", ranks {ranks}" if ranks else ""
     print(f"VALID {path}: {len(records)} records ({counts['span']} spans, "
           f"{len(snaps)} metrics snapshots, {counts['log']} logs{extra})")

@@ -7,6 +7,8 @@ dtype, uplo/side/op/diag, with_info, donate)`` and serves it warm:
 * :meth:`ProgramService.warmup` readies a bucket set (the server bring-up
   step);
 * :meth:`ProgramService.evict` drops one bucket program;
+* :meth:`ProgramSpec.to_wire` / :meth:`ProgramSpec.from_wire` carry a
+  spec across a process boundary (the fleet router's ``warmup``);
 * every lookup counts a hit, miss, warmup or eviction, as the reference's
   ``programs.py:191-376``, in :meth:`ProgramService.stats` and in
   ``dlaf_serve_cache_total{event,op}`` (:mod:`..obs`); each warmup compile
@@ -80,6 +82,21 @@ class ProgramSpec:
             extra += f".rt_{Route(**dict(self.route)).tag()}"
         return (f"serve.{self.op}.b{self.batch}n{self.n}nb{self.nb}.{self.dtype}{extra}"
                 + (".info" if self.with_info else "") + (".don" if self.donate else ""))
+
+    def to_wire(self) -> dict:
+        """JSON-safe form (the fleet router's ``warmup`` message): every
+        field is a JSON scalar but ``route``, whose pairs ride as lists."""
+        doc = dataclasses.asdict(self)
+        doc["route"] = [list(pair) for pair in self.route]
+        return doc
+
+    @classmethod
+    def from_wire(cls, doc: dict) -> "ProgramSpec":
+        """Inverse of :meth:`to_wire`: the route pairs become tuples again,
+        so a spec that went through the wire is ``==`` to the original."""
+        doc = dict(doc)
+        doc["route"] = tuple(tuple(pair) for pair in doc.get("route", ()))
+        return cls(**doc)
 
 
 def cholesky_spec(*, batch: int, n: int, nb: int, dtype: str, uplo: str = "L",

@@ -37,7 +37,8 @@ breaker (:mod:`..health.circuit`). :meth:`Queue.stats` snapshots the
 per-bucket depth, shed, expired and breaker states.
 
 Records (:mod:`..obs`), as the reference's (``queue.py:458-900``):
-``submit`` stamps one ``trace_id`` per request (``Ticket.trace_id``) and
+``submit`` stamps one ``trace_id`` per request (``Ticket.trace_id``, drawn
+or adopted from the caller) and
 each dispatch draws one ``span_id`` and runs under a batch-scope
 ``obs.trace_context`` (the members' trace IDs and the span ID), so every
 record of the dispatch (its retry and breaker records included) joins to
@@ -190,12 +191,14 @@ class Ticket:
     request's batch dispatched; :meth:`result` returns the unpadded
     per-request output as host (numpy) arrays and raises RuntimeError
     while still queued. ``info`` is the request's info value once done.
-    ``trace_id`` (16 hex characters) joins every record of the request's
-    chain."""
+    ``trace_id`` (16 hex characters, or the one the submitter passed)
+    joins every record of the request's chain."""
 
-    def __init__(self, request: Request, submitted: float):
+    def __init__(self, request: Request, submitted: float, trace_id: Optional[str] = None):
         self.request = request
-        self.trace_id = obs.new_trace_id()
+        # an adopted ID (the fleet worker passes its router ticket's) keeps
+        # the cross-process chain joinable from either side
+        self.trace_id = trace_id or obs.new_trace_id()
         self.submitted = submitted
         self.done = False
         self.error: Optional[BaseException] = None
@@ -393,19 +396,21 @@ class Queue:
                 # was made; this submit is still admitted
                 pass
 
-    def submit(self, req: Request) -> Ticket:
+    def submit(self, req: Request, trace_id: Optional[str] = None) -> Ticket:
         """Enqueue one request; dispatch its bucket when the batch fills,
         and dispatch OTHER buckets past their deadline (submission is a
         clock edge). At the ``max_depth`` bound the submit sheds
         (:class:`..health.errors.OverloadError`, no ticket created) or
-        applies backpressure, by ``shed``."""
+        applies backpressure, by ``shed``. ``trace_id`` (optional) makes
+        the ticket adopt an existing trace: the fleet worker passes its
+        router ticket's, so the chain across processes joins on one ID."""
         with self._lock:
             now = self.clock()
             key = self._key(req)          # validate BEFORE admission
             self._admit(key)
             if req.rid is None:
                 req.rid = next(self._rid)
-            ticket = Ticket(req, now)
+            ticket = Ticket(req, now, trace_id)
             lanes = self._pending.setdefault(key, [])
             lanes.append((req, ticket))
             self.requests += 1

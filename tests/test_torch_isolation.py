@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of ``dlaf_tpu_torch``
-(the multi-process ``comm/multihost.py``, the telemetry package ``obs``
-and the resilience modules ``health/inject.py``, ``health/registry.py``,
-``health/resume.py`` and ``matrix/checkpoint.py`` among them), and
+(the multi-process ``comm/multihost.py``, the telemetry package ``obs``,
+the resilience modules ``health/inject.py``, ``health/registry.py``,
+``health/resume.py`` and ``matrix/checkpoint.py``, the fleet tier ``fleet/``
+and the merger ``obs/aggregate.py`` among them), and
 ``chip_smoke``,
 loads no ``jax`` module and nothing of the JAX package ``dlaf_tpu``. Checked in a fresh interpreter, since the test process
 itself imports both packages."""
@@ -18,7 +19,9 @@ import dlaf_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(dlaf_tpu_torch.__path__, "dlaf_tpu_torch.")]
 assert "dlaf_tpu_torch.comm.multihost" in names, "the multi-process module is not walked"
 assert "dlaf_tpu_torch.obs.exporter" in names, "the obs package is not walked"
-for new in ("health.inject", "health.registry", "health.resume", "matrix.checkpoint"):
+for new in ("health.inject", "health.registry", "health.resume", "matrix.checkpoint",
+            "fleet.transport", "fleet.membership", "fleet.router", "fleet.worker",
+            "obs.aggregate"):
     assert "dlaf_tpu_torch." + new in names, new + " is not walked"
 for name in names:
     importlib.import_module(name)
