@@ -287,6 +287,21 @@ with its launch counts (none, but the one #6 product under ``mxu``):
     site and main-L walls with the program records off and on; the
     artifact through ``--require-telemetry --require-autotune``.
 
+35. devtrace (``obs/devtrace.py``, ``obs/critpath.py``; artifacts under
+    ``smoke_artifacts/devtrace``), strict, within 60 s
+    (:func:`devtrace_phase`): dist-L (N=16384, nb=256, f32, 2x2, fused
+    step, lookahead on) and config #2's solve (trsm-d, N=8192, f64, LLNN,
+    2x2, unrolled), each one warm call and one under ``DLAF_METRICS_PATH``
+    and ``DLAF_TRACE_DIR``, merged by ``obs.aggregate``, through the
+    devtrace and critpath CLIs (coverage, join, busy by category, the top
+    phases, the ``measured_overlap`` row, critpath's step table, program
+    line and what-ifs, the largest gaps; 64 and 32 steps); dist-L's
+    enriched artifact through ``--require-devtrace --require-critpath``,
+    each of its hand kernels named in the report at its wrappers' launch
+    count and no launch in its ranges without a device op; the drills: ``--inject-gap cholesky.step032=5`` recovered
+    within [5 ms - the boundary's lookahead overlap, 5 ms + 1 us],
+    critpath on a main-L trace and devtrace on a CPU-activity trace exit 1.
+
 The script sets ``DLAF_ACCURACY=full``, so every miniapp's check (here
 and in the processes it starts) computes the exact residual. On one card
 the collectives are device-local copies and every rank repeats the
@@ -2894,6 +2909,7 @@ def obs_phase(torch, card, kmods, launches, out_dir, n: int = 16384, nb: int = 2
     from dlaf_tpu_torch.matrix.matrix import Matrix
     from dlaf_tpu_torch.miniapp import miniapp_cholesky
     from dlaf_tpu_torch.miniapp.generators import hpd_element_fn
+    from dlaf_tpu_torch.obs import devtrace
     from dlaf_tpu_torch.serve import ProgramService, Queue, Request
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -3004,22 +3020,15 @@ def obs_phase(torch, card, kmods, launches, out_dir, n: int = 16384, nb: int = 2
     dnt = -(-dist_n // nb)
     missing = [f"cholesky.step{k:03d}.{ph}" for k in range(dnt) for ph in ("panel", "strip", "bulk")
                if names.get(f"cholesky.step{k:03d}.{ph}") != 1]
-    kern = [e for e in events if e.get("cat") == "kernel"
-            and "masked_update" in e.get("name", "")]
+    # the device timeline's mirrors, and the launch join of obs.devtrace
+    ops, windows, _ = devtrace.join_ops(events, [])
+    kern = [o for o in ops if "masked_update" in o["name"]]
     gpu_bulk = [e for e in events if e.get("cat") == "gpu_user_annotation"
                 and e.get("name", "").endswith(".bulk")]
-    cpu_bulk = [e for e in cpu if e["name"].endswith(".bulk")]
-    runtime = {e["args"]["correlation"]: e for e in events
-               if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in
-               e.get("args", {})}
-
-    def inside(ev, spans):
-        return any(s["ts"] <= ev["ts"] and ev["ts"] + ev.get("dur", 0) <= s["ts"] + s["dur"]
-                   for s in spans)
-
-    by_ann = sum(inside(k, gpu_bulk) for k in kern)
-    by_corr = sum(inside(runtime[k["args"]["correlation"]], cpu_bulk) for k in kern
-                  if k.get("args", {}).get("correlation") in runtime)
+    by_ann = sum(any(s["ts"] <= o["lo"] and o["hi"] <= s["ts"] + s["dur"] for s in gpu_bulk)
+                 for o in kern)
+    by_corr = sum(o["phase_w"] is not None and windows[o["phase_w"]][2].endswith(".bulk")
+                  for o in kern)
     print(f"[obs] dist-L N={dist_n} nb={nb} 2x2 profiler trace {os.path.basename(path)} "
           f"({os.path.getsize(path)} bytes): {len(cpu)} named ranges, "
           f"cholesky.stepNNN.panel|strip|bulk once per step for {dnt} steps"
@@ -3602,6 +3611,261 @@ def autotune_phase(torch, card, kmods, launches, out_dir, n: int = 16384, nb: in
     _obs_env(None)
     config.initialize()
     _wall("autotune telemetry", t_case)
+
+
+#: The hand kernels a dist-L call launches, by the name its trace gives
+#: them, each with the wrappers whose launches it must equal in sum.
+DIST_L_TRACE_KERNELS = (("potrf_kernel", ("potrf", "factor_solve")),
+                        ("trinv_kernel", ("factor_solve",)),
+                        ("strip_kernel", ("factor_solve",)),
+                        ("plan_kernel", ("masked_trailing_update",)),
+                        ("masked_update_kernel", ("masked_trailing_update",)))
+
+#: The devtrace phase's budget (s): it fails above it.
+DEVTRACE_BUDGET_S = 60.0
+
+
+def _obs_cli(root: str, module: str, *args, timeout: float = 300) -> tuple:
+    """``python -m dlaf_tpu_torch.obs.<module> args``: (exit code, stdout,
+    stderr, seconds)."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", f"dlaf_tpu_torch.obs.{module}", *args],
+                         capture_output=True, text=True, timeout=timeout,
+                         env={**os.environ, "PYTHONPATH": root})
+    return out.returncode, out.stdout, out.stderr, time.perf_counter() - t0
+
+
+def _obs_cli_ok(root: str, module: str, *args) -> tuple:
+    """:func:`_obs_cli` that fails unless the command exits 0."""
+    rc, out, err, secs = _obs_cli(root, module, *args)
+    if rc:
+        raise AssertionError(f"obs.{module} {args}: exit {rc}\n{out[-2000:]}{err[-2000:]}")
+    return out, secs
+
+
+def devtrace_phase(torch, card, kmods, launches, out_dir, n: int = 16384, nb: int = 256,
+                   trsm_n: int = 8192, main_n: int = 4096, small_n: int = 1024,
+                   device: str = "cuda", budget: float = DEVTRACE_BUDGET_S) -> None:
+    """Device-timeline attribution on the card (``obs/devtrace.py``,
+    ``obs/critpath.py``); artifacts under ``out_dir``. dist-L (float32,
+    N=``n``, 2x2 on the card, fused step, lookahead on) and config #2's
+    solve (trsm-d, float64, N=``trsm_n``, LLNN, 2x2, unrolled): one warm
+    call, then one under ``DLAF_METRICS_PATH`` and ``DLAF_TRACE_DIR``;
+    the artifact merged by ``obs.aggregate``, the trace through the
+    devtrace and critpath CLIs (critpath on dist-L: nt steps; on trsm-d:
+    ``trsm_n / nb``), the enriched dist-L artifact through ``validate
+    --require-devtrace --require-critpath``; each hand kernel of dist-L
+    named in the report at the launches its wrappers counted, and no
+    launch in its ranges lost by the trace. Drills: a
+    5 ms gap injected before step nt/2 of the distilled dist-L trace comes
+    back within [5 ms - the measured lookahead overlap of that boundary,
+    5 ms + 1 us]; critpath on a main-L trace (the local builder names no
+    step) exits 1; devtrace on a trace of CPU activity alone exits 1.
+    Fails above ``budget`` seconds."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from dlaf_tpu_torch import config, obs
+    from dlaf_tpu_torch.algorithms.cholesky import cholesky
+    from dlaf_tpu_torch.algorithms.triangular import triangular_solve
+    from dlaf_tpu_torch.comm.grid import shared_grid
+    from dlaf_tpu_torch.common.index2d import GlobalElementSize, TileElementSize
+    from dlaf_tpu_torch.matrix.matrix import Matrix
+    from dlaf_tpu_torch.miniapp.generators import hpd_element_fn
+    from dlaf_tpu_torch.obs import critpath, devtrace
+
+    t_all = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    dev = torch.device(device)
+    grid = shared_grid(2, 2, dev)
+    block = TileElementSize(nb, nb)
+
+    def at(name):
+        return os.path.join(out_dir, name)
+
+    def traced(tag, argv, make, call, expect):
+        """One warm call, then one traced call with its launches counted;
+        returns (trace, merged artifact, export s)."""
+        config.initialize(argv=argv)
+        call(make())
+        _sync(torch, dev)
+        _obs_env(at(f"{tag}.jsonl"), DLAF_TRACE_DIR=at(f"{tag}_trace"))
+        config.initialize(argv=argv)
+        mat = make()
+        counted(kmods, launches, expect if dev.type == "cuda" else {},
+                lambda: (call(mat), _sync(torch, dev)), f"devtrace {tag}")
+        del mat
+        obs.flush()
+        t0 = time.perf_counter()
+        path = obs.stop_profiler()
+        export_s = time.perf_counter() - t0
+        os.environ.pop("DLAF_TRACE_DIR")
+        _obs_env(None)
+        config.initialize()
+        _obs_cli_ok(root, "aggregate", at(f"{tag}.jsonl"), "-o", at(f"{tag}.merged.jsonl"))
+        return path, at(f"{tag}.merged.jsonl"), export_s
+
+    def attribution(tag, trace, merged, *flags, top=0):
+        """The devtrace and critpath CLIs on one trace (the latter's step
+        table printed, ``top`` steps), the enriched artifact through the
+        validator; returns (devtrace report, critpath report, devtrace
+        stdout, seconds of the three)."""
+        enriched = at(f"{tag}.enriched.jsonl")
+        out, s1 = _obs_cli_ok(root, "devtrace", trace, merged, "-o", enriched, "--json",
+                              at(f"{tag}.devtrace.json"), "--distill",
+                              at(f"{tag}.distilled.json.gz"), "--top", "6")
+        table, s2 = _obs_cli_ok(root, "critpath", trace, enriched, "-o", enriched, "--json",
+                                at(f"{tag}.critpath.json"), "--top", str(top))
+        for line in table.splitlines():
+            if line.strip() and not line.startswith("  critical path:"):
+                print(f"[devtrace] {tag} | {line}", flush=True)
+        t0 = time.perf_counter()
+        line = _obs_validate(root, enriched, *flags)
+        s3 = time.perf_counter() - t0
+        print(f"[devtrace] {tag}: {line}", flush=True)
+        return (json.load(open(at(f"{tag}.devtrace.json"))),
+                json.load(open(at(f"{tag}.critpath.json"))), out, s1 + s2 + s3)
+
+    def show(tag, what, dt, cp, algo, out, export_s, clis):
+        prog = cp["programs"][algo]
+        head = out.splitlines()[0]
+        cats = {c: round(v * 1e3, 3) for c, v in dt["categories"].items()}
+        print(f"[devtrace] {what}: {head.split('(', 1)[1].rstrip(')')}, export "
+              f"{export_s:.2f} s, CLIs {clis:.2f} s; device busy "
+              f"{dt['device_busy_s'] * 1e3:.3f} ms over {dt['events']} ops, coverage "
+              f"{dt['coverage']:.4f} (join {dt['join']}), busy ms by category {cats} "
+              f"[{card}]", flush=True)
+        for name, cell in sorted(dt["phases"].items(), key=lambda kv: -kv[1]["busy_s"])[:5]:
+            print(f"[devtrace] {tag} phase {name}: busy {cell['busy_s'] * 1e3:.3f} ms, wall "
+                  f"{cell['wall_s'] * 1e3:.3f} ms", flush=True)
+        rows = sorted(dt["overlap"], key=lambda r: -r["collective_s"])
+        if rows:
+            r = rows[0]
+            print(f"[devtrace] {tag} measured_overlap: {len(rows)} phases with collective "
+                  f"time, {sum(x['collective_s'] for x in rows) * 1e3:.3f} ms in all; the "
+                  f"largest {r['algo']}: {r['collective_s'] * 1e3:.3f} ms, overlap_frac "
+                  f"{r['overlap_frac']:.4f}, kinds "
+                  f"{ {k: round(v * 1e3, 3) for k, v in r['kinds'].items()} }", flush=True)
+        wi = ", ".join(f"{w['scenario']} -{w['wall_pct']:.1f}% ({w['saved_s'] * 1e3:.3f} ms)"
+                       for w in prog["whatif"])
+        print(f"[devtrace] {tag} critpath {algo}: {prog['n_steps']} steps x {prog['n_runs']} "
+              f"run, coverage {cp['coverage']:.4f}, wall {prog['wall_s'] * 1e3:.3f} ms, gaps "
+              f"{prog['gap_total_s'] * 1e3:.3f} ms, critical path "
+              f"{prog['critical_path_s'] * 1e3:.3f} ms, bound {prog['bound']}, lookahead "
+              f"{int(prog['lookahead'])}; what-ifs {wi}", flush=True)
+        bounds = {}
+        for s in prog["steps"]:
+            bounds[s.get("bound")] = bounds.get(s.get("bound"), 0) + 1
+        gaps = sorted((s for s in prog["steps"] if "gap_after_s" in s),
+                      key=lambda s: -s["gap_after_s"])[:5]
+        print(f"[devtrace] {tag} step bounds {bounds}; largest gaps: " + "; ".join(
+            f"after step {s['step']} {s['gap_after_s'] * 1e3:.3f} ms (wall "
+            f"{s['wall_s'] * 1e3:.3f}, busy {s['busy_s'] * 1e3:.3f}, bound {s['bound']})"
+            for s in gaps), flush=True)
+        return prog
+
+    # -- dist-L: the fused factor+solve and the predicated update ----------
+    nt = -(-n // nb)
+    expect = {"factor_solve": 4 * (nt - 1), "potrf": 4, "masked_trailing_update": 4 * (nt - 1)}
+    trace, merged, export_s = traced(
+        "distL", ["--dlaf:step-impl=fused", "--dlaf:cholesky-lookahead=1"],
+        lambda: Matrix.from_element_fn(hpd_element_fn(n, np.float32), GlobalElementSize(n, n),
+                                       block, grid, dtype=np.float32),
+        lambda m: cholesky("L", m, donate=True), expect)
+    dt, cp, out, clis = attribution("distL", trace, merged, "--require-devtrace",
+                                    "--require-critpath", top=nt)
+    prog = show("distL", f"dist-L N={n} nb={nb} f32 2x2 on one card", dt, cp, "cholesky", out,
+                export_s, clis)
+    got = {name: dt.get("kernels", {}).get(name, {}).get("launches", 0)
+           for name, _ in DIST_L_TRACE_KERNELS}
+    want = {name: sum(expect[w] for w in ws) if dev.type == "cuda" else 0
+            for name, ws in DIST_L_TRACE_KERNELS}
+    print(f"[devtrace] dist-L hand kernels in the trace {got}, the wrappers' counts give "
+          f"{want}; launches without a device op {dt.get('lost_launches')}", flush=True)
+    if prog["n_steps"] != nt or got != want or dt.get("lost_launches", 0):
+        raise AssertionError(f"devtrace dist-L: {prog['n_steps']} steps (want {nt}), "
+                             f"kernels {got} (want {want}), {dt.get('lost_launches')} lost")
+
+    # -- drill: 5 ms before step nt/2 of the distilled trace ----------------
+    k = nt // 2
+    distilled = at("distL.distilled.json.gz")
+    records = critpath.load_records(at("distL.enriched.jsonl"))
+    joined = critpath._joined_events(devtrace.load_trace(distilled), records)[0]
+    table = critpath._step_table([e for e in joined if e["algo"] == "cholesky"], nt)
+    same = all(abs(a["wall_s"] - b["wall_s"]) < 1e-9 for a, b in zip(table, prog["steps"]))
+    # the boundary before step k: overlapped (lookahead) or a gap already
+    lead = table[k]["start_s"] - table[k - 1]["end_s"]
+    overlap, gap0 = max(0.0, -lead), max(0.0, lead)
+    _obs_cli_ok(root, "critpath", distilled, at("distL.enriched.jsonl"), "--inject-gap",
+                f"cholesky.step{k:03d}=5", "--json", at("distL.inject.json"), "--top", "0")
+    gap = json.load(open(at("distL.inject.json")))["programs"]["cholesky"]["steps"][k - 1][
+        "gap_after_s"]
+    # [5 ms - the overlap, 5 ms + 1 us], shifted by a gap the boundary had
+    # (1 ns under the lower end for the seconds' rounding)
+    lo, hi = 5e-3 - overlap + gap0 - 1e-9, 5e-3 + gap0 + 1e-6
+    print(f"[devtrace] drill --inject-gap cholesky.step{k:03d}=5 on the distilled trace "
+          f"({os.path.getsize(distilled)} bytes; its step walls {'equal' if same else 'DIFFER from'}"
+          f" the full trace's): gap after step {k - 1} {gap * 1e3:.4f} ms, band "
+          f"[{lo * 1e3:.4f}, {hi * 1e3:.4f}] ms (lookahead overlap {overlap * 1e3:.4f} ms, "
+          f"gap before {gap0 * 1e3:.4f} ms)", flush=True)
+    if not (same and lo <= gap <= hi):
+        raise AssertionError("devtrace drill: the injected gap is not recovered")
+
+    # -- config #2's solve: library products, its own step structure --------
+    tnt = -(-trsm_n // nb)
+    tsize = GlobalElementSize(trsm_n, trsm_n)
+    am = Matrix.from_element_fn(
+        lambda i, j: 1.0 / (1.0 + (i - j).abs()) + 2.0 * trsm_n * (i == j), tsize, block, grid,
+        dtype=np.float64)
+    trace_t, merged_t, export_t = traced(
+        "trsmD", ["--dlaf:dist-step-mode=unrolled"],
+        lambda: Matrix.from_element_fn(lambda i, j: torch.cos(0.001 * (i + 1))
+                                       + torch.sin(0.002 * (j + 1)), tsize, block, grid,
+                                       dtype=np.float64),
+        lambda b: triangular_solve("L", "L", "N", "N", 1.0, am, b, donate_b=True), {})
+    del am
+    dt_t, cp_t, out_t, clis_t = attribution("trsmD", trace_t, merged_t, "--require-critpath",
+                                            top=tnt)
+    prog_t = show("trsmD", f"trsm-d N={trsm_n} nb={nb} f64 LLNN 2x2 unrolled on one card", dt_t,
+                  cp_t, "trsm", out_t, export_t, clis_t)
+    if prog_t["n_steps"] != tnt:
+        raise AssertionError(f"devtrace trsm-d: {prog_t['n_steps']} steps, want {tnt}")
+
+    # -- must-trips: no step names; no device activity -----------------------
+    mnt = -(-main_n // nb)
+    trace_m, merged_m, _ = traced(
+        "mainL", list(OBS_MAIN_L[4:]),
+        lambda: Matrix.from_element_fn(hpd_element_fn(main_n, np.float32),
+                                       GlobalElementSize(main_n, main_n), block, None,
+                                       dtype=np.float32, device=dev),
+        lambda m: cholesky("L", m, donate=True), {"step": mnt - 1, "potrf": 1})
+    rc_m, _, err_m, _ = _obs_cli(root, "critpath", trace_m, merged_m)
+    snt = -(-small_n // nb)
+    config.initialize(argv=["--dlaf:step-impl=fused"])
+    small = Matrix.from_element_fn(hpd_element_fn(small_n, np.float32),
+                                   GlobalElementSize(small_n, small_n), block, grid,
+                                   dtype=np.float32)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        counted(kmods, launches, {"factor_solve": 4 * (snt - 1), "potrf": 4,
+                                  "masked_trailing_update": 4 * (snt - 1)}
+                if dev.type == "cuda" else {},
+                lambda: (cholesky("L", small, donate=True), _sync(torch, dev)),
+                "devtrace CPU-only trace")
+    del small
+    config.initialize()
+    prof.export_chrome_trace(at("cpu_only.json"))
+    rc_c, _, err_c, _ = _obs_cli(root, "devtrace", at("cpu_only.json"), merged)
+    print(f"[devtrace] must-trips: critpath on main-L N={main_n} exit {rc_m} "
+          f"({err_m.strip().splitlines()[-1] if err_m.strip() else ''}); devtrace on a "
+          f"CPU-activity trace exit {rc_c} "
+          f"({err_c.strip().splitlines()[-1] if err_c.strip() else ''})", flush=True)
+    if rc_m != 1 or rc_c != 1:
+        raise AssertionError("devtrace must-trips: an exit code is not 1")
+    wall = time.perf_counter() - t_all
+    if wall > budget:
+        raise AssertionError(f"devtrace phase: {wall:.1f} s, above its {budget:.0f} s budget")
 
 
 def _strict(config, on: bool) -> None:
@@ -4906,6 +5170,9 @@ def main() -> int:
     t_phase = time.perf_counter()
     autotune_phase(torch, card, kmods, launches, os.path.join(artifacts, "autotune"))
     print(f"[phase] autotune {time.perf_counter() - t_phase:.1f} s", flush=True)
+    t_phase = time.perf_counter()
+    devtrace_phase(torch, card, kmods, launches, os.path.join(artifacts, "devtrace"))
+    print(f"[phase] devtrace {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # ---- phase 3: the float64 / complex128 routes "auto" picks from ------
     # the default (no knob) beside each route it could resolve to, uplo L,

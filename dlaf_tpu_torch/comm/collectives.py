@@ -94,9 +94,18 @@ axes, as the reference's. The reference counts when a program is traced;
 the port per call (:mod:`..obs`). :func:`record_overlapped` counts the
 collectives a builder hoists ahead of the previous step's bulk update
 (``comm_lookahead``). With metrics off each is one attribute read.
+
+**Profiler ranges.** Each verb runs inside ``comm.<verb>`` (``bcast``,
+``bcast2d``, ``all_reduce``, ``reduce``, ``send_recv``, ``all_gather``,
+``all_to_all``, ``scatter``, ``gather``, ``bcast_arrays``, ``exchange``,
+``barrier`` for :func:`barrier_value`) while a profiler is armed, so
+that device-timeline attribution (:mod:`..obs.devtrace`) counts what a
+verb launches as collective time. Unarmed it costs one check a call.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -506,6 +515,21 @@ def _only_local(xs, value) -> list:
 # The verbs
 # ---------------------------------------------------------------------------
 
+def _verb(kind: str):
+    """The verb runs inside ``obs.named_span("comm.<kind>")``: a
+    ``torch.profiler`` range while a profiler is armed (``trace_dir``),
+    else one check. :mod:`..obs.devtrace` makes every device op launched
+    in it a collective of the verb's kind."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def verb(*args, **kwargs):
+            with obs.named_span("comm.%s", kind):
+                return fn(*args, **kwargs)
+        return verb
+    return wrap
+
+
+@_verb("bcast")
 def bcast(xs, axis: str, src: int, *, shared: bool = False):
     """Broadcast the value of rank ``src`` along ``axis`` (reference
     ``kernels/broadcast.h``)."""
@@ -519,6 +543,7 @@ def bcast(xs, axis: str, src: int, *, shared: bool = False):
                          lambda r, c: _received(_line(xs, axis, r, c)[src], xs[r][c]))
 
 
+@_verb("bcast2d")
 def bcast2d(xs, owner_r: int, owner_c: int):
     """Broadcast rank ``(owner_r, owner_c)``'s value to the whole grid in
     one step: the diagonal-tile broadcast of every blocked step."""
@@ -543,6 +568,7 @@ def _fold(vals: list, op: str, dev) -> torch.Tensor:
     return acc
 
 
+@_verb("all_reduce")
 def all_reduce(xs, axis: str, op: str = "sum", *, shared: bool = False):
     """All-reduce along ``axis`` (reference ``kernels/all_reduce.h``): the
     fold of the values in rank order along the axis. :func:`reduce` runs
@@ -561,6 +587,7 @@ def _all_reduce(xs, axis: str, op: str = "sum", *, shared: bool = False):
                          lambda r, c: _fold(_line(xs, axis, r, c), op, xs[r][c].device))
 
 
+@_verb("reduce")
 def reduce(xs, axis: str, root: int, op: str = "sum"):
     """Reduce to ``root`` along ``axis``; the other ranks get zeros (the
     reference's contract defines only the root's result)."""
@@ -570,6 +597,7 @@ def reduce(xs, axis: str, root: int, op: str = "sum"):
                     else torch.zeros_like(full[r][c]))
 
 
+@_verb("send_recv")
 def send_recv(xs, axis: str, src: int, dst: int):
     """Move the value of ``src`` to ``dst`` along ``axis`` (reference
     ``kernels/p2p.h``); every other rank gets zeros."""
@@ -583,6 +611,7 @@ def send_recv(xs, axis: str, src: int, dst: int):
                     if _pos(axis, r, c) == dst else torch.zeros_like(xs[r][c]))
 
 
+@_verb("all_gather")
 def all_gather(xs, axis: str, *, tiled: bool = False, concat_axis: int = 0,
                shared: bool = False):
     """Every rank's value along ``axis`` on every rank: stacked on a new
@@ -606,6 +635,7 @@ def _all_gather(xs, axis: str, *, tiled: bool = False, concat_axis: int = 0,
     return _per_receiver(xs, axis, shared, one)
 
 
+@_verb("all_to_all")
 def all_to_all(xs, axis: str, *, split_axis: int, concat_axis: int):
     """Tiled all-to-all along ``axis`` (reference ``collectives.py:231``,
     the layout transpose of the distributed chase back-transform). Every
@@ -640,6 +670,7 @@ def all_to_all(xs, axis: str, *, split_axis: int, concat_axis: int):
     return per_rank(P, Q, one)
 
 
+@_verb("scatter")
 def scatter(parts, owner_r: int, owner_c: int, like):
     """Rank ``(owner_r, owner_c)``'s per-rank values to their ranks: rank
     ``(r, c)`` gets ``parts[r][c]`` as a new tensor on ``like[r][c]``'s
@@ -662,6 +693,7 @@ def scatter(parts, owner_r: int, owner_c: int, like):
     return per_rank(P, Q, lambda r, c: _copy(parts[r][c], like[r][c].device))
 
 
+@_verb("gather")
 def gather(xs, owner_r: int, owner_c: int):
     """Every rank's value on rank ``(owner_r, owner_c)``: a nested per-rank
     list of new tensors on the owner's device, returned where the owner's
@@ -684,6 +716,7 @@ def gather(xs, owner_r: int, owner_c: int):
     return [[_copy(xs[r][c], dev) for c in range(Q)] for r in range(P)]
 
 
+@_verb("bcast_arrays")
 def bcast_arrays(arrays, owner_r: int, owner_c: int, specs) -> list:
     """Host arrays formed once, on the process that drives rank
     ``(owner_r, owner_c)``, on every process, bit for bit: ``arrays`` (a
@@ -711,6 +744,7 @@ def bcast_arrays(arrays, owner_r: int, owner_c: int, specs) -> list:
     return out
 
 
+@_verb("exchange")
 def exchange(sends, expect):
     """Pairwise exchange between ranks: ``sends[r][c]`` maps a destination
     rank ``(r2, c2)`` to the value rank ``(r, c)`` sends it, and
@@ -745,6 +779,7 @@ def exchange(sends, expect):
     return local
 
 
+@_verb("barrier")
 def barrier_value(xs, axis: str):
     """``x`` plus a zero reduced along ``axis``: the reference's
     order-enforcing no-op (a fence between programs there). In the

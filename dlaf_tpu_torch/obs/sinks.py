@@ -71,6 +71,39 @@ type:
     ticket-scoped events (``route``, ``redispatch``, ``handback``,
     ``ticket_lost``) also carry the router ticket's ``seq`` (int >= 0)
     and its ``trace_id``.
+``devtrace``
+    Device-timeline attribution summary (:mod:`.devtrace`): ``trace``
+    non-empty str (the profiler trace's basename), finite
+    ``device_busy_s``/``attributed_s`` >= 0, ``coverage`` finite in
+    [0, 1] (attributed / total device busy), ``join`` "annotation" |
+    "rebase" (how phases were matched), ``phases`` object of per-phase
+    cells — finite ``busy_s``/``wall_s`` >= 0 (a NaN wall is a schema
+    error: the "no NaN walls" leg of ``--require-devtrace``),
+    ``categories`` object of finite seconds, optional finite ``flops``/
+    ``measured_gflops`` — and ``attrs`` object.
+``measured_overlap``
+    Measured comm/compute overlap of one (``algo``, ``axis``): non-empty
+    ``algo``/``axis`` strs (``axis`` is ``"all"``: a Chrome trace carries
+    no grid-axis metadata), finite ``collective_s``/``overlapped_s``/
+    ``mxu_busy_s`` >= 0 with ``overlapped_s <= collective_s``,
+    ``overlap_frac`` finite in [0, 1], ``kinds`` object of finite
+    per-kind seconds, ``attrs`` object. Emitted only for phases with
+    POSITIVE attributed collective time.
+``critpath``
+    Per-step critical-path attribution of one program
+    (:mod:`.critpath`): ``trace`` and ``algo`` non-empty strs,
+    ``coverage`` finite in [0, 1], ``join`` "annotation" | "rebase",
+    positive int ``n_runs``/``n_steps``, finite ``wall_s``/
+    ``gap_total_s``/``critical_path_s`` >= 0, ``bound`` one of
+    :data:`CRITPATH_BOUNDS`, and ``steps``: a non-empty list of per-step
+    objects (``step`` int; unless ``empty``: finite ``wall_s``,
+    ``panel_s``, ``bulk_s``, ``comm_s``, ``comm_exposed_s``, ``copy_s``,
+    ``idle_s`` >= 0, ``gap_after_s`` where a boundary follows, ``bound``).
+``whatif``
+    One what-if projection: ``algo`` non-empty str, ``scenario`` one of
+    :data:`WHATIF_SCENARIOS`, finite ``saved_s``/``wall_s``/
+    ``projected_wall_s`` >= 0 with ``projected_wall_s <= wall_s``,
+    ``wall_pct`` finite in [0, 100].
 ``flight_trigger``
     Header of a flight-recorder dump: ``reason`` one of
     :data:`FLIGHT_REASONS`, ``dump_seq`` int >= 1, ``records`` int >= 0,
@@ -87,11 +120,12 @@ batch) and ``span_id`` (non-empty str).
 ``python -m dlaf_tpu_torch.obs.validate``; its ``require_*`` flags are the
 reference's for the records above: spans, gflops, collectives, retries,
 comm-overlap, accuracy, serve, resilience, flight, telemetry, autotune and
-fleet. The accuracy history lines (``.accuracy_history.jsonl``) have their
-own reader, :func:`validate_history_records`. The validators of the
-``devtrace`` and ``critpath``/``whatif``/``schedule`` records come with
-the modules that emit them; the bench history lines with the port's
-benchmark.
+fleet, devtrace and critpath. The accuracy history lines
+(``.accuracy_history.jsonl``) have their own reader,
+:func:`validate_history_records`; the bench history lines come with the
+port's benchmark. The port writes no ``schedule`` record: the reference
+reads a compiled program's HLO schedule there, and eager PyTorch
+compiles none (:mod:`.critpath` reads the step ranges of the trace).
 """
 
 from __future__ import annotations
@@ -106,7 +140,28 @@ SCHEMA_VERSION = 1
 
 #: The record types this port writes.
 KNOWN_TYPES = ("span", "metrics", "log", "accuracy", "serve", "resilience",
-               "flight_trigger", "program", "autotune", "fleet")
+               "flight_trigger", "program", "autotune", "fleet", "devtrace",
+               "measured_overlap", "critpath", "whatif")
+
+#: Attribution-coverage floor of ``--require-devtrace``: a devtrace record
+#: must attribute at least this fraction of total device busy time to
+#: algorithm phases, else its per-phase walls describe a minority of the
+#: timeline.
+DEVTRACE_COVERAGE_FLOOR = 0.5
+
+#: Coverage floor of ``--require-critpath``: a critpath record must join
+#: at least this fraction of its runs' device busy time to per-step
+#: ranges.
+CRITPATH_COVERAGE_FLOOR = 0.5
+
+#: Bound vocabulary of critpath step/program classification
+#: (``critpath.BOUNDS``, repeated so that validation never imports the
+#: joiner).
+CRITPATH_BOUNDS = ("panel", "bulk", "comm", "copy", "gap")
+
+#: What-if scenario vocabulary (critpath projections).
+WHATIF_SCENARIOS = ("collectives_free", "gaps_closed", "panel_free",
+                    "copies_free")
 
 #: The resilience record's event vocabulary (schema above).
 RESILIENCE_EVENTS = ("retry", "give_up", "deadline", "circuit_open",
@@ -429,6 +484,153 @@ def _validate_fleet(r: dict, where: str, errors: list) -> None:
         errors.append(f"{where}: fleet attrs must be an object")
 
 
+def _validate_devtrace(r: dict, where: str, errors: list) -> None:
+    if not isinstance(r.get("trace"), str) or not r.get("trace"):
+        errors.append(f"{where}: devtrace record without a trace name")
+    for key in ("device_busy_s", "attributed_s"):
+        if not _finite(r.get(key)) or r.get(key, -1) < 0:
+            errors.append(f"{where}: devtrace {key} "
+                          "missing/non-finite/negative")
+    cov = r.get("coverage")
+    if not _finite(cov) or not 0.0 <= cov <= 1.0:
+        errors.append(f"{where}: devtrace coverage must be finite in "
+                      f"[0, 1], got {cov!r}")
+    if r.get("join") not in ("annotation", "rebase"):
+        errors.append(f"{where}: devtrace join must be "
+                      f"annotation|rebase, got {r.get('join')!r}")
+    phases = r.get("phases")
+    if not isinstance(phases, dict):
+        errors.append(f"{where}: devtrace phases must be an object")
+    else:
+        for name, cell in phases.items():
+            w = f"{where} phase[{name!r}]"
+            if not isinstance(cell, dict):
+                errors.append(f"{w}: must be an object")
+                continue
+            # the "no NaN walls" leg: every per-phase wall is finite
+            for key in ("busy_s", "wall_s"):
+                if not _finite(cell.get(key)) or cell.get(key, -1) < 0:
+                    errors.append(f"{w}: {key} "
+                                  "missing/non-finite/negative")
+            cats = cell.get("categories")
+            if not isinstance(cats, dict):
+                errors.append(f"{w}: categories must be an object")
+            else:
+                for cat, v in cats.items():
+                    if not _finite(v) or v < 0:
+                        errors.append(f"{w}: categories[{cat!r}] "
+                                      "non-finite/negative")
+            for key in ("flops", "measured_gflops"):
+                if key in cell and (not _finite(cell[key])
+                                    or cell[key] < 0):
+                    errors.append(f"{w}: {key} non-finite/negative")
+    if not isinstance(r.get("attrs", {}), dict):
+        errors.append(f"{where}: devtrace attrs must be an object")
+
+
+def _validate_measured_overlap(r: dict, where: str, errors: list) -> None:
+    for key in ("algo", "axis"):
+        if not isinstance(r.get(key), str) or not r.get(key):
+            errors.append(f"{where}: measured_overlap record without "
+                          f"a {key}")
+    for key in ("collective_s", "overlapped_s", "mxu_busy_s"):
+        if not _finite(r.get(key)) or r.get(key, -1) < 0:
+            errors.append(f"{where}: measured_overlap {key} "
+                          "missing/non-finite/negative")
+    if _finite(r.get("collective_s")) and _finite(r.get("overlapped_s")) \
+            and r["overlapped_s"] > r["collective_s"]:
+        errors.append(f"{where}: measured_overlap overlapped_s > "
+                      "collective_s (overlap cannot exceed the "
+                      "collective time it overlaps)")
+    frac = r.get("overlap_frac")
+    if not _finite(frac) or not 0.0 <= frac <= 1.0:
+        errors.append(f"{where}: measured_overlap overlap_frac must be "
+                      f"finite in [0, 1], got {frac!r}")
+    kinds = r.get("kinds")
+    if kinds is not None:
+        if not isinstance(kinds, dict):
+            errors.append(f"{where}: measured_overlap kinds must be an "
+                          "object")
+        else:
+            for kind, v in kinds.items():
+                if not _finite(v) or v < 0:
+                    errors.append(f"{where}: measured_overlap kinds"
+                                  f"[{kind!r}] non-finite/negative")
+    if not isinstance(r.get("attrs", {}), dict):
+        errors.append(f"{where}: measured_overlap attrs must be an "
+                      "object")
+
+
+def _validate_critpath(r: dict, where: str, errors: list) -> None:
+    if not isinstance(r.get("trace"), str) or not r.get("trace"):
+        errors.append(f"{where}: critpath record without a trace name")
+    if not isinstance(r.get("algo"), str) or not r.get("algo"):
+        errors.append(f"{where}: critpath record without an algo")
+    cov = r.get("coverage")
+    if not _finite(cov) or not 0.0 <= cov <= 1.0:
+        errors.append(f"{where}: critpath coverage must be finite in "
+                      f"[0, 1], got {cov!r}")
+    if r.get("join") not in ("annotation", "rebase"):
+        errors.append(f"{where}: critpath join must be "
+                      f"annotation|rebase, got {r.get('join')!r}")
+    for key in ("n_runs", "n_steps"):
+        if not isinstance(r.get(key), int) or isinstance(r.get(key), bool) \
+                or r.get(key, 0) < 1:
+            errors.append(f"{where}: critpath {key} must be a positive "
+                          "int")
+    for key in ("wall_s", "gap_total_s", "critical_path_s"):
+        if not _finite(r.get(key)) or r.get(key, -1) < 0:
+            errors.append(f"{where}: critpath {key} "
+                          "missing/non-finite/negative")
+    if r.get("bound") not in CRITPATH_BOUNDS:
+        errors.append(f"{where}: critpath bound must be one of "
+                      f"{CRITPATH_BOUNDS}, got {r.get('bound')!r}")
+    steps = r.get("steps")
+    if not isinstance(steps, list) or not steps:
+        errors.append(f"{where}: critpath record without steps")
+        return
+    for s in steps:
+        if not isinstance(s, dict):
+            errors.append(f"{where}: critpath step entries must be "
+                          "objects")
+            break
+        w = f"{where} step[{s.get('step')!r}]"
+        if not isinstance(s.get("step"), int):
+            errors.append(f"{w}: missing step index")
+        if s.get("empty"):
+            continue
+        # the "no NaN walls" leg: every per-step wall is finite
+        for key in ("wall_s", "panel_s", "bulk_s", "comm_s",
+                    "comm_exposed_s", "copy_s", "idle_s", "gap_after_s"):
+            if key == "gap_after_s" and key not in s:
+                continue  # the last step has no following boundary
+            if not _finite(s.get(key)) or s.get(key, -1) < 0:
+                errors.append(f"{w}: {key} missing/non-finite/negative")
+        if s.get("bound") not in CRITPATH_BOUNDS:
+            errors.append(f"{w}: bound must be one of "
+                          f"{CRITPATH_BOUNDS}, got {s.get('bound')!r}")
+
+
+def _validate_whatif(r: dict, where: str, errors: list) -> None:
+    if not isinstance(r.get("algo"), str) or not r.get("algo"):
+        errors.append(f"{where}: whatif record without an algo")
+    if r.get("scenario") not in WHATIF_SCENARIOS:
+        errors.append(f"{where}: whatif scenario must be one of "
+                      f"{WHATIF_SCENARIOS}, got {r.get('scenario')!r}")
+    for key in ("saved_s", "wall_s", "projected_wall_s"):
+        if not _finite(r.get(key)) or r.get(key, -1) < 0:
+            errors.append(f"{where}: whatif {key} "
+                          "missing/non-finite/negative")
+    if _finite(r.get("wall_s")) and _finite(r.get("projected_wall_s")) \
+            and r["projected_wall_s"] > r["wall_s"] + 1e-12:
+        errors.append(f"{where}: whatif projected_wall_s > wall_s "
+                      "(removing work cannot slow the run)")
+    pct = r.get("wall_pct")
+    if not _finite(pct) or not 0.0 <= pct <= 100.0:
+        errors.append(f"{where}: whatif wall_pct must be finite in "
+                      f"[0, 100], got {pct!r}")
+
+
 def _validate_flight_trigger(r: dict, where: str, errors: list) -> None:
     if r.get("reason") not in FLIGHT_REASONS:
         errors.append(f"{where}: flight_trigger reason must be one of "
@@ -491,7 +693,8 @@ def validate_records(records, require_spans=False, require_gflops=False,
                      require_resilience=False, require_flight=False,
                      require_fallbacks=False, require_accuracy=False,
                      require_telemetry=False, require_autotune=False,
-                     require_fleet=False) -> list:
+                     require_fleet=False, require_devtrace=False,
+                     require_critpath=False) -> list:
     """Validate parsed records; returns a list of error strings (empty =
     valid). The ``require_*`` obligations, as the reference's:
 
@@ -533,7 +736,15 @@ def validate_records(records, require_spans=False, require_gflops=False,
     * ``require_fleet``: >= 1 ``fleet`` record of event ``route``, ZERO
       ``ticket_lost`` records, and >= 1 ``redispatch`` whenever a
       ``worker_dead`` record's reason is not ``drained`` (an ungraceful
-      death with no failover)."""
+      death with no failover);
+    * ``require_devtrace``: >= 1 ``measured_overlap`` record with finite
+      ``overlap_frac`` and POSITIVE attributed collective time (a trace
+      that attributed zero collectives measured nothing about overlap),
+      and >= 1 ``devtrace`` record with coverage >=
+      :data:`DEVTRACE_COVERAGE_FLOOR`;
+    * ``require_critpath``: >= 1 ``critpath`` record with >= 1 step and
+      coverage >= :data:`CRITPATH_COVERAGE_FLOOR`, and >= 1 ``whatif``
+      record (the headroom ranking the attribution exists to produce)."""
     errors = []
     n_spans = n_gflops = n_coll = n_retries = n_fallbacks = 0
     n_serve_batched = n_serve_miss = n_serve_requests = 0
@@ -544,6 +755,8 @@ def validate_records(records, require_spans=False, require_gflops=False,
     n_autotune_moves = 0
     n_fleet_routes = n_fleet_redispatch = n_fleet_lost = 0
     n_fleet_ungraceful_dead = 0
+    n_overlap_proof = n_devtrace_covered = n_critpath_covered = n_whatif = 0
+    devtrace_coverages, critpath_coverages = [], []
     autotune_last = {}                # site -> last decision reason seen
     serve_retrace_sites = {}          # serve.* site -> trace evidence count
     circuit_state = {}                # site -> latest gauge value seen
@@ -593,6 +806,29 @@ def validate_records(records, require_spans=False, require_gflops=False,
             elif event == "worker_dead" \
                     and (r.get("attrs") or {}).get("reason") != "drained":
                 n_fleet_ungraceful_dead += 1
+        elif rtype == "devtrace":
+            _validate_devtrace(r, where, errors)
+            if _finite(r.get("coverage")):
+                devtrace_coverages.append(float(r["coverage"]))
+                if r["coverage"] >= DEVTRACE_COVERAGE_FLOOR:
+                    n_devtrace_covered += 1
+        elif rtype == "measured_overlap":
+            _validate_measured_overlap(r, where, errors)
+            if _finite(r.get("overlap_frac")) \
+                    and _finite(r.get("collective_s")) \
+                    and r["collective_s"] > 0:
+                n_overlap_proof += 1
+        elif rtype == "critpath":
+            _validate_critpath(r, where, errors)
+            if _finite(r.get("coverage")):
+                critpath_coverages.append(float(r["coverage"]))
+                if r["coverage"] >= CRITPATH_COVERAGE_FLOOR \
+                        and isinstance(r.get("n_steps"), int) \
+                        and r["n_steps"] >= 1:
+                    n_critpath_covered += 1
+        elif rtype == "whatif":
+            _validate_whatif(r, where, errors)
+            n_whatif += 1
         elif rtype == "program":
             _validate_program(r, where, errors)
             if r.get("event") == "compile" and _finite(r.get("compile_s")):
@@ -740,6 +976,29 @@ def validate_records(records, require_spans=False, require_gflops=False,
             errors.append(f"artifact contains {n_fleet_ungraceful_dead} "
                           "ungraceful fleet worker death(s) but no "
                           "redispatch record — failover never ran")
+    if require_devtrace:
+        if n_overlap_proof == 0:
+            errors.append("artifact contains no measured_overlap record "
+                          "with finite overlap_frac and positive "
+                          "attributed collective time (the device "
+                          "timeline attributed no collectives)")
+        if n_devtrace_covered == 0:
+            got = (f" (got {['%.3f' % c for c in devtrace_coverages]})"
+                   if devtrace_coverages else "")
+            errors.append("artifact contains no devtrace record with "
+                          "attribution coverage >= "
+                          f"{DEVTRACE_COVERAGE_FLOOR}{got}")
+    if require_critpath:
+        if n_critpath_covered == 0:
+            got = (f" (got {['%.3f' % c for c in critpath_coverages]})"
+                   if critpath_coverages else "")
+            errors.append("artifact contains no critpath record with "
+                          ">= 1 step and join coverage >= "
+                          f"{CRITPATH_COVERAGE_FLOOR}{got}")
+        if n_whatif == 0:
+            errors.append("artifact contains no whatif projection record "
+                          "(critpath attribution produced no headroom "
+                          "ranking)")
     if require_accuracy and n_accuracy == 0:
         errors.append("artifact contains no accuracy record with finite "
                       "value and bound_ratio")

@@ -66,7 +66,10 @@ shapes, no host copy) and one dict lookup: no fence after the first call.
 has no site: its two reference sites (``tridiag_solver.py:420,444``) are
 the level-batched D&C, which the port dropped with ``dc_level_batch``.
 ``record_schedule`` (``:197``) reads a compiled program's HLO schedule for
-``obs.critpath``, which is not ported yet. ``memory_analysis_dict``
+``obs.critpath``: eager PyTorch compiles no program, and the port's
+:mod:`.critpath` reads each kernel's step off the ``<algo>.step<k>`` range
+around its launch in the profiler trace instead, so no ``schedule``
+record is needed. ``memory_analysis_dict``
 (``:131``) reads ``compiled.memory_analysis()``, which eager PyTorch does
 not have; the allocator formulas above take its place.
 """

@@ -196,6 +196,15 @@ def current_span():
     return st[-1] if st else None
 
 
+#: Throwaway launches made on the card right after a trace starts. Late
+#: in a long-lived process the profiler has dropped the device records of
+#: the first launches after its start, however long after it they came
+#: (on an H100, up to the first step's panel of a dist-L call); these
+#: take that loss instead of the traced work. ``devtrace``'s
+#: ``lost_launches`` counts what the traced ranges lost.
+PRIME_LAUNCHES = 256
+
+
 def start_profiler(path: str) -> bool:
     """Start THE process-wide ``torch.profiler`` trace (CPU activity, and
     CUDA where a card is present) into directory ``path`` unless some
@@ -214,6 +223,11 @@ def start_profiler(path: str) -> bool:
     os.makedirs(path, exist_ok=True)
     prof = profile(activities=activities)
     prof.start()
+    if torch.cuda.is_available():
+        x = torch.zeros(1, device=torch.cuda.current_device())
+        for _ in range(PRIME_LAUNCHES):
+            x.add_(1.0)
+        torch.cuda.synchronize()
     STATE.profiler = (prof, path)
     STATE.profiler_started = True
     return True

@@ -45,6 +45,16 @@ Flags:
                             event route, ZERO ticket_lost records, and a
                             redispatch record wherever a worker died
                             ungracefully (worker_dead not 'drained')
+    --require-devtrace      fail unless the artifact carries the
+                            device-timeline attribution: >= 1
+                            measured_overlap record with positive
+                            attributed collective time AND >= 1 devtrace
+                            record with attribution coverage >=
+                            DEVTRACE_COVERAGE_FLOOR (0.5)
+    --require-critpath      fail unless the artifact carries >= 1
+                            critpath record with >= 1 step and join
+                            coverage >= CRITPATH_COVERAGE_FLOOR (0.5) AND
+                            >= 1 whatif projection record
     --require-flight        validate the file as a flight-recorder
                             incident dump: >= 1 flight_trigger record with
                             a known reason AND >= 1 ordinary pre-trigger
@@ -72,7 +82,7 @@ from .sinks import read_records, validate_history_records, validate_records
 
 _REQUIRES = ("spans", "gflops", "collectives", "retries", "fallbacks",
              "comm-overlap", "accuracy", "serve", "resilience", "flight",
-             "telemetry", "autotune", "fleet")
+             "telemetry", "autotune", "fleet", "devtrace", "critpath")
 
 
 def main(argv=None) -> int:
@@ -117,6 +127,10 @@ def main(argv=None) -> int:
     extra += f", {counts['program']} program records" if counts["program"] else ""
     extra += f", {counts['autotune']} autotune decisions" if counts["autotune"] else ""
     extra += f", {counts['fleet']} fleet records" if counts["fleet"] else ""
+    n_dev = sum(r.get("type") in ("devtrace", "measured_overlap") for r in records)
+    n_crit = sum(r.get("type") in ("critpath", "whatif") for r in records)
+    extra += f", {n_dev} devtrace records" if n_dev else ""
+    extra += f", {n_crit} critpath records" if n_crit else ""
     extra += f", ranks {ranks}" if ranks else ""
     print(f"VALID {path}: {len(records)} records ({counts['span']} spans, "
           f"{len(snaps)} metrics snapshots, {counts['log']} logs{extra})")

@@ -2,7 +2,8 @@
 (the multi-process ``comm/multihost.py``, the telemetry package ``obs``,
 the resilience modules ``health/inject.py``, ``health/registry.py``,
 ``health/resume.py`` and ``matrix/checkpoint.py``, the fleet tier ``fleet/``
-and the merger ``obs/aggregate.py`` among them), and
+and the merger ``obs/aggregate.py`` and the device-timeline attribution
+``obs/devtrace.py`` and ``obs/critpath.py`` among them), and
 ``chip_smoke``,
 loads no ``jax`` module and nothing of the JAX package ``dlaf_tpu``. Checked in a fresh interpreter, since the test process
 itself imports both packages."""
@@ -21,7 +22,7 @@ assert "dlaf_tpu_torch.comm.multihost" in names, "the multi-process module is no
 assert "dlaf_tpu_torch.obs.exporter" in names, "the obs package is not walked"
 for new in ("health.inject", "health.registry", "health.resume", "matrix.checkpoint",
             "fleet.transport", "fleet.membership", "fleet.router", "fleet.worker",
-            "obs.aggregate"):
+            "obs.aggregate", "obs.devtrace", "obs.critpath"):
     assert "dlaf_tpu_torch." + new in names, new + " is not walked"
 for name in names:
     importlib.import_module(name)
