@@ -86,7 +86,7 @@ the multi-process form (``comm/multihost.py``: one process per rank):
     float64 launch went to make room for the autotune phase), and
     ``torchrun`` of miniapp_gen_to_std (complex128, N=4096),
     miniapp_reduction_to_band (config #4's widths at N=8192 on 2x2) and
-    miniapp_gen_eigensolver (float64, N=4096, nb=256, 2x2), each with one
+    miniapp_gen_eigensolver (float64, N=2048, nb=256, 2x2), each with one
     ``check: PASSED`` and its wall beside the single controller's run of
     the same arguments in this process (one card's processes meet over
     host-staged gloo, so these walls show the transport; a ``[wall]`` line
@@ -301,6 +301,23 @@ with its launch counts (none, but the one #6 product under ``mxu``):
     count and no launch in its ranges without a device op; the drills: ``--inject-gap cholesky.step032=5`` recovered
     within [5 ms - the boundary's lookahead overlap, 5 ms + 1 us],
     critpath on a main-L trace and devtrace on a CPU-activity trace exit 1.
+
+36. analysis (``dlaf_tpu_torch/analysis``; artifacts under
+    ``smoke_artifacts/analysis``), strict, within 60 s
+    (:func:`analysis_phase`): ``python -m dlaf_tpu_torch.analysis``
+    with ``--device cuda`` and ``--device cpu`` in the background, both
+    exit 0 with no new and no stale baseline key (equal keys); main-L and
+    dist-L (N=16384, nb=256, f32) recorded by ``analysis.depgraph.trace``
+    after a warm call, before the gates start, under
+    ``torch.cuda.set_sync_debug_mode("warn")``:
+    kernel nodes equal to the launches, the runtime's sync warnings equal
+    to the tape's host syncs, no finding outside the baseline, and dist-L's
+    next panel collectives ahead of and independent of each step's bulk;
+    the ``host_callback`` drill on the card (exit 1, one warning per
+    finding). In the multi-process phase each process runs each case
+    again, at N=2048 under an armed tape (the bitwise result and the
+    wall come from its run with no tape), saves its verb schedule, and
+    ``graphcheck.schedule_findings`` finds nothing for any case.
 
 The script sets ``DLAF_ACCURACY=full``, so every miniapp's check (here
 and in the processes it starts) computes the exact residual. On one card
@@ -3868,6 +3885,260 @@ def devtrace_phase(torch, card, kmods, launches, out_dir, n: int = 16384, nb: in
         raise AssertionError(f"devtrace phase: {wall:.1f} s, above its {budget:.0f} s budget")
 
 
+#: The analysis phase's budget (seconds).
+ANALYSIS_BUDGET_S = 60.0
+
+
+def _analysis_cli(root: str, device: str, out_path: str):
+    """``python -m dlaf_tpu_torch.analysis --device <device>`` started in
+    the background, its output to ``out_path``; returns the process."""
+    env = {**os.environ, "PYTHONPATH": root}
+    for k in [k for k in env if k.startswith("DLAF_")]:
+        env.pop(k)
+    return subprocess.Popen([sys.executable, "-m", "dlaf_tpu_torch.analysis", "--device",
+                             device, "--root", root], cwd=root, env=env,
+                            stdout=open(out_path, "w"), stderr=subprocess.STDOUT)
+
+
+def _analysis_gate_line(path: str) -> tuple:
+    """(the graph summary line, (findings, new, baselined, stale)) of a
+    gate run's output."""
+    import re
+
+    text = open(path).read()
+    graph = next((ln for ln in text.splitlines() if ln.startswith("graph: ")), "")
+    m = re.search(r"(\d+) finding\(s\) \((\d+) new, (\d+) baselined\), (\d+) stale", text)
+    return graph, tuple(int(g) for g in m.groups()) if m else None
+
+
+def analysis_phase(torch, card, kmods, launches, out_dir, n: int = 16384, nb: int = 256,
+                   device: str = "cuda", budget: float = ANALYSIS_BUDGET_S) -> None:
+    """The static-analysis layer on the card (``dlaf_tpu_torch/analysis``);
+    artifacts under ``out_dir``.
+
+    a. The gate, ``python -m dlaf_tpu_torch.analysis``, with ``--device
+       cuda`` and ``--device cpu`` (two processes, started once b's calls
+       have run, in the background while b's checks and d run): both exit
+       0 with no stale baseline key, so their finding keys are the
+       committed baseline's, equal.
+    b. main-L (float32, N=``n``, one rank, fused step, lookahead) and
+       dist-L (the same on 2x2, with the update kernel), each recorded
+       (``analysis.depgraph.trace``) after one warm call and one timed
+       unrecorded call, with no other process of the phase running, under
+       ``torch.cuda.set_sync_debug_mode("warn")``:
+       the kernel nodes equal the launch counts (main-L: step nt-1, potrf
+       1), the runtime's sync warnings the tape's host-sync entries, the
+       audit (under the matrix's names ``cholesky.entry.*``) finds
+       nothing outside the baseline, and for every step k of dist-L step
+       k+1's panel all_gather is issued before step k's bulk and depends
+       on none of it. Printed: nodes, ops, tape bytes, the recorded wall
+       beside the unrecorded one, the largest intermediate over one
+       rank's input bytes beside the peak allocation's rise, and the
+       kernel launches whose output nothing reads.
+    d. ``--drill host_callback`` on a CUDA tensor: exit code 1, and one
+       sync warning of the runtime for each host-sync finding.
+
+    (c, the processes' verb schedules, runs in the multi-process phase.)
+    Fails above ``budget`` seconds."""
+    import collections
+    import warnings
+
+    import numpy as np
+
+    from dlaf_tpu_torch import config
+    from dlaf_tpu_torch.algorithms.cholesky import cholesky
+    from dlaf_tpu_torch.analysis import BASELINE_PATH, findings
+    from dlaf_tpu_torch.analysis import depgraph as dg
+    from dlaf_tpu_torch.analysis import graphcheck
+    from dlaf_tpu_torch.analysis.__main__ import main as analysis_main
+    from dlaf_tpu_torch.comm.grid import shared_grid
+    from dlaf_tpu_torch.common.index2d import GlobalElementSize, TileElementSize
+    from dlaf_tpu_torch.matrix.matrix import Matrix
+    from dlaf_tpu_torch.miniapp.generators import hpd_element_fn
+
+    t_all = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    dev = torch.device(device)
+    baseline = findings.load_baseline(os.path.join(root, BASELINE_PATH))
+
+    def sync_warnings(caught):
+        return [w for w in caught if "synchroniz" in str(w.message)]
+
+    def record(argv, make, expect, label):
+        """One warm call, one timed call with no tape, one recorded call:
+        (tape, unrecorded s, recorded s, sync warnings, peak rise)."""
+        config.initialize(argv=argv)
+        cholesky("L", make(), donate=True)            # warm
+        _sync(torch, dev)
+        mat = make()
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        cholesky("L", mat, donate=True)
+        _sync(torch, dev)
+        plain_s = time.perf_counter() - t0
+        del mat
+        mat = make()
+        _sync(torch, dev)
+        base = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                t0 = time.perf_counter()
+                tape = counted(kmods, launches, expect if dev.type == "cuda" else {},
+                               lambda: dg.trace(lambda m: cholesky("L", m, donate=True), mat,
+                                                device=dev.type), f"analysis {label}")
+                _sync(torch, dev)
+                rec_s = time.perf_counter() - t0
+        finally:
+            if dev.type == "cuda":
+                torch.cuda.set_sync_debug_mode(0)
+        peak = (torch.cuda.max_memory_allocated() - base) if dev.type == "cuda" else 0
+        del mat
+        config.initialize()
+        return tape, plain_s, rec_s, sync_warnings(caught), peak
+
+    def check(label, name, expect, rec):
+        tape, plain_s, rec_s, warned, peak = rec
+        syncs = dg.host_syncs(tape)
+        kern = dg.kernels(tape)
+        want = {k: v for k, v in expect.items() if v} if dev.type == "cuda" else kern
+        found = graphcheck.audit_tape(name, tape)
+        new = [f for f in found if f.key not in baseline]
+        top = [x for x in dg.iter_ops(tape) if x.kind in ("op", "kernel")]
+        big = max(top, key=lambda x: x.out_bytes)
+        dead = collections.Counter(x.name.split(":", 1)[1]
+                                   for x in graphcheck.dead_outputs(tape) if x.kind == "kernel")
+        summ = dg.summary(tape)
+        print(f"[analysis] {label} N={n} nb={nb} f32: {summ['nodes']} nodes, {summ['ops']} "
+              f"ops, {summ['collectives']} collectives, kernel nodes {kern} (launches "
+              f"{want}), host syncs on the tape {len(syncs)}, runtime sync warnings "
+              f"{len(warned)}, tape {summ['tape_bytes'] / 2 ** 20:.1f} MiB; recorded wall "
+              f"{rec_s:.3f} s against {plain_s:.3f} s unrecorded ({rec_s / plain_s:.1f}x; "
+              f"both with no other process of the phase running) [{card}]", flush=True)
+        print(f"[analysis] {label}: largest intermediate {big.name} {big.out_bytes} bytes = "
+              f"{big.out_bytes / tape.rank_bytes:.3f}x one rank's {tape.rank_bytes} input "
+              f"bytes; peak allocation rise over the call {peak} bytes = "
+              f"{peak / tape.rank_bytes:.3f}x; kernel launches whose output nothing reads "
+              f"{dict(dead)} of {kern}; findings {len(found)} "
+              f"({len({f.key for f in found})} keys), outside the baseline {len(new)}",
+              flush=True)
+        for f in new:
+            print(f"[analysis] {label} NEW {f}", flush=True)
+        if len(syncs) != len(warned):
+            for x in syncs:
+                print(f"[analysis] {label} tape sync {x.name} at {x.site}", flush=True)
+            for w in warned:
+                print(f"[analysis] {label} runtime warning at {w.filename}:{w.lineno}",
+                      flush=True)
+        if kern != want or len(syncs) != len(warned) or new:
+            raise AssertionError(f"analysis {label}: kernel nodes {kern} (want {want}), "
+                                 f"syncs {len(syncs)} against {len(warned)} warnings, "
+                                 f"{len(new)} new findings")
+        with open(os.path.join(out_dir, f"{label}.json"), "w") as fh:
+            json.dump({"summary": summ, "plain_s": plain_s, "recorded_s": rec_s,
+                       "largest": [big.name, big.out_bytes], "rank_bytes": tape.rank_bytes,
+                       "peak_rise": peak, "dead_kernels": dict(dead),
+                       "findings": sorted({f.key for f in found}),
+                       "structure": dg.step_structure(tape)}, fh, indent=1)
+
+    nt = -(-n // nb)
+    size, block = GlobalElementSize(n, n), TileElementSize(nb, nb)
+    # cuda's routes, named (graphcheck.ENTRY_ROUTES): the same on a CPU
+    # rehearsal
+    argv = [f"--dlaf:{k.replace('_', '-')}={v}" for k, v in graphcheck.ENTRY_ROUTES.items()]
+    # -- b: both cells timed and recorded before a gate starts, so no other
+    # process of the phase loads the host under their walls --------------
+    main_expect = {"step": nt - 1, "potrf": 1}
+    main_rec = record(argv, lambda: Matrix.from_element_fn(
+        hpd_element_fn(n, np.float32), size, block, None, dtype=np.float32, device=dev),
+        main_expect, "main-L")
+    grid = shared_grid(2, 2, dev)
+    dist_expect = {"factor_solve": 4 * (nt - 1), "potrf": 4,
+                   "masked_trailing_update": 4 * (nt - 1)}
+    dist_rec = record(argv, lambda: Matrix.from_element_fn(
+        hpd_element_fn(n, np.float32), size, block, grid, dtype=np.float32),
+        dist_expect, "dist-L")
+    # -- a: the gate on both devices, in the background from here ---------
+    gates = {d: _analysis_cli(root, d, os.path.join(out_dir, f"gate.{d}.txt"))
+             for d in (device, "cpu")}
+    check("main-L", "cholesky.entry.main-L", main_expect, main_rec)
+    del main_rec
+    check("dist-L", "cholesky.entry.dist-L", dist_expect, dist_rec)
+    tape = dist_rec[0]
+    del dist_rec
+    # the look-ahead pin at full width, every step: one pass of the
+    # bulk steps each node depends on
+    bulk_steps = dg.ancestor_steps(tape, dg.is_bulk)
+    pairs = 0
+    gathers = 0
+    for k in range(nt - 1):
+        # every verb of step k+1's panel chain: the diagonal tile's
+        # bcast2d, the panel's bcast and the transposed panel's all_gather
+        chain = [x for x in dg.collectives(tape) if x.parent is None
+                 and dg.step_scope_of(x) == ("cholesky", k + 1, "panel")]
+        bulk = [x for x in dg.iter_ops(tape) if dg.is_bulk(x)
+                and dg.step_scope_of(x)[:2] == ("cholesky", k)]
+        if not chain or not bulk:
+            continue
+        late = [x for x in chain if x.index > bulk[0].index or bulk_steps[x.index] >> k & 1]
+        if late:
+            raise AssertionError(f"analysis dist-L: step {k + 1}'s panel {late[0].name} "
+                                 f"(node {late[0].index}) is not ahead of and independent of "
+                                 f"step {k}'s bulk (node {bulk[0].index})")
+        pairs += 1
+        gathers += any(x.name == "all_gather" for x in chain)
+    print(f"[analysis] dist-L look-ahead pin: step k+1's panel collectives ahead of and "
+          f"independent of step k's bulk for {pairs} of {nt - 1} step pairs ({gathers} with "
+          f"the transposed panel's all_gather)", flush=True)
+    if pairs != nt - 1:
+        raise AssertionError(f"analysis dist-L: the pin covered {pairs} of {nt - 1} pairs")
+    del tape
+
+    # -- d: the host-sync drill on the card ---------------------------------
+    if dev.type == "cuda":
+        torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught, \
+                contextlib.redirect_stdout(io.StringIO()) as buf:
+            warnings.simplefilter("always")
+            rc = analysis_main(["--drill", "host_callback", "--device", dev.type])
+    finally:
+        if dev.type == "cuda":
+            torch.cuda.set_sync_debug_mode(0)
+    hits = buf.getvalue().count("[graph-host-callback]")
+    warned = len(sync_warnings(caught))
+    print(f"[analysis] drill host_callback on {dev.type}: exit {rc}, {hits} host-sync "
+          f"findings, {warned} runtime sync warnings", flush=True)
+    if rc != 1 or not hits or (dev.type == "cuda" and warned != hits):
+        raise AssertionError(f"analysis drill: exit {rc}, {hits} findings, {warned} warnings")
+
+    # -- a: the two gates ----------------------------------------------------
+    for d, proc in gates.items():
+        try:
+            rc = proc.wait(timeout=max(budget - (time.perf_counter() - t_all), 5))
+        except subprocess.TimeoutExpired:
+            for p in gates.values():
+                p.kill()
+            raise AssertionError(f"analysis gate --device {d}: over the phase's budget")
+        graph, counts = _analysis_gate_line(os.path.join(out_dir, f"gate.{d}.txt"))
+        print(f"[analysis] gate --device {d}: exit {rc}; {graph}; findings/new/baselined/"
+              f"stale {counts}", flush=True)
+        if rc != 0 or counts is None or counts[1] or counts[3]:
+            print(open(os.path.join(out_dir, f"gate.{d}.txt")).read()[-4000:], flush=True)
+            raise AssertionError(f"analysis gate --device {d}: exit {rc}, {counts}")
+    # no new key and no stale one: each run's keys are the baseline's
+    print(f"[analysis] the gate's finding keys on {device} equal the cpu's: the committed "
+          f"baseline's {len(set(baseline))}", flush=True)
+    wall = time.perf_counter() - t_all
+    if wall > budget:
+        raise AssertionError(f"analysis phase: {wall:.1f} s, above its {budget:.0f} s budget")
+
+
 def _strict(config, on: bool) -> None:
     """``DLAF_STRICT`` on or off for this process and the ones it starts."""
     os.environ["DLAF_STRICT"] = "1" if on else "0"
@@ -4361,6 +4632,12 @@ MP_CASES = (("dist-L", "cholesky", "s", ()),
 #: and the standard eigensolver, (256, 128) for the generalized one.
 MP_WIDTHS = {"red2band": (2, 0.5), "eigensolver": (2, 0.5), "gen_eigensolver": (1, 0.5)}
 
+#: The largest order of the processes' second run of each case, the one
+#: under an armed analysis tape that records their verb schedules: half
+#: the cases' N, for room (the schedules' structure, D&C sharding
+#: included, is the same; the step counts halve).
+MP_SCHEDULE_N = 2048
+
 
 def _mp_herm(torch):
     """A seeded-free Hermitian element function with a full spectrum: a
@@ -4446,11 +4723,15 @@ def _mp_case(kind, letter, knobs, grid, n: int = MP_N, nb: int = MP_NB):
 
 
 def _mp_rank(rank: int, world: int, rdv: str, out_dir: str, device: str, n: int,
-             nb: int) -> None:
+             nb: int, sched_n: int) -> None:
     """A spawned process: rank ``rank`` of a 2x2 grid on ``device`` over
-    gloo; runs :data:`MP_CASES` and saves its shards, counts and arrays."""
+    gloo; runs :data:`MP_CASES` and saves its shards, counts, arrays and
+    wall, then runs each case again at order ``sched_n`` under an armed
+    analysis tape and saves the verbs it issued
+    (graph-conditional-collective)."""
     import torch
 
+    from dlaf_tpu_torch.analysis import depgraph
     from dlaf_tpu_torch.comm import multihost
 
     multihost.initialize_multihost(f"file://{rdv}", world, rank, backend="gloo", timeout=600)
@@ -4458,8 +4739,12 @@ def _mp_rank(rank: int, world: int, rdv: str, out_dir: str, device: str, n: int,
     for name, kind, letter, knobs in MP_CASES:
         t0 = time.perf_counter()
         shards, counts, arrays = _mp_case(kind, letter, knobs, grid, n, nb)
-        torch.save({"shards": shards, "counts": counts, "arrays": arrays,
-                    "wall": time.perf_counter() - t0},
+        wall = time.perf_counter() - t0
+        tape = depgraph.Tape(torch.device(device).type, ops=False)
+        with tape.armed():
+            _mp_case(kind, letter, knobs, grid, sched_n, nb)
+        torch.save({"shards": shards, "counts": counts, "arrays": arrays, "wall": wall,
+                    "schedule": tape.schedule, "grid_rank": tuple(grid.local_ranks[0])},
                    os.path.join(out_dir, f"{name}.r{rank}.pt"))
     multihost.finalize_multihost()
 
@@ -4585,6 +4870,7 @@ def multiprocess_phase(torch, card, launches, device: str = "cuda:0", n: int = M
     import re
     import tempfile
 
+    from dlaf_tpu_torch.analysis.graphcheck import schedule_findings
     from dlaf_tpu_torch.comm.grid import shared_grid
 
     # the processes share the card with this one: hand back what its
@@ -4600,8 +4886,9 @@ def multiprocess_phase(torch, card, launches, device: str = "cuda:0", n: int = M
         sc_walls[name] = time.perf_counter() - t0
     tmp = tempfile.mkdtemp(prefix="dlaf_mp_")
     ctx = torch.multiprocessing.get_context("spawn")
+    sched_n = min(n, MP_SCHEDULE_N)
     procs = [ctx.Process(target=_mp_rank,
-                         args=(i, 4, os.path.join(tmp, "rdv"), tmp, device, n, nb))
+                         args=(i, 4, os.path.join(tmp, "rdv"), tmp, device, n, nb, sched_n))
              for i in range(4)]
     t = time.perf_counter()
     for p in procs:
@@ -4617,7 +4904,9 @@ def multiprocess_phase(torch, card, launches, device: str = "cuda:0", n: int = M
         raise AssertionError(f"multi-process: exit codes {[p.exitcode for p in procs]}"
                              f"{' (killed at the 600 s timeout)' if hung else ''}")
     print(f"[mp] 4 spawned processes (2x2, {device} each, gloo) ran {len(MP_CASES)} calls at "
-          f"N={n} nb={nb} in {time.perf_counter() - t:.1f} s", flush=True)
+          f"N={n} nb={nb}, then each again at N={sched_n} under an armed tape for its verb "
+          f"schedule{f' (N cut from {n} for room)' if sched_n < n else ''}, in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
     for name, kind, letter, knobs in MP_CASES:
         want_shards, want_counts, want_arrays = ref[name]
         got = [torch.load(os.path.join(tmp, f"{name}.r{i}.pt")) for i in range(4)]
@@ -4660,6 +4949,15 @@ def multiprocess_phase(torch, card, launches, device: str = "cuda:0", n: int = M
                                  "launched no Givens undo")
         for k, v in counts.items():
             launches[k] += v
+        # the processes' verb schedules agree within every group
+        schedules = {tuple(g["grid_rank"]): g["schedule"] for g in got}
+        bad = schedule_findings(schedules, (2, 2), name=name)
+        verbs = {r: len(v) for r, v in sorted(schedules.items())}
+        print(f"[analysis] mp {name}: verbs per process {verbs}, graph-conditional-collective "
+              f"findings {len(bad)}", flush=True)
+        if bad or len(schedules) != 4 or not any(verbs.values()):
+            raise AssertionError(f"multi-process {name}: verb schedules {verbs}: "
+                                 f"{[str(f) for f in bad]}")
     del ref, grid
     shutil.rmtree(tmp, ignore_errors=True)
     if torch.cuda.is_available():
@@ -5173,6 +5471,9 @@ def main() -> int:
     t_phase = time.perf_counter()
     devtrace_phase(torch, card, kmods, launches, os.path.join(artifacts, "devtrace"))
     print(f"[phase] devtrace {time.perf_counter() - t_phase:.1f} s", flush=True)
+    t_phase = time.perf_counter()
+    analysis_phase(torch, card, kmods, launches, os.path.join(artifacts, "analysis"))
+    print(f"[phase] analysis {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # ---- phase 3: the float64 / complex128 routes "auto" picks from ------
     # the default (no knob) beside each route it could resolve to, uplo L,

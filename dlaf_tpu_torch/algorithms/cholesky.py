@@ -466,9 +466,9 @@ def _masked_oz_update(afl, bfl, mode, nrows, ncols, mb):
     return acc.mul_(4.0).mul_(sa.reshape(nrows, 1, mb, 1)).mul_(sb.reshape(1, ncols, 1, mb))
 
 
-def _cholesky_dist(lts, dist, *, uplo, use_pallas=False, use_mxu=False, use_mixed=False,
-                   use_oz_pallas=False, lookahead=False, comm_la=False, with_info=False,
-                   panel_fused=False, step_fused=False):
+def _cholesky_dist(lts: cc.Shards, dist, *, uplo, use_pallas=False, use_mxu=False,
+                   use_mixed=False, use_oz_pallas=False, lookahead=False, comm_la=False,
+                   with_info=False, panel_fused=False, step_fused=False):
     """Factor the distributed matrix whose rank ``(r, c)`` holds the shard
     ``lts[r][c]`` (ltr, ltc, mb, mb), IN PLACE; returns the 1-based first
     failing column as an int32 tensor with ``with_info``, else None.
@@ -739,7 +739,7 @@ def _dist_info(lts, ctx: DistContext, n: int):
     return hinfo.first_bad_info(cc.local_value(vec) > 0)
 
 
-def _cholesky_dist_scan(lts, dist, *, uplo, use_mxu=False, use_mixed=False,
+def _cholesky_dist_scan(lts: cc.Shards, dist, *, uplo, use_mxu=False, use_mixed=False,
                         use_oz_pallas=False, lookahead=False, with_info=False,
                         panel_fused=False, step_fused=False):
     """The scan form of the distributed factorization, IN PLACE on the

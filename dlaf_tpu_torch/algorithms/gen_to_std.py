@@ -238,8 +238,9 @@ def _zero_outside(t: torch.Tensor, span) -> torch.Tensor:
     return t
 
 
-def _hegst_dist(lts, lls, dist, *, uplo: str, use_mxu: bool = False, lookahead: bool = False,
-                comm_la: bool = False, panel_fused: bool = False) -> None:
+def _hegst_dist(lts: cc.Shards, lls: cc.Shards, dist, *, uplo: str, use_mxu: bool = False,
+                lookahead: bool = False, comm_la: bool = False,
+                panel_fused: bool = False) -> None:
     """Transform the distributed matrix whose rank ``(r, c)`` holds the
     shard ``lts[r][c]`` IN PLACE with the factor's shards ``lls[r][c]``
     (read only).

@@ -77,7 +77,7 @@ def _sqrt_rn(v: torch.Tensor) -> torch.Tensor:
     entries, so a CPU tensor takes numpy's; CUDA's ``sqrt`` is the IEEE
     one."""
     if v.device.type == "cpu":
-        return torch.from_numpy(np.sqrt(v.contiguous().numpy()))
+        return torch.from_numpy(np.sqrt(v.contiguous().numpy()))  # dlaf: disable=lint-np-in-traced(a CPU tensor only: the host's correctly rounded sqrt) # dlaf: disable=lint-host-sync(a CPU tensor only, no device to wait for)
     return torch.sqrt(v)
 
 

@@ -128,8 +128,8 @@ def _a_panel(ctx_a, ltas, k, g, *, left, op, lu, cnt, lq, cnt_q):
     return cc.per_rank(*cc.grid_shape(e), lambda r, c: _tile_op(e[r][c], op))
 
 
-def _dist_solve(ltas, ltbs, dist_a, dist_b, *, side, uplo, op, diag, panel_fused,
-                scan=False, lookahead=False):
+def _dist_solve(ltas: cc.Shards, ltbs: cc.Shards, dist_a, dist_b, *, side, uplo, op, diag,
+                panel_fused, scan=False, lookahead=False):
     """The distributed solve, IN PLACE on B's per-rank shards (already
     scaled by alpha). Step k solves pivot row (column) k of B on every
     rank, writes it on its owners and subtracts its product with A's
@@ -309,7 +309,7 @@ def _mult_panels(ctx_a, ctx_b, ltas, ltbs, k, *, side, uplo, op, diag, lu, cnt, 
     return bk, cc.per_rank(P, Q, one)
 
 
-def _dist_mult(ltas, ltbs, dist_a, dist_b, *, side, uplo, op, diag, scan):
+def _dist_mult(ltas: cc.Shards, ltbs: cc.Shards, dist_a, dist_b, *, side, uplo, op, diag, scan):
     """The distributed multiply; returns the new per-rank shards of
     ``op(A) B`` (``B op(A)``), unscaled. Reference ``_build_dist_mult``
     (unrolled: step k accumulates into the exact reachable window of the

@@ -106,6 +106,7 @@ verb launches as collective time. Unarmed it costs one check a call.
 from __future__ import annotations
 
 import functools
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -117,6 +118,11 @@ from .grid import COL_AXIS, ROW_AXIS
 
 #: Axis label of the verbs that run over the whole grid at once.
 GRID_AXIS = "grid"
+
+#: Per-rank shards, ``xs[r][c]`` the tensor of rank ``(r, c)`` (None at the
+#: ranks another process drives): what :func:`per_rank` gives and every
+#: distributed builder takes.
+Shards = List[List[Optional[torch.Tensor]]]
 
 #: The multi-process grid this process drives one rank of (None: the
 #: single controller). Process-wide, as the ``torch.distributed`` world it
@@ -518,12 +524,18 @@ def _only_local(xs, value) -> list:
 def _verb(kind: str):
     """The verb runs inside ``obs.named_span("comm.<kind>")``: a
     ``torch.profiler`` range while a profiler is armed (``trace_dir``),
-    else one check. :mod:`..obs.devtrace` makes every device op launched
-    in it a collective of the verb's kind."""
+    and under an armed analysis tape (:mod:`..analysis.depgraph`) one
+    ``collective`` node of its kind, axis and per-rank shapes; else one
+    check. :mod:`..obs.devtrace` makes every device op launched in the
+    range a collective of the verb's kind."""
     def wrap(fn):
         @functools.wraps(fn)
         def verb(*args, **kwargs):
+            if not (obs.STATE.annotate or obs.STATE.tape):
+                return fn(*args, **kwargs)
             with obs.named_span("comm.%s", kind):
+                if obs.STATE.tape is not None:
+                    return obs.STATE.tape.verb(kind, fn, args, kwargs)
                 return fn(*args, **kwargs)
         return verb
     return wrap
@@ -740,7 +752,7 @@ def bcast_arrays(arrays, owner_r: int, owner_c: int, specs) -> list:
              torch.empty(tuple(shape), dtype=torch.from_numpy(np.empty(0, dtype)).dtype,
                          device=dev))
         got = _transport("broadcast", x, dist.group.WORLD, src=owner)
-        out.append(arrays[i] if mine else got.cpu().numpy())
+        out.append(arrays[i] if mine else got.cpu().numpy())  # dlaf: disable=lint-host-sync(the verb delivers host arrays: the chase's result)
     return out
 
 

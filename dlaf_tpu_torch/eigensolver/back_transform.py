@@ -142,10 +142,22 @@ def _apply_chase_reflectors(v_all, tau_all, e, *, b: int, n: int):
     return _bt_b2t_blocked(v_all, tau_all, e, b=b, n=n, group=g)
 
 
+def _to(x: np.ndarray, device) -> torch.Tensor:
+    """A host array on ``device``: to a CUDA device through pinned memory,
+    asynchronously (a pageable copy would make the host wait)."""
+    t = torch.as_tensor(x)
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def _reflectors(tri: TridiagResult, device):
-    """The chase's reflectors, taus and phases as tensors on ``device``."""
-    return (torch.as_tensor(tri.v).to(device), torch.as_tensor(tri.tau).to(device),
-            torch.as_tensor(tri.phase).to(device))
+    """The chase's reflectors and taus as tensors on ``device``, and its
+    phases there for a complex chase (None for a real one: they are all
+    1)."""
+    v = _to(tri.v, device)
+    phase = _to(tri.phase, device) if v.is_complex() else None
+    return v, _to(tri.tau, device), phase
 
 
 def _bt_b2t_local(tri: TridiagResult, e: torch.Tensor) -> torch.Tensor:
@@ -339,7 +351,8 @@ def _taus_on(taus: torch.Tensor, lts):
                             lambda r, c: taus.to(lts[r][c].device))
 
 
-def _dist_bt_r2b(lts_a, taus, lts_c, dist_a, dist_c, band: int, la: bool = False) -> None:
+def _dist_bt_r2b(lts_a: cc.Shards, taus: torch.Tensor, lts_c: cc.Shards, dist_a, dist_c,
+                 band: int, la: bool = False) -> None:
     """The distributed reflector-block back-transform (reference
     ``_build_dist_bt_r2b``), IN PLACE on ``lts_c``: panel p (element
     columns ``[p b, (p+1) b)`` of V) acts on C's rows from ``(p+1) b``, in
@@ -403,7 +416,8 @@ def _dist_bt_r2b(lts_a, taus, lts_c, dist_a, dist_c, band: int, la: bool = False
             _r2b_update(v_my, t, lts_c, luc)
 
 
-def _dist_bt_r2b_scan(lts_a, taus, lts_c, dist_a, dist_c, band: int) -> None:
+def _dist_bt_r2b_scan(lts_a: cc.Shards, taus: torch.Tensor, lts_c: cc.Shards, dist_a,
+                      dist_c, band: int) -> None:
     """The scan form (reference ``_build_dist_bt_r2b_scan``), IN PLACE on
     ``lts_c``: uniform steps over telescoped windows, mirrored for the
     reverse sweep (panel p touches C rows from (p+1) b, so the late panels

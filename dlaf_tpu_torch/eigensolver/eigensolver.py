@@ -159,7 +159,7 @@ def _stage_fingerprint(uplo, a, band_size) -> dict:
         # the triangle is cut on the device and hashed from the host copy's
         # buffer: one crossing, no further copy of an n x n array
         g = a.to_global()
-        tri = (torch.tril(g) if uplo == "L" else torch.triu(g)).cpu().numpy()
+        tri = (torch.tril(g) if uplo == "L" else torch.triu(g)).cpu().numpy()  # dlaf: disable=lint-host-sync(a resume checkpoint's fingerprint is host bytes)
         fp["input_sha"] = hashlib.sha256(np.ascontiguousarray(tri)).hexdigest()[:16]
     return fp
 
@@ -171,7 +171,7 @@ def _commit(ck, stage: str, pack) -> None:
 
 
 def _pack_red(red) -> dict:
-    return {**matrix_arrays(red.matrix, "matrix"), "taus": red.taus.cpu().numpy(),
+    return {**matrix_arrays(red.matrix, "matrix"), "taus": red.taus.cpu().numpy(),  # dlaf: disable=lint-host-sync(a stage checkpoint's payload is host bytes)
             "band": np.asarray(red.band, dtype=np.int64)}
 
 
@@ -201,7 +201,7 @@ def _fence_q(fence_t, z) -> None:
 def _host_q(z) -> np.ndarray:
     """The D&C's Q on the host (the ``tridiag`` checkpoint's payload,
     single controller)."""
-    return (z.to_global() if isinstance(z, BlockQ) else z).cpu().numpy()
+    return (z.to_global() if isinstance(z, BlockQ) else z).cpu().numpy()  # dlaf: disable=lint-host-sync(a stage checkpoint's payload is host bytes)
 
 
 def _q_matrix(z, a) -> Matrix:
@@ -286,7 +286,7 @@ def _eigensolver(uplo, a, phases, band_size, donate, keep, resume, route=None):
         else:
             zb = bt_band_to_tridiag(tri, z)
             fence_t(zb)
-            _commit(ck, "bt_b2t", lambda: {"zb": zb.cpu().numpy()})
+            _commit(ck, "bt_b2t", lambda: {"zb": zb.cpu().numpy()})  # dlaf: disable=lint-host-sync(a stage checkpoint's payload is host bytes)
         del z
     with pt.phase("stage.bt_reduction_to_band"):
         if ck.completed("bt_r2b"):

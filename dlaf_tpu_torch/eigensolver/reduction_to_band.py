@@ -321,7 +321,7 @@ def _bulk_product(ops, r: int, c: int) -> torch.Tensor:
             + tb.contract("rad,cbd->rcab", vr[r][c], xc[r][c].conj()))
 
 
-def _red2band_dist(lts, dist, band: int, *, comm_la: bool = False) -> torch.Tensor:
+def _red2band_dist(lts: cc.Shards, dist, band: int, *, comm_la: bool = False) -> torch.Tensor:
     """Reduce the distributed matrix whose rank ``(r, c)`` holds
     ``lts[r][c]`` IN PLACE with bandwidth ``band`` (dividing the block
     size); returns the taus.
@@ -454,7 +454,7 @@ def _red2band_dist(lts, dist, band: int, *, comm_la: bool = False) -> torch.Tens
     return taus_out
 
 
-def _red2band_dist_scan(lts, dist, band: int) -> torch.Tensor:
+def _red2band_dist_scan(lts: cc.Shards, dist, band: int) -> torch.Tensor:
     """The scan form of the distributed reduction, IN PLACE on
     ``lts[r][c]``; returns the taus. Every step of a telescoped window runs
     at the window's uniform shapes: the window-height masked panel column
@@ -636,4 +636,4 @@ def extract_band(red: BandReduction) -> np.ndarray:
     fd = diag[:, torch.where(in_diag, rr, 0), cc_]           # (nt, b+1, nb)
     fs = sub[:, torch.where(in_diag, 0, rr - nb), cc_]
     tiles = torch.where(in_diag[None], fd, fs)
-    return tiles.permute(1, 0, 2).reshape(b + 1, nt * nb)[:, :n].cpu().numpy()
+    return tiles.permute(1, 0, 2).reshape(b + 1, nt * nb)[:, :n].cpu().numpy()  # dlaf: disable=lint-host-sync(the band goes to the host chase)

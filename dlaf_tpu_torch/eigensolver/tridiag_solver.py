@@ -631,7 +631,8 @@ def _merge(node, res, use_device: bool, device, dev_min_k: int, stats, log, root
     z = (np.concatenate([a.last, b.first]) if use_device
          else np.concatenate([a.q[-1, :], b.q[0, :]]))
     ctl = _merge_ctl_pre(a.lam, b.lam, z, node.rho, use_device, dev_min_k)
-    obs.counter("dlaf_dc_merges_total", mode="serialized").inc()
+    if obs.metrics_active():
+        obs.counter("dlaf_dc_merges_total", mode="serialized").inc()
     _stat(stats, node.height, ctl)
     log.append((ctl.n, _deflated(ctl)))
     vcols_dev = None
@@ -929,7 +930,8 @@ def _merge_sharded(node, res, grid, dev_min_k: int, stats, log, root: bool) -> _
     a, b = (_shared(grid, res[node.left]), _shared(grid, res[node.right]))
     ctl = _merge_ctl_pre(a.lam, b.lam, np.concatenate([a.last, b.first]), node.rho, True,
                          dev_min_k)
-    obs.counter("dlaf_dc_merges_total", mode="serialized").inc()
+    if obs.metrics_active():
+        obs.counter("dlaf_dc_merges_total", mode="serialized").inc()
     _stat(stats, node.height, ctl, P * Q)
     log.append((ctl.n, _deflated(ctl)))
     n, n1 = ctl.n, ctl.n1

@@ -208,7 +208,7 @@ class Matrix:
                                                          self.dist, dev), self.dist)
 
     def to_numpy(self) -> np.ndarray:
-        return self.to_global().cpu().numpy()
+        return self.to_global().cpu().numpy()  # dlaf: disable=lint-host-sync(the conversion to numpy the caller asks for)
 
     def with_storage(self, storage) -> "Matrix":
         """New Matrix sharing this layout and grid."""

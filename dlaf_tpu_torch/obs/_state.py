@@ -27,7 +27,7 @@ class _ObsState:
     __slots__ = ("configured", "log_level", "log_level_num", "metrics_on",
                  "annotate", "trace_dir", "sink", "registry",
                  "profiler_started", "profiler", "atexit_registered",
-                 "rank", "flight", "exporter_port", "telemetry_on")
+                 "rank", "flight", "exporter_port", "telemetry_on", "tape")
 
     def __init__(self):
         self.configured = False
@@ -45,6 +45,7 @@ class _ObsState:
         self.flight = None               # FlightRecorder, or None
         self.exporter_port = 0           # DLAF_METRICS_PORT in effect (0=off)
         self.telemetry_on = False        # DLAF_PROGRAM_TELEMETRY knob
+        self.tape = None                 # the armed analysis.depgraph tape, or None
 
 
 STATE = _ObsState()

@@ -14,7 +14,10 @@ program's op metadata). Eager PyTorch has no trace, so here
 set, ``STATE.annotate``): the one place a span costs host time per step,
 which the metrics-only state does not pay. The profiler then attributes
 every kernel launched inside the range to its name (``gpu_user_annotation``
-on the device timeline of the Chrome trace).
+on the device timeline of the Chrome trace). While an analysis tape is
+armed (``STATE.tape``, :mod:`..analysis.depgraph`) the same names scope
+the ops it records, and :func:`kernel_node` makes each hand kernel's
+launch one node of it; with neither armed each site costs one check.
 
 Nesting is tracked per thread; each span record carries its ``depth`` and
 ``parent``. Spans given ``flops`` derive GFlop/s at exit when ``fenced``:
@@ -30,6 +33,7 @@ allocation.
 
 from __future__ import annotations
 
+import functools
 import os
 import threading
 import time
@@ -166,21 +170,47 @@ def entry_span(name: str, attrs_fn):
 def named_span(name: str, *args):
     """Per-step phase name: ``torch.profiler.record_function(name % args)``
     (``name`` itself without ``args``) when a profiler is armed
-    (``trace_dir``), else the no-op singleton. The name is formatted only
-    when armed, so a step's site costs one check when off. Writes no
+    (``trace_dir``), and the innermost scope of every op that an armed
+    analysis tape (:mod:`..analysis.depgraph`) records inside it; else the
+    no-op singleton. The name is formatted only when one of the two is
+    armed, so a step's site costs one check when both are off. Writes no
     record (the reference's is a trace-time ``jax.named_scope``)."""
-    if not STATE.annotate:
+    if not (STATE.annotate or STATE.tape):
         return NOOP_CTX
+    label = name % args if args else name
+    tape = STATE.tape
+    if not STATE.annotate:
+        return tape.scope(label)
     _maybe_start_profiler()
-    return _record_function(name % args if args else name)
+    ranged = _record_function(label)
+    return ranged if tape is None else _Both(ranged, tape.scope(label))
+
+
+class _Both:
+    """A profiler range and a tape scope entered together."""
+
+    __slots__ = ("outer", "inner")
+
+    def __init__(self, outer, inner):
+        self.outer, self.inner = outer, inner
+
+    def __enter__(self):
+        self.outer.__enter__()
+        self.inner.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.inner.__exit__(*exc)
+        self.outer.__exit__(*exc)
+        return False
 
 
 def scoped_step(name: str, fn):
     """``fn`` wrapped so each call runs inside ``named_span(name)``: the
     step body of a scan form, whose name carries no step index (the
     reference's scan body is traced once for every iteration). ``fn``
-    itself when no profiler is armed."""
-    if not STATE.annotate:
+    itself when neither a profiler nor a tape is armed."""
+    if not (STATE.annotate or STATE.tape):
         return fn
 
     def wrapped(*args, **kwargs):
@@ -188,6 +218,23 @@ def scoped_step(name: str, fn):
             return fn(*args, **kwargs)
 
     return wrapped
+
+
+def kernel_node(launches: dict, key: str):
+    """Decorator for a hand kernel's wrapper: while an analysis tape is
+    armed, each outermost call becomes one ``kernel:<key>`` node reading
+    its tensor arguments and writing its results (on the CPU the plain
+    version's ops nest under it; on the card a call that did not add to
+    ``launches[key]`` is a node marked not launched). One check per call
+    otherwise."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def node(*args, **kwargs):
+            if STATE.tape is None:
+                return fn(*args, **kwargs)
+            return STATE.tape.kernel(key, fn, args, kwargs, launches)
+        return node
+    return wrap
 
 
 def current_span():

@@ -30,6 +30,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..obs.trace import kernel_node
 from . import cuda_build as cb
 
 #: Calls that launched the kernel (a plain integer).
@@ -66,7 +67,7 @@ LIBRARY = cb.CudaLibrary("givens", (), _bind)
 def givens_undo_plain(u: torch.Tensor, giv) -> torch.Tensor:
     """The rotations ``giv`` ``(g, 4)`` = ``(i, j, c, s)`` (host data)
     applied in order to the rows of ``u``, in place; returns ``u``."""
-    for i, j, c, s in torch.as_tensor(giv, dtype=torch.float64).tolist():
+    for i, j, c, s in torch.as_tensor(giv, dtype=torch.float64).tolist():  # dlaf: disable=lint-host-sync(the rotations are host data)
         i, j = int(i), int(j)
         ri, rj = u[i].clone(), u[j].clone()
         u[i] = c * ri - s * rj
@@ -125,6 +126,7 @@ def schedule(giv, depth: int = DEPTH) -> np.ndarray:
     return rec
 
 
+@kernel_node(LAUNCHES, "givens_undo")
 @cb.on_device
 def givens_undo(u: torch.Tensor, giv) -> torch.Tensor:
     """:func:`givens_undo_plain` in one kernel launch: ``u`` ``(n, w)``

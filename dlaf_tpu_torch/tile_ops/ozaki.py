@@ -68,7 +68,8 @@ def _peel_slices(xn: torch.Tensor, s: int) -> list:
         sc = float(2.0 ** (SLICE_BITS * (t + 1)))
         it8 = torch.round((r * sc).float()).to(torch.int8)
         out.append(it8)
-        r = r - it8.float().to(xn.dtype) * (1.0 / sc)
+        if t + 1 < s:
+            r = r - it8.float().to(xn.dtype) * (1.0 / sc)
     return out
 
 

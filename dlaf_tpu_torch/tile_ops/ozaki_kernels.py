@@ -45,6 +45,7 @@ import ctypes
 
 import torch
 
+from ..obs.trace import kernel_node
 from . import cuda_build as cb
 
 SLICE_BITS = 7
@@ -186,6 +187,7 @@ def _k_rows(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
+@kernel_node(LAUNCHES, "ozaki_product")
 @cb.on_device
 def ozaki_product(ia: torch.Tensor, ib: torch.Tensor):
     """Fused all-shift Ozaki fold of stacked int8 slices ``ia`` (s, M, K)
@@ -213,6 +215,7 @@ def ozaki_product(ia: torch.Tensor, ib: torch.Tensor):
     return hi, lo
 
 
+@kernel_node(LAUNCHES, "ozaki_syrk")
 @cb.on_device
 def ozaki_syrk(ia: torch.Tensor):
     """Symmetric fused fold: float32 ``(hi, lo)`` (M, M) of ``IA @ IA^T``
@@ -238,6 +241,7 @@ def ozaki_syrk(ia: torch.Tensor):
     return hi, lo
 
 
+@kernel_node(LAUNCHES, "ozaki_masked_product")
 @cb.on_device
 def ozaki_masked_product(ia: torch.Tensor, ib: torch.Tensor, mode: torch.Tensor):
     """Per-tile-pair Ozaki fold, predicated on ``mode``: for int8 slices

@@ -79,6 +79,7 @@ import torch
 
 from .. import config
 from ..obs import telemetry
+from ..obs.trace import kernel_node
 from . import cuda_build as cb
 
 #: Micro-block width of the potrf ladder and of the triangular inverse.
@@ -293,6 +294,7 @@ def step(uplo: str, diag: torch.Tensor, strip: torch.Tensor, slab: torch.Tensor)
     return telemetry.call("pallas_panel.step", _step, uplo, diag, strip, slab)
 
 
+@kernel_node(LAUNCHES, "potrf")
 @cb.on_device
 def _potrf(uplo: str, a: torch.Tensor) -> torch.Tensor:
     """Cholesky factor of one tile.
@@ -313,6 +315,7 @@ def _potrf(uplo: str, a: torch.Tensor) -> torch.Tensor:
     return out if uplo == "L" else out.mT
 
 
+@kernel_node(LAUNCHES, "solve")
 @cb.on_device
 def _panel_solve(side: str, uplo: str, op: str, diag: str, a: torch.Tensor,
                  b: torch.Tensor, *, alpha=1.0) -> torch.Tensor:
@@ -354,6 +357,7 @@ def _panel_solve(side: str, uplo: str, op: str, diag: str, a: torch.Tensor,
     return out.reshape(shape)
 
 
+@kernel_node(LAUNCHES, "factor_solve")
 @cb.on_device
 def _factor_solve(uplo: str, diag: torch.Tensor, strip: torch.Tensor):
     """Potrf + whole-strip solve.
@@ -393,6 +397,7 @@ def _factor_solve(uplo: str, diag: torch.Tensor, strip: torch.Tensor):
     return fac, out.reshape(shape)
 
 
+@kernel_node(LAUNCHES, "step")
 @cb.on_device
 def _step(uplo: str, diag: torch.Tensor, strip: torch.Tensor, slab: torch.Tensor):
     """One fused blocked step.

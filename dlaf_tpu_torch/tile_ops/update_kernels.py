@@ -32,6 +32,7 @@ import os
 
 import torch
 
+from ..obs.trace import kernel_node
 from . import cuda_build as cb
 
 SUPPORTED = (torch.float32, torch.bfloat16)
@@ -83,6 +84,7 @@ def panel_layout(v: torch.Tensor) -> int | None:
     return None
 
 
+@kernel_node(LAUNCHES, "masked_trailing_update")
 @cb.on_device
 def masked_trailing_update(a: torch.Tensor, vr: torch.Tensor, vc: torch.Tensor,
                            mode: torch.Tensor) -> torch.Tensor:
@@ -133,7 +135,9 @@ def supports_update(dtype: torch.dtype, device_type: str) -> bool:
     much is route policy (uncounted); ``health.inject.disable_pallas``
     then closes an open gate, the degradation counted at
     ``site="pallas_update"`` (``DLAF_STRICT`` raises)."""
-    forced = os.environ.get("DLAF_FORCE_PALLAS_UPDATE") == "1"
+    forced = os.environ.get(
+        "DLAF_FORCE_PALLAS_UPDATE"  # dlaf: disable=lint-unregistered-knob(test hook forcing the update route's plain version on the CPU, the reference's; not a user-facing runtime knob)
+    ) == "1"
     if not (dtype in SUPPORTED and (device_type == "cuda" or forced)):
         return False
     from ..health.registry import route_available

@@ -21,8 +21,9 @@ QR T factor, permute and general_sub_multiply. Worlds of their own (2x2
 and 3x1, ``torch_mp_worker.A2A_CASES``) hold the pairwise all-to-all
 along the row axis, alone and inside the chase back-transform, and with
 the transport watched, that each call receives only the peers' chunks
-through one pairwise exchange. The 2x2
-Cholesky factor
+through one pairwise exchange. Each case's verb schedules, saved by the
+processes, agree within every group (graph-conditional-collective). The
+2x2 Cholesky factor
 is also held against ``dlaf_tpu``'s distributed builder on the virtual CPU
 devices at ``60 n eps``, and its HEGST at ``100 n eps``. A process that
 does not finish within its timeout fails the harness instead of hanging
@@ -242,6 +243,35 @@ def test_multiprocess_all_to_all_receives_peer_chunks_only(a2a_worlds, g):
             size, value = call["size"], call["value"]
             assert [k for k, _ in call["moves"]] == ["exchange"]
             assert call["moves"][0][1] * size == value * (size - 1)
+
+
+@pytest.mark.parametrize("name", list(w.CASES))
+@pytest.mark.parametrize("g", list(w.GRIDS))
+def test_multiprocess_verb_schedules_agree(worlds, g, name):
+    """graph-conditional-collective on the spawned world: every member of
+    a group (a grid column for row-axis verbs, a grid row for col-axis
+    verbs, the world for the rest) issued that group's verbs in one order,
+    with one kind, arguments and message shapes (``analysis.graphcheck.
+    schedule_findings`` over the schedules the processes saved)."""
+    from dlaf_tpu_torch.analysis.graphcheck import schedule_findings
+
+    P, Q = w.GRIDS[g][:2]
+    res = load(worlds, g, name)
+    schedules = {tuple(r["grid_rank"]): r["schedule"] for r in res}
+    assert len(schedules) == P * Q
+    assert schedule_findings(schedules, (P, Q), name=name) == []
+
+
+@pytest.mark.parametrize("g", list(w.GRIDS))
+def test_multiprocess_verb_schedules_are_recorded(worlds, g):
+    """The schedules the agreement test reads are not empty: every
+    Cholesky case's processes issued verbs, on every axis group."""
+    chol = [name for name, spec in w.CASES.items() if spec["kind"] == "cholesky"]
+    assert chol
+    for name in chol:
+        for r in load(worlds, g, name):
+            groups = {e[2] for e in r["schedule"]}
+            assert r["schedule"] and len(groups) >= 2, (name, groups)
 
 
 @pytest.mark.parametrize("g", list(w.GRIDS))

@@ -8,8 +8,11 @@ P x Q grid, each with a gloo world over a ``file://`` rendezvous:
 In ``cases`` mode it builds the multi-process grid on the CPU
 (:func:`dlaf_tpu_torch.comm.multihost.multihost_grid`), runs every case of
 :data:`CASES` through the port's entry points and writes what its rank
-holds of each result to ``<out-dir>/<case>.r<rank>.pt``; the test
-computes the same cases on the single-controller grid and compares. The
+holds of each result to ``<out-dir>/<case>.r<rank>.pt``, with its grid
+rank and the verb schedule the process issued in a second run of the
+case under an armed tape (``analysis.depgraph.Tape(ops=False)``; the
+result comes from the first run, with no tape); the test computes the same cases on the single-controller
+grid and compares, and holds the schedules of each group equal. The
 ``autotune`` mode runs :func:`autotune_probe` (a breach and the next
 factor under the route autotuner, ``tests/test_torch_autotune.py``). The
 ``eigen`` mode does the same for :data:`EIGEN_CASES`
@@ -37,6 +40,7 @@ from dlaf_tpu_torch.algorithms.cholesky import cholesky
 from dlaf_tpu_torch.algorithms.gen_to_std import gen_to_std
 from dlaf_tpu_torch.algorithms.norm import max_norm
 from dlaf_tpu_torch.algorithms.triangular import triangular_multiply, triangular_solve
+from dlaf_tpu_torch.analysis import depgraph
 from dlaf_tpu_torch.comm import collectives as cc
 from dlaf_tpu_torch.comm import multihost, sync
 from dlaf_tpu_torch.comm.grid import COL_AXIS, ROW_AXIS, Grid
@@ -690,6 +694,17 @@ def main(argv) -> int:
                                                 lambda k: os.environ.pop(k, None)))}
         except Exception:
             res = {"error": traceback.format_exc()}
+        # the verbs this process issues, for graph-conditional-collective,
+        # from a second run under an armed tape: the result above comes
+        # from the path that runs with no tape
+        tape = depgraph.Tape("cpu", ops=False)
+        try:
+            with tape.armed():
+                run_case(name, grid, setenv, lambda k: os.environ.pop(k, None))
+        except Exception:
+            res.setdefault("error", traceback.format_exc())
+        res["schedule"] = tape.schedule
+        res["grid_rank"] = tuple(grid.local_ranks[0])
         torch.save(res, os.path.join(out_dir, f"{name}.r{rank}.pt"))
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "dlaf_tpu"))
     try:   # the two forms never mix: a single-controller grid must raise here
