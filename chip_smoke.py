@@ -83,10 +83,12 @@ the multi-process form (``comm/multihost.py``: one process per rank):
     off (red2band-d-mxu's #6 also against ``red2band_mxu_launches``); then ``torchrun --standalone
     --nproc-per-node 4 -m dlaf_tpu_torch.miniapp.miniapp_cholesky -m 4096
     -b 256 --grid-rows 2 --grid-cols 2 --share-device`` in float32 (the
-    float64 launch went to make room for the autotune phase), and
-    ``torchrun`` of miniapp_gen_to_std (complex128, N=4096),
+    float64 launch went to make room for the autotune phase), and one
+    ``torchrun`` launch of miniapp_gen_to_std (complex128, N=4096),
     miniapp_reduction_to_band (config #4's widths at N=8192 on 2x2) and
-    miniapp_gen_eigensolver (float64, N=2048, nb=256, 2x2), each with one
+    miniapp_gen_eigensolver (float64, N=2048, nb=256, 2x2) in turn in one
+    world, its start-up and shutdown paid once (the room that buys goes to
+    gen-evp-d-c5), each with one
     ``check: PASSED`` and its wall beside the single controller's run of
     the same arguments in this process (one card's processes meet over
     host-staged gloo, so these walls show the transport; a ``[wall]`` line
@@ -189,7 +191,10 @@ random, the eigenpair residual and the orthogonality below 200 n eps):
     bit at a D&C merge product's and a chase back-transform's shape);
 26. gen-evp-d and gen-evp-s: ``gen_eigensolver`` in float64 and float32
     (N=8192, nb=256, 2x2, uplo L, B the HPD generator's), the float32
-    one with #1, #2, #3 and #5 exactly ``GEN_EVP_F32_GRID``;
+    one with #1, #2, #3 and #5 exactly ``GEN_EVP_F32_GRID``; and
+    gen-evp-d-c5, BASELINE config #5's shape (float64, nb = band = 512,
+    8x8, the D&C's merges sharded over the 64 ranks) cut to N=4096 for
+    room, its eigenvalues against ``_gen_reference``;
 27. dc-route: the D&C of evp-d's tridiagonal by ``secular_device_min_k``
     2048, 4096, 8192 and host-only, with walls and peak memory, the
     host-only result checked, cuda's default (2048) on one device
@@ -1310,14 +1315,16 @@ def givens_launches(stats) -> int:
 
 def bt_b2t_mxu_launches(n: int, b: int, m: int, k_max: int = 1024, min_dim: int = 128) -> int:
     """#6 launches of the blocked chase back-transform (cuda's group: the
-    band) of an ``(n, m)`` E on one card: per step level the products
+    band) of an ``(n, m)`` E on one card: per step level that starts above
+    row n (block ``k``, step ``t``: row ``k G + 1 + t b``) the products
     ``V^H E`` (G x L by L x m) and ``V W`` (L x G by G x m)."""
     n_sweeps = max(n - 2, 0)
     if n_sweeps == 0:
         return 0
     g = max(1, min(b, b + 1, n_sweeps))
     L = b + g - 1
-    levels = -(-n_sweeps // g) * -(-(n - 1) // b)
+    n_steps = -(-(n - 1) // b)
+    levels = sum(min(n_steps, -(-(n - 1 - k * g) // b)) for k in range(-(-n_sweeps // g)))
     return levels * (_mxu_product(g, L, m, k_max, min_dim) + _mxu_product(L, g, m, k_max, min_dim))
 
 
@@ -1547,7 +1554,12 @@ EVP_CASES = (("evp-d", 16384, 512, 128, "d", (4, 4), [], False, "random"),
              ("evp-scan", 4096, 256, 128, "d", (2, 2), [_SCAN], False, "random"),
              ("evp-mxu", 4096, 512, 128, "d", (2, 2), [_MXU], False, "random"),
              ("gen-evp-d", 8192, 256, None, "d", (2, 2), [], True, "random"),
-             ("gen-evp-s", 8192, 256, None, "s", (2, 2), [], True, "random"))
+             ("gen-evp-s", 8192, 256, None, "s", (2, 2), [], True, "random"),
+             ("gen-evp-d-c5", 4096, 512, 512, "d", (8, 8), [], True, "random"))
+
+#: Cells of :data:`EVP_CASES` cut in order from a BASELINE config, and why.
+EVP_CUTS = {"gen-evp-d-c5": "BASELINE config #5's shape (float64, nb=band=512, 8x8) with "
+                            "N=4096 cut from its 32768 for room: each rank owns one tile"}
 
 
 def evp_paths(torch, dev, card, kmods, ok, launches) -> dict:
@@ -1559,7 +1571,8 @@ def evp_paths(torch, dev, card, kmods, ok, launches) -> dict:
     evp-z, evp-scan (both scan builders), evp-mxu (#6 exactly
     :func:`evp_mxu_launches`, and bit for bit at a merge product's and a
     chase back-transform's shape), gen-evp-d and gen-evp-s (B the HPD
-    generator's; float32 with exact kernel launches). Returns the first
+    generator's; float32 with exact kernel launches), gen-evp-d-c5
+    (config #5's shape, N cut to 4096: :data:`EVP_CUTS`). Returns the first
     cell's intermediate results for the D&C route sweep and the profile
     phase, with its eigenvalues (``"eigenvalues"``) and stage walls
     (``"stages"``)."""
@@ -1592,9 +1605,15 @@ def evp_paths(torch, dev, card, kmods, ok, launches) -> dict:
         elif letter == "s" and gen:
             expect = {k: f(*grid, -(-n // nb)) for k, f in GEN_EVP_F32_GRID.items()}
         keep = {} if first is None else None
-        counts, res, stages, _ = evp_cell(torch, dev, card, kmods, name, a.to(dtypes[letter]),
+        if name in EVP_CUTS:
+            print(f"[evp] {name}: {EVP_CUTS[name]}", flush=True)
+        counts, res, stages, t = evp_cell(torch, dev, card, kmods, name, a.to(dtypes[letter]),
                                           nb, band, grid, knobs, b=b, w_ref=w, expect=expect,
                                           keep=keep)
+        if name in EVP_CUTS:
+            room = "; ".join(f"{k} {v:.1f} s" for k, v in ROOM.items()) or "none measured"
+            print(f"[wall] evp {name} {t:.1f} s beside the room bought for it: {room}",
+                  flush=True)
         if first is None:
             # evp-d's eigenvalues and stage walls: the D&C route sweep's
             # comparison
@@ -4814,9 +4833,10 @@ def _run_group(cmd, timeout: float, env) -> str:
 
 
 #: The eigensolver pipeline's miniapps under ``torchrun`` on 2x2 (app,
-#: arguments, what the size is). One card's four processes run over
-#: host-staged gloo, so the wall shows the transport; the orders are cut to
-#: where it still does.
+#: arguments, what the size is), all three in one launch
+#: (:func:`torchrun_apps_beside_single`). One card's four processes run
+#: over host-staged gloo, so the wall shows the transport; the orders are
+#: cut to where it still does.
 MP_TORCHRUN = (
     ("miniapp_gen_to_std", ("-m", "4096", "-b", "256", "--type", "z"),
      "BASELINE config #3's type and block at half its order"),
@@ -4827,25 +4847,21 @@ MP_TORCHRUN = (
     ("miniapp_gen_eigensolver", ("-m", "2048", "-b", "256", "--type", "d"), "f64"))
 
 
-def torchrun_beside_single(card, app, args, what, env, app_args=()) -> None:
-    """``app`` under ``torchrun`` with 4 processes on 2x2 sharing this
-    card (gloo), one warm-up and one timed run, its one ``check:
-    PASSED`` required; then the single controller's run of the same
-    arguments on the same grid in this process, and both walls."""
+#: The 2x2 grid of the ``torchrun`` launches, one warm-up and one timed run.
+_MP_GRID = ("--grid-rows", "2", "--grid-cols", "2", "--share-device", "--nruns", "1",
+            "--nwarmups", "1")
+
+
+def _beside_single(card, app, args, what, out: str, took: float, grid, with_what: str):
+    """Check one ``torchrun`` miniapp's output ``out`` (one ``check:
+    PASSED``, one run line), run the single controller on the same
+    arguments and grid in this process, and print both walls."""
     import importlib
     import re
 
-    grid = ("--grid-rows", "2", "--grid-cols", "2", "--share-device", "--nruns", "1",
-            "--nwarmups", "1", *app_args)
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
-           "4", "-m", f"dlaf_tpu_torch.miniapp.{app}", *args, *grid, "--check-result", "last"]
-    t = time.perf_counter()
-    out = _run_group(cmd, 900, env)
-    print(out, end="", flush=True)
     walls = [float(m.group(1)) for m in re.finditer(r"^\[\d+\] ([0-9.]+)s ", out, re.M)]
     if out.count("check: PASSED") != 1 or len(walls) != 1:
         raise AssertionError(f"torchrun {app}: expected one 'check: PASSED' and one run line")
-    took = time.perf_counter() - t
     buf = io.StringIO()
     t = time.perf_counter()
     with contextlib.redirect_stdout(buf):
@@ -4855,9 +4871,95 @@ def torchrun_beside_single(card, app, args, what, env, app_args=()) -> None:
     sc = min(r["time_s"] for r in single)
     print(f"[mp] torchrun 4 processes {app} {' '.join(args)} 2x2 --share-device (gloo; {what}): "
           f"wall {walls[0]:.6f} s; single controller on the same grid in this call "
-          f"{sc:.6f} s, ratio {walls[0] / sc:.2f} ({took:.1f} s with start-up and check) "
+          f"{sc:.6f} s, ratio {walls[0] / sc:.2f} ({took:.1f} s with {with_what}) "
           f"[{card}] (four processes on one card, host-staged gloo: not a multi-card "
           "measurement)", flush=True)
+
+
+def torchrun_beside_single(card, app, args, what, env, app_args=()) -> None:
+    """``app`` under ``torchrun`` with 4 processes on 2x2 sharing this
+    card (gloo), one warm-up and one timed run, its one ``check:
+    PASSED`` required; then the single controller's run of the same
+    arguments on the same grid in this process, and both walls."""
+    grid = (*_MP_GRID, *app_args)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           "4", "-m", f"dlaf_tpu_torch.miniapp.{app}", *args, *grid, "--check-result", "last"]
+    t = time.perf_counter()
+    out = _run_group(cmd, 900, env)
+    print(out, end="", flush=True)
+    _beside_single(card, app, args, what, out, time.perf_counter() - t, grid,
+                   "start-up and check")
+
+
+#: Room bought in this run for cells added where the script had none
+#: (what was cut -> seconds), printed beside those cells' walls.
+ROOM: dict = {}
+
+
+def _torchrun_apps(spec: str) -> int:
+    """``torchrun``'s target for :func:`torchrun_apps_beside_single`, in
+    each of the launch's processes: bring the world up once, as a
+    miniapp's ``select_grid`` does, run each miniapp of ``spec`` (JSON:
+    ``[[app, argv], ...]``) in it in turn, its ``select_grid`` joining
+    the world that is up, then leave the world. Process 0 prints
+    ``[torchrun-app] begin|end <app> <epoch seconds>`` around each."""
+    import importlib
+
+    from dlaf_tpu_torch.comm import multihost
+
+    multihost.initialize_multihost(backend="gloo")
+    bring_up = multihost.initialize_multihost
+    # a second bring-up raises, and a world left and brought up again under
+    # one launch reuses its store's keys: the miniapps join this one
+    multihost.initialize_multihost = lambda **kw: None
+    printer = os.environ.get("RANK", "0") == "0"
+    try:
+        for app, argv in json.loads(spec):
+            if printer:
+                print(f"[torchrun-app] begin {app} {time.time():.6f}", flush=True)
+            importlib.import_module(f"dlaf_tpu_torch.miniapp.{app}").run(argv)
+            if printer:
+                print(f"[torchrun-app] end {app} {time.time():.6f}", flush=True)
+    finally:
+        multihost.initialize_multihost = bring_up
+        multihost.finalize_multihost()
+    return 0
+
+
+def torchrun_apps_beside_single(card, apps, env, app_args=()) -> None:
+    """The miniapps ``apps`` (:data:`MP_TORCHRUN`) under ONE ``torchrun``
+    launch of 4 processes on 2x2 sharing this card (gloo): the launch's
+    start-up and shutdown are paid once, not once an app (the room they
+    buy goes to :data:`ROOM`). Each app runs one warm-up and one timed
+    run, its one ``check: PASSED`` required; then the single controller's
+    run of the same arguments on the same grid in this process, and both
+    walls, as :func:`torchrun_beside_single` prints them."""
+    import re
+
+    grid = (*_MP_GRID, *app_args)
+    spec = json.dumps([[app, [*args, *grid, "--check-result", "last"]]
+                       for app, args, _ in apps])
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           "4", os.path.abspath(__file__), "--torchrun-apps", spec]
+    t_launch = time.time()
+    out = _run_group(cmd, 900, env)
+    t_exit = time.time()
+    print(out, end="", flush=True)
+    marks = {(m.group(1), m.group(2)): float(m.group(3)) for m in
+             re.finditer(r"^\[torchrun-app\] (begin|end) (\S+) ([0-9.]+)$", out, re.M)}
+    sections = re.split(r"^\[torchrun-app\] begin \S+ [0-9.]+$", out, flags=re.M)[1:]
+    if len(sections) != len(apps) or len(marks) != 2 * len(apps):
+        raise AssertionError(f"torchrun {[a for a, _, _ in apps]}: {len(sections)} apps began, "
+                             f"{len(marks)} marks, expected {len(apps)} and {2 * len(apps)}")
+    for (app, args, what), text in zip(apps, sections):
+        _beside_single(card, app, args, what, text, marks["end", app] - marks["begin", app],
+                       grid, "warm-up and check")
+    start = marks["begin", apps[0][0]] - t_launch
+    stop = t_exit - marks["end", apps[-1][0]]
+    ROOM["torchrun start-ups"] = (len(apps) - 1) * (start + stop)
+    print(f"[mp] torchrun {len(apps)} miniapps in one launch: {t_exit - t_launch:.1f} s, its "
+          f"start-up {start:.1f} s and shutdown {stop:.1f} s paid once, not {len(apps)} times: "
+          f"about {ROOM['torchrun start-ups']:.1f} s of room bought", flush=True)
 
 
 def multiprocess_phase(torch, card, launches, device: str = "cuda:0", n: int = MP_N,
@@ -4970,8 +5072,7 @@ def multiprocess_phase(torch, card, launches, device: str = "cuda:0", n: int = M
     # bitwise, and a second launch costs mostly its start-up
     torchrun_beside_single(card, "miniapp_cholesky", (*big, "--type", "s"), "the Cholesky",
                            env, app_args)
-    for app, args, what in MP_TORCHRUN:
-        torchrun_beside_single(card, app, args, what, env, app_args)
+    torchrun_apps_beside_single(card, MP_TORCHRUN, env, app_args)
     visible = torch.cuda.device_count()
     if visible < 4:
         print(f"[mp] NCCL form not run: {visible} visible card(s); NCCL refuses two ranks on "
@@ -4991,6 +5092,8 @@ def multiprocess_phase(torch, card, launches, device: str = "cuda:0", n: int = M
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--torchrun-apps"]:
+        return _torchrun_apps(sys.argv[2])
     t_start = time.perf_counter()
     import torch
 

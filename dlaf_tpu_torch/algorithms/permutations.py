@@ -21,7 +21,7 @@ import torch
 
 from ..comm import collectives as cc
 from ..comm.grid import COL_AXIS, ROW_AXIS
-from ..common.asserts import dlaf_assert
+from ..common.asserts import dlaf_assert, dlaf_assert_heavy
 from ..matrix.matrix import Matrix
 from ..matrix.tiling import global_to_tiles, storage_tile_grid, tiles_to_global
 
@@ -98,8 +98,8 @@ def permute(coord: str, perm, mat: Matrix, tile_begin: int = 0,
     pm = np.asarray(perm)
     dlaf_assert(pm.ndim == 1 and len(pm) == a1 - a0,
                 f"permute: perm length {len(pm)} != range {a1 - a0}")
-    dlaf_assert(pm.min() >= 0 and pm.max() < a1 - a0,
-                "permute: perm indices outside the tile range")
+    dlaf_assert_heavy(pm.min() >= 0 and pm.max() < a1 - a0,
+                      "permute: perm indices outside the tile range")
     dist = mat.dist
     row = coord == "Row"
     P, Q = dist.grid_size.row, dist.grid_size.col

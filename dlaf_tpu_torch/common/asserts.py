@@ -1,8 +1,14 @@
 """Assertions.
 
 Counterpart of ``dlaf_tpu/common/asserts.py`` (reference
-``common/assert.h``), cut to the tier the port uses: ``dlaf_assert``,
-switched by ``DLAF_ASSERT_ENABLE`` (default: on) read at import time.
+``common/assert.h:105-121``): three severity tiers, each switched on its
+own and read at import time, that raise with the failing message and a
+source location:
+
+* ``dlaf_assert``, ``DLAF_ASSERT_ENABLE`` (default: on);
+* ``dlaf_assert_moderate``, ``DLAF_ASSERT_MODERATE_ENABLE`` (default: on;
+  the reference's C++ default: debug builds only);
+* ``dlaf_assert_heavy``, ``DLAF_ASSERT_HEAVY_ENABLE`` (default: off).
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ def _env_flag(name: str, default: bool) -> bool:
 
 
 ASSERT_ENABLED = _env_flag("DLAF_ASSERT_ENABLE", True)
+ASSERT_MODERATE_ENABLED = _env_flag("DLAF_ASSERT_MODERATE_ENABLE", True)
+ASSERT_HEAVY_ENABLED = _env_flag("DLAF_ASSERT_HEAVY_ENABLE", False)
 
 
 class DlafAssertError(AssertionError):
@@ -37,3 +45,14 @@ def dlaf_assert(cond: bool, message: str = "", *extras) -> None:
     if ASSERT_ENABLED and not cond:
         _fail("DLAF_ASSERT", message, extras)
 
+
+def dlaf_assert_moderate(cond: bool, message: str = "", *extras) -> None:
+    """Tier-2 assertion: checks of moderate cost, on by default."""
+    if ASSERT_MODERATE_ENABLED and not cond:
+        _fail("DLAF_ASSERT_MODERATE", message, extras)
+
+
+def dlaf_assert_heavy(cond: bool, message: str = "", *extras) -> None:
+    """Tier-3 assertion: expensive checks, off by default."""
+    if ASSERT_HEAVY_ENABLED and not cond:
+        _fail("DLAF_ASSERT_HEAVY", message, extras)

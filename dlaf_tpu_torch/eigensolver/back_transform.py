@@ -11,14 +11,17 @@ leave:
   one chase step level as a ``(b+G-1, G)`` staircase V, a compact-WY
   ``I - V T V^H`` (``larft``) and two products through ``blas.mm``; the T
   factors of a block of sweeps read only the constant reflectors, so they
-  are formed batched, ahead of that block's levels. ``_bt_b2t_scan``, the
+  are formed batched, ahead of that block's levels. It works in place on
+  one buffer of E and ``b + G - 1`` zero rows, and skips the levels that
+  start below row n (they act on zeros). ``_bt_b2t_scan``, the
   reference's "sweeps" form (one batched rank-1 segment update a sweep),
   is on no path: the tests hold the blocked form against it. Distributed, the
   reflectors mix rows only, so one ``all_to_all`` along the row axis turns
   the block-cyclic rows into full rows of a slice of columns, the
   reflectors are applied locally, and a second ``all_to_all`` restores
   the layout. Ranks that share a device apply the reflectors once, to
-  their columns side by side.
+  their columns side by side in that buffer, each rank's own copy released
+  before the reflectors are uploaded.
 * :func:`bt_reduction_to_band` applies the reduction's reflector blocks in
   reverse order, ``C <- (I - V T V^H) C``: locally two products and one T
   a block; distributed (unrolled, or the scan form over telescoped windows
@@ -70,42 +73,56 @@ from .reduction_to_band import BandReduction
 
 def _bt_b2t_blocked(v_all: torch.Tensor, tau_all: torch.Tensor, e: torch.Tensor, *, b: int,
                     n: int, group: int) -> torch.Tensor:
-    """``E <- Q E`` by compact-WY groups of ``group`` (= G <= b+1) sweeps
-    (reference ``_bt_b2t_blocked``): at one chase step level, G consecutive
-    sweeps' reflectors form a ``(b+G-1, G)`` staircase V (column j is sweep
-    s0+j's reflector at row offset j, its head 1 on the diagonal). Sweep
-    blocks run in descending order, step levels ascending within a block:
-    a reflector (s, t) overlaps (s+k, t-1), so a lower level holding
-    higher sweeps goes first, and levels two steps apart are disjoint for
-    G <= b+1. Each level is ``T = larft(V)`` and two products; a block's T
-    factors are formed batched before its levels."""
+    """``E <- Q E`` by compact-WY groups of ``group`` sweeps (reference
+    ``_bt_b2t_blocked``; :func:`_bt_b2t_blocked_inplace` on a padded copy
+    of ``e``); a new tensor."""
+    e_pad = e.new_zeros((n + b + group - 1, e.shape[1]))
+    e_pad[:n] = e
+    _bt_b2t_blocked_inplace(v_all, tau_all, e_pad, b=b, n=n, group=group)
+    return e_pad[:n]
+
+
+def _bt_b2t_blocked_inplace(v_all: torch.Tensor, tau_all: torch.Tensor, e_pad: torch.Tensor, *,
+                            b: int, n: int, group: int) -> None:
+    """``E <- Q E`` in place on ``e_pad``, E in its first ``n`` rows and
+    ``b + group - 1`` zero rows below, by compact-WY groups of ``group``
+    (= G <= b+1) sweeps: at one chase step level, G consecutive sweeps'
+    reflectors form a ``(b+G-1, G)`` staircase V (column j is sweep s0+j's
+    reflector at row offset j, its head 1 on the diagonal). Sweep blocks
+    run in descending order, step levels ascending within a block: a
+    reflector (s, t) overlaps (s+k, t-1), so a lower level holding higher
+    sweeps goes first, and levels two steps apart are disjoint for G <=
+    b+1. Each level is ``T = larft(V)`` and two products; a block's T
+    factors are formed batched before its levels. A level whose rows all
+    lie below row ``n`` acts on zeros and is skipped (the reflectors are
+    zero there), so the zero rows below E need only cover the last
+    level that starts above it; the last block's missing sweeps are zero
+    columns of its staircase."""
     dlaf_assert(group <= b + 1, "bt_b2t blocked: group must be <= band+1")
     n_sweeps, n_steps, _ = v_all.shape
-    m = e.shape[1]
     G = group
-    nblk = ceil_div(n_sweeps, G)
-    S = nblk * G
     L = b + G - 1
-    dev = e.device
-    v_all = torch.cat([v_all, v_all.new_zeros((S - n_sweeps, n_steps, b))])
-    tau_all = torch.cat([tau_all, tau_all.new_zeros((S - n_sweeps, n_steps))])
-    e_pad = e.new_zeros((S + n_steps * b + b, m))
-    e_pad[:n] = e
+    dlaf_assert(e_pad.shape[0] >= n + L - 1, "bt_b2t blocked: too few padding rows")
+    dev = e_pad.device
     # staircase positions: column j takes its reflector at rows j .. j+b-1
     rows = (torch.arange(G, device=dev)[:, None] + torch.arange(b, device=dev)[None, :])
     cols = torch.arange(G, device=dev)[:, None].expand(G, b)
-    for blk in range(nblk - 1, -1, -1):
-        vb = v_all[blk * G:(blk + 1) * G].transpose(0, 1)          # (n_steps, G, b)
+    for blk in range(ceil_div(n_sweeps, G) - 1, -1, -1):
+        s0, s1 = blk * G, min((blk + 1) * G, n_sweeps)
+        vb = v_all[s0:s1].transpose(0, 1)                           # (n_steps, g, b)
         stair = v_all.new_zeros((n_steps, L, G))
-        stair[:, rows, cols] = vb
-        t_all = larft(stair, tau_all[blk * G:(blk + 1) * G].T.conj())
+        stair[:, rows[:s1 - s0], cols[:s1 - s0]] = vb
+        taus = tau_all.new_zeros((G, n_steps))
+        taus[:s1 - s0] = tau_all[s0:s1]
+        t_all = larft(stair, taus.T.conj())
         stair_h = stair.mH
         for t in range(n_steps):
-            base = blk * G + 1 + t * b
+            base = s0 + 1 + t * b
+            if base >= n:
+                break
             seg = e_pad[base:base + L]
             w = t_all[t] @ tb.mm(stair_h[t], seg)
             seg -= tb.mm(stair[t], w)
-    return e_pad[:n]
 
 
 def _bt_b2t_scan(v_all: torch.Tensor, tau_all: torch.Tensor, e: torch.Tensor, *, b: int,
@@ -137,9 +154,19 @@ def _effective_group(b: int, n_sweeps: int, group: int, device_type: str) -> int
     return max(1, min(group, b + 1, n_sweeps))
 
 
-def _apply_chase_reflectors(v_all, tau_all, e, *, b: int, n: int):
-    g = _effective_group(b, int(v_all.shape[0]), 0, e.device.type)
-    return _bt_b2t_blocked(v_all, tau_all, e, b=b, n=n, group=g)
+def _chase_buffer(n: int, m: int, b: int, n_sweeps: int, dtype, device) -> torch.Tensor:
+    """A zero ``(n + L, m)`` buffer for the ``(n, m)`` E of the blocked
+    chase back-transform: ``L = b + G - 1`` rows below E for the automatic
+    group G on ``device``."""
+    g = _effective_group(b, n_sweeps, 0, torch.device(device).type)
+    return torch.zeros((n + b + g - 1, m), dtype=dtype, device=device)
+
+
+def _apply_chase_reflectors(v_all, tau_all, e_pad, *, b: int, n: int) -> None:
+    """The chase's reflectors applied in place to E in ``e_pad``'s first
+    ``n`` rows (:func:`_chase_buffer`)."""
+    g = _effective_group(b, int(v_all.shape[0]), 0, e_pad.device.type)
+    _bt_b2t_blocked_inplace(v_all, tau_all, e_pad, b=b, n=n, group=g)
 
 
 def _to(x: np.ndarray, device) -> torch.Tensor:
@@ -165,12 +192,12 @@ def _bt_b2t_local(tri: TridiagResult, e: torch.Tensor) -> torch.Tensor:
     reflectors; a new tensor."""
     n = tri.d.shape[0]
     v, tau, phase = _reflectors(tri, e.device)
-    e = e.to(v.dtype, copy=True)
+    buf = _chase_buffer(n, e.shape[1], tri.band, int(v.shape[0]), v.dtype, e.device)
+    buf[:n] = e
     if v.is_complex():
-        e *= phase[:, None]
-    if v.shape[0] == 0:
-        return e
-    return _apply_chase_reflectors(v, tau, e, b=tri.band, n=n)
+        buf[:n] *= phase[:, None]
+    _apply_chase_reflectors(v, tau, buf, b=tri.band, n=n)
+    return buf[:n]
 
 
 def _dist_bt_b2t(tri: TridiagResult, mat: Matrix) -> list:
@@ -215,14 +242,26 @@ def _dist_bt_b2t(tri: TridiagResult, mat: Matrix) -> list:
     for r, c in cc.local_ranks(P, Q):
         by_dev.setdefault(es[r][c].device, []).append((r, c))
     for dev, ranks in by_dev.items():
+        # the ranks' columns side by side, straight into the padded buffer
+        # the reflectors act on; each rank's own copy goes at once, before
+        # the reflectors come up
+        parts = [es[r][c] for r, c in ranks]
+        e = _chase_buffer(n, sum(p.shape[1] for p in parts), tri.band, int(tri.v.shape[0]),
+                          dtype, dev)
+        torch.cat(parts, dim=1, out=e[:n])
+        del parts
+        for r, c in ranks:
+            es[r][c] = None
         v, tau, phase = _reflectors(tri, dev)
-        e = torch.cat([es[r][c] for r, c in ranks], dim=1)
         if cplx:
-            e = e * phase[:, None]
-        if v.shape[0]:
-            e = _apply_chase_reflectors(v, tau, e, b=tri.band, n=n)
-        for (r, c), part in zip(ranks, e.split(chunk * nb, dim=1)):
-            es[r][c] = part
+            e[:n] *= phase[:, None]
+        _apply_chase_reflectors(v, tau, e, b=tri.band, n=n)
+        del v, tau, phase
+        split = e[:n].split(chunk * nb, dim=1)
+        for i, (r, c) in enumerate(ranks):
+            es[r][c] = split[i]
+        # the ranks' views are the buffer's last holders
+        del e, split
     y = cc.per_rank(P, Q, lambda r, c: torch.nn.functional.pad(es[r][c], (0, 0, 0, Sr * nb - n))
                     .reshape(Sr, nb, chunk, nb).permute(0, 2, 1, 3)
                     .index_select(0, to_device(inv_order, es[r][c].device)))

@@ -764,6 +764,19 @@ def _exchange(grid, plan: dict, give):
     return cc.exchange(cc.per_rank(P, Q, sends), cc.per_rank(P, Q, expect))
 
 
+def _receivers(grid, key) -> dict:
+    """Per rank ``(r, c)``, the rank that receives for it: on a single
+    controller the first rank (row-major) with its ``key(r, c)`` on its
+    device, so that ranks which need the same piece and share a device
+    read one copy of it; in the multi-process form every rank itself."""
+    P, Q = grid.size.row, grid.size.col
+    if grid.multi_process:
+        return {(r, c): (r, c) for r in range(P) for c in range(Q)}
+    first: dict = {}
+    return {(r, c): first.setdefault((key(r, c), grid.device(r, c)), (r, c))
+            for r in range(P) for c in range(Q)}
+
+
 def _gather_host(grid, parts, lens) -> np.ndarray:
     """Every rank's 1-D float64 piece ``parts[r][c]`` (``lens[r][c]``
     long), joined in row-major rank order, on the host of every process
@@ -793,14 +806,16 @@ def _holders(q, nq: int) -> list:
 def _fetch_rows(grid, q, nq: int, span):
     """Per rank ``(r, c)``: rows ``span(r, c)`` (a ``(lo, hi)`` or None) of
     a node's Q, every column, on the rank's device, from the ranks that
-    hold them."""
+    hold them; ranks with one span on one device share one copy
+    (:func:`_receivers`) and only read it."""
     holders = {h[0]: h for h in _holders(q, nq)}
     P, Q = grid.size.row, grid.size.col
+    recv = _receivers(grid, span)
     plan = {}
     for r in range(P):
         for c in range(Q):
             plan[(r, c)] = {}
-            s = span(r, c)
+            s = span(r, c) if recv[(r, c)] == (r, c) else None
             for src, r0, r1, c0, c1, _ in holders.values():
                 if s and max(s[0], r0) < min(s[1], r1) and c1 > c0:
                     plan[(r, c)][src] = (min(s[1], r1) - max(s[0], r0), c1 - c0)
@@ -821,7 +836,7 @@ def _fetch_rows(grid, q, nq: int, span):
             rows.setdefault(holders[src][1], []).append(piece)
         return torch.cat([torch.cat(row, dim=1) for row in rows.values()], dim=0)
 
-    return cc.per_rank(P, Q, join)
+    return cc.per_rank_once(P, Q, lambda r, c: recv[(r, c)], lambda r, c: join(*recv[(r, c)]))
 
 
 def _by_run(grid, span, fn):
@@ -925,7 +940,8 @@ def _merge_sharded(node, res, grid, dev_min_k: int, stats, log, root: bool) -> _
     blocks gathered along each grid column; then each rank forms its block
     of the 2-D block-sharded Q from the row panel of ``blkdiag(Q1, Q2)``
     its grid row needs and the ``qc`` columns its grid column needs, by
-    ``blas.mm``."""
+    ``blas.mm``. Ranks of one grid line that share a device read one copy
+    of that panel and of those columns."""
     P, Q = grid.size.row, grid.size.col
     a, b = (_shared(grid, res[node.left]), _shared(grid, res[node.right]))
     ctl = _merge_ctl_pre(a.lam, b.lam, np.concatenate([a.last, b.first]), node.rho, True,
@@ -966,14 +982,20 @@ def _merge_sharded(node, res, grid, dev_min_k: int, stats, log, root: bool) -> _
         order = np.concatenate([np.arange(*shard_cols[(r, c)]) for r in range(P)
                                 for c in range(Q)])
         first[order], last[order] = first.copy(), last.copy()
-    # the qc columns of each grid column, on each of its ranks
+    # the qc columns of each grid column on each of its ranks: once per
+    # device, where ranks of the column share one
+    recv = _receivers(grid, lambda r, c: c)
     plan = {(r, c): {(i, c): (n, shard_cols[(i, c)][1] - shard_cols[(i, c)][0])
                      for i in range(P) if shard_cols[(i, c)][1] > shard_cols[(i, c)][0]}
-            for r in range(P) for c in range(Q)}
+            if recv[(r, c)] == (r, c) else {} for r in range(P) for c in range(Q)}
     got = _exchange(grid, plan, lambda src, dst: qc[src[0]][src[1]])
     del qc
-    qcols = cc.per_rank(P, Q, lambda r, c: torch.cat(
-        [got[r][c][(i, c)] for i in range(P) if (i, c) in got[r][c]], dim=1))
+
+    def cols(r, c):
+        mine = got[r][c]
+        return torch.cat([mine[(i, c)] for i in range(P) if (i, c) in mine], dim=1)
+
+    qcols = cc.per_rank_once(P, Q, lambda r, c: recv[(r, c)], lambda r, c: cols(*recv[(r, c)]))
     del got
     rb = _split(n, P)
     top = _fetch_rows(grid, a.q, n1, lambda r, c: (rb[r], min(rb[r + 1], n1))

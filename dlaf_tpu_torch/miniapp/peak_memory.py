@@ -8,7 +8,12 @@ runs ``dlaf_tpu_torch.miniapp.MODULE`` with ARGS (its ``main``), then
 prints, on every process, for the card it allocated most on,
 
     [peak] process <rank> <device>: max_memory_allocated <GiB> GiB, max_memory_reserved <GiB> GiB
+    [peak] process <rank> host: max resident set <GiB> GiB
+    [launches] process <rank> {kernel: launches, ...}
 
+(the resident set's high-water mark of the whole process, the kernel's
+``VmHWM``; the launches of every hand kernel whose module the run loaded,
+since the process started).
 It imports the package by absolute name and takes nothing else from it but
 program telemetry's peak reader (the allocator's peak, whole across the
 resets of ``DLAF_PROGRAM_TELEMETRY``; ``torch.cuda.max_memory_allocated``
@@ -21,7 +26,12 @@ from __future__ import annotations
 
 import importlib
 import os
+import resource
 import sys
+
+#: The hand kernels' modules, whose ``LAUNCHES`` the run's line reports.
+KERNEL_MODULES = tuple(f"dlaf_tpu_torch.tile_ops.{m}" for m in (
+    "panel_kernels", "ozaki_kernels", "update_kernels", "givens_kernels"))
 
 
 def main(argv=None) -> int:
@@ -47,6 +57,12 @@ def main(argv=None) -> int:
               f"{torch.cuda.max_memory_reserved(dev) / 2 ** 30:.3f} GiB", flush=True)
     else:
         print(f"[peak] process {rank} cpu: no device memory", flush=True)
+    # ru_maxrss is in KiB on Linux
+    print(f"[peak] process {rank} host: max resident set "
+          f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20:.3f} GiB", flush=True)
+    counts = {k: v for name in KERNEL_MODULES if name in sys.modules
+              for k, v in getattr(sys.modules[name], "LAUNCHES", {}).items()}
+    print(f"[launches] process {rank} {counts}", flush=True)
     return 0
 
 

@@ -339,6 +339,11 @@ def trsm_panel(side: str, uplo: str, op_a: str, diag: str, a, b, *, alpha=1.0, i
 # Level-1/2 helpers (reference tile_extensions.h, GPU-internal blas/tile.h)
 # ---------------------------------------------------------------------------
 
+def add(a: torch.Tensor, b: torch.Tensor, *, alpha=1.0) -> torch.Tensor:
+    """``b + alpha a`` (reference ``tile_extensions.h`` ``tile::add``)."""
+    return b + alpha * a
+
+
 def scal(a: torch.Tensor, *, alpha) -> torch.Tensor:
     """``alpha a``."""
     return alpha * a

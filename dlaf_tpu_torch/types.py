@@ -1,15 +1,57 @@
 """Element types and the flop-weight model.
 
 Counterpart of ``dlaf_tpu/types.py`` (reference ``include/dlaf/types.h``):
-the s/d/c/z element types the miniapps name, ``total_ops``, the real-op
-count used for GFlop/s (a complex multiply counts 6, a complex add 2), and
-the scan builders' ``telescope_segments`` and ``telescope_windows``.
+``SizeType``, the ``Device`` and ``Backend`` enums with their default
+maps, the s/d/c/z element types the miniapps name, ``total_ops``, the
+real-op count used for GFlop/s (a complex multiply counts 6, a complex
+add 2), and the scan builders' ``telescope_segments`` and
+``telescope_windows``.
 """
 
 from __future__ import annotations
 
+import enum
+
 import numpy as np
 import torch
+
+#: Signed size type of element and tile indices (reference ``types.h:24-28``,
+#: ``std::ptrdiff_t``); Python ints are unbounded, the alias names intent.
+SizeType = int
+
+
+class Device(enum.Enum):
+    """Where data lives (reference ``types.h:30-38``): the host or a CUDA
+    card (the reference's TPU)."""
+
+    CPU = "cpu"
+    CUDA = "cuda"
+
+    def __str__(self) -> str:
+        return self.value
+
+
+class Backend(enum.Enum):
+    """Which backend runs the kernels (reference ``types.h:40-60``): ``MC``
+    the host, ``GPU`` a CUDA card (the reference maps ``Backend::GPU`` to
+    its TPU)."""
+
+    MC = "mc"
+    GPU = "gpu"
+
+    def __str__(self) -> str:
+        return self.value
+
+
+def default_device(backend: Backend) -> Device:
+    """``DefaultDevice_v`` (reference ``types.h:75-90``)."""
+    return {Backend.MC: Device.CPU, Backend.GPU: Device.CUDA}[backend]
+
+
+def default_backend(device: Device) -> Backend:
+    """``DefaultBackend_v`` (reference ``types.h:92-106``)."""
+    return {Device.CPU: Backend.MC, Device.CUDA: Backend.GPU}[device]
+
 
 #: The four scalar types every algorithm is instantiated over, keyed by the
 #: BLAS letter the miniapps use.

@@ -178,6 +178,30 @@ def test_permute_complex_and_rejects_bad_perm(devices8):
         permute("Row", np.arange(5), pm, 2, None)
 
 
+def test_permute_range_check_is_heavy(devices8, monkeypatch):
+    """The grid permute's index range check is the heavy tier in both
+    packages (the reference's ``permutations.py:138``): on, it raises;
+    off, both give the same rows (an index past the range reads zeros)."""
+    from dlaf_tpu.common import asserts as jasserts
+    from dlaf_tpu_torch.common import asserts as passerts
+
+    a = rand((21, 21), np.float64, 3)
+    jm, pm = both(a, LAYOUTS[3], devices8)
+    perm = np.arange(13)
+    perm[4] = 13
+    for mod in (jasserts, passerts):
+        monkeypatch.setattr(mod, "ASSERT_HEAVY_ENABLED", True)
+    for fn, m, err in ((permute, pm, passerts.DlafAssertError),
+                       (j_permute, jm, jasserts.DlafAssertError)):
+        with pytest.raises(err, match=r"^\[DLAF_ASSERT_HEAVY\] permute: perm indices outside"):
+            fn("Row", perm, m, 2, None)
+    for mod in (jasserts, passerts):
+        monkeypatch.setattr(mod, "ASSERT_HEAVY_ENABLED", False)
+    got = permute("Row", perm, pm, 2, None).to_numpy()
+    np.testing.assert_array_equal(got, np.asarray(j_permute("Row", perm, jm, 2, None).to_numpy()))
+    assert not got[12].any()
+
+
 @pytest.mark.parametrize("layout", LAYOUTS, ids=IDS)
 @pytest.mark.parametrize("f64_gemm", ["native", "mxu"])
 @pytest.mark.parametrize("dt", ["d", "z"])

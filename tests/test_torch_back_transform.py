@@ -12,7 +12,9 @@ CPU. Tolerance ``1e-11 ||E||`` (float64, complex128: a few hundred
 reflector applications of rounding). Within the port: the reflector-block
 builders' look-ahead (``la``) on and off bitwise, the groups of the
 blocked chase back-transform against each other and against the sweeps
-form at tolerance, as in the reference. The public path runs the blocked
+form at tolerance, as in the reference; the in-place blocked form on a
+buffer with the fewest zero rows below E bitwise the padded one, those
+rows left zero. The public path runs the blocked
 form at the automatic group; the other groups and the sweeps form are
 called directly, and the reference is set to the same form through its
 ``bt_b2t_impl``/``bt_b2t_group`` knobs.
@@ -166,6 +168,23 @@ def test_bt_b2t_groups_and_sweeps_agree(dtype):
     assert pbt._effective_group(128, 4094, 0, "cpu") == 64
     assert pbt._effective_group(4, 100, 100, "cpu") == 5
     assert pbt._effective_group(4, 3, 0, "cuda") == 3
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.complex128])
+@pytest.mark.parametrize("n,b,group", [(40, 8, 8), (45, 6, 4), (13, 3, 4), (64, 16, 16)])
+def test_bt_b2t_in_place_needs_band_plus_group_rows(n, b, group, dtype):
+    """The in-place blocked form on a buffer of E and the fewest zero rows
+    below it, ``b + G - 2``: bitwise the padded wrapper's Q E, and the
+    rows below E still zero (the reflectors are zero there, which is what
+    lets the levels that start below row n be skipped)."""
+    tri, _ = chased(n, b, dtype, 11)
+    v, tau, _ = pbt._reflectors(tri, "cpu")
+    e0 = torch.as_tensor(randm(n, n + 2, dtype, 6))
+    buf = e0.new_zeros((n + b + group - 2, n + 2))
+    buf[:n] = e0
+    pbt._bt_b2t_blocked_inplace(v, tau, buf, b=b, n=n, group=group)
+    assert torch.equal(buf[:n], pbt._bt_b2t_blocked(v, tau, e0, b=b, n=n, group=group))
+    assert not buf[n:].any()
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.complex128])

@@ -5,7 +5,11 @@ around them.
 A numpy-seeded Hermitian A (and, generalized, an HPD B) goes through the
 reference's local driver (XLA:CPU, computed once per type) and the port's
 drivers on one rank and on a 2x2 grid, both uplo, float64 and
-complex128, n=128, nb=32, band 16: eigenvalues against the reference's at
+complex128, n=128, nb=32, band 16 (the generalized one also on BASELINE
+config #5's 8x8 grid at nb=16, band 16 and 8, float64 and complex128, L
+and U in pairs, one tile a rank, with the
+D&C's merges unsharded and, the threshold lowered to 64, sharded over the
+64 ranks; and on a 3x5 grid): eigenvalues against the reference's at
 ``1e-12 scale``, the eigenpair residual ``|A Z - [B] Z diag(lambda)|_F /
 |A|_F`` and the orthogonality ``|Z^H [B] Z - I|_F`` below ``200 n eps``
 (the reference's budgets). Also: ``donate=False`` leaves the inputs'
@@ -13,8 +17,8 @@ storage bitwise unchanged, ``resume=True`` without a resume dir raises,
 the stage walls and
 ``keep``, ``permute_array`` against the reference's, the launch formulas
 ``chip_smoke.py`` asserts (evp-mxu's #6, gen-evp-s's kernels) held by the
-calls of the plain versions, and the two miniapps at a tiny size on the
-CPU.
+calls of the plain versions, and the miniapps at a tiny size on the CPU
+(``miniapp_gen_eigensolver`` on 8x8 among them).
 """
 
 import contextlib
@@ -130,6 +134,45 @@ def test_gen_eigensolver_matches_reference(grid, uplo, dtype):
     res = pe.gen_eigensolver(uplo, port(stored(a, uplo), NB, grid),
                              port(stored(b, uplo), NB, grid), band_size=BAND)
     check(a, b, res.eigenvalues, res.eigenvectors, reference(dtype, True))
+
+
+@pytest.mark.parametrize("band,uplo,dtype", [(16, "L", np.float64), (16, "U", np.complex128),
+                                             (8, "U", np.float64), (8, "L", np.complex128)])
+def test_gen_eigensolver_8x8_matches_reference(band, uplo, dtype):
+    """BASELINE config #5's grid (8x8, 64 ranks on one device) at nb=16:
+    each rank owns one tile of the n=128 matrices. Every pair of values of
+    two of band, uplo and type meets once (each case costs the grid's 64
+    ranks a step)."""
+    a, b = herm(N, dtype, 1), hpd(N, dtype, 2)
+    res = pe.gen_eigensolver(uplo, port(stored(a, uplo), 16, (8, 8)),
+                             port(stored(b, uplo), 16, (8, 8)), band_size=band)
+    assert res.eigenvectors.dist.grid_size.row == 8 and res.eigenvectors.dist.grid_size.col == 8
+    check(a, b, res.eigenvalues, res.eigenvectors, reference(dtype, True))
+
+
+def test_gen_eigensolver_8x8_sharded_merges(monkeypatch):
+    """The D&C's merges of order 64 and more sharded over all 64 ranks of
+    the 8x8 grid (the threshold lowered from 512)."""
+    pt = importlib.import_module("dlaf_tpu_torch.eigensolver.tridiag_solver")
+    monkeypatch.setattr(pt, "_SHARD_MERGE_MIN_N", 64)
+    a, b = herm(N, np.float64, 1), hpd(N, np.float64, 2)
+    keep = {}
+    res = pe.gen_eigensolver("L", port(a, 16, (8, 8)), port(b, 16, (8, 8)), band_size=16,
+                             keep=keep)
+    stats = keep["dc_stats"]
+    assert {s.n for s in stats if s.shards > 1} == {64, 128}
+    assert {s.shards for s in stats if s.n >= 64} == {64}
+    assert {s.shards for s in stats if s.n < 64} <= {1}
+    check(a, b, res.eigenvalues, res.eigenvectors, reference(np.float64, True))
+
+
+def test_gen_eigensolver_3x5_matches_reference():
+    """A non-square grid whose rows and columns own unequal tile counts."""
+    a, b = herm(N, np.complex128, 1), hpd(N, np.complex128, 2)
+    res = pe.gen_eigensolver("U", port(stored(a, "U"), 16, (3, 5)),
+                             port(stored(b, "U"), 16, (3, 5)), band_size=8)
+    assert res.eigenvectors.dist.grid_size.row == 3 and res.eigenvectors.dist.grid_size.col == 5
+    check(a, b, res.eigenvalues, res.eigenvectors, reference(np.complex128, True))
 
 
 @pytest.mark.parametrize("grid", [None, (2, 2)])
@@ -289,6 +332,20 @@ def test_miniapp_eigensolver_cpu(argv):
     out = buf.getvalue()
     assert len(res) == 2 and out.count("check: PASSED") == 1, out
     assert ("gen_evp" if "--generalized" in argv else " evp ") in out
+
+
+def test_miniapp_gen_eigensolver_8x8_cpu():
+    """BASELINE config #5's command at a tiny order: the 8x8 grid on one
+    device through the generalized entry point."""
+    from dlaf_tpu_torch.miniapp import miniapp_gen_eigensolver as mge
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = mge.run(["-m", "256", "-b", "32", "--grid-rows", "8", "--grid-cols", "8",
+                       "--share-device", "--backend", "cpu", "--check-result", "last"])
+    out = buf.getvalue()
+    assert len(res) == 1 and out.count("check: PASSED") == 1, out
+    assert "dL gen_evp (256, 256) (32, 32) (8, 8)" in out, out
 
 
 @pytest.mark.parametrize("argv", [["-m", "50", "-b", "6", "--type", "d"],

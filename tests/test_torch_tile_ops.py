@@ -1,9 +1,12 @@
 """The port's small tile ops and helpers against the JAX reference.
 
 ``dlaf_tpu_torch.tile_ops.lapack``'s laset, lacpy, lange, lantr, laed4 and
-the tile hegst, ``tile_ops.blas``'s scal, axpy, gemv and trmv,
-``common.index2d``'s ordering helpers, ``types``' ops_weights, base_float
-and complex_of, ``miniapp.generators.random_hermitian`` and
+the tile hegst, ``tile_ops.blas``'s add, scal, axpy, gemv and trmv,
+``common.index2d``'s ordering helpers, ``types``' ops_weights, base_float,
+complex_of, ``SizeType`` and the ``Device``/``Backend`` maps (the
+reference's TPU read as CUDA), ``common.asserts``' three tiers and their
+switches (each module reloaded under the environment, as both read it at
+import), ``miniapp.generators.random_hermitian`` and
 ``miniapp.miniapp_kernel``, each on the inputs of the reference's own
 cases in ``tests/test_tile_ops.py`` and ``tests/test_index2d.py``, held
 to ``dlaf_tpu``'s result (at ``200 eps`` of the type where the two run
@@ -11,6 +14,7 @@ different arithmetic, bitwise where they move data).
 """
 
 import contextlib
+import importlib
 import io
 
 import numpy as np
@@ -145,6 +149,80 @@ def test_axpy_gemv_trmv_scal_match_reference(dtype):
             for diag in ("N", "U"):
                 np.testing.assert_allclose(tb.trmv(uplo, op, diag, ta, tx).numpy(),
                                            np.asarray(jtb.trmv(uplo, op, diag, ja, jx)), **t)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_add_matches_reference(dtype):
+    """``tile::add``: ``b + alpha a``."""
+    rng = np.random.default_rng(17)
+    a, b = rand(rng, (6, 5), dtype), rand(rng, (6, 5), dtype)
+    for kw in ({}, {"alpha": -0.75}):
+        np.testing.assert_allclose(tb.add(torch.as_tensor(a), torch.as_tensor(b), **kw).numpy(),
+                                   np.asarray(jtb.add(jnp.asarray(a), jnp.asarray(b), **kw)),
+                                   **tol(dtype))
+
+
+def test_device_backend_match_reference():
+    """The reference's ``Device``/``Backend`` and their default maps, its
+    TPU read as the port's CUDA (``Backend::GPU`` in the reference's C++
+    names)."""
+    dev = {jtypes.Device.CPU: ptypes.Device.CPU, jtypes.Device.TPU: ptypes.Device.CUDA}
+    be = {jtypes.Backend.MC: ptypes.Backend.MC, jtypes.Backend.TPU: ptypes.Backend.GPU}
+    assert set(dev.values()) == set(ptypes.Device) and set(be.values()) == set(ptypes.Backend)
+    for jb, pb in be.items():
+        assert ptypes.default_device(pb) is dev[jtypes.default_device(jb)]
+    for jd, pd in dev.items():
+        assert ptypes.default_backend(pd) is be[jtypes.default_backend(jd)]
+    assert [str(d) for d in ptypes.Device] == ["cpu", "cuda"]
+    assert [str(b) for b in ptypes.Backend] == ["mc", "gpu"]
+    assert str(ptypes.Device.CPU) == str(jtypes.Device.CPU)
+    assert str(ptypes.Backend.MC) == str(jtypes.Backend.MC)
+    assert ptypes.SizeType is jtypes.SizeType is int
+
+
+_ASSERT_ENV = ("DLAF_ASSERT_ENABLE", "DLAF_ASSERT_MODERATE_ENABLE", "DLAF_ASSERT_HEAVY_ENABLE")
+
+
+@pytest.mark.parametrize("env,fires", [
+    ({}, (True, True, False)),
+    ({"DLAF_ASSERT_MODERATE_ENABLE": "0"}, (True, False, False)),
+    ({"DLAF_ASSERT_HEAVY_ENABLE": "1"}, (True, True, True)),
+    ({"DLAF_ASSERT_ENABLE": "off", "DLAF_ASSERT_MODERATE_ENABLE": "no",
+      "DLAF_ASSERT_HEAVY_ENABLE": "yes"}, (False, False, True))],
+    ids=["defaults", "moderate-off", "heavy-on", "mixed"])
+def test_assert_tiers_match_reference(env, fires, monkeypatch):
+    """Each tier's default and switch, read at import, and its message:
+    both modules reloaded under ``env``, then put back as they were (the
+    suite runs with the heavy tier on, and other modules hold the
+    original error class)."""
+    mods = (importlib.import_module("dlaf_tpu.common.asserts"),
+            importlib.import_module("dlaf_tpu_torch.common.asserts"))
+    saved = [(m, dict(vars(m))) for m in mods]
+    for k in _ASSERT_ENV:
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    try:
+        for m in mods:
+            importlib.reload(m)
+            got = []
+            for level, fn in (("DLAF_ASSERT", m.dlaf_assert),
+                              ("DLAF_ASSERT_MODERATE", m.dlaf_assert_moderate),
+                              ("DLAF_ASSERT_HEAVY", m.dlaf_assert_heavy)):
+                fn(True, "never")
+                try:
+                    fn(False, "boom", 7, "x")
+                except m.DlafAssertError as e:
+                    msg = str(e)
+                    assert msg.startswith(f"[{level}] boom\n  at "), msg
+                    assert "test_torch_tile_ops.py" in msg and msg.endswith("\n  7\n  x"), msg
+                    got.append(True)
+                else:
+                    got.append(False)
+            assert tuple(got) == fires, m.__name__
+    finally:
+        for m, d in saved:
+            vars(m).update(d)
 
 
 def test_gemv_batched():

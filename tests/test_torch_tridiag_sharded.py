@@ -14,7 +14,9 @@ reference's): eigenvalues at 1e-11 relative to the reference's, the
 eigenpair residual and orthogonality within ``200 n eps``. Against the
 port's own unsharded merge: the eigenvalues bitwise, Q within ``200 n
 eps``. Then the eigensolver's handoff: the 2-D block-sharded Q re-tiled
-into the block-cyclic Matrix equals ``Matrix.from_global`` of the same Q.
+into the block-cyclic Matrix equals ``Matrix.from_global`` of the same Q,
+and ranks of one grid line on one device share one copy of the rows they
+fetch.
 """
 
 import importlib
@@ -130,6 +132,25 @@ def test_block_q_retiles_as_from_global(monkeypatch, grid, src):
     ref = Matrix.from_global(whole, tile, g, source_rank=RankIndex2D(*src))
     for a, b in zip(mat.shards(), ref.shards()):
         assert torch.equal(a, b)
+
+
+def test_ranks_on_one_device_share_fetched_rows():
+    """The sharded merge's row fetch on a shared device: ranks of one grid
+    row (one span) read one copy of their rows, which are the node's Q's
+    rows bitwise; :func:`_receivers` names each line's first rank on the
+    device as the one that receives."""
+    g = shared_grid(2, 3, "cpu")
+    assert pt._receivers(g, lambda r, c: c) == {(r, c): (0, c) for r in range(2)
+                                                for c in range(3)}
+    n = 50
+    whole = torch.as_tensor(np.random.default_rng(3).standard_normal((n, n)))
+    q = pt.BlockQ(g, n, [[whole[a:b, c0:c1].clone() for c0, c1 in
+                          zip(pt._split(n, 3)[:-1], pt._split(n, 3)[1:])]
+                         for a, b in zip(pt._split(n, 2)[:-1], pt._split(n, 2)[1:])])
+    rows = pt._fetch_rows(g, q, n, lambda r, c: (10 * r, 10 * r + 17))
+    for r in range(2):
+        assert all(rows[r][c] is rows[r][0] for c in range(3))
+        assert torch.equal(rows[r][0], whole[10 * r:10 * r + 17])
 
 
 def test_small_grid_or_order_does_not_shard(monkeypatch):
